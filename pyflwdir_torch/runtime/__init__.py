@@ -1,0 +1,173 @@
+"""ctypes binding of the shared native host library ``csrc/libpyflwdir_host.so``.
+
+Binds only what the port uses so far: the priority-flood depression fill,
+the DFS preorder plan builder, the LUT flow-direction parser and the
+sequential accumulation sweep (the oracle the device path is held
+against). The library is git-ignored; at first use it is built with
+``make -C csrc``, and a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+
+import numpy as np
+
+__all__ = ["priority_flood", "dfs_preorder", "flw_from_array_lut", "accuflux_sweep"]
+
+_CSRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "..", "csrc"))
+_LIB_PATH = os.path.join(_CSRC, "libpyflwdir_host.so")
+
+_I64P = ctypes.POINTER(ctypes.c_int64)
+_I32P = ctypes.POINTER(ctypes.c_int32)
+_I8P = ctypes.POINTER(ctypes.c_int8)
+_U8P = ctypes.POINTER(ctypes.c_uint8)
+_F64P = ctypes.POINTER(ctypes.c_double)
+
+_LIB = []  # the loaded library, once
+
+
+def _lib():
+    """The loaded library, built on first use."""
+    if _LIB:
+        return _LIB[0]
+    if not os.path.exists(_LIB_PATH):
+        res = subprocess.run(
+            ["make", "-C", _CSRC], capture_output=True, text=True, timeout=300
+        )
+        if res.returncode != 0:
+            raise RuntimeError(f"building {_LIB_PATH} failed:\n{res.stderr}")
+    lib = ctypes.CDLL(_LIB_PATH)
+    lib.priority_flood.restype = None
+    lib.priority_flood.argtypes = [
+        _F64P, _U8P, ctypes.c_int64, ctypes.c_int64, ctypes.c_double,
+        ctypes.c_double, ctypes.c_int, _I64P, ctypes.c_int64,
+    ]
+    lib.accuflux_sweep.restype = None
+    lib.accuflux_sweep.argtypes = [_I64P, _I64P, ctypes.c_int64, _F64P]
+    lib.dfs_preorder.restype = ctypes.c_int64
+    lib.dfs_preorder.argtypes = [_I64P, ctypes.c_int64, _I64P, _I64P, _I64P]
+    lib.flw_from_array_lut.restype = None
+    lib.flw_from_array_lut.argtypes = [
+        _U8P, _I8P, _I8P, ctypes.c_uint8, ctypes.c_int64, ctypes.c_int64,
+        _I32P, _I64P, _I64P,
+    ]
+    lib.flw_collect_pits.restype = None
+    lib.flw_collect_pits.argtypes = [_I32P, ctypes.c_int64, _I32P]
+    _LIB.append(lib)
+    return lib
+
+
+def priority_flood(
+    elevtn,
+    outlets="edge",
+    idxs_pit=None,
+    nodata=-9999.0,
+    max_depth=-1.0,
+    elv_max=None,
+    connectivity=8,
+):
+    """Wang & Liu (2006) priority-flood fill and D8 derivation
+    (``csrc/host_kernels.cpp::priority_flood``). Returns ``(filled, d8)``."""
+    from ..dem import get_edge
+
+    elevtn = np.asarray(elevtn)
+    nrow, ncol = elevtn.shape
+    work = np.ascontiguousarray(elevtn, dtype=np.float64).copy()
+    d8 = np.zeros((nrow, ncol), dtype=np.uint8)
+    nan = isinstance(nodata, float) and np.isnan(nodata)
+    done = np.isnan(elevtn) if nan else elevtn == nodata
+    if connectivity not in (4, 8):
+        raise ValueError('"connectivity" should either be 4 or 8')
+    struct = np.ones((3, 3), dtype=bool)
+    if connectivity == 4:
+        struct[0, 0] = struct[-1, -1] = struct[0, -1] = struct[-1, 0] = False
+    if idxs_pit is None:
+        queued = get_edge(~done, structure=struct)
+        if elv_max is not None:
+            queued = np.logical_and(queued, elevtn <= elv_max)
+            if not np.any(queued):
+                raise ValueError("No initial outlet cells found.")
+        seeds = np.where(queued.ravel())[0].astype(np.int64)
+        if outlets == "min":
+            # single outlet: lowest edge cell, (z32, r, c) tie-break
+            zb = work.ravel()[seeds].astype(np.float32)
+            rr = (seeds // ncol).astype(np.uint32)
+            cc = (seeds % ncol).astype(np.uint32)
+            seeds = seeds[np.lexsort((cc, rr, zb))[:1]]
+    else:
+        seeds = np.atleast_1d(np.asarray(idxs_pit)).astype(np.int64)
+    seeds = np.ascontiguousarray(seeds)
+    _lib().priority_flood(
+        work.ctypes.data_as(_F64P),
+        d8.ctypes.data_as(_U8P),
+        nrow,
+        ncol,
+        float("nan") if nan else float(nodata),
+        float(max_depth),
+        int(connectivity),
+        seeds.ctypes.data_as(_I64P),
+        seeds.size,
+    )
+    return work.astype(elevtn.dtype), d8
+
+
+def dfs_preorder(idxs_ds):
+    """DFS preorder of the flow forest (``csrc/host_kernels.cpp::dfs_preorder``).
+
+    Returns int64 ``(preorder[:k], pos, size)``: subtree ``i`` is the
+    preorder interval ``[pos[i], pos[i] + size[i])``; off-tree cells
+    (missing, or on/into a cycle) have ``pos == -1`` and ``size == 0``.
+    """
+    ids = np.ascontiguousarray(idxs_ds, dtype=np.int64)
+    n = ids.size
+    preorder = np.empty(n, dtype=np.int64)
+    pos = np.empty(n, dtype=np.int64)
+    size = np.empty(n, dtype=np.int64)
+    k = _lib().dfs_preorder(
+        ids.ctypes.data_as(_I64P),
+        n,
+        preorder.ctypes.data_as(_I64P),
+        pos.ctypes.data_as(_I64P),
+        size.ctypes.data_as(_I64P),
+    )
+    return preorder[:k], pos, size
+
+
+def flw_from_array_lut(flwdir, drlut, dclut, mv):
+    """LUT-decode a uint8 flow-direction raster
+    (``csrc/tile_plan_build.cpp::flw_from_array_lut``); returns
+    ``(idxs_ds int32, idxs_pit int32, n_valid)``."""
+    lib = _lib()
+    flwdir = np.ascontiguousarray(flwdir, dtype=np.uint8)
+    nrow, ncol = flwdir.shape
+    idxs_ds = np.empty(nrow * ncol, np.int32)
+    drlut = np.ascontiguousarray(drlut, dtype=np.int8)
+    dclut = np.ascontiguousarray(dclut, dtype=np.int8)
+    n_pit = ctypes.c_int64()
+    n_valid = ctypes.c_int64()
+    lib.flw_from_array_lut(
+        flwdir.ctypes.data_as(_U8P), drlut.ctypes.data_as(_I8P),
+        dclut.ctypes.data_as(_I8P), int(mv), nrow, ncol,
+        idxs_ds.ctypes.data_as(_I32P), ctypes.byref(n_pit), ctypes.byref(n_valid),
+    )
+    pits = np.empty(n_pit.value, np.int32)
+    lib.flw_collect_pits(
+        idxs_ds.ctypes.data_as(_I32P), nrow * ncol, pits.ctypes.data_as(_I32P)
+    )
+    return idxs_ds, pits, int(n_valid.value)
+
+
+def accuflux_sweep(idxs_ds, seq, accu):
+    """Sequential accumulation ``accu[ds[i]] += accu[i]`` over ``seq`` reversed
+    (``csrc/host_kernels.cpp::accuflux_sweep``). Returns a float64 copy."""
+    ids = np.ascontiguousarray(idxs_ds, dtype=np.int64)
+    seq = np.ascontiguousarray(seq, dtype=np.int64)
+    accu = np.array(accu, dtype=np.float64)
+    _lib().accuflux_sweep(
+        ids.ctypes.data_as(_I64P), seq.ctypes.data_as(_I64P), seq.size,
+        accu.ctypes.data_as(_F64P),
+    )
+    return accu

@@ -91,8 +91,9 @@ class Flwdir:
         aplan = self._accel()
         is_int = not data.dtype.is_floating_point
         # the router plan sums in float32: exact for integer totals below 2^24
-        if is_int and data.numel():
-            amax = int(data.to(torch.int64).abs().max())
+        if is_int and data.numel() and data.dtype != torch.bool:
+            lo, hi = torch.aminmax(data)  # one read, no int64 copy
+            amax = max(-int(lo), int(hi))
             if amax * data.numel() >= 1 << 24:
                 from .ops.plan import accumulate_planned
 

@@ -1,6 +1,6 @@
 """FlwdirRaster and ``from_array``: the raster flow-direction object, the
 subset ported so far (shape, mask, transform, area, rank, upstream area and
-accumulation up to 2^21 cells)."""
+accumulation, through the tile plan above 2^21 cells)."""
 
 from __future__ import annotations
 
@@ -74,8 +74,8 @@ def from_array(
 class FlwdirRaster(Flwdir):
     """Flow direction raster array parsed to general actionable format."""
 
-    # above this size the JAX package accumulates through its hierarchical
-    # tile plan, which the port does not have yet
+    # above this size accumulation runs through the hierarchical tile plan
+    # (ops/tile_plan.py), as in the JAX package
     _TILE_PLAN_MIN = 1 << 21
 
     def __init__(
@@ -132,15 +132,30 @@ class FlwdirRaster(Flwdir):
             self._cached["area"] = area
         return area
 
+    def _tile_plan(self):
+        """Build (once) and cache the hierarchical tile plan. Where the JAX
+        package's build fails and it falls back to host sweeps, this raises
+        NotImplementedError: the port has no such fallback yet."""
+        if "tile_plan" not in self._cached:
+            from .ops.tile_plan import build_tile_plan
+
+            try:
+                self._cached["tile_plan"] = build_tile_plan(
+                    self._idxs_ds, self.shape, device=self.device
+                )
+            except ValueError as e:
+                raise NotImplementedError(
+                    f"tile plan build failed ({e}); the host-sweep fallback of the "
+                    "JAX package is queued for a later slice of the PyTorch port"
+                ) from e
+        return self._cached["tile_plan"]
+
     def _accumulate_dev(self, data):
-        """Single-chunk accumulation (Flwdir._accumulate_dev) up to 2^21
-        cells; the tile plan that takes over above that is not ported yet."""
-        if self.size > self._TILE_PLAN_MIN:
-            raise NotImplementedError(
-                "grids above 2^21 cells accumulate through the tile plan "
-                "(ops/tile_plan.py), queued for the next slice of the PyTorch port"
-            )
-        return super()._accumulate_dev(data)
+        """Flow accumulation through the cached tile plan above 2^21 cells,
+        the single-chunk engines (Flwdir._accumulate_dev) up to that."""
+        if self.size <= self._TILE_PLAN_MIN:
+            return super()._accumulate_dev(data)
+        return self._tile_plan().accumulate(data)
 
     def upstream_area(self, unit="cell"):
         """Upstream area map: -9999 outside the mask; int32 in cells, float64

@@ -1,10 +1,11 @@
 """ctypes binding of the shared native host library ``csrc/libpyflwdir_host.so``.
 
 Binds only what the port uses so far: the priority-flood depression fill,
-the DFS preorder plan builder, the LUT flow-direction parser and the
-sequential accumulation sweep (the oracle the device path is held
-against). The library is git-ignored; at first use it is built with
-``make -C csrc``, and a failed build raises.
+the DFS preorder, the LUT flow-direction parser, the sequential
+accumulation sweep (the oracle the device path is held against) and the
+tile plan's per-tile DFS and bijection padding. The library is
+git-ignored; at first use it is built with ``make -C csrc``, and a failed
+build raises.
 """
 
 from __future__ import annotations
@@ -15,7 +16,14 @@ import subprocess
 
 import numpy as np
 
-__all__ = ["priority_flood", "dfs_preorder", "flw_from_array_lut", "accuflux_sweep"]
+__all__ = [
+    "priority_flood",
+    "dfs_preorder",
+    "flw_from_array_lut",
+    "accuflux_sweep",
+    "tile_plan_phase1",
+    "tile_pad_bijection",
+]
 
 _CSRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "..", "csrc"))
 _LIB_PATH = os.path.join(_CSRC, "libpyflwdir_host.so")
@@ -56,6 +64,19 @@ def _lib():
     ]
     lib.flw_collect_pits.restype = None
     lib.flw_collect_pits.argtypes = [_I32P, ctypes.c_int64, _I32P]
+    lib.tp_phase1.restype = ctypes.c_void_p
+    lib.tp_phase1.argtypes = [
+        _I64P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        _I32P, _I8P, _I8P, _I8P, _I8P, _I32P, _I32P,
+        _I64P, _I64P, _I64P, _I64P, _I64P,
+    ]
+    lib.tp_phase1_export.restype = None
+    lib.tp_phase1_export.argtypes = [ctypes.c_void_p, _I64P, _I32P, _I32P, _I32P]
+    lib.tp_pad_bijection.restype = None
+    lib.tp_pad_bijection.argtypes = [
+        _I64P, _I64P, _I64P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        _I32P,
+    ]
     _LIB.append(lib)
     return lib
 
@@ -171,3 +192,71 @@ def accuflux_sweep(idxs_ds, seq, accu):
         accu.ctypes.data_as(_F64P),
     )
     return accu
+
+
+def tile_plan_phase1(ids_p, Hp, Wp, th):
+    """Per-tile forest DFS and table fill of the tile plan build
+    (``csrc/tile_plan_build.cpp::tp_phase1``, threaded over tiles) on the
+    padded ``(Hp, Wp)`` grid with ``(th, 128)`` tiles. Returns a dict of the
+    phase-1 intermediates (see ``ops/tile_plan.py``)."""
+    lib = _lib()
+    S = 128
+    NT = (Hp // th) * (Wp // S)
+    T = th * S
+    n = Hp * Wp
+    ids_p = np.ascontiguousarray(ids_p, dtype=np.int64)
+    sig = np.empty((NT, T), np.int32)
+    near_sel = np.zeros(NT * T, np.int8)
+    idx_near = np.zeros(NT * T, np.int8)
+    sel_next = np.zeros(NT * T, np.int8)
+    tree_mask = np.empty(NT * T, np.int8)
+    slot = np.empty(n, np.int32)
+    root_node = np.empty(n, np.int32)
+    cnt_on = np.empty(NT, np.int64)
+    cnt_r = np.empty(NT, np.int64)
+    cnt_far = np.empty(NT, np.int64)
+    m = ctypes.c_int64()
+    nf = ctypes.c_int64()
+    h = lib.tp_phase1(
+        ids_p.ctypes.data_as(_I64P), Hp, Wp, th,
+        sig.ctypes.data_as(_I32P), near_sel.ctypes.data_as(_I8P),
+        idx_near.ctypes.data_as(_I8P), sel_next.ctypes.data_as(_I8P),
+        tree_mask.ctypes.data_as(_I8P), slot.ctypes.data_as(_I32P),
+        root_node.ctypes.data_as(_I32P), cnt_on.ctypes.data_as(_I64P),
+        cnt_r.ctypes.data_as(_I64P), cnt_far.ctypes.data_as(_I64P),
+        ctypes.byref(m), ctypes.byref(nf),
+    )
+    root_cell = np.empty(m.value, np.int64)
+    root_end = np.empty(m.value, np.int32)
+    far_slot = np.empty(nf.value, np.int32)
+    far_end = np.empty(nf.value, np.int32)
+    lib.tp_phase1_export(  # copies the lists out and frees the handle
+        h, root_cell.ctypes.data_as(_I64P), root_end.ctypes.data_as(_I32P),
+        far_slot.ctypes.data_as(_I32P), far_end.ctypes.data_as(_I32P),
+    )
+    return {
+        "sig": sig, "near_sel": near_sel, "idx_near": idx_near,
+        "sel_next": sel_next, "tree_mask": tree_mask, "slot": slot,
+        "root_node": root_node, "cnt_on": cnt_on, "cnt_r": cnt_r,
+        "cnt_far": cnt_far, "root_cell": root_cell, "root_end": root_end,
+        "far_slot": far_slot, "far_end": far_end,
+    }
+
+
+def tile_pad_bijection(tk, dk, sk, NT, T):
+    """Per-tile bijections ``sigma`` (NT, T) int32 with ``sigma[tk, dk] = sk``;
+    free destinations take free sources in index order
+    (``csrc/tile_plan_build.cpp::tp_pad_bijection``). ``tk`` must be
+    ascending."""
+    tk = np.ascontiguousarray(tk, dtype=np.int64)
+    dk = np.ascontiguousarray(dk, dtype=np.int64)
+    sk = np.ascontiguousarray(sk, dtype=np.int64)
+    if not (tk.size == dk.size == sk.size):
+        raise ValueError("tk, dk and sk must have one length")
+    sigma = np.empty((int(NT), int(T)), np.int32)
+    _lib().tp_pad_bijection(
+        tk.ctypes.data_as(_I64P), dk.ctypes.data_as(_I64P),
+        sk.ctypes.data_as(_I64P), tk.size, int(NT), int(T),
+        sigma.ctypes.data_as(_I32P),
+    )
+    return sigma

@@ -26,7 +26,20 @@ Run from the repository root:  python3 chip_smoke.py [--json PATH]
    (upstream_area in cells) and float64 (upstream_area in km2, accuflux),
    checked against the native sequential sweep; then the accumulate call
    and upstream_area are timed.
-4. Prints a JSON line of the kernels, the card, then
+4. Downward path on the same 6000x6000 grid: ``TilePlan.accumulate_down``
+   through kernels T3 (pass D1, raw mode), H1 and H0 on the coarse level
+   and T4 (pass D2). Kernel phase: T3 in both modes, T4 and the six coarse
+   calls, int32 and float64, on the plan's own tables against their plain
+   versions. Then the path, with the counters zeroed before each group and
+   read after: stream_distance() and basins() (int32), stream_distance("m")
+   and hand() (float64 sums), each against a sequential host sweep;
+   accumulate_down of one float64 input twice (the same bits) and against
+   the sweep; one int32 accumulate_down timed.
+5. Routed path: a 2048x2048 grid whose tiles each drain to a pit of their
+   own, so the plan has no entry cells and accumulate_down is T3 in routed
+   mode alone; kernel phase at its shapes, then stream_distance against the
+   host sweep.
+6. Prints a JSON line of the kernels, the card, then
    {"ok": true, "device": ...}.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
@@ -85,6 +98,29 @@ _TILE_KERNELS = {
     "tile_pass_a": ("T1", "ops/tile_plan.py:1918 (TilePlan._pass_a_fused, pallas_call :1951)"),
     "tile_pass_c": ("T2", "ops/tile_plan.py:1973 (TilePlan._pass_c_fused, pallas_call :2013)"),
 }
+# T3 by mode
+_DOWN_KERNELS = {
+    "tile_down_a": ("T3", {
+        "raw": "ops/tile_plan.py:2750 (TilePlan._pass_down_raw, pallas_call :2780)",
+        "routed": "ops/tile_plan.py:2660 (TilePlan._pass_down, pallas_call :2689)"}),
+    "tile_down_fin": ("T4", "ops/tile_plan.py:2796 (TilePlan._pass_down_fin, "
+                            "pallas_call :2834)"),
+}
+_COARSE_DOWN = {
+    "accel_in_scan": "ops/tile_plan.py:590 (_CoarseRouterSmall._route of r_win + w_sel + "
+                     "r_es in accumulate_down :533, pallas_call :613/:635/:650/:664) and "
+                     "the coarse prefix and suffix sums",
+    "permute_gather": "ops/tile_plan.py:590 (_CoarseRouterSmall._route of r_dea, r_deb, "
+                      "r_win and r_aout with their selects in accumulate_down :533, "
+                      "pallas_call :613/:635/:650/:664)",
+}
+# calls of each wrapper in one coarse-level downward sweep
+_COARSE_DOWN_CALLS = {"accel_in_scan": 2, "permute_gather": 4}
+ROUTED_SHAPE = (2048, 2048)  # just above 2^21 cells; every tile closed
+# hand(): cells draining more than this many are drains. The cut graph has a
+# local root at every drain cell; at 10,000 or 30,000 cells its coarse level
+# passes the single-chunk router's size on the 6000x6000 grid
+DRAIN_CELLS = 100_000
 _DT = {torch.int32: "int32", torch.float64: "float64"}
 
 
@@ -165,7 +201,8 @@ def _measure(name, kern, plain, lib, n_bytes, n_ops, dtype, sums=None, reps=50):
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
-    err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
+    err = max(float((g.double() - w.double()).abs().max())
+              for g, w in zip(got, want) if g.numel())
     if dtype == torch.float64 and sums is not None:
         for g, w in zip(got, want):
             _close(g.cpu().numpy(), w.cpu().numpy(), *sums, f"{name} of its plain version")
@@ -326,19 +363,134 @@ def tile_kernel_phase(tp, dtype, dev):
     return rows
 
 
+def _down_data(n, dtype, dev):
+    rng = np.random.RandomState(SEED + 2)
+    if dtype == torch.float64:
+        return torch.as_tensor(rng.rand(n), device=dev)
+    return torch.as_tensor(rng.randint(0, 3, n).astype(np.int32), device=dev)
+
+
+def tile_down_a_rows(tp, dtype, dev, modes, tag=""):
+    """T3 in each of ``modes`` ("raw", "routed") in ``dtype`` against its
+    plain version on the plan's own tables. Returns the rows and the raw
+    mode's outputs (None where it was not run)."""
+    from pyflwdir_torch import kernels
+
+    H, W = tp.shape
+    n = H * W
+    x = _down_data(n, dtype, dev)
+    s = x.element_size()
+    t, d = tp.idx_t, tp.down_idx_t
+    NT, T = tp.NT, t["rin"].shape[1]
+    n_ent = int((d["ent_slot"] >= 0).sum())
+    n_last, n_prev = int((d["g_last"] >= 0).sum()), int((d["g_prev"] >= 0).sum())
+    # the kernel's prefix and suffix scans each sum a tile in another order
+    sums = (2 * T, float(kernels._tiles(x.abs(), tp.shape).sum(1).max()))
+    d1 = (x, t["rin"], d["es"], d["g_last"], d["g_prev"], d["n_tree"], d["ent_slot"])
+    # least bytes (2-byte tile indices): x per cell, rin and es per slot,
+    # the run boundaries only at the ends that have them, n_tree per tile
+    # and each entry's slot read; each entry's value written
+    common = s * n + 4 * NT * T + 2 * (n_last + n_prev) + 2 * NT + (2 + s) * n_ent
+    n_ops = 3 * NT * T + n_prev  # two scans, the next slot's value, the run differences
+    rows, raw = {}, None
+    for mode in modes:
+        routed = mode == "routed"
+        args = (*d1, t["rout"] if routed else None, tp.shape, routed)
+        name = f"tile_down_a.{mode}{tag}.{_DT[dtype]}"
+        # z per slot written, or rout per cell read and the raster written
+        n_bytes = common + ((2 + s) * n if routed else s * NT * T)
+        rows[name] = _measure(name, lambda: kernels.tile_down_a(*args),
+                              lambda: kernels.tile_down_a_plain(*args), None,
+                              n_bytes, n_ops, dtype, sums, reps=20)
+        if not routed:
+            raw = kernels.tile_down_a(*args)
+    return rows, x, raw
+
+
+def tile_down_kernel_phase(tp, dtype, dev):
+    """T3 (both modes), the coarse level's downward H1 and H0 calls and T4
+    in ``dtype`` against their plain versions on the tile path's shapes,
+    each with the inputs the downward sweep gives it."""
+    from pyflwdir_torch import kernels
+
+    rows, x, (z1, pk) = tile_down_a_rows(tp, dtype, dev, ("raw", "routed"))
+    s = x.element_size()
+    n = x.numel()
+    t, d = tp.idx_t, tp.down_idx_t
+    NT, T = tp.NT, t["rin"].shape[1]
+    sfx = f".{_DT[dtype]}"
+
+    # the coarse level on T3's packed entry values
+    cd = tp.coarse._down_t
+    n_c = cd["es_in"].numel()
+    pkf = pk.reshape(-1)[:n_c]
+    xpad = torch.zeros(n_c + 1, dtype=dtype, device=dev)
+    xpad[: pkf.numel()] = pkf
+    cs = kernels.accel_in_scan(pkf, cd["es_in"])
+    inner = (kernels.permute_gather(cs, cd["g_last"]) - kernels.permute_gather(cs, cd["g_prev"])
+             - kernels.permute_gather(pkf, cd["win_next"]))
+    zrev = kernels.accel_in_scan(inner, cd["rev"])
+    A = kernels.permute_gather(zrev, cd["fin"]).reshape(NT, tp.R_pad)
+
+    def scan_row(name, v, idx):
+        n_read = int((idx < v.numel()).sum())
+        total = float(v.abs().double().sum())
+        rows[name] = _measure(
+            name, lambda: kernels.accel_in_scan(v, idx),
+            lambda: kernels.accel_in_scan_plain(v, idx),
+            lambda: torch.cumsum(xpad[idx] if v is pkf else v[idx], 0),
+            4 * idx.numel() + s * n_read + s * idx.numel(), idx.numel(), dtype,
+            (n_c, total))
+
+    def gather_row(name, v, idx):
+        n_read = int((idx >= 0).sum())
+        rows[name] = _measure(
+            name, lambda: kernels.permute_gather(v, idx),
+            lambda: kernels.permute_gather_plain(v, idx), None,
+            (4 + s) * idx.numel() + s * n_read, 0, dtype)
+
+    scan_row("accel_in_scan.coarse_down_es" + sfx, pkf, cd["es_in"])
+    gather_row("permute_gather.coarse_down_g_last" + sfx, cs, cd["g_last"])
+    gather_row("permute_gather.coarse_down_g_prev" + sfx, cs, cd["g_prev"])
+    gather_row("permute_gather.coarse_down_win_next" + sfx, pkf, cd["win_next"])
+    scan_row("accel_in_scan.coarse_down_rev" + sfx, inner, cd["rev"])
+    gather_row("permute_gather.coarse_down_fin" + sfx, zrev, cd["fin"])
+
+    n_off = int((kernels._untile(t["rout"], tp.shape) < 0).sum())
+    n_roots = tp._coarse_meta["m"]
+    args = (x, z1, A, d["tree_of"], t["rout"], tp.shape)
+    rows["tile_down_fin" + sfx] = _measure(
+        "tile_down_fin" + sfx,
+        lambda: kernels.tile_down_fin(*args),
+        lambda: kernels.tile_down_fin_plain(*args),
+        None,
+        # z1 and its tree index per slot, A per real root, rout per cell and
+        # x per off-tree cell read; out written once
+        (s + 2) * NT * T + s * n_roots + 2 * n + s * n_off + s * n,
+        int(d["n_tree"].sum()), dtype, reps=20)
+    return rows
+
+
 def _rows(rows, counts, path, dtype):
     out = []
     for key, row in rows.items():
         kern = key.split(".")[0]
         if kern in _KERNELS:
             tag, src, replaces = _KERNELS[kern]
-            if ".coarse" in key:
+            if ".coarse_down" in key:
+                replaces = _COARSE_DOWN[kern]
+            elif ".coarse" in key:
                 replaces = _COARSE[kern]
         else:
-            tag, replaces = _TILE_KERNELS[kern]
+            tag, replaces = {**_TILE_KERNELS, **_DOWN_KERNELS}[kern]
+            if isinstance(replaces, dict):
+                replaces = replaces[key.split(".")[1]]
             src = _TILE_SRC
+        launches = counts[kern]
+        if ".coarse_down" in key:  # this call's share of the wrapper's count
+            launches //= _COARSE_DOWN_CALLS[kern]
         out.append(dict(name=key, tag=tag, route="cuda", source=src, replaces=replaces,
-                        launches=counts[kern], path=path, dtype=dtype, **row))
+                        launches=launches, path=path, dtype=dtype, **row))
     return out
 
 
@@ -441,7 +593,7 @@ def tile_path(dev):
     # a sea of nodata in the low corner: a coast of outlets, missing cells
     sea = np.add.outer(np.linspace(0, 1, H) ** 2, np.linspace(0, 1, W) ** 2) > 1.6
     z[sea] = -9999.0
-    d8 = pyflwdir_torch.fill_depressions(z, nodata=-9999.0)[1]
+    elev, d8 = pyflwdir_torch.fill_depressions(z, nodata=-9999.0)
     d8[sea] = 247
     t_fill = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -524,11 +676,214 @@ def tile_path(dev):
           f"upstream_area() with host copies median {up_ms:.3f} ms")
     out = _rows(rows[torch.int32], counts_int, "tile 6000x6000", "int32")
     out += _rows(rows[torch.float64], counts_f64, "tile 6000x6000", "float64")
-    return out, dict(accumulate_ms=acc_ms, accumulate_device_ms=acc_dev_ms,
+    down_rows, down = tile_down_path(fl, tp, elev, upa, seq, dev)
+    return out + down_rows, dict(down=down, accumulate_ms=acc_ms, accumulate_device_ms=acc_dev_ms,
                      upstream_area_ms=up_ms, main_path_int32_s=t_int,
                      main_path_float64_s=t_f64, fill_s=t_fill, parse_s=t_parse,
                      tile_plan_s=t_plan, tile_plan_steps_s=tp.build_seconds,
                      NT=tp.NT, R_pad=tp.R_pad, E_pad=tp.E_pad, coarse_n_pad=co.n_pad)
+
+
+class _PlanBuilds:
+    """Records the seconds of every tile-plan build made inside the block."""
+
+    def __enter__(self):
+        from pyflwdir_torch.ops import tile_plan
+
+        self.seconds = []
+        self._mod, self._real = tile_plan, tile_plan.build_tile_plan
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            tp = self._real(*args, **kwargs)
+            self.seconds.append(time.perf_counter() - t0)
+            return tp
+
+        tile_plan.build_tile_plan = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.build_tile_plan = self._real
+
+
+def tile_down_path(fl, tp, elev, upa, seq, dev):
+    """The downward sweep on the 6000x6000 grid; returns its kernel rows and
+    timings. ``upa`` is the grid's upstream area in cells, ``seq`` its cells
+    with downstream ones first."""
+    from pyflwdir_torch import kernels, runtime
+    from pyflwdir_torch.utils import geodesy
+
+    print(" downward path:")
+    t0 = time.perf_counter()
+    tp._ensure_down()
+    t_down = time.perf_counter() - t0
+    steps = ", ".join(f"{k} {v:.2f}" for k, v in tp.down_build_seconds.items())
+    print(f"  setup: down indices {t_down:.2f} s ({steps})")
+    co = tp.coarse
+    n_c = co._down_t["es_in"].numel()
+
+    rows = {}
+    for dtype in (torch.int32, torch.float64):
+        print(f" kernel phase, downward ({_DT[dtype]}):")
+        rows[dtype] = tile_down_kernel_phase(tp, dtype, dev)
+
+    print(" main path, downward:")
+    drain = upa > DRAIN_CELLS
+    with _PlanBuilds() as builds:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        dist = fl.stream_distance()
+        bas = fl.basins()
+        torch.cuda.synchronize()
+        t_int = time.perf_counter() - t0
+        counts_int = dict(kernels.launches)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        dist_m = fl.stream_distance(unit="m")
+        hnd = fl.hand(drain, elev)
+        torch.cuda.synchronize()
+        t_f64 = time.perf_counter() - t0
+        counts_f64 = dict(kernels.launches)
+    print(f"  stream_distance() + basins() {t_int:.3f} s; launches {counts_int}")
+    print(f"  stream_distance('m') + hand() {t_f64:.3f} s; launches {counts_f64}")
+    print("  cut-graph tile plans (basins, hand): "
+          + ", ".join(f"{v:.2f} s" for v in builds.seconds))
+    _check(len(builds.seconds) == 2, "basins() and hand() each built a cut-graph plan")
+    # each sweep: T3 once, the coarse level's 2 H1 and 4 H0 calls, T4 once
+    want = {"tile_down_a": 2, "accel_in_scan": 4, "permute_gather": 8, "tile_down_fin": 2}
+    for counts, what in ((counts_int, "int32"), (counts_f64, "float64")):
+        _check(all(counts[k] == want.get(k, 0) for k in counts),
+               f"two downward sweeps ({what}) launched T3, H1 x2, H0 x4 and T4 each, "
+               "and no upward kernel")
+
+    t0 = time.perf_counter()
+    shape = fl.shape
+    mask, ids = fl.mask, fl.idxs_ds
+    ar = np.arange(fl.size, dtype=np.int64)
+    moving = (ids >= 0) & (ids != ar)
+    want = runtime.downward_sweep(ids, seq, moving.astype(np.float64))
+    _check(dist.dtype == np.int32 and dist.shape == shape, "stream_distance() int32 of the grid's shape")
+    _check(np.array_equal(dist.ravel(), np.where(mask, want, -9999).astype(np.int32)),
+           "stream_distance() bitwise equal to the native downward sweep, -9999 outside "
+           "the mask")
+    w32 = np.asarray(geodesy.distance_grid(ids, shape, latlon=True, transform=fl.transform),
+                     np.float32).ravel()
+    w32 = np.where(moving, w32, 0).astype(np.float32)
+    want = runtime.downward_sweep(ids, seq, w32)
+    # float64 sums of float32 steps, rounded to float32 at the end (6e-8);
+    # the sums run over two tile scans and two coarse scans in another order
+    length = 2 * (128 * 128 + n_c)
+    atol = 2 * length * _EPS * float(w32.sum(dtype=np.float64))
+    err = float(np.abs(dist_m.ravel()[mask] - want[mask]).max())
+    _check(dist_m.dtype == np.float32 and np.allclose(dist_m.ravel()[mask], want[mask],
+                                                      rtol=1e-6, atol=atol),
+           f"stream_distance('m') float32 within rtol 1e-6, atol 2 L eps total = {atol:.3e} "
+           f"of the float64 sweep (L {length}; max |err| {err:.3e} m of up to "
+           f"{float(want[mask].max()):.0f} m)")
+    lab = np.zeros(fl.size)
+    lab[fl.idxs_pit] = np.arange(1, fl.idxs_pit.size + 1)
+    want = runtime.downward_sweep(ids, seq, lab)
+    flat = bas.ravel()
+    _check(bas.dtype == np.uint32 and np.array_equal(flat, np.where(mask, want, 0).astype(np.uint32)),
+           f"basins() uint32 bitwise equal to the host label propagation "
+           f"({fl.idxs_pit.size} basins), 0 outside the mask")
+    _check(np.array_equal(flat[mask], flat[ids[mask]]) and bool((flat[mask] > 0).all()),
+           "basins() constant along every flow path")
+    z32 = np.asarray(elev, np.float32).ravel()
+    dr = drain.ravel() & mask
+    ids2 = np.where(dr, ar, ids)
+    root = (ids2 == ar) & mask
+    zroot = runtime.downward_sweep(ids2, runtime.dfs_preorder(ids2)[0],
+                                   np.where(root, z32, 0)).astype(np.float32)
+    want = np.where(dr, 0.0, np.where(mask, (z32 - zroot).astype(np.float64), -9999.0))
+    _check(hnd.dtype == np.float64 and np.array_equal(hnd.ravel(), want),
+           f"hand() bitwise equal to the host oracle ({int(dr.sum())} drain cells above "
+           f"{DRAIN_CELLS} cells of upstream area; one float32 subtraction per cell)")
+    _check(bool((hnd.ravel()[mask] >= 0).all()), "hand() of the filled DEM is never negative")
+
+    fdata = np.random.RandomState(SEED + 3).rand(fl.size)
+    xd = torch.as_tensor(fdata, device=dev)
+    a = tp.accumulate_down(xd)
+    _check(torch.equal(a, tp.accumulate_down(xd)),
+           "accumulate_down(float64) gives the same bits from run to run")
+    want = runtime.downward_sweep(ids, seq, fdata)
+    _close(a.cpu().numpy(), want, length, float(fdata[mask].sum()),
+           "accumulate_down(float64) of the native downward sweep")
+    print(f"  checks {time.perf_counter() - t0:.2f} s")
+
+    ones = torch.ones(fl.size, dtype=torch.int32, device=dev)
+    acc_ms = _time_ms(lambda: tp.accumulate_down(ones), reps=20, warmup=3)
+    acc_dev_ms = _device_ms(lambda: tp.accumulate_down(ones), reps=5)
+    sd_ms = _host_ms(fl.stream_distance, 3)
+    print(f"  accumulate_down: median {acc_ms:.4f} ms per call, "
+          f"{fl.size / acc_ms / 1e3:.1f} Mgp/s; device busy {acc_dev_ms} ms of it; "
+          f"stream_distance() with host work and copies median {sd_ms:.3f} ms")
+    out = _rows(rows[torch.int32], counts_int, "tile 6000x6000 down", "int32")
+    out += _rows(rows[torch.float64], counts_f64, "tile 6000x6000 down", "float64")
+    return out, dict(accumulate_down_ms=acc_ms, accumulate_down_device_ms=acc_dev_ms,
+                     stream_distance_ms=sd_ms, main_path_int32_s=t_int,
+                     main_path_float64_s=t_f64, down_indices_s=t_down,
+                     down_indices_steps_s=tp.down_build_seconds,
+                     cut_plan_s=builds.seconds, coarse_n_down=n_c)
+
+
+def routed_path(dev):
+    """A grid above 2^21 cells whose tiles each drain to a pit of their own:
+    no entry cells, so ``accumulate_down`` is T3 in routed mode alone.
+    Returns its kernel rows and timings."""
+    import pyflwdir_torch
+    from pyflwdir_torch import kernels, runtime
+
+    H, W = ROUTED_SHAPE
+    print(f"routed path ({H}x{W}, closed tiles):")
+    # east along each row, south along each tile's last column, a pit in
+    # the tile's corner; a strip of missing cells
+    d8 = np.ones(ROUTED_SHAPE, np.uint8)
+    d8[:, 127::128] = 4
+    d8[127::128, 127::128] = 0
+    d8[:40, 0] = 247
+    fl = pyflwdir_torch.from_array(d8, transform=TILE_LATLON, latlon=True)
+    t0 = time.perf_counter()
+    tp = fl._tile_plan()
+    tp._ensure_down()
+    print(f"  setup: tile plan and down indices {time.perf_counter() - t0:.2f} s; NT {tp.NT}, "
+          f"E_pad {tp.E_pad}, {fl.idxs_pit.size} pits")
+    _check(fl.size > fl._TILE_PLAN_MIN and not tp.has_entries and tp.E_pad == 0,
+           "above the tile-plan threshold, and the plan has no entry cells")
+
+    rows = {}
+    for dtype in (torch.int32, torch.float64):
+        print(f" kernel phase ({_DT[dtype]}):")
+        rows[dtype] = tile_down_a_rows(tp, dtype, dev, ("routed",), ".noentry")[0]
+
+    print(" main path:")
+    kernels.reset_launches()
+    dist = fl.stream_distance()
+    counts_int = dict(kernels.launches)
+    kernels.reset_launches()
+    dist_m = fl.stream_distance(unit="m")
+    counts_f64 = dict(kernels.launches)
+    for counts, what in ((counts_int, "int32"), (counts_f64, "float64")):
+        _check(all(counts[k] == (k == "tile_down_a") for k in counts),
+               f"stream_distance ({what}) launched T3 once and no other kernel: {counts}")
+    mask, ids = fl.mask, fl.idxs_ds
+    moving = (ids >= 0) & (ids != np.arange(fl.size))
+    seq = runtime.dfs_preorder(ids)[0]
+    want = runtime.downward_sweep(ids, seq, moving.astype(np.float64))
+    _check(np.array_equal(dist.ravel(), np.where(mask, want, -9999).astype(np.int32))
+           and int(dist.max()) == 254,
+           "stream_distance() bitwise equal to the native downward sweep (longest path 254)")
+    _check(dist_m.dtype == np.float32 and bool(np.isfinite(dist_m).all())
+           and bool((dist_m.ravel()[moving] > 0).all()),
+           "stream_distance('m') float32, finite, positive off the pits")
+    ones = torch.ones(fl.size, dtype=torch.int32, device=dev)
+    acc_ms = _time_ms(lambda: tp.accumulate_down(ones), reps=20, warmup=3)
+    print(f"  accumulate_down (T3 routed alone): median {acc_ms:.4f} ms per call, "
+          f"{fl.size / acc_ms / 1e3:.1f} Mgp/s")
+    path = f"closed tiles {H}x{W}"
+    out = _rows(rows[torch.int32], counts_int, path, "int32")
+    out += _rows(rows[torch.float64], counts_f64, path, "float64")
+    return out, dict(accumulate_down_ms=acc_ms, NT=tp.NT)
 
 
 def main(json_path=None):
@@ -556,12 +911,13 @@ def main(json_path=None):
 
     rhine_rows, rhine = rhine_path(dev)
     tile_rows, tile = tile_path(dev)
+    routed_rows, routed = routed_path(dev)
 
-    out = rhine_rows + tile_rows
+    out = rhine_rows + tile_rows + routed_rows
     if json_path:
         os.makedirs(os.path.dirname(json_path) or ".", exist_ok=True)
         with open(json_path, "w") as f:
-            json.dump(dict(card=smi, rhine=rhine, tile=tile, kernels=out), f, indent=1)
+            json.dump(dict(card=smi, rhine=rhine, tile=tile, routed=routed, kernels=out), f, indent=1)
     print(f"card: {smi}")
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,

@@ -69,11 +69,12 @@ int by_dtype(int dt, F&& f) {
 }
 
 // ---------------------------------------------------------------------------
-// H0 permute_gather: out[p] = x[src[p]].
+// H0 permute_gather: out[p] = src[p] >= 0 ? x[src[p]] : 0.
 // Replaces ops/router.py::_ta (lane gather) and RouterPlan.apply (the
 // L-S-G-S-L chain) of the JAX package, and on the tile plan's coarse level
-// ops/tile_plan.py::_CoarseRouterSmall._route for r_out. Bound: 4 bytes of
-// index + 2 * sizeof(T) per element. Design: one thread per element with a
+// ops/tile_plan.py::_CoarseRouterSmall._route for r_out and, downward, for
+// r_win, r_dea, r_deb and r_aout with the mask selects after them (a masked
+// slot holds -1). Bound: 4 bytes of index + 2 * sizeof(T) per element. Design: one thread per element with a
 // grid-stride loop; src and out are coalesced, the gather goes through the
 // read-only cache.
 // ---------------------------------------------------------------------------
@@ -84,7 +85,8 @@ __global__ void permute_gather_kernel(const T* __restrict__ x,
   int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t p = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        p < n; p += stride) {
-    out[p] = ldg(x + src[p]);
+    const int32_t s = src[p];
+    out[p] = s >= 0 ? ldg(x + s) : T(0);
   }
 }
 

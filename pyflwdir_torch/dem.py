@@ -1,15 +1,17 @@
-"""DEM conditioning, the subset the port needs so far: edge cells and the
-exact host priority-flood depression fill that turns a DEM into D8 codes.
+"""DEM conditioning, the subset the port needs so far: edge cells, the
+exact host priority-flood depression fill that turns a DEM into D8 codes,
+and the height above the nearest drain.
 
-Both run on the host (numpy and the native library); the device fill is
-queued for a later slice of the port.
+The first two run on the host (numpy and the native library); the device
+fill is queued for a later slice of the port.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-__all__ = ["fill_depressions", "get_edge"]
+__all__ = ["fill_depressions", "get_edge", "height_above_nearest_drain"]
 
 
 def get_edge(a, structure=None):
@@ -61,3 +63,16 @@ def fill_depressions(
         elv_max=elv_max,
         connectivity=connectivity,
     )
+
+
+def height_above_nearest_drain(idxs_ds, drain, elevtn):
+    """HAND: the drop from each cell to the first drain cell (else the pit)
+    downstream of it; 0 at drain cells, -9999 at missing cells. Tensors in,
+    a tensor of ``elevtn``'s float dtype (float32 for integers) out."""
+    from .ops import graph
+
+    drain = drain != 0
+    z = elevtn if elevtn.dtype.is_floating_point else elevtn.to(torch.float32)
+    hand = z - z[graph.reach(idxs_ds, drain)]
+    hand = torch.where(drain, torch.zeros_like(hand), hand)
+    return torch.where(idxs_ds >= 0, hand, torch.full_like(hand, -9999.0))

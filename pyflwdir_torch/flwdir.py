@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import streams
 from ._backend import resolve_device
 from .ops import graph
 
@@ -155,9 +156,28 @@ class Flwdir:
         uparea = np.where(np.asarray(self.mask), uparea, -9999)
         return uparea.reshape(self.shape)
 
+    def fillnodata(self, data, nodata, direction="down", how="max"):
+        """Fill nodata cells from the nearest valid value: ``direction="up"``
+        takes the first valid value downstream of each cell."""
+        direction = str(direction).lower()
+        dflat = torch.as_tensor(self._check_data(data, "data"), device=self.device)
+        if direction == "up":
+            dout = graph.fillnodata_upstream(self._ds, dflat, nodata)
+        elif direction == "down":
+            raise NotImplementedError(
+                'fillnodata(direction="down") is queued for a later slice of the '
+                "PyTorch port (ops/graph.py subtree reductions)"
+            )
+        else:
+            raise ValueError(
+                f'Unknown flow direction: {direction}, select from ["up", "down"].'
+            )
+        return dout.cpu().numpy().reshape(np.asarray(data).shape)
+
     def accuflux(self, data, nodata=-9999, direction="up"):
-        """Accumulated values along the flow directions (``direction="up"``,
-        data without ``nodata`` values)."""
+        """Accumulated values along the flow directions: upstream sums
+        (``direction="up"``, data without ``nodata`` values) or the sum along
+        each cell's downstream path (``"down"``)."""
         data_np = self._check_data(data, "data")
         if direction == "up":
             if np.any(data_np == nodata):
@@ -166,7 +186,9 @@ class Flwdir:
                 )
             accu = self._accumulate_dev(torch.as_tensor(data_np, device=self.device))
         elif direction == "down":
-            raise NotImplementedError(f'accuflux(direction="down") {_LATER}')
+            accu = streams.accuflux_ds(
+                self._ds, torch.as_tensor(data_np, device=self.device), nodata=nodata
+            )
         else:
             raise ValueError(
                 f'Unknown flow direction: {direction}, select from ["up", "down"].'
@@ -175,11 +197,21 @@ class Flwdir:
 
     ### SHORTCUTS ###
 
-    def _check_data(self, data, name):
-        """Check the data size and return it flattened (a scalar is broadcast)."""
+    def _check_data(self, data, name, optional=False):
+        """Check the data size and return it flattened (a scalar is
+        broadcast); None stays None where ``optional``."""
+        if data is None and optional:
+            return None
         data = np.atleast_1d(data)
         if data.size == 1:
             data = np.full(self.size, data.item(), dtype=data.dtype)
         elif data.size != self.size:
             raise ValueError(f'"{name}" size does not match.')
         return np.ascontiguousarray(data.ravel())
+
+    def _check_idxs_xy(self, idxs, streams=None):
+        """Linear indices, flattened. Snapping them to ``streams`` is not
+        ported yet."""
+        if streams is not None:
+            raise NotImplementedError(f"snapping indices to streams {_LATER}")
+        return np.atleast_1d(idxs).ravel()

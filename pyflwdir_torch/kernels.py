@@ -31,6 +31,9 @@ tiles:
 
 * ``tile_pass_a`` (T1) — ``ops/tile_plan.py`` ``TilePlan._pass_a_fused``
 * ``tile_pass_c`` (T2) — ``ops/tile_plan.py`` ``TilePlan._pass_c_fused``
+* ``tile_down_a`` (T3) — ``ops/tile_plan.py`` ``TilePlan._pass_down_raw``
+  and, in routed mode, ``TilePlan._pass_down``
+* ``tile_down_fin`` (T4) — ``ops/tile_plan.py`` ``TilePlan._pass_down_fin``
 """
 
 from __future__ import annotations
@@ -61,6 +64,10 @@ __all__ = [
     "tile_pass_a_plain",
     "tile_pass_c",
     "tile_pass_c_plain",
+    "tile_down_a",
+    "tile_down_a_plain",
+    "tile_down_fin",
+    "tile_down_fin_plain",
 ]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -79,6 +86,8 @@ launches = {
     "accel_far_merge": 0,
     "tile_pass_a": 0,
     "tile_pass_c": 0,
+    "tile_down_a": 0,
+    "tile_down_fin": 0,
 }
 
 #: element-type codes of the kernels' entry points
@@ -115,6 +124,9 @@ def _bind(lib):
         "pf_tile_pass_a": [i32, vp, i64, i64, i64, i64, vp, vp, i64, vp, vp, vp],
         "pf_tile_pass_c": [i32, vp, i64, i64, i64, i64, vp, vp, i64,
                            vp, vp, vp, vp, vp, vp],
+        "pf_tile_down_a": [i32, i32, vp, i64, i64, i64, i64, vp, vp, vp, vp, vp,
+                           vp, i64, vp, vp, vp, vp],
+        "pf_tile_down_fin": [i32, vp, i64, i64, i64, i64, vp, vp, i64, vp, vp, vp, vp],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name, None)
@@ -190,17 +202,19 @@ def _launch(fn, *args):
 
 
 # ---------------------------------------------------------------------------
-# H0: out[p] = x[src[p]]
+# H0: out[p] = src[p] >= 0 ? x[src[p]] : 0
 # ---------------------------------------------------------------------------
 def permute_gather_plain(x, src):
     """Plain version of :func:`permute_gather`."""
-    return x.reshape(-1)[src.long()].reshape(src.shape)
+    i = src.long()
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    return torch.where(i >= 0, x.reshape(-1)[i.clamp(min=0)], zero)
 
 
 def permute_gather(x, src):
-    """``out[p] = x.ravel()[src[p]]``: ``x`` float32, int32, int64 or float64,
-    ``src`` int32 with values in ``[0, x.numel())``; the output has
-    ``src``'s shape and ``x``'s dtype."""
+    """``out[p] = x.ravel()[src[p]]``, or 0 where ``src[p] < 0``: ``x``
+    float32, int32, int64 or float64, ``src`` int32 with values below
+    ``x.numel()``; the output has ``src``'s shape and ``x``'s dtype."""
     if x.device.type == "cpu":
         return permute_gather_plain(x, src)
     dt = _code("x", x)
@@ -451,4 +465,113 @@ def tile_pass_c(x, c, entv, ent_idx, near_end, far_end, rout, shape):
             entv.data_ptr(), E, ent_idx.data_ptr(), near_end.data_ptr(),
             far_end.data_ptr(), rout.data_ptr(), out.data_ptr())
     launches["tile_pass_c"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# T3: downward pass D1: per-tile path sums to the local roots, entry values
+# ---------------------------------------------------------------------------
+def _gather0(a, idx):
+    """``a[t, idx[t, j]]`` along axis 1, 0 where ``idx < 0``."""
+    i = idx.long()
+    zero = torch.zeros((), dtype=a.dtype, device=a.device)
+    return torch.where(i >= 0, torch.gather(a, 1, i.clamp(min=0)), zero)
+
+
+def tile_down_a_plain(x, rin, es, g_last, g_prev, n_tree, ent_slot, rout, shape,
+                      routed):
+    """Plain version of :func:`tile_down_a`."""
+    xt = _tiles(x, shape)
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    on = torch.arange(rin.shape[1], device=x.device)[None, :] < n_tree[:, None]
+    u = torch.where(on, torch.gather(xt, 1, rin.long()), zero)
+    ues = torch.where(on, torch.gather(xt, 1, es.long()), zero)
+    cs = torch.cumsum(ues, 1, dtype=x.dtype)
+    g = torch.where(g_last >= 0, _gather0(cs, g_last) - _gather0(cs, g_prev), zero)
+    inner = g - torch.cat([u[:, 1:], torch.zeros_like(u[:, :1])], 1)
+    z = torch.flip(torch.cumsum(torch.flip(inner, [1]), 1, dtype=x.dtype), [1])
+    pk = _gather0(z, ent_slot)
+    if routed:
+        z = _untile(torch.where(rout >= 0, _gather0(z, rout), xt), shape)
+    return z, pk
+
+
+def tile_down_a(x, rin, es, g_last, g_prev, n_tree, ent_slot, rout, shape, routed):
+    """Pass D1 of the tile plan's downward sweep: the sum of ``x`` over the
+    path from each tree cell to the root of its tree within the tile.
+
+    ``x`` (H*W,) raster values, int32, int64 or float64; ``rin``, ``es``,
+    ``g_last``, ``g_prev`` (NT, 16384) int32 and ``n_tree`` (NT,) int32 (see
+    ``csrc/tile_kernels.cu``); ``ent_slot`` (NT, E) int32, the preorder slot
+    of each packed entry cell, -1 for padding (E may be 0). Cells past H or
+    W read 0. Returns ``(z, pk)``: ``pk`` (NT, E) the path sums at the entry
+    cells; ``z`` the path sums, in preorder layout (NT, 16384) or, where
+    ``routed``, in raster order (H*W,) through ``rout`` ((NT, 16384) int32 in
+    tile raster layout) with cells off the tree passing ``x`` through.
+    ``rout`` may be None unless ``routed``."""
+    if x.device.type == "cpu":
+        return tile_down_a_plain(x, rin, es, g_last, g_prev, n_tree, ent_slot, rout,
+                                 shape, routed)
+    dev = x.device
+    dt = _code("x", x, _TILE_DTYPES)
+    _check("x", x, x.dtype, dev)
+    tabs = [("rin", rin), ("es", es), ("g_last", g_last), ("g_prev", g_prev)]
+    if routed:
+        tabs.append(("rout", rout))
+    for name, t in (*tabs, ("n_tree", n_tree), ("ent_slot", ent_slot)):
+        _check(name, t, torch.int32, dev)
+    H, W, NT, ntx = _tile_args(shape, rin, x)
+    for name, t in tabs:
+        if t.shape != rin.shape:
+            raise ValueError(f"{name} must be {tuple(rin.shape)}")
+    if n_tree.shape != (NT,):
+        raise ValueError("n_tree must be (NT,)")
+    if ent_slot.dim() != 2 or ent_slot.shape[0] != NT:
+        raise ValueError("ent_slot must be (NT, E)")
+    E = ent_slot.shape[1]
+    z = torch.empty_like(x) if routed else torch.empty(rin.shape, dtype=x.dtype, device=dev)
+    pk = torch.empty((NT, E), dtype=x.dtype, device=dev)
+    _launch(load()["tile_kernels"].pf_tile_down_a, dt, int(bool(routed)), x.data_ptr(),
+            H, W, NT, ntx, rin.data_ptr(), es.data_ptr(), g_last.data_ptr(),
+            g_prev.data_ptr(), n_tree.data_ptr(), ent_slot.data_ptr(), E,
+            rout.data_ptr() if routed else None, z.data_ptr(), pk.data_ptr())
+    launches["tile_down_a"] += 1
+    return z, pk
+
+
+# ---------------------------------------------------------------------------
+# T4: downward pass D2: add the coarse continuation of each tree, raster order
+# ---------------------------------------------------------------------------
+def tile_down_fin_plain(x, z1, A, tree_of, rout, shape):
+    """Plain version of :func:`tile_down_fin`."""
+    z = z1 + _gather0(A, tree_of)
+    return _untile(torch.where(rout >= 0, _gather0(z, rout), _tiles(x, shape)), shape)
+
+
+def tile_down_fin(x, z1, A, tree_of, rout, shape):
+    """Pass D2 of the tile plan's downward sweep, finishing a raw pass D1.
+
+    ``x`` (H*W,) raster values; ``z1`` (NT, 16384) pass D1's path sums in
+    preorder layout; ``A`` (NT, R) the coarse level's path sum below each
+    local root; ``tree_of`` (NT, 16384) int32, the local root index of each
+    preorder slot, -1 off the tree; ``rout`` (NT, 16384) int32 in tile raster
+    layout. Returns (H*W,) in ``x``'s dtype: tree cells get
+    ``z1 + A[tree]``, cells off the tree pass ``x`` through."""
+    if x.device.type == "cpu":
+        return tile_down_fin_plain(x, z1, A, tree_of, rout, shape)
+    dev = x.device
+    dt = _code("x", x, _TILE_DTYPES)
+    for name, t, dtype in (("x", x, x.dtype), ("z1", z1, x.dtype), ("A", A, x.dtype),
+                           ("tree_of", tree_of, torch.int32), ("rout", rout, torch.int32)):
+        _check(name, t, dtype, dev)
+    H, W, NT, ntx = _tile_args(shape, rout, x)
+    if z1.shape != rout.shape or tree_of.shape != rout.shape:
+        raise ValueError(f"z1 and tree_of must be {tuple(rout.shape)}")
+    if A.dim() != 2 or A.shape[0] != NT or A.shape[1] < 1:
+        raise ValueError("A must be (NT, R) with R > 0")
+    out = torch.empty_like(x)
+    _launch(load()["tile_kernels"].pf_tile_down_fin, dt, x.data_ptr(), H, W, NT, ntx,
+            z1.data_ptr(), A.data_ptr(), A.shape[1], tree_of.data_ptr(), rout.data_ptr(),
+            out.data_ptr())
+    launches["tile_down_fin"] += 1
     return out

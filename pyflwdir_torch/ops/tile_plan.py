@@ -31,6 +31,20 @@ builds the same indices from a JAX plan's tables by replaying the chains on
 Tiles are 128 rows high, the one height the CUDA kernels take; a JAX plan of
 another height is not loaded.
 
+The downward (transpose) sweep, ``TilePlan.accumulate_down``, is the sum
+of the data over each cell's downstream path, as the JAX package's::
+
+    z, pk = tile_down_a(x)               # T3: path sums to the local roots
+    A     = coarse.accumulate_down(pk)   # path sums below each local root
+    out   = tile_down_fin(x, z, A)       # T4: z + A[tree], raster order
+
+(T3 alone, in its routed mode, on a graph without entry cells). Its indices
+are built at first use (``_ensure_down``): the per-tile (interval end, slot)
+order ``es`` and the run boundaries ``g_last``/``g_prev`` from the native
+down phase, ``n_tree``, ``ent_slot`` and ``tree_of``; the coarse level's
+down indices likewise (``build_down``), for kernels H1 and H0. Every sum has
+a fixed order, so a result is the same from run to run in every dtype.
+
 Integer data accumulates in int32, or int64 where ``|max| * n >= 2^31``;
 float data in float64. The result comes back in the data's dtype.
 """
@@ -152,10 +166,133 @@ def _stacked_chain(tabs, p, NT):
     return v.reshape(NT, S * S).astype(np.int32)
 
 
+def _compose_down(es, dea, deb, de_sel, de_b0, re_sel, n_tree, ent_slot):
+    """The downward sweep's per-tile indices from the sort phase's outputs
+    (``runtime.tile_down_phase``, or a JAX plan's chains replayed): the
+    padded boundary bijections ``dea``/``deb`` with their masks become
+    ``g_last``/``g_prev`` (-1 where masked); ``re_sel`` (root ends) becomes
+    ``tree_of``, the number of root ends before each tree slot."""
+    de_sel = de_sel != 0
+    NT, T = es.shape
+    n_tree = np.asarray(n_tree, np.int32)
+    re = (re_sel != 0).astype(np.int32)
+    tree_of = np.cumsum(re, axis=1, dtype=np.int32) - re
+    on = np.arange(T, dtype=np.int32)[None, :] < n_tree[:, None]
+    return {
+        "es": np.ascontiguousarray(es, np.int32),
+        "g_last": np.where(de_sel, dea, -1).astype(np.int32),
+        "g_prev": np.where(de_sel & (de_b0 == 0), deb, -1).astype(np.int32),
+        "n_tree": n_tree,
+        "ent_slot": np.ascontiguousarray(ent_slot, np.int32),
+        "tree_of": np.where(on, tree_of, -1).astype(np.int32),
+    }
+
+
+def _coarse_down_arrays(dfs, meta, n_exit_flat):
+    """The JAX plan's static coarse-downward arrays (its ``_down["cd"]``):
+    ``pre``, ``pos``, ``ends_pre`` of the coarse DFS plan, ``e2n`` (root
+    node of each exit slot, -1 where none) and ``wmap`` (``out_slot``)."""
+    pre = dfs.preorder_np
+    k = pre.size
+    e2n = np.full(n_exit_flat, -1, dtype=np.int32)
+    e2n[meta["in_slot"][: meta["m"]]] = np.arange(meta["m"], dtype=np.int32)
+    return {
+        "pre": pre.astype(np.int32),
+        "pos": dfs.pos_np.astype(np.int32),
+        "ends_pre": (np.arange(k, dtype=np.int64) + dfs.size_np[pre] - 1).astype(np.int32),
+        "e2n": e2n,
+        "wmap": np.asarray(meta["out_slot"]).astype(np.int32),
+    }
+
+
+# ---------------------------------------------------------------------------
+# coarse level, downward: shared by both backends
+# ---------------------------------------------------------------------------
+class _CoarseDown:
+    """The coarse forest's inclusive downstream-path sum, from the packed
+    entry (``out_slot``) layout to the exit (``in_slot``) layout, zero at
+    slots without a root: the transpose of the backend's ``accumulate``.
+
+    The JAX package's ``_CoarseRouterSmall.accumulate_down`` routes through
+    ``r_win``, ``r_es``, ``r_dea``, ``r_deb`` and ``r_aout`` with mask selects
+    between flat prefix, shift and suffix sums (its ``_CoarseGather`` level
+    scatter-adds instead). The port keeps what those compose to over
+    ``n_c`` slots (``_n_down``), as indices of kernels H1 and H0:
+
+    * ``es_in`` (H1): the packed entry read at each position of the
+      (interval end, slot) order; nodes without an entry read past the input;
+    * ``g_last``, ``g_prev`` (H0): per end slot, the sorted position of its
+      run's last node and of the node before its run, else -1 (reads 0);
+    * ``win_next`` (H0): the packed entry of the next preorder slot, else -1;
+    * ``rev`` (H1): the reversal, so the suffix sum is a prefix sum;
+    * ``fin`` (H0): per exit slot, its root's position in the reversed sums.
+
+    One form for both backends: each sum has a fixed order (no atomics)."""
+
+    def build_down(self, cd, routers=None):
+        """Build the down indices from the coarse-downward arrays ``cd``
+        (:func:`_coarse_down_arrays`, or a JAX plan's) and, for a router
+        coarse level loaded from a JAX plan, its ``down_router_tables()``,
+        whose chains are replayed instead of sorting here."""
+        if getattr(self, "down", None) is not None:
+            return
+        pre = np.asarray(cd["pre"], np.int64)
+        pos = np.asarray(cd["pos"], np.int64)
+        ends = np.asarray(cd["ends_pre"], np.int64)
+        e2n = np.asarray(cd["e2n"], np.int64)
+        k = pre.size
+        n_c = self._n_down(k)
+        win = np.asarray(cd["wmap"], np.int64)[pre]  # packed entry of each slot
+        de_sel = np.zeros(n_c, dtype=bool)
+        de_b0 = np.zeros(n_c, dtype=bool)
+        if k:
+            de_sel[np.unique(ends)] = True
+            de_b0[ends.min()] = True  # the first sorted run
+        if routers is None:
+            order = np.argsort(ends, kind="stable")  # (end, slot) order
+            e_sorted = ends[order]
+            gstart = np.flatnonzero(np.r_[True, e_sorted[1:] != e_sorted[:-1]][:k])
+            glast = np.append(gstart[1:] - 1, k - 1) if k else gstart
+            gend = e_sorted[gstart]
+            g_last = np.full(n_c, -1, dtype=np.int64)
+            g_prev = np.full(n_c, -1, dtype=np.int64)
+            g_last[gend] = glast
+            g_prev[gend[1:]] = gstart[1:] - 1
+        else:
+            G = int(routers["G"])
+            if G * _S * _S != n_c:
+                raise ValueError("down router tables do not fit the coarse plan")
+            ar = np.arange(n_c, dtype=np.int64).reshape(G * _S, _S)
+            order = _chain_np(ar, G, *routers["r_es"]).ravel()[:k]
+            g_last = np.where(de_sel, _chain_np(ar, G, *routers["r_dea"]).ravel(), -1)
+            g_prev = np.where(de_sel & ~de_b0, _chain_np(ar, G, *routers["r_deb"]).ravel(), -1)
+        es_in = np.full(n_c, n_c, dtype=np.int64)
+        es_in[:k] = np.where(win[order] >= 0, win[order], n_c)
+        win_next = np.full(n_c, -1, dtype=np.int64)
+        win_next[: max(k - 1, 0)] = win[1:]
+        root_pos = np.where(e2n >= 0, pos[np.maximum(e2n, 0)], -1)
+        fin = np.where(root_pos >= 0, n_c - 1 - root_pos, -1)
+        down = {"es_in": es_in, "g_last": g_last, "g_prev": g_prev, "win_next": win_next,
+                "rev": np.arange(n_c - 1, -1, -1, dtype=np.int64), "fin": fin}
+        self.down = {name: v.astype(np.int32) for name, v in down.items()}
+        self._down_t = {name: torch.as_tensor(v, device=self.dfs.device)
+                        for name, v in self.down.items()}
+
+    def accumulate_down(self, pkf):
+        """``pkf`` ((n_out,) at ``out_slot`` layout; int32, int64 or float64)
+        to the path sums at ``in_slot`` layout, (n_in,)."""
+        t = self._down_t
+        pkf = pkf[: t["es_in"].numel()]  # padded entries past the last real one
+        cs = kernels.accel_in_scan(pkf, t["es_in"])
+        ge = kernels.permute_gather(cs, t["g_last"]) - kernels.permute_gather(cs, t["g_prev"])
+        inner = ge - kernels.permute_gather(pkf, t["win_next"])
+        return kernels.permute_gather(kernels.accel_in_scan(inner, t["rev"]), t["fin"])
+
+
 # ---------------------------------------------------------------------------
 # coarse level: plain gathers through the DFS plan (small grids)
 # ---------------------------------------------------------------------------
-class _CoarseGather:
+class _CoarseGather(_CoarseDown):
     """Coarse accumulation via the DFS plan and plain gathers (few slots)."""
 
     def __init__(self, dfs: DfsPlan, in_slot, out_slot, n_in, n_out):
@@ -171,6 +308,9 @@ class _CoarseGather:
         self.src = torch.as_tensor(np.nonzero(osel)[0], device=dev)
         self.dst = torch.as_tensor(np.asarray(out_slot, np.int64)[osel], device=dev)
 
+    def _n_down(self, k):
+        return max(k, self.n_out, 1)
+
     def accumulate(self, x):
         """Slot-mode accumulation: ``x`` at ``in_slot`` layout, the result at
         ``out_slot`` layout (slots without a value give 0)."""
@@ -185,7 +325,7 @@ class _CoarseGather:
 # ---------------------------------------------------------------------------
 # coarse level: single-chunk router (kernels H0-H3)
 # ---------------------------------------------------------------------------
-class _CoarseRouterSmall:
+class _CoarseRouterSmall(_CoarseDown):
     """Slot-mode coarse accumulation on the single-chunk router plan.
 
     The JAX package's ``_CoarseRouterSmall`` routes and lane-gathers on the
@@ -196,6 +336,7 @@ class _CoarseRouterSmall:
     (and the packed far-group expansion they index) are replayed instead."""
 
     def __init__(self, dfs: DfsPlan, in_slot, out_slot, n_in=None, routers=None):
+        self.dfs = dfs
         pre = dfs.preorder_np
         pos = dfs.pos_np
         size = dfs.size_np
@@ -256,6 +397,9 @@ class _CoarseRouterSmall:
         self._t = {name: torch.as_tensor(getattr(self, name), device=dev)
                    for name in ("src_in", "near_end", "src_out", "far_end")}
 
+    def _n_down(self, k):
+        return self.n_pad
+
     def accumulate(self, x):
         """Slot-mode accumulation: ``x`` ((n_in,) at ``in_slot`` layout,
         int32, int64 or float64) to ``out_slot`` layout, (n_out,); slots
@@ -277,7 +421,8 @@ class TilePlan:
     ``Y`` (tile rows, 128), ``grid``, ``NT``, ``far_mode`` (None, "router" or
     "packed"), ``b``, ``R_pad``, ``E_pad``, ``F_rows``, ``has_far``,
     ``has_entries``, ``coarse``; ``idx``, the composed per-tile indices
-    (numpy int32); ``build_seconds``, the host build's steps.
+    (numpy int32); ``build_seconds``, the host build's steps; after the
+    first downward call ``down_idx`` and ``down_build_seconds`` likewise.
     """
 
     Y = _S
@@ -407,6 +552,18 @@ class TilePlan:
                              "m": int(m), "D": int(D)}
         secs["coarse graph"] = time.perf_counter() - t0
 
+        # what the lazy downward build needs of phase 1 (_ensure_down)
+        ent_slot = np.full((NT, self.E_pad), -1, np.int32)
+        if self.has_entries:
+            ent_slot[t2o, j2] = eso
+        re_sel = np.zeros((NT, T), np.int8)
+        re_sel[rt, root_end] = 1
+        self._down_src = {
+            "phase": (ph["near_sel"], ph["idx_near"], ph["sel_next"], sig, cnt_far,
+                      far_slot, far_end),
+            "re_sel": re_sel, "n_tree": ph["cnt_on"], "ent_slot": ent_slot,
+        }
+
         t0 = time.perf_counter()
         self.coarse = self._coarse_level(build_plan(coarse_ds, device=self.device))
         secs["coarse plan"] = time.perf_counter() - t0
@@ -445,6 +602,55 @@ class TilePlan:
         self.idx_t = {k: torch.as_tensor(v, device=self.device) for k, v in idx.items()}
         secs["upload"] = time.perf_counter() - t0
         self.build_seconds = secs
+        self.down_idx = None
+
+    def _ensure_down(self):
+        """Build, once, the downward sweep's indices (``down_idx``, uploaded
+        as ``down_idx_t``) and the coarse level's (``coarse.build_down``)."""
+        if self.down_idx is not None:
+            return
+        secs = {}
+        src = self._down_src
+        NT, T = self.NT, _S * _S
+        t0 = time.perf_counter()
+        if "phase" in src:  # native build: sort each tile's slots by end
+            es, dea, deb, de_sel, de_b0 = runtime.tile_down_phase(*src["phase"], NT, T)
+            cd, routers = _coarse_down_arrays(self.coarse.dfs, self._coarse_meta,
+                                              self.n_exit_flat), None
+            n_tree, ent_slot, re_sel = src["n_tree"], src["ent_slot"], src["re_sel"]
+        else:  # a JAX plan's down tables: replay its chains
+            tabs = src["tabs"]
+
+            def flat(name):
+                return np.asarray(tabs[name]).reshape(NT, T)
+
+            es, dea, deb = (_stacked_chain(tabs, p, NT) for p in ("es", "dea", "deb"))
+            de_sel, de_b0, re_sel = flat("de_sel"), flat("de_b0"), flat("re_sel")
+            cd, routers = src["cd"], src["routers"]
+            n_tree = src["n_tree"]
+            ent_slot = np.full((NT, self.E_pad), -1, np.int32)
+            if self.has_entries:
+                # the entry router is padded to a bijection: only the real
+                # entries (those with a coarse node) carry a slot
+                real = np.zeros(NT * self.E_pad, dtype=bool)
+                osl = np.asarray(self._coarse_meta["out_slot"])
+                real[osl[osl >= 0]] = True
+                enti = _stacked_chain(tabs, "enti", NT)[:, : self.E_pad]
+                ent_slot = np.where(real.reshape(NT, self.E_pad), enti, -1)
+        secs["sort phase"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        down_idx = _compose_down(es, dea, deb, de_sel, de_b0, re_sel, n_tree, ent_slot)
+        secs["compose"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        self.coarse.build_down(cd, routers=routers)
+        secs["coarse down"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        self.down_idx_t = {k: torch.as_tensor(v, device=self.device)
+                           for k, v in down_idx.items()}
+        secs["upload"] = time.perf_counter() - t0
+        self.down_idx = down_idx
+        self.down_build_seconds = secs
+        self._down_src = None
 
     def _tile_of(self, cells):
         """Tile index of padded-grid cell ids."""
@@ -456,7 +662,7 @@ class TilePlan:
     # -- a JAX plan's tables ----------------------------------------------
     @classmethod
     def from_stage_tables(cls, tabs, cfg, coarse_meta, coarse_dfs, routers=None,
-                          device=None) -> "TilePlan":
+                          down=None, device=None) -> "TilePlan":
         """Build the plan from a JAX ``TilePlan``'s host arrays: ``tabs``
         (its ``_tabs_np``), ``cfg`` (``shape``, ``tile_rows``, ``far_mode``,
         ``b``, ``R_pad``, ``E_pad``, ``has_far``, ``has_entries``),
@@ -464,7 +670,12 @@ class TilePlan:
         DFS plan's ``(preorder, pos, size)``) and, for a ``_CoarseRouterSmall``
         coarse level, ``routers`` (its ``router_tables()``). Each per-tile
         chain is replayed on ``arange`` into the port's composed index.
-        Plans of tiles other than 128 rows high raise NotImplementedError."""
+        ``down`` carries the JAX plan's downward tables for
+        :meth:`accumulate_down`: ``tabs`` (its ``_down["tabs"]``), ``cd`` (its
+        ``_down["cd"]``) and, for a router coarse level, ``routers`` (its
+        ``coarse.down_router_tables()``); without it ``accumulate_down``
+        raises. Plans of tiles other than 128 rows high raise
+        NotImplementedError."""
         if int(cfg["tile_rows"]) != _S:
             raise NotImplementedError(
                 f"tile plans of {cfg['tile_rows']} rows: the port's tiles are 128 rows "
@@ -523,6 +734,11 @@ class TilePlan:
         else:
             raise NotImplementedError(f"a BigAccelPlan coarse level is {_LATER}")
         secs["coarse plan"] = time.perf_counter() - t0
+        self._down_src = None
+        if down is not None:
+            self._down_src = {"tabs": down["tabs"], "cd": down["cd"],
+                              "routers": down.get("routers"),
+                              "n_tree": (flat("tree_mask") != 0).sum(1)}
         self._finish(idx, secs)
         return self
 
@@ -552,6 +768,31 @@ class TilePlan:
         entv = self.entry_grid(self.coarse.accumulate(exits.reshape(-1)))
         out = kernels.tile_pass_c(x, c, entv, t["ent_idx"], t["near_end"],
                                   t["far_end"], t["rout"], self.shape)
+        return out.to(data.dtype)
+
+    def accumulate_down(self, data):
+        """Inclusive downstream-path sum of ``data`` ((H*W,) tensor in raster
+        order on the plan's device): ``a[i]`` sums ``data`` over ``i``, its
+        downstream cell, ..., its pit; the transpose of :meth:`accumulate`.
+        Missing cells pass through. Returned in ``data``'s dtype; integers
+        are exact, and every dtype gives the same bits from run to run."""
+        H, W = self.shape
+        if data.numel() != H * W:
+            raise ValueError(f"data must hold {H * W} values")
+        if self.down_idx is None and self._down_src is None:
+            raise RuntimeError("the plan was loaded without its downward tables")
+        self._ensure_down()
+        x = data.reshape(-1).to(self._acc_dtype(data)).contiguous()
+        t, d = self.idx_t, self.down_idx_t
+        d1 = (t["rin"], d["es"], d["g_last"], d["g_prev"], d["n_tree"], d["ent_slot"])
+        if self.has_entries and self.coarse.dfs.n_tree > 0:
+            # raw D1: routing and passthrough wait for D2
+            z, pk = kernels.tile_down_a(x, *d1, None, self.shape, False)
+            A = self.coarse.accumulate_down(pk.reshape(-1))
+            out = kernels.tile_down_fin(x, z, A.reshape(self.NT, self.R_pad),
+                                        d["tree_of"], t["rout"], self.shape)
+        else:
+            out, _ = kernels.tile_down_a(x, *d1, t["rout"], self.shape, True)
         return out.to(data.dtype)
 
     def entry_grid(self, entv):

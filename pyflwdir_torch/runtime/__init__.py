@@ -2,8 +2,9 @@
 
 Binds only what the port uses so far: the priority-flood depression fill,
 the DFS preorder, the LUT flow-direction parser, the sequential
-accumulation sweep (the oracle the device path is held against) and the
-tile plan's per-tile DFS and bijection padding. The library is
+accumulation sweeps upward and downward (the oracles the device paths are
+held against) and the tile plan's per-tile DFS, bijection padding and
+downward sort phase. The library is
 git-ignored; at first use it is built with ``make -C csrc``, and a failed
 build raises.
 """
@@ -23,6 +24,8 @@ __all__ = [
     "accuflux_sweep",
     "tile_plan_phase1",
     "tile_pad_bijection",
+    "tile_down_phase",
+    "downward_sweep",
 ]
 
 _CSRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "..", "csrc"))
@@ -77,6 +80,13 @@ def _lib():
         _I64P, _I64P, _I64P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
         _I32P,
     ]
+    lib.tp_down_phase.restype = None
+    lib.tp_down_phase.argtypes = [
+        _I8P, _I8P, _I8P, _I32P, _I64P, _I32P, _I32P, ctypes.c_int64,
+        ctypes.c_int64, _I32P, _I32P, _I32P, _I8P, _I8P,
+    ]
+    lib.downward_sweep.restype = None
+    lib.downward_sweep.argtypes = [_I64P, _I64P, ctypes.c_int64, _F64P, _F64P]
     _LIB.append(lib)
     return lib
 
@@ -260,3 +270,58 @@ def tile_pad_bijection(tk, dk, sk, NT, T):
         sigma.ctypes.data_as(_I32P),
     )
     return sigma
+
+
+def tile_down_phase(near_sel, idx_near, sel_next, sig, cnt_far, far_slot, far_end, NT, T):
+    """Per-tile sort phase of the tile plan's downward sweep
+    (``csrc/tile_plan_build.cpp::tp_down_phase``, threaded over tiles): the
+    stable (interval end, slot) order of each tile's preorder slots and the
+    boundaries of its runs of equal ends. Inputs are phase-1 outputs
+    (:func:`tile_plan_phase1`). Returns ``(sig_es, sig_dea, sig_deb, de_sel,
+    de_b0)``, each (NT, T): the raster cell at each sorted position; for
+    each end slot (``de_sel``) the sorted position of its run's last member
+    and of the member before its run (none where ``de_b0``), both padded to
+    bijections."""
+    NT, T = int(NT), int(T)
+    near_sel = np.ascontiguousarray(near_sel, dtype=np.int8)
+    idx_near = np.ascontiguousarray(idx_near, dtype=np.int8)
+    sel_next = np.ascontiguousarray(sel_next, dtype=np.int8)
+    sig = np.ascontiguousarray(sig, dtype=np.int32)
+    cnt_far = np.ascontiguousarray(cnt_far, dtype=np.int64)
+    far_slot = np.ascontiguousarray(far_slot, dtype=np.int32)
+    far_end = np.ascontiguousarray(far_end, dtype=np.int32)
+    if not (near_sel.size == idx_near.size == sel_next.size == sig.size == NT * T):
+        raise ValueError("phase-1 tables must hold NT * T entries")
+    if cnt_far.size != NT or far_slot.size != far_end.size or far_slot.size != cnt_far.sum():
+        raise ValueError("far lists do not match cnt_far")
+    sig_es = np.empty((NT, T), np.int32)
+    sig_dea = np.empty((NT, T), np.int32)
+    sig_deb = np.empty((NT, T), np.int32)
+    de_sel = np.empty((NT, T), np.int8)
+    de_b0 = np.empty((NT, T), np.int8)
+    _lib().tp_down_phase(
+        near_sel.ctypes.data_as(_I8P), idx_near.ctypes.data_as(_I8P),
+        sel_next.ctypes.data_as(_I8P), sig.ctypes.data_as(_I32P),
+        cnt_far.ctypes.data_as(_I64P), far_slot.ctypes.data_as(_I32P),
+        far_end.ctypes.data_as(_I32P), NT, T,
+        sig_es.ctypes.data_as(_I32P), sig_dea.ctypes.data_as(_I32P),
+        sig_deb.ctypes.data_as(_I32P), de_sel.ctypes.data_as(_I8P),
+        de_b0.ctypes.data_as(_I8P),
+    )
+    return sig_es, sig_dea, sig_deb, de_sel, de_b0
+
+
+def downward_sweep(idxs_ds, seq, w):
+    """Sequential downstream-path sum ``out[i] = w[i] + out[ds(i)]`` (pits:
+    ``w[i]``) over ``seq``, which lists downstream cells before upstream ones
+    (``csrc/tile_plan_build.cpp::downward_sweep``). Cells not in ``seq`` keep
+    ``w``. Returns float64."""
+    ids = np.ascontiguousarray(idxs_ds, dtype=np.int64)
+    seq = np.ascontiguousarray(seq, dtype=np.int64)
+    w = np.ascontiguousarray(w, dtype=np.float64)
+    out = w.copy()
+    _lib().downward_sweep(
+        ids.ctypes.data_as(_I64P), seq.ctypes.data_as(_I64P), seq.size,
+        w.ctypes.data_as(_F64P), out.ctypes.data_as(_F64P),
+    )
+    return out

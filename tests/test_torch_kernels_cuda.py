@@ -1,7 +1,7 @@
 """The CUDA kernels against their plain versions on the card: bitwise for
 permutations and integer data, float64 within the rounding of sums taken
-in another order (rtol 1e-12, atol 2 n eps total). Skips where there is no
-GPU."""
+in another order (rtol 1e-12, atol 2 n eps total), and the same bits from
+run to run. Skips where there is no GPU."""
 
 import numpy as np
 import pytest
@@ -149,6 +149,66 @@ def test_tile_plan_matches_cpu(tile_plans, dtype):
     x = _data(rng, ids.size, dtype)
     kernels.reset_launches()
     got = gpu.accumulate(x.to("cuda")).cpu()
-    assert all(v == 1 for v in kernels.launches.values()), kernels.launches
+    up = ("tile_pass_a", "accel_in_scan", "accel_near_out", "permute_gather",
+          "accel_far_merge", "tile_pass_c")
+    assert all(kernels.launches[k] == (k in up) for k in kernels.launches), kernels.launches
     _assert_match(got, cpu.accumulate(x), float(x.double().sum()))
+
+
+def test_permute_gather_reads_zero_at_masked_indices(dev):
+    rng = np.random.RandomState(5)
+    x = torch.as_tensor(rng.rand(5000), device=dev)
+    src = torch.as_tensor(rng.randint(-1, 5000, 70_000).astype(np.int32), device=dev)
+    got = kernels.permute_gather(x, src)
+    assert torch.equal(got, kernels.permute_gather_plain(x, src))
+    assert bool((got[src < 0] == 0).all()) and bool((src < 0).any())
+
+
+@pytest.mark.parametrize("routed", [False, True])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.float64])
+def test_tile_down_a(tile_plans, dtype, routed):
+    ids, gpu, _ = tile_plans
+    gpu._ensure_down()
+    t, d = gpu.idx_t, gpu.down_idx_t
+    x = _data(np.random.RandomState(6), ids.size, dtype).to("cuda")
+    args = (x, t["rin"], d["es"], d["g_last"], d["g_prev"], d["n_tree"], d["ent_slot"],
+            t["rout"] if routed else None, gpu.shape, routed)
+    kernels.reset_launches()
+    z, pk = kernels.tile_down_a(*args)
+    assert kernels.launches["tile_down_a"] == 1
+    z_p, pk_p = kernels.tile_down_a_plain(*args)
+    total = float(x.double().sum())
+    _assert_match(z, z_p, total)
+    _assert_match(pk, pk_p, total)
+    z2, pk2 = kernels.tile_down_a(*args)  # the same bits from run to run
+    assert torch.equal(z, z2) and torch.equal(pk, pk2)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.float64])
+def test_tile_down_fin(tile_plans, dtype):
+    ids, gpu, _ = tile_plans
+    gpu._ensure_down()
+    t, d = gpu.idx_t, gpu.down_idx_t
+    rng = np.random.RandomState(7)
+    x = _data(rng, ids.size, dtype).to("cuda")
+    z1 = _data(rng, gpu.NT * 128 * 128, dtype).to("cuda").reshape(gpu.NT, -1)
+    A = _data(rng, gpu.NT * gpu.R_pad, dtype).to("cuda").reshape(gpu.NT, gpu.R_pad)
+    args = (x, z1, A, d["tree_of"], t["rout"], gpu.shape)
+    kernels.reset_launches()
+    got = kernels.tile_down_fin(*args)
+    assert kernels.launches["tile_down_fin"] == 1
+    assert torch.equal(got, kernels.tile_down_fin_plain(*args))  # one add per cell
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float64])
+def test_tile_plan_down_matches_cpu(tile_plans, dtype):
+    ids, gpu, cpu = tile_plans
+    x = _data(np.random.RandomState(8), ids.size, dtype)
+    gpu._ensure_down()
+    kernels.reset_launches()
+    got = gpu.accumulate_down(x.to("cuda"))
+    want = {"tile_down_a": 1, "accel_in_scan": 2, "permute_gather": 4, "tile_down_fin": 1}
+    assert all(kernels.launches[k] == want.get(k, 0) for k in kernels.launches), kernels.launches
+    assert torch.equal(got, gpu.accumulate_down(x.to("cuda")))
+    _assert_match(got.cpu(), cpu.accumulate_down(x), float(x.double().sum()))
 

@@ -131,7 +131,9 @@ def test_later_slices_raise(d8_small):
     with pytest.raises(NotImplementedError, match="later slice"):
         t.accuflux(data)
     with pytest.raises(NotImplementedError, match="later slice"):
-        t.accuflux(np.ones(t.shape), direction="down")
+        t.fillnodata(np.ones(t.shape), -9999, direction="down")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        t.basins(idxs=[3], streams=np.ones(t.shape, bool))
     with pytest.raises(ValueError):
         t.accuflux(np.ones(t.shape), direction="sideways")
     big = pyflwdir_torch.from_array(np.zeros((2049, 1024), np.uint8), device="cpu")

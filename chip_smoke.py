@@ -21,8 +21,8 @@ Run from the repository root:  python3 chip_smoke.py [--json PATH]
    cells, so the hierarchical TilePlan: kernels T1 and T2 per tile, and
    H0-H3 (int32 and float64) on its coarse level. Kernel phase as above at
    the path's shapes, int32 bitwise and float64 within rtol 1e-12 plus
-   2 L eps total, L the length of the sums it takes in another order
-   (bitwise where it takes none). Then the path, twice with the counters zeroed: int32
+   2 L eps total, L the additions on the longest chain of the sums it takes
+   in another order (bitwise where it takes none). Then the path, twice with the counters zeroed: int32
    (upstream_area in cells) and float64 (upstream_area in km2, accuflux),
    checked against the native sequential sweep; then the accumulate call
    and upstream_area are timed.
@@ -35,11 +35,24 @@ Run from the repository root:  python3 chip_smoke.py [--json PATH]
    and hand() (float64 sums), each against a sequential host sweep;
    accumulate_down of one float64 input twice (the same bits) and against
    the sweep; one int32 accumulate_down timed.
-5. Routed path: a 2048x2048 grid whose tiles each drain to a pit of their
+5. 1-D path: the 6000x6000 graph as a ``Flwdir`` of 36 M nodes, past 2^21
+   cells, so ``BigAccelPlan`` (G1 = 18, n_pad 37,748,736): H0-H3 at its
+   shapes, int32 and float64, against their plain versions; H0 and H1 at
+   2^28 slots against theirs; then upstream_area, accumulate and accuflux
+   against the tile plan's result and the native sweep, timed beside the
+   tile plan.
+6. Cut-graph path: hand() and fillnodata(direction="up") on the 6000x6000
+   grid cut at the drains above ``BIG_DRAIN_CELLS`` cells, whose tile plan
+   has a ``BigAccelPlan`` coarse level (slot mode); the same cut plan upward
+   (accumulate) and downward (accumulate_down), int32 bitwise and float64
+   within the stated bound of host sweeps over the cut graph, after a
+   kernel phase on the cut plan's own tables: T1-T4 and every H0-H3 call of
+   the slot-mode coarse level against their plain versions.
+7. Routed path: a 2048x2048 grid whose tiles each drain to a pit of their
    own, so the plan has no entry cells and accumulate_down is T3 in routed
    mode alone; kernel phase at its shapes, then stream_distance against the
    host sweep.
-6. Prints a JSON line of the kernels, the card, then
+8. Prints a JSON line of the kernels, the card, then
    {"ok": true, "device": ...}.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
@@ -114,13 +127,39 @@ _COARSE_DOWN = {
                       "r_win and r_aout with their selects in accumulate_down :533, "
                       "pallas_call :613/:635/:650/:664)",
 }
+# at BigAccelPlan's shapes (the 1-D path)
+_BIG = {
+    "permute_gather": "ops/router_big.py:178 (_fused_pass, pallas_call :183; bodies "
+                      "_f_kernels :111-175) as RouterPlanBig._chain_fused :330 runs it for "
+                      "r_out in BigAccelPlan.accumulate ops/accel_big.py:513",
+    "accel_in_scan": "ops/router_big.py:178 (_fused_pass, pallas_call :183) as "
+                     "RouterPlanBig._chain_fused :330 runs it for r_in, and "
+                     "BigAccelPlan._cumsum ops/accel_big.py:288",
+    "accel_near_out": "ops/router_big.py:56 (lane_gather_tiled, pallas_call :83) in "
+                      "BigAccelPlan._gather_pair ops/accel_big.py:322",
+    "accel_far_merge": "ops/router_big.py:56 (lane_gather_tiled, pallas_call :83) and "
+                       "ops/router_big.py:178 (_fused_pass for r_exp and r_far) in "
+                       "BigAccelPlan._far_values ops/accel_big.py:339",
+}
+# the downward solve of a BigAccelPlan coarse level (the cut-graph path)
+_BIG_DOWN = {
+    "accel_in_scan": "ops/router_big.py:178 (_fused_pass, pallas_call :183) as "
+                     "RouterPlanBig._chain_fused :330 runs it for r_win and r_es in "
+                     "BigAccelPlan.accumulate_down ops/accel_big.py:463, and its prefix and "
+                     "suffix sums (_cumsum :288)",
+    "permute_gather": "ops/router_big.py:178 (_fused_pass, pallas_call :183) as "
+                      "RouterPlanBig._chain_fused :330 runs it for r_dea, r_deb, r_win and "
+                      "r_aout in BigAccelPlan.accumulate_down ops/accel_big.py:463",
+}
 # calls of each wrapper in one coarse-level downward sweep
 _COARSE_DOWN_CALLS = {"accel_in_scan": 2, "permute_gather": 4}
 ROUTED_SHAPE = (2048, 2048)  # just above 2^21 cells; every tile closed
 # hand(): cells draining more than this many are drains. The cut graph has a
-# local root at every drain cell; at 10,000 or 30,000 cells its coarse level
-# passes the single-chunk router's size on the 6000x6000 grid
+# local root at every drain cell: at 100,000 cells its coarse level fits the
+# single-chunk router on the 6000x6000 grid, at BIG_DRAIN_CELLS it passes
+# that router's 1.87 M slots and is a BigAccelPlan
 DRAIN_CELLS = 100_000
+BIG_DRAIN_CELLS = 30_000
 _DT = {torch.int32: "int32", torch.float64: "float64"}
 
 
@@ -141,23 +180,40 @@ def _time_ms(fn, reps=50, warmup=5):
     return statistics.median(times)
 
 
-def _device_ms(fn, reps=20, tries=3):
-    """Device time of one call: the sum of its kernels' durations in a
-    torch.profiler trace (CUPTI), None when no trace of ``tries`` holds
-    device time (a trace sometimes comes back without its kernels)."""
+def _device_ms(fn, reps=20, warm=5, traces=2):
+    """Device time of one call, from ``traces`` torch.profiler traces (CUPTI)
+    of ``warm + reps`` calls each: every kernel's mean duration times its
+    launches per call. In a long process a trace often comes back short of
+    kernel records (one call's worth early on, half of them later, at times
+    every record of one kernel), so the sum of the durations over the calls
+    made reads low. The mean over the records that are there does not; the
+    launches per call round up from the fuller trace's records / calls,
+    right while fewer than calls / launches calls are lost; and a kernel
+    missing from one trace is found in the other. Prints a note where
+    records are missing. None when no trace holds device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
+    calls = warm + reps
+    total_us, records, most = {}, {}, {}
+    for _ in range(traces):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+            for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(e.self_device_time_total for e in prof.key_averages())
-        if total_us > 0:
-            return total_us / reps / 1e3
-    return None
+        for e in prof.key_averages():
+            if e.self_device_time_total > 0:
+                total_us[e.key] = total_us.get(e.key, 0.0) + e.self_device_time_total
+                records[e.key] = records.get(e.key, 0) + e.count
+                most[e.key] = max(most.get(e.key, 0), e.count)
+    if not records:
+        return None
+    short = [n for n in records.values() if n % (traces * calls)]
+    if short:
+        print(f"  note: traces short of kernel records ({short} over {traces * calls} calls); "
+              "mean durations used")
+    return sum(total_us[k] / records[k] * -(-most[k] // calls) for k in records) / 1e3
 
 
 def _bound_ms(n_bytes, n_ops, dtype):
@@ -190,6 +246,31 @@ def _close(got, want, length, total, what):
     _check(np.allclose(got, want, rtol=1e-12, atol=atol),
            f"{what} within rtol 1e-12, atol 2 L eps total = {atol:.3e} (L {length}; "
            f"max |err| {err:.3e} = {err / atol:.2e} of atol)")
+
+
+def _scan_len(n):
+    """Additions on the longest chain of H1's prefix sum over ``n`` slots: in
+    a tile of 2,048, 4 in a thread, two warp scans of 5 steps and the offsets
+    (16); over the tile totals, one thread's share (tiles / 1,024) walked
+    twice with a block scan between and the tile's offset added (16)."""
+    tiles = -(-n // 2048)
+    return 32 + 2 * -(-tiles // 1024)
+
+
+def _h2_bytes(n_pad, s):
+    """Least bytes of H2 over ``n_pad`` slots of ``s``-byte values: c read
+    once (c[k-1] and the near end c[k+d], d < 128, lie in lines read anyway),
+    the near end as a 1-byte offset, the result written."""
+    return (1 + 2 * s) * n_pad
+
+
+def _h3_bytes(n_out, n_off, n_far, s, passthrough):
+    """Least bytes of H3 over ``n_out`` outputs: a 1-byte flag per output
+    (near, far or off-tree), a 4-byte end and its c value per far one, out
+    per tree output, the input per off-tree output where it passes through,
+    the result written."""
+    return ((1 + s) * n_out + (4 + s) * n_far + s * (n_out - n_off)
+            + (s * n_off if passthrough else 0))
 
 
 def _measure(name, kern, plain, lib, n_bytes, n_ops, dtype, sums=None, reps=50):
@@ -230,14 +311,12 @@ def kernel_phase(plan, dev):
     n_cells = plan.n_cells
     # integer-valued data with a total below 2^24: the kernels' exact domain
     x = torch.as_tensor(rng.randint(0, 3, n_cells).astype(np.float32), device=dev)
-    sig_in = plan.sig_in_t
+    sig_in, near_end, src_perm, far_end = (plan._t[k] for k in plan._INDICES)
     c = kernels.accel_in_scan(x, sig_in)
-    outp = kernels.accel_near_out(c, plan.near_end_t)
-    out = kernels.permute_gather(outp, plan.r_out.sigma)
-    far_end = plan.far_end_t
+    outp = kernels.accel_near_out(c, near_end)
+    out = kernels.permute_gather(outp, src_perm)
     xpad = torch.zeros(plan.n_pad, dtype=torch.float32, device=dev)
     xpad[:n_cells] = x
-    src_perm = plan.r_out.sigma
 
     fe = far_end.cpu().numpy()
     n_far = int((fe >= 0).sum())
@@ -257,24 +336,21 @@ def kernel_phase(plan, dev):
             lambda: torch.cumsum(xpad[sig_in], 0), 4 * n + 4 * n_cells + 4 * n, n, f32),
         "accel_near_out": _measure(
             "accel_near_out",
-            lambda: kernels.accel_near_out(c, plan.near_end_t),
-            lambda: kernels.accel_near_out_plain(c, plan.near_end_t),
-            None, 12 * n, n, f32),
+            lambda: kernels.accel_near_out(c, near_end),
+            lambda: kernels.accel_near_out_plain(c, near_end),
+            None, _h2_bytes(n, 4), n, f32),
         "accel_far_merge": _measure(
             "accel_far_merge",
             lambda: kernels.accel_far_merge(out, x, c, far_end),
             lambda: kernels.accel_far_merge_plain(out, x, c, far_end),
-            None,
-            # far_end + result per cell, out per tree cell, x per off-tree
-            # cell, c per far cell
-            8 * n_cells + 4 * (n_cells - n_off) + 4 * n_off + 4 * n_far, n_far, f32),
+            None, _h3_bytes(n_cells, n_off, n_far, 4, True), n_far, f32),
     }
 
 
-def tile_kernel_phase(tp, dtype, dev):
+def tile_kernel_phase(tp, dtype, dev, tag=""):
     """T1, T2 and the coarse level's H0-H3 in ``dtype`` against their plain
-    versions on the tile path's shapes, with the inputs that path gives
-    them."""
+    versions on the shapes of the tile plan ``tp``, with the inputs its
+    upward sweep gives them; ``tag`` goes into the rows' names."""
     from pyflwdir_torch import kernels
 
     rng = np.random.RandomState(SEED)
@@ -289,7 +365,7 @@ def tile_kernel_phase(tp, dtype, dev):
     t = tp.idx_t
     NT, T, E = tp.NT, t["rin"].shape[1], tp.E_pad
     n_roots, n_ent = tp._coarse_meta["m"], tp._coarse_meta["D"]
-    sfx = f".{_DT[dtype]}"
+    sfx = f"{tag}.{_DT[dtype]}"
     # bounds count the least bytes each function needs, not the port's
     # int32 layout: slots and lanes of a tile fit 2-byte indices (T =
     # 16,384 < 2^15), a near end 1 byte (its offset from the slot, < 128,
@@ -326,24 +402,23 @@ def tile_kernel_phase(tp, dtype, dev):
         lambda: kernels.accel_in_scan(xe, co["src_in"]),
         lambda: kernels.accel_in_scan_plain(xe, co["src_in"]),
         lambda: torch.cumsum(xpad[co["src_in"]], 0),
-        4 * n_pad + s * n_read + s * n_pad, n_pad, dtype, (n_pad, total))
+        4 * n_pad + s * n_read + s * n_pad, n_pad, dtype, (2 * _scan_len(n_pad), total))
     rows["accel_near_out" + csfx] = _measure(
         "accel_near_out" + csfx,
         lambda: kernels.accel_near_out(cc, co["near_end"]),
         lambda: kernels.accel_near_out_plain(cc, co["near_end"]),
-        None, (4 + 2 * s) * n_pad, n_pad, dtype)
+        None, _h2_bytes(n_pad, s), n_pad, dtype)
     rows["permute_gather" + csfx] = _measure(
         "permute_gather" + csfx,
         lambda: kernels.permute_gather(outp, co["src_out"]),
         lambda: kernels.permute_gather_plain(outp, co["src_out"]),
-        lambda: outp[co["src_out"]], (4 + 2 * s) * n_out, 0, dtype)
+        # an index and a result per slot, a value per tree slot
+        lambda: outp[co["src_out"]], (4 + s) * n_out + s * (n_out - n_off), 0, dtype)
     rows["accel_far_merge" + csfx] = _measure(
         "accel_far_merge" + csfx,
         lambda: kernels.accel_far_merge(out, None, cc, co["far_end"]),
         lambda: kernels.accel_far_merge_plain(out, None, cc, co["far_end"]),
-        None,
-        # far_end + result per slot, out per tree slot, c per far slot
-        (4 + s) * n_out + s * (n_out - n_off) + s * n_far, n_far, dtype)
+        None, _h3_bytes(n_out, n_off, n_far, s, False), n_far, dtype)
 
     entv = tp.entry_grid(kernels.accel_far_merge(out, None, cc, co["far_end"]))
     n_off = int((kernels._untile(t["rout"], tp.shape) < 0).sum())
@@ -407,18 +482,19 @@ def tile_down_a_rows(tp, dtype, dev, modes, tag=""):
     return rows, x, raw
 
 
-def tile_down_kernel_phase(tp, dtype, dev):
+def tile_down_kernel_phase(tp, dtype, dev, tag=""):
     """T3 (both modes), the coarse level's downward H1 and H0 calls and T4
-    in ``dtype`` against their plain versions on the tile path's shapes,
-    each with the inputs the downward sweep gives it."""
+    in ``dtype`` against their plain versions on the shapes of the tile plan
+    ``tp``, each with the inputs the downward sweep gives it; ``tag`` goes
+    into the rows' names."""
     from pyflwdir_torch import kernels
 
-    rows, x, (z1, pk) = tile_down_a_rows(tp, dtype, dev, ("raw", "routed"))
+    rows, x, (z1, pk) = tile_down_a_rows(tp, dtype, dev, ("raw", "routed"), tag)
     s = x.element_size()
     n = x.numel()
     t, d = tp.idx_t, tp.down_idx_t
     NT, T = tp.NT, t["rin"].shape[1]
-    sfx = f".{_DT[dtype]}"
+    sfx = f"{tag}.{_DT[dtype]}"
 
     # the coarse level on T3's packed entry values
     cd = tp.coarse._down_t
@@ -440,7 +516,7 @@ def tile_down_kernel_phase(tp, dtype, dev):
             lambda: kernels.accel_in_scan_plain(v, idx),
             lambda: torch.cumsum(xpad[idx] if v is pkf else v[idx], 0),
             4 * idx.numel() + s * n_read + s * idx.numel(), idx.numel(), dtype,
-            (n_c, total))
+            (2 * _scan_len(n_c), total))
 
     def gather_row(name, v, idx):
         n_read = int((idx >= 0).sum())
@@ -478,9 +554,11 @@ def _rows(rows, counts, path, dtype):
         if kern in _KERNELS:
             tag, src, replaces = _KERNELS[kern]
             if ".coarse_down" in key:
-                replaces = _COARSE_DOWN[kern]
+                replaces = (_BIG_DOWN if ".cut" in key else _COARSE_DOWN)[kern]
             elif ".coarse" in key:
-                replaces = _COARSE[kern]
+                replaces = (_BIG if ".cut" in key else _COARSE)[kern]
+            elif ".big" in key:
+                replaces = _BIG[kern]
         else:
             tag, replaces = {**_TILE_KERNELS, **_DOWN_KERNELS}[kern]
             if isinstance(replaces, dict):
@@ -654,10 +732,9 @@ def tile_path(dev):
            "mass conservation: pit sums equal the valid count")
     _check(bool((~mask).any()) and bool(np.all(upa[~mask] == -9999)),
            "-9999 outside the mask")
-    # a value sums a tile's prefix (T slots), the coarse level's prefix
-    # (n_pad slots) and its tile's entry scan (E_pad), in another order
-    # than the sweep
-    length = 128 * 128 + co.n_pad + tp.E_pad
+    # a value sums a tile's prefix (T slots), the coarse level's prefix and
+    # its tile's entry scan (E_pad), in another order than the sweep
+    length = 128 * 128 + 2 * _scan_len(co.n_pad) + tp.E_pad
     area = np.asarray(fl.area).ravel() / 1e6
     want = runtime.accuflux_sweep(fl.idxs_ds, seq, area).reshape(TILE_SHAPE)
     _check(upa_km2.dtype == acc.dtype == np.float64, "km2 area and accuflux float64")
@@ -669,7 +746,7 @@ def tile_path(dev):
 
     ones = torch.ones(fl.size, dtype=torch.int32, device=dev)
     acc_ms = _time_ms(lambda: fl._accumulate_dev(ones), reps=20, warmup=3)
-    acc_dev_ms = _device_ms(lambda: fl._accumulate_dev(ones), reps=5)
+    acc_dev_ms = _device_ms(lambda: fl._accumulate_dev(ones))
     up_ms = _host_ms(fl.upstream_area, 5)
     print(f"  accumulate: median {acc_ms:.4f} ms per call, "
           f"{fl.size / acc_ms / 1e3:.1f} Mgp/s; device busy {acc_dev_ms} ms of it; "
@@ -677,11 +754,14 @@ def tile_path(dev):
     out = _rows(rows[torch.int32], counts_int, "tile 6000x6000", "int32")
     out += _rows(rows[torch.float64], counts_f64, "tile 6000x6000", "float64")
     down_rows, down = tile_down_path(fl, tp, elev, upa, seq, dev)
-    return out + down_rows, dict(down=down, accumulate_ms=acc_ms, accumulate_device_ms=acc_dev_ms,
-                     upstream_area_ms=up_ms, main_path_int32_s=t_int,
-                     main_path_float64_s=t_f64, fill_s=t_fill, parse_s=t_parse,
-                     tile_plan_s=t_plan, tile_plan_steps_s=tp.build_seconds,
-                     NT=tp.NT, R_pad=tp.R_pad, E_pad=tp.E_pad, coarse_n_pad=co.n_pad)
+    big_rows, big = big_path(fl, upa, seq, dict(ms=acc_ms, device_ms=acc_dev_ms), dev)
+    cut_rows, cut = cut_path(fl, elev, upa, dev)
+    return out + down_rows + big_rows + cut_rows, dict(
+        down=down, big=big, cut=cut, accumulate_ms=acc_ms,
+        accumulate_device_ms=acc_dev_ms, upstream_area_ms=up_ms, main_path_int32_s=t_int,
+        main_path_float64_s=t_f64, fill_s=t_fill, parse_s=t_parse, tile_plan_s=t_plan,
+        tile_plan_steps_s=tp.build_seconds, NT=tp.NT, R_pad=tp.R_pad, E_pad=tp.E_pad,
+        coarse_n_pad=co.n_pad)
 
 
 class _PlanBuilds:
@@ -690,13 +770,14 @@ class _PlanBuilds:
     def __enter__(self):
         from pyflwdir_torch.ops import tile_plan
 
-        self.seconds = []
+        self.seconds, self.plans = [], []
         self._mod, self._real = tile_plan, tile_plan.build_tile_plan
 
         def timed(*args, **kwargs):
             t0 = time.perf_counter()
             tp = self._real(*args, **kwargs)
             self.seconds.append(time.perf_counter() - t0)
+            self.plans.append(tp)
             return tp
 
         tile_plan.build_tile_plan = timed
@@ -772,7 +853,7 @@ def tile_down_path(fl, tp, elev, upa, seq, dev):
     want = runtime.downward_sweep(ids, seq, w32)
     # float64 sums of float32 steps, rounded to float32 at the end (6e-8);
     # the sums run over two tile scans and two coarse scans in another order
-    length = 2 * (128 * 128 + n_c)
+    length = 2 * (128 * 128 + 2 * _scan_len(n_c))
     atol = 2 * length * _EPS * float(w32.sum(dtype=np.float64))
     err = float(np.abs(dist_m.ravel()[mask] - want[mask]).max())
     _check(dist_m.dtype == np.float32 and np.allclose(dist_m.ravel()[mask], want[mask],
@@ -789,17 +870,7 @@ def tile_down_path(fl, tp, elev, upa, seq, dev):
            f"({fl.idxs_pit.size} basins), 0 outside the mask")
     _check(np.array_equal(flat[mask], flat[ids[mask]]) and bool((flat[mask] > 0).all()),
            "basins() constant along every flow path")
-    z32 = np.asarray(elev, np.float32).ravel()
-    dr = drain.ravel() & mask
-    ids2 = np.where(dr, ar, ids)
-    root = (ids2 == ar) & mask
-    zroot = runtime.downward_sweep(ids2, runtime.dfs_preorder(ids2)[0],
-                                   np.where(root, z32, 0)).astype(np.float32)
-    want = np.where(dr, 0.0, np.where(mask, (z32 - zroot).astype(np.float64), -9999.0))
-    _check(hnd.dtype == np.float64 and np.array_equal(hnd.ravel(), want),
-           f"hand() bitwise equal to the host oracle ({int(dr.sum())} drain cells above "
-           f"{DRAIN_CELLS} cells of upstream area; one float32 subtraction per cell)")
-    _check(bool((hnd.ravel()[mask] >= 0).all()), "hand() of the filled DEM is never negative")
+    _check_hand(fl, hnd, elev, drain, DRAIN_CELLS)
 
     fdata = np.random.RandomState(SEED + 3).rand(fl.size)
     xd = torch.as_tensor(fdata, device=dev)
@@ -813,7 +884,7 @@ def tile_down_path(fl, tp, elev, upa, seq, dev):
 
     ones = torch.ones(fl.size, dtype=torch.int32, device=dev)
     acc_ms = _time_ms(lambda: tp.accumulate_down(ones), reps=20, warmup=3)
-    acc_dev_ms = _device_ms(lambda: tp.accumulate_down(ones), reps=5)
+    acc_dev_ms = _device_ms(lambda: tp.accumulate_down(ones))
     sd_ms = _host_ms(fl.stream_distance, 3)
     print(f"  accumulate_down: median {acc_ms:.4f} ms per call, "
           f"{fl.size / acc_ms / 1e3:.1f} Mgp/s; device busy {acc_dev_ms} ms of it; "
@@ -825,6 +896,330 @@ def tile_down_path(fl, tp, elev, upa, seq, dev):
                      main_path_float64_s=t_f64, down_indices_s=t_down,
                      down_indices_steps_s=tp.down_build_seconds,
                      cut_plan_s=builds.seconds, coarse_n_down=n_c)
+
+
+def _check_hand(fl, hnd, elev, drain, drain_cells, cut=None):
+    """hand() against a host sweep over the graph cut at the drains; ``cut``
+    holds that graph and its cells, downstream first, where the caller has
+    them."""
+    from pyflwdir_torch import runtime
+
+    mask, ar = fl.mask, np.arange(fl.size, dtype=np.int64)
+    dr = drain.ravel() & mask
+    ids2, seq2 = cut if cut is not None else (np.where(dr, ar, fl.idxs_ds), None)
+    if seq2 is None:
+        seq2 = runtime.dfs_preorder(ids2)[0]
+    z32 = np.asarray(elev, np.float32).ravel()
+    root = (ids2 == ar) & mask
+    zroot = runtime.downward_sweep(ids2, seq2, np.where(root, z32, 0)).astype(np.float32)
+    want = np.where(dr, 0.0, np.where(mask, (z32 - zroot).astype(np.float64), -9999.0))
+    _check(hnd.dtype == np.float64 and np.array_equal(hnd.ravel(), want),
+           f"hand() bitwise equal to the host oracle ({int(dr.sum())} drain cells above "
+           f"{drain_cells} cells of upstream area; one float32 subtraction per cell)")
+    _check(bool((hnd.ravel()[mask] >= 0).all()), "hand() of the filled DEM is never negative")
+
+
+def big_kernel_phase(plan, dtype, dev):
+    """H0-H3 in ``dtype`` against their plain versions at the 1-D
+    BigAccelPlan's shapes, on its own indices: H1 gathers cells into
+    preorder (``src_in``), H0 preorder back to cells (``src_out``); H0 is
+    also held and timed on H1's gather (``big_in``)."""
+    from pyflwdir_torch import kernels
+
+    rng = np.random.RandomState(SEED + 4)
+    n_cells, n_pad = plan.n_cells, plan.n_pad
+    if dtype == torch.float64:
+        x = torch.as_tensor(rng.rand(n_cells), device=dev)
+    else:
+        x = torch.as_tensor(rng.randint(0, 3, n_cells).astype(np.int32), device=dev)
+    total = float(x.double().sum())
+    s = x.element_size()
+    t = plan._t
+    n_read = int((t["src_in"] < n_cells).sum())
+    n_far, n_off = int((t["far_end"] >= 0).sum()), int((t["far_end"] == -2).sum())
+    c = kernels.accel_in_scan(x, t["src_in"])
+    outp = kernels.accel_near_out(c, t["near_end"])
+    out = kernels.permute_gather(outp, t["src_out"])
+    xpad = torch.zeros(n_pad + 1, dtype=dtype, device=dev)
+    xpad[:n_cells] = x
+    sfx = f".big.{_DT[dtype]}"
+    return {
+        "accel_in_scan" + sfx: _measure(
+            "accel_in_scan" + sfx,
+            lambda: kernels.accel_in_scan(x, t["src_in"]),
+            lambda: kernels.accel_in_scan_plain(x, t["src_in"]),
+            lambda: torch.cumsum(xpad[t["src_in"]], 0),
+            4 * n_pad + s * n_read + s * n_pad, n_pad, dtype, (2 * _scan_len(n_pad), total),
+            reps=20),
+        "accel_near_out" + sfx: _measure(
+            "accel_near_out" + sfx,
+            lambda: kernels.accel_near_out(c, t["near_end"]),
+            lambda: kernels.accel_near_out_plain(c, t["near_end"]),
+            None, _h2_bytes(n_pad, s), n_pad, dtype, reps=20),
+        "permute_gather" + sfx: _measure(
+            "permute_gather" + sfx,
+            lambda: kernels.permute_gather(outp, t["src_out"]),
+            lambda: kernels.permute_gather_plain(outp, t["src_out"]),
+            # an index and a result per cell, a value per tree cell
+            lambda: outp[t["src_out"]], (4 + s) * n_cells + s * (n_cells - n_off), 0, dtype,
+            reps=20),
+        # the gather H1 makes, alone: cells into preorder through H0
+        "permute_gather.big_in" + sfx[4:]: _measure(
+            "permute_gather.big_in" + sfx[4:],
+            lambda: kernels.permute_gather(xpad, t["src_in"]),
+            lambda: kernels.permute_gather_plain(xpad, t["src_in"]),
+            lambda: xpad[t["src_in"]], 4 * n_pad + s * n_read + s * n_pad, 0, dtype, reps=20),
+        "accel_far_merge" + sfx: _measure(
+            "accel_far_merge" + sfx,
+            lambda: kernels.accel_far_merge(out, x, c, t["far_end"]),
+            lambda: kernels.accel_far_merge_plain(out, x, c, t["far_end"]),
+            None, _h3_bytes(n_cells, n_off, n_far, s, True), n_far, dtype, reps=20),
+    }
+
+
+def cap_check(dev):
+    """H0 and H1 at 2^28 slots (the big router's capacity) in int32, on a
+    permutation made on the card, against their plain versions."""
+    from pyflwdir_torch import kernels
+
+    n = 1 << 28
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    src = torch.randperm(n, device=dev, generator=gen).to(torch.int32)
+    x = torch.randint(0, 3, (n - 1000,), dtype=torch.int32, device=dev, generator=gen)
+    got = kernels.accel_in_scan(x, src)
+    torch.cuda.synchronize()
+    _check(torch.equal(got, kernels.accel_in_scan_plain(x, src)),
+           "accel_in_scan at 2^28 slots (131,072 tiles) bitwise equal to its plain version")
+    h1_ms = _time_ms(lambda: kernels.accel_in_scan(x, src), reps=3, warmup=1)
+    out = kernels.permute_gather(got, src)
+    torch.cuda.synchronize()
+    _check(torch.equal(out, kernels.permute_gather_plain(got, src)),
+           "permute_gather at 2^28 elements bitwise equal to its plain version")
+    h0_ms = _time_ms(lambda: kernels.permute_gather(got, src), reps=3, warmup=1)
+    print(f"  at 2^28 slots, a uniform random permutation: accel_in_scan {h1_ms:.3f} ms, "
+          f"permute_gather {h0_ms:.3f} ms per call")
+    del src, x, got, out
+    torch.cuda.empty_cache()
+    return dict(accel_in_scan_ms=h1_ms, permute_gather_ms=h0_ms)
+
+
+def big_path(fl_r, upa, seq, tile_acc, dev):
+    """The 6000x6000 graph as a 1-D ``Flwdir``, through BigAccelPlan; returns
+    its kernel rows and timings. ``fl_r`` is the raster object, ``upa`` its
+    upstream area in cells by the tile plan, ``seq`` its cells with
+    downstream ones first, ``tile_acc`` the tile plan's accumulate times."""
+    import pyflwdir_torch
+    from pyflwdir_torch import kernels, runtime
+
+    print("1-D path (the 6000x6000 graph as a Flwdir):")
+    n = fl_r.size
+    mask, ids = fl_r.mask, fl_r.idxs_ds
+    fl = pyflwdir_torch.Flwdir(ids, idxs_pit=fl_r.idxs_pit)
+    t0 = time.perf_counter()
+    dfs = fl._plan
+    t_dfs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan = fl._accel()
+    t_plan = time.perf_counter() - t0
+    print(f"  setup: DFS plan {t_dfs:.2f} s, router plan {t_plan:.2f} s; {n} nodes, "
+          f"{dfs.n_tree} on the tree; {type(plan).__name__} n_pad {plan.n_pad}, G1 {plan.G1}, "
+          f"far intervals {int((plan.far_end >= 0).sum())}")
+    _check(type(plan).__name__ == "BigAccelPlan" and plan.G1 == 18
+           and plan.n_pad == 18 << 21 and not plan.slot_mode and plan.has_far,
+           "the 1-D path takes a BigAccelPlan of G1 = 18, with far intervals")
+
+    rows = {}
+    for dtype in (torch.int32, torch.float64):
+        print(f" kernel phase ({_DT[dtype]}):")
+        rows[dtype] = big_kernel_phase(plan, dtype, dev)
+    print(" capacity check:")
+    cap = cap_check(dev)
+
+    print(" main path:")
+    fdata = np.random.RandomState(SEED + 1).rand(n)
+    ones = torch.ones(n, dtype=torch.int32, device=dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    a32 = fl._accumulate_dev(ones).cpu().numpy()
+    torch.cuda.synchronize()
+    t_int = time.perf_counter() - t0
+    counts_int = dict(kernels.launches)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    up1 = fl.upstream_area()
+    acc = fl.accuflux(fdata)
+    torch.cuda.synchronize()
+    t_f64 = time.perf_counter() - t0
+    counts_f64 = dict(kernels.launches)
+    print(f"  int32 accumulate {t_int:.3f} s; launches {counts_int}")
+    print(f"  upstream_area() + accuflux(float64) {t_f64:.3f} s; launches {counts_f64}")
+    for counts, calls, what in ((counts_int, 1, "int32"), (counts_f64, 2, "float64")):
+        _check(all(counts[k] == (calls if k in _KERNELS else 0) for k in counts),
+               f"{calls} accumulation(s) ({what}) launched H1, H2, H0 and H3 once each, and "
+               "no tile kernel")
+
+    t0 = time.perf_counter()
+    oracle = runtime.accuflux_sweep(ids, seq, np.ones(n))
+    _check(a32.dtype == np.int32 and np.array_equal(a32[mask], upa.ravel()[mask]),
+           "accumulate(int32 ones) bitwise equal to the tile plan's upstream area")
+    _check(np.array_equal(a32[mask], oracle[mask].astype(np.int32)),
+           "accumulate(int32 ones) bitwise equal to the native sequential sweep")
+    _check(int(a32[fl.idxs_pit].sum()) == int(mask.sum()),
+           "mass conservation: pit sums equal the valid count")
+    # unit areas are float32: summed in float64, rounded once at the end
+    _check(np.array_equal(up1[mask], oracle[mask].astype(np.float32))
+           and bool(np.all(up1[~mask] == -9999)),
+           "upstream_area() (float32 unit areas) bitwise equal to the sweep rounded to "
+           "float32, -9999 outside the mask")
+    want = runtime.accuflux_sweep(ids, seq, fdata)
+    # one prefix sum over n_pad slots, in another order than the sweep
+    _close(acc, want, 2 * _scan_len(plan.n_pad), float(fdata.sum()),
+           "accuflux(float64) of the native sweep")
+    print(f"  checks {time.perf_counter() - t0:.2f} s")
+
+    xd = torch.as_tensor(fdata, device=dev)
+    out = {}
+    for name, data in (("int32", ones), ("float64", xd)):
+        ms = _time_ms(lambda: fl._accumulate_dev(data), reps=20, warmup=3)
+        dev_ms = _device_ms(lambda: fl._accumulate_dev(data))
+        out[name] = dict(ms=ms, device_ms=dev_ms)
+        print(f"  accumulate ({name}): median {ms:.4f} ms per call, {n / ms / 1e3:.1f} Mgp/s; "
+              f"device busy {dev_ms} ms of it")
+    print(f"  the tile plan on the same graph (int32): {tile_acc['ms']:.4f} ms per call, "
+          f"device busy {tile_acc['device_ms']} ms")
+    krows = _rows(rows[torch.int32], counts_int, "1-D 6000x6000 graph", "int32")
+    krows += _rows(rows[torch.float64], counts_f64, "1-D 6000x6000 graph", "float64")
+    return krows, dict(accumulate=out, dfs_plan_s=t_dfs, router_plan_s=t_plan, n_pad=plan.n_pad,
+                       G1=plan.G1, main_path_int32_s=t_int, main_path_float64_s=t_f64,
+                       cap_2_28=cap)
+
+
+def cut_path(fl, elev, upa, dev):
+    """The 6000x6000 grid cut at the drains above ``BIG_DRAIN_CELLS`` cells:
+    a tile plan whose coarse level is a BigAccelPlan in slot mode. Kernel
+    phase on that plan's tables, then hand(), fillnodata(direction="up") and
+    the cut plan's own two sweeps against host sweeps over the cut graph.
+    Returns its kernel rows and timings."""
+    from pyflwdir_torch import kernels, runtime
+
+    print(f" cut-graph path (drains above {BIG_DRAIN_CELLS} cells):")
+    n = fl.size
+    mask, ids = fl.mask, fl.idxs_ds
+    drain = upa > BIG_DRAIN_CELLS
+    dr = drain.ravel() & mask
+    label = np.where(dr, upa.ravel(), -1).astype(np.int32)  # nodata -1 off the drains
+    ones = torch.ones(n, dtype=torch.int32, device=dev)
+    fdata = np.random.RandomState(SEED + 5).rand(n)
+    xd = torch.as_tensor(fdata, device=dev)
+    with _PlanBuilds() as builds:
+        tp = fl._tp_down(cut=drain.ravel())
+        tp._ensure_down()
+        co = tp.coarse
+        print(f"  cut plan: R_pad {tp.R_pad}, E_pad {tp.E_pad}, {tp._coarse_meta['m']} roots + "
+              f"{tp._coarse_meta['D']} entry nodes; coarse {type(co).__name__} n_pad "
+              f"{getattr(co, 'n_pad', None)}, G1 {getattr(co, 'G1', None)}, n_in "
+              f"{getattr(co, 'n_in', None)}, n_out {getattr(co, 'n_out', None)}")
+        _check(type(co).__name__ == "BigAccelPlan" and co.slot_mode,
+               "the cut plan's coarse level is a BigAccelPlan (slot mode)")
+
+        rows_up, rows_dn = {}, {}
+        for dtype in (torch.int32, torch.float64):
+            print(f" kernel phase, cut plan ({_DT[dtype]}):")
+            rows_up[dtype] = tile_kernel_phase(tp, dtype, dev, ".cut")
+            rows_dn[dtype] = tile_down_kernel_phase(tp, dtype, dev, ".cut")
+
+        print(" main path, cut graph:")
+        counts = {}
+
+        def counted(name, fn, *args):
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts[name] = dict(kernels.launches)
+            print(f"  {name} {secs:.3f} s; launches {counts[name]}")
+            return out, secs
+
+        hnd, t_hand = counted("hand()", fl.hand, drain, elev)
+        filled, t_fill = counted("fillnodata(direction='up')", fl.fillnodata,
+                                 label.reshape(fl.shape), -1, "up")
+        up32 = counted("cut plan accumulate(int32)", tp.accumulate, ones)[0]
+        upf = counted("cut plan accumulate(float64)", tp.accumulate, xd)[0]
+        dnf = counted("cut plan accumulate_down(float64)", tp.accumulate_down, xd)[0]
+    c_hand, c_fill, c_up32, c_upf, c_dnf = counts.values()
+    print("  cut-graph tile plans (this path's own, hand, fillnodata): "
+          + ", ".join(f"{v:.2f} s" for v in builds.seconds))
+    _check(len(builds.plans) == 3
+           and all(type(p.coarse).__name__ == "BigAccelPlan" and p.coarse.slot_mode
+                   for p in builds.plans),
+           "hand(), fillnodata() and the cut plan each took a BigAccelPlan coarse level "
+           "(slot mode)")
+    # each downward sweep: T3 once, the coarse level's 2 H1 and 4 H0 calls, T4 once
+    down = {"tile_down_a": 1, "accel_in_scan": 2, "permute_gather": 4, "tile_down_fin": 1}
+    for c, sweeps, what in ((c_hand, 1, "hand()"), (c_fill, 2, "fillnodata()"),
+                            (c_dnf, 1, "accumulate_down(float64)")):
+        _check(all(c[k] == sweeps * down.get(k, 0) for k in c),
+               f"{what}: {sweeps} downward sweep(s) launched T3, H1 x2, H0 x4 and T4 each")
+    up = {"tile_pass_a": 1, "tile_pass_c": 1, **{k: 1 for k in _KERNELS}}
+    for c, what in ((c_up32, "int32"), (c_upf, "float64")):
+        _check(all(c[k] == up.get(k, 0) for k in c),
+               f"the upward sweep ({what}) launched T1, H1, H2, H0, H3 and T2 once each")
+    _check(torch.equal(upf, tp.accumulate(xd)) and torch.equal(dnf, tp.accumulate_down(xd)),
+           "accumulate and accumulate_down (float64) give the same bits from run to run")
+
+    t0 = time.perf_counter()
+    ar = np.arange(n, dtype=np.int64)
+    ids2 = np.where(dr, ar, ids)
+    seq2 = runtime.dfs_preorder(ids2)[0]
+    _check_hand(fl, hnd, elev, drain, BIG_DRAIN_CELLS, cut=(ids2, seq2))
+    # the first drain cell downstream hands its label on; cells with none keep -1
+    a = runtime.downward_sweep(ids2, seq2, np.where(dr, label, 0))
+    ok = runtime.downward_sweep(ids2, seq2, dr.astype(np.float64)) > 0
+    want = np.where(mask & ~dr & ok, a, label).astype(np.int32)
+    _check(filled.dtype == np.int32 and np.array_equal(filled.ravel(), want)
+           and int((want != -1).sum()) > int(dr.sum()),
+           f"fillnodata(direction='up') int32 bitwise equal to the host oracle "
+           f"({int((want != -1).sum()) - int(dr.sum())} cells filled)")
+    want = runtime.accuflux_sweep(ids2, seq2, np.ones(n))
+    _check(np.array_equal(up32.cpu().numpy()[mask], want[mask].astype(np.int32)),
+           "cut plan accumulate(int32 ones) bitwise equal to the native sweep of the cut graph")
+    length = 128 * 128 + 2 * _scan_len(co.n_pad) + tp.E_pad
+    total = float(fdata[mask].sum())
+    _close(upf.cpu().numpy(), runtime.accuflux_sweep(ids2, seq2, fdata), length, total,
+           "cut plan accumulate(float64) of the native sweep")
+    _close(dnf.cpu().numpy(), runtime.downward_sweep(ids2, seq2, fdata), 2 * length, total,
+           "cut plan accumulate_down(float64) of the native downward sweep")
+    print(f"  checks {time.perf_counter() - t0:.2f} s")
+
+    out = {}
+    for name, fn in (("accumulate", tp.accumulate), ("accumulate_down", tp.accumulate_down)):
+        ms = _time_ms(lambda: fn(ones), reps=20, warmup=3)
+        dev_ms = _device_ms(lambda: fn(ones))
+        out[name] = dict(ms=ms, device_ms=dev_ms)
+        print(f"  cut plan {name} (int32): median {ms:.4f} ms per call, "
+              f"{n / ms / 1e3:.1f} Mgp/s; device busy {dev_ms} ms of it")
+    for name, fn, arg in (("coarse accumulate", co.accumulate, tp.n_exit_flat),
+                          ("coarse accumulate_down", co.accumulate_down, tp.NT * tp.E_pad)):
+        x = torch.ones(arg, dtype=torch.int32, device=dev)
+        ms = _time_ms(lambda: fn(x), reps=50)
+        dev_ms = _device_ms(lambda: fn(x))
+        out[name] = dict(ms=ms, device_ms=dev_ms)
+        print(f"  {name} alone (int32, {arg} slots in): median {ms:.4f} ms per call, "
+              f"device busy {dev_ms} ms")
+    # launches: the upward rows from the cut plan's own sweep in their type,
+    # the downward rows from fillnodata's two int32 sweeps, and from hand()'s
+    # and the cut plan's float64 sweeps
+    c_dn64 = {k: c_hand[k] + c_dnf[k] for k in c_hand}
+    path = "cut 6000x6000"
+    krows = _rows(rows_up[torch.int32], c_up32, path, "int32")
+    krows += _rows(rows_up[torch.float64], c_upf, path, "float64")
+    krows += _rows(rows_dn[torch.int32], c_fill, path + " down", "int32")
+    krows += _rows(rows_dn[torch.float64], c_dn64, path + " down", "float64")
+    return krows, dict(out, hand_s=t_hand, fillnodata_s=t_fill, cut_plan_s=builds.seconds,
+                       R_pad=tp.R_pad, E_pad=tp.E_pad, roots=tp._coarse_meta["m"],
+                       entry_nodes=tp._coarse_meta["D"], coarse_n_pad=co.n_pad, G1=co.G1,
+                       n_in=co.n_in, n_out=co.n_out, drain_cells=int(dr.sum()))
 
 
 def routed_path(dev):

@@ -3,9 +3,10 @@
 A port of the JAX package in this repository, slice by slice. Ported so far:
 D8/LDD/NEXTXY codecs, the host depression fill, the DFS plan, the
 single-chunk router accumulation (``ops.accel.AccelPlan``, hand-written CUDA
-kernels in ``csrc/accel_kernels.cu``), the hierarchical tile plan upward and
-downward (``ops.tile_plan.TilePlan``, ``csrc/tile_kernels.cu``) and the
-pointer-doubling graph primitives, behind ``from_array`` ->
+kernels in ``csrc/accel_kernels.cu``) and the large-graph one on the same
+kernels (``ops.accel_big.BigAccelPlan``, up to 2^28 slots), the hierarchical
+tile plan upward and downward (``ops.tile_plan.TilePlan``,
+``csrc/tile_kernels.cu``) and the pointer-doubling graph primitives, behind ``from_array`` ->
 ``FlwdirRaster.upstream_area`` / ``accuflux`` / ``rank`` / ``basins`` /
 ``stream_distance`` / ``hand`` / ``fillnodata(direction="up")``.
 

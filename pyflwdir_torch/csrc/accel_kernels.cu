@@ -1,5 +1,6 @@
-// Hopper (sm_90a) kernels of the single-chunk router accumulation, also
-// used by the tile plan's coarse level.
+// Hopper (sm_90a) kernels of the router accumulation: the single-chunk plan
+// (up to 2^21 slots), the large-graph plan (BigAccelPlan, up to 2^28 slots)
+// and the tile plan's coarse level on either.
 //
 // Built by pyflwdir_torch/kernels.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -14,9 +15,20 @@
 // Hopper a permutation is one int32 gather, so the plan composes every chain
 // into a single index at load time and these kernels read it directly.
 //
+// The JAX package's 7-stage chain of ops/router_big.py (_fused_pass: five
+// fused Pallas passes of lane gathers and 128 x 128 rotations) is the same
+// function at up to 2^28 elements and takes the same kernel, H0, with the
+// chain composed into one int32 index.
+//
 // All four kernels move a few bytes per element and do one or two adds on
 // them: they are bound by device-memory bytes (3.35 TB/s on an H100 SXM),
-// and at the Rhine-size plan (688,128 slots) by launch latency.
+// and at the Rhine-size plan (688,128 slots) by launch latency. Past the
+// 50 MB L2 (tens of millions of slots) a scattered 4- or 8-byte read
+// fetches a whole 32-byte sector from device memory.
+//
+// Sizes: element counts and loop indices are 64-bit; an index holds a
+// position below 2^31 (int32), so every array a kernel indexes has fewer
+// than 2^31 elements.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -27,7 +39,7 @@ constexpr int kThreads = 256;
 
 inline int grid_for(int64_t n, int threads) {
   int64_t blocks = (n + threads - 1) / threads;
-  if (blocks > 65535) blocks = 65535;  // grid-stride loops cover the rest
+  if (blocks > 65535) blocks = 65535;  // 16.7 M threads; grid-stride loops cover the rest
   return blocks < 1 ? 1 : static_cast<int>(blocks);
 }
 
@@ -71,7 +83,9 @@ int by_dtype(int dt, F&& f) {
 // ---------------------------------------------------------------------------
 // H0 permute_gather: out[p] = src[p] >= 0 ? x[src[p]] : 0.
 // Replaces ops/router.py::_ta (lane gather) and RouterPlan.apply (the
-// L-S-G-S-L chain) of the JAX package, and on the tile plan's coarse level
+// L-S-G-S-L chain) of the JAX package, ops/router_big.py::_fused_pass as
+// RouterPlanBig._chain_fused runs it (the 7-stage chain; in BigAccelPlan
+// r_out, and downward r_win, r_dea, r_deb, r_aout), and on the tile plan's coarse level
 // ops/tile_plan.py::_CoarseRouterSmall._route for r_out and, downward, for
 // r_win, r_dea, r_deb and r_aout with the mask selects after them (a masked
 // slot holds -1). Bound: 4 bytes of index + 2 * sizeof(T) per element. Design: one thread per element with a
@@ -101,7 +115,9 @@ __global__ void permute_gather_kernel(const T* __restrict__ x,
 // Design: three launches of a plain reduce-then-scan. A block of 512 threads
 // scans a tile of 2048 slots (4 per thread, registers + warp shuffles) and
 // writes its total; one block scans the totals; a third pass adds each
-// tile's offset. Summation order differs from the TPU and the CPU: integer
+// tile's offset. The grid's x dimension takes up to 2^31 - 1 tiles, and the
+// one block of the second pass walks them all (131,072 totals at 2^28
+// slots, 128 per thread). Summation order differs from the TPU and the CPU: integer
 // types are exact (barring overflow); float32 is exact only for
 // integer-valued data whose running total stays below 2^24, the contract
 // AccelPlan.accumulate keeps; float64 agrees within the rounding of the sums.
@@ -285,7 +301,7 @@ int pf_permute_gather(int dt, const void* x, const int32_t* src, void* out,
 int pf_accel_in_scan(int dt, const void* x, int64_t n_x, const int32_t* src,
                      void* c, int64_t n, void* tile_sums, int64_t n_tiles,
                      void* stream) {
-  if (n_tiles != (n + kScanTile - 1) / kScanTile || n_tiles > 65535) {
+  if (n_tiles != (n + kScanTile - 1) / kScanTile || n >= (int64_t{1} << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0) return static_cast<int>(cudaGetLastError());

@@ -75,7 +75,8 @@ class Flwdir:
         return self._cached["plan"]
 
     def _accel(self):
-        """Cached single-chunk router plan (ops.accel.AccelPlan)."""
+        """Cached router plan (ops.accel.build_accel_plan): the single-chunk
+        ``AccelPlan``, the large-graph ``BigAccelPlan``, or None past both."""
         if "accel" not in self._cached:
             from .ops.accel import build_accel_plan
 
@@ -86,23 +87,27 @@ class Flwdir:
 
     def _accumulate_dev(self, data):
         """Flow accumulation of a device tensor, dispatched as the JAX
-        package does: integer data whose total may reach 2^24 takes the
-        exact int64 DFS plan; other integer data the float32 router plan
-        (kernels H0-H3); float data the float64 DFS plan."""
+        package does: on a graph that fits the single-chunk ``AccelPlan``
+        (float32 sums, kernels H0-H3), integer data whose total may reach
+        2^24 takes the exact int64 DFS plan, other integer data the router
+        plan and float data the float64 DFS plan; a ``BigAccelPlan`` takes
+        integer and float data alike (int32, int64 or float64 sums); with no
+        router plan, the DFS plan."""
+        from .ops.accel_big import BigAccelPlan
+        from .ops.plan import accumulate_planned, accumulate_planned_fast
+
         aplan = self._accel()
+        if isinstance(aplan, BigAccelPlan):
+            return aplan.accumulate(data)
         is_int = not data.dtype.is_floating_point
-        # the router plan sums in float32: exact for integer totals below 2^24
+        # the single-chunk plan sums in float32: exact for integer totals below 2^24
         if is_int and data.numel() and data.dtype != torch.bool:
             lo, hi = torch.aminmax(data)  # one read, no int64 copy
             amax = max(-int(lo), int(hi))
             if amax * data.numel() >= 1 << 24:
-                from .ops.plan import accumulate_planned
-
                 return accumulate_planned(self._plan, data)
-        if is_int:
+        if aplan is not None and is_int:
             return aplan.accumulate(data)
-        from .ops.plan import accumulate_planned_fast
-
         return accumulate_planned_fast(self._plan, data)
 
     ### PROPERTIES ###

@@ -13,18 +13,23 @@ wrapper below takes tensors:
   which computes the same function. Nothing else falls back to it.
 
 Kernels (and the TPU kernels of the JAX package they replace), in
-``csrc/accel_kernels.cu`` for float32, int32, int64 and float64:
+``csrc/accel_kernels.cu`` for float32, int32, int64 and float64, on arrays
+of fewer than 2^31 elements (the plans go up to 2^28 slots):
 
 * ``permute_gather`` (H0) — ``ops/router.py`` ``_ta`` and ``RouterPlan.apply``;
-  ``ops/tile_plan.py`` ``_CoarseRouterSmall._route`` (``r_out``)
+  ``ops/router_big.py`` ``_fused_pass`` (``RouterPlanBig``'s 7-stage chain,
+  as ``BigAccelPlan`` runs it for ``r_out`` and downward); ``ops/tile_plan.py``
+  ``_CoarseRouterSmall._route`` (``r_out``)
 * ``accel_in_scan`` (H1) — ``ops/accel.py`` ``_accumulate_fused`` k1;
-  ``_CoarseRouterSmall._route`` (``r_in``) and the coarse prefix sum
+  ``_CoarseRouterSmall._route`` (``r_in``) and the coarse prefix sum;
+  ``BigAccelPlan``'s ``r_in`` chain (``_fused_pass``) and ``_cumsum``
 * ``accel_near_out`` (H2) — ``ops/accel.py`` ``_accumulate_fused`` k2;
-  ``_CoarseRouterSmall._gather_pair`` (``ops/router_big.py``
-  ``lane_gather_tiled``)
+  ``_gather_pair`` of ``_CoarseRouterSmall`` and ``BigAccelPlan``
+  (``ops/router_big.py`` ``lane_gather_tiled``)
 * ``accel_far_merge`` (H3) — ``ops/accel.py`` ``_accumulate_fused`` k3 and
-  the merge after it; ``_CoarseRouterSmall._far_values`` and its
-  ``tree_mask`` select
+  the merge after it; ``_far_values`` of ``_CoarseRouterSmall`` and
+  ``BigAccelPlan`` (``r_exp``, a row pair, ``lane_gather_tiled``, ``r_far``)
+  and their ``tree_mask`` select
 
 and in ``csrc/tile_kernels.cu`` for int32, int64 and float64, on 128 x 128
 tiles:
@@ -214,7 +219,8 @@ def permute_gather_plain(x, src):
 def permute_gather(x, src):
     """``out[p] = x.ravel()[src[p]]``, or 0 where ``src[p] < 0``: ``x``
     float32, int32, int64 or float64, ``src`` int32 with values below
-    ``x.numel()``; the output has ``src``'s shape and ``x``'s dtype."""
+    ``x.numel()``; the output has ``src``'s shape and ``x``'s dtype. ``x``
+    and ``src`` hold fewer than 2^31 elements each (held at 2^28)."""
     if x.device.type == "cpu":
         return permute_gather_plain(x, src)
     dt = _code("x", x)
@@ -244,7 +250,8 @@ def accel_in_scan(x, sig_in):
 
     ``x``: (n_cells,) float32, int32, int64 or float64; ``sig_in``: (n_pad,)
     int32 with values in ``[0, n_pad]``, slots whose source is ``>= n_cells``
-    read 0. Returns ``c`` (n_pad,) in ``x``'s dtype. The kernel sums in
+    read 0; ``n_pad`` below 2^31 (held at 2^28: 131,072 tiles of 2,048).
+    Returns ``c`` (n_pad,) in ``x``'s dtype. The kernel sums in
     another order than the plain version: integers are exact, float32 only
     for integer-valued data with totals below 2^24, float64 within rounding.
     """
@@ -255,6 +262,8 @@ def accel_in_scan(x, sig_in):
     _check("sig_in", sig_in, torch.int32, x.device)
     if x.dim() != 1 or sig_in.dim() != 1 or x.numel() > sig_in.numel():
         raise ValueError("accel_in_scan: need 1-D x no longer than 1-D sig_in")
+    if sig_in.numel() >= 1 << 31:
+        raise ValueError("accel_in_scan: n_pad must stay below 2^31")
     lib = load()["accel_kernels"]
     n = sig_in.numel()
     tile = lib.pf_scan_tile()
@@ -282,7 +291,7 @@ def accel_near_out_plain(c, near_end):
 def accel_near_out(c, near_end):
     """Near-interval subtree sums in preorder layout (far slots get
     ``-c[k-1]``). ``c``: (n_pad,) float32, int32, int64 or float64;
-    ``near_end``: (n_pad,) int32."""
+    ``near_end``: (n_pad,) int32; ``n_pad`` below 2^31."""
     if c.device.type == "cpu":
         return accel_near_out_plain(c, near_end)
     dt = _code("c", c)
@@ -318,8 +327,8 @@ def accel_far_merge(out, x, c, far_end):
     (n_cells,) int32, the slot of a far cell's interval end, -1 for other
     tree cells and -2 off the tree; ``c``: the prefix sums; ``x``: (n_cells,)
     values off-tree cells pass through, or None for 0 there (the tile plan's
-    coarse level). float32, int32, int64 or float64, one dtype for all.
-    Returns (n_cells,).
+    coarse level). float32, int32, int64 or float64, one dtype for all;
+    fewer than 2^31 slots and cells. Returns (n_cells,).
     """
     if far_end.device.type == "cpu":
         return accel_far_merge_plain(out, x, c, far_end)

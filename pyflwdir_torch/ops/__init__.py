@@ -1,6 +1,7 @@
 """Device operators of the port: DFS plan, router permutations, the
-single-chunk router accumulation and pointer-doubling graph primitives."""
+single-chunk and large-graph router accumulations, the tile plan and
+pointer-doubling graph primitives."""
 
-from . import accel, graph, plan, router
+from . import accel, accel_big, graph, plan, router, router_big
 
-__all__ = ["accel", "graph", "plan", "router"]
+__all__ = ["accel", "accel_big", "graph", "plan", "router", "router_big"]

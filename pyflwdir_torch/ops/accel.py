@@ -2,12 +2,14 @@
 
 One accumulation of integer-valued float32 data is four kernel launches::
 
-    c    = cumsum(x[sig_in])               # H1: cells -> preorder, prefix sum
+    c    = cumsum(x[src_in])               # H1: cells -> preorder, prefix sum
     outp = c[near_end] - c[k-1]            # H2: near subtree sums (preorder)
-    out  = outp[sig_out]                   # H0: preorder -> cells
+    out  = outp[src_out]                   # H0: preorder -> cells
     res  = tree ? out + c[far_end] : x     # H3: far interval ends, off-tree
 
-The host build makes the same bijections and masks as the JAX package's
+(:class:`IntervalKernels`, which the large-graph ``BigAccelPlan`` of
+``ops/accel_big.py`` and the tile plan's router coarse level run too). The
+host build makes the same bijections and masks as the JAX package's
 ``ops/accel.py`` (``sig_in``, ``sig_out``, ``sig_exp``, ``sig_far``, the
 near/far masks, ``b``, ``G``, ``n_pad`` and the ``ok`` rule), so the two
 dispatch identically. Where the TPU routes ``sig_exp``, a lane broadcast
@@ -27,13 +29,11 @@ import torch
 from .. import kernels
 from .._backend import resolve_device
 from .plan import DfsPlan, build_plan
-from .router import RouterPlan
 
-__all__ = ["AccelPlan", "build_accel_plan"]
+__all__ = ["AccelPlan", "IntervalKernels", "acc_dtype", "build_accel_plan"]
 
 _S = 128
 _TILE = _S * _S  # elements per G-slice
-_MAX_CELLS = 1 << 21
 
 
 def _pad_bijection(dest_known, src_known, n_pad):
@@ -48,7 +48,54 @@ def _pad_bijection(dest_known, src_known, n_pad):
     return sigma
 
 
-class AccelPlan:
+def acc_dtype(data):
+    """The dtype the port's exact engines sum ``data`` in: float64 for float
+    data; int32 for integer data unless ``|max| * n >= 2^31``, then int64."""
+    if data.dtype.is_floating_point:
+        return torch.float64
+    amax = 1
+    if data.numel() and data.dtype != torch.bool:
+        lo, hi = torch.aminmax(data)  # one read, no int64 copy
+        amax = max(-int(lo), int(hi))
+    return torch.int64 if amax * data.numel() >= 1 << 31 else torch.int32
+
+
+class IntervalKernels:
+    """The DFS-interval accumulation as the four kernels run it, from the
+    four int32 indices every router plan composes its tables into:
+
+    * ``src_in`` (n_pad,): the input element each preorder slot reads; a
+      source at or past the input's length reads 0 (H1);
+    * ``near_end`` (n_pad,): the slot where a near interval (span < 128)
+      ends, -1 for far intervals and padding (H2);
+    * ``src_out`` (>= n_out,): the preorder slot each output element reads
+      (H0);
+    * ``far_end`` (n_out,): the slot where an output's far interval ends, -1
+      for other tree outputs, -2 off the tree (H3).
+    """
+
+    _INDICES = ("src_in", "near_end", "src_out", "far_end")
+
+    def _set_indices(self, device, **idx):
+        """Keep the indices as numpy int32 attributes and upload them."""
+        self._t = {}
+        for name in self._INDICES:
+            arr = np.ascontiguousarray(idx[name], dtype=np.int32)
+            setattr(self, name, arr)
+            self._t[name] = torch.as_tensor(arr, device=device)
+
+    def _sweep(self, x, passthrough):
+        """``x`` (1-D; float32, int32, int64 or float64) to its subtree sums
+        in the output layout; off-tree outputs pass ``x`` through (the two
+        layouts are then one) or give 0."""
+        t = self._t
+        c = kernels.accel_in_scan(x, t["src_in"])
+        outp = kernels.accel_near_out(c, t["near_end"])
+        out = kernels.permute_gather(outp, t["src_out"])
+        return kernels.accel_far_merge(out, x if passthrough else None, c, t["far_end"])
+
+
+class AccelPlan(IntervalKernels):
     """Per-graph plan for router accumulation (``ok`` False: does not fit)."""
 
     def __init__(self, dfs: DfsPlan, device=None):
@@ -127,38 +174,31 @@ class AccelPlan:
             cells = np.nonzero(self.far_mask[:n_cells])[0]
             blk = (self.sig_far[cells] // b) * b  # the lane broadcast
             far_end[cells] = self.sig_exp[blk]
-        dev = self.device
-        self.sig_in_t = torch.as_tensor(self.sig_in.astype(np.int32), device=dev)
-        self.near_end_t = torch.as_tensor(near_end.astype(np.int32), device=dev)
-        self.far_end_t = torch.as_tensor(far_end.astype(np.int32), device=dev)
-        self.r_out = RouterPlan(self.sig_out, device=dev)
+        self._set_indices(self.device, src_in=self.sig_in, near_end=near_end,
+                          src_out=self.sig_out, far_end=far_end)
 
     def accumulate(self, data):
         """Flow accumulation of ``data`` ((n_cells,) tensor on the plan's
         device): tree cells get their subtree sum, off-tree cells pass
         through. Computed in float32 and returned in ``data``'s dtype."""
         x = data.to(torch.float32).contiguous()
-        c = kernels.accel_in_scan(x, self.sig_in_t)
-        outp = kernels.accel_near_out(c, self.near_end_t)
-        out = self.r_out.apply(outp.reshape(self.G * _S, _S)).reshape(-1)
-        res = kernels.accel_far_merge(out, x, c, self.far_end_t)
-        return res.to(data.dtype)
+        return self._sweep(x, passthrough=True).to(data.dtype)
 
 
-def build_accel_plan(idxs_ds_np, dfs: DfsPlan = None, device=None) -> AccelPlan:
-    """Build the single-chunk router plan for a graph.
-
-    Where the JAX package would fall back to its HBM-scale ``BigAccelPlan``
-    (the plan does not fit, or more than 2^21 cells), this raises
-    NotImplementedError: that engine belongs to a later slice of the port.
+def build_accel_plan(idxs_ds_np, dfs: DfsPlan = None, routers=None, device=None):
+    """Build the router accumulation plan for a graph, as the JAX package's
+    ``build_accel_plan``: the single-chunk :class:`AccelPlan` where the graph
+    fits it, else the large-graph
+    :class:`pyflwdir_torch.ops.accel_big.BigAccelPlan` (up to 128 * 2^21
+    cells; ``routers`` takes a JAX plan's ``router_tables()``), else None.
     """
     idxs_ds_np = np.asarray(idxs_ds_np)
     if dfs is None:
         dfs = build_plan(idxs_ds_np, device=device)
-    plan = AccelPlan(dfs, device=device if device is not None else dfs.device)
-    if not plan.ok or plan.n_cells > _MAX_CELLS:
-        raise NotImplementedError(
-            "graph does not fit the single-chunk AccelPlan; the HBM-scale "
-            "BigAccelPlan (ops/accel_big.py) is queued for a later slice of the port"
-        )
-    return plan
+    device = device if device is not None else dfs.device
+    plan = AccelPlan(dfs, device=device)
+    if plan.ok:
+        return plan
+    from .accel_big import build_big_accel_plan
+
+    return build_big_accel_plan(idxs_ds_np, dfs, routers=routers, device=device)

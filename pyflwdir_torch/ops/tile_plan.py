@@ -12,10 +12,10 @@ as in the JAX package's ``TilePlan.accumulate`` (fused A -> C)::
 
 The coarse level is the same slot-mode accumulation as the JAX package's:
 plain gathers through the DFS plan below ``_COARSE_ROUTER_MIN`` slots
-(``_CoarseGather``), else the single-chunk router (``_CoarseRouterSmall``,
-kernels H0-H3) up to ``_COARSE_SMALL_MAX`` slots. Above that the JAX package
-takes ``BigAccelPlan``, which the port does not have yet: the build raises
-NotImplementedError.
+(``_CoarseGather``), else the single-chunk router (``_CoarseRouterSmall``)
+up to ``_COARSE_SMALL_MAX`` slots and ``BigAccelPlan``
+(``ops/accel_big.py``) above that, both on kernels H0-H3; past the big
+plan's 2^28 slots the build raises ValueError, as the JAX build does.
 
 The host build makes the JAX build's decisions (the phase-1 DFS, the far
 mode and ``b``, ``R_pad``, ``E_pad``, the coarse graph and its slots, the
@@ -58,8 +58,9 @@ import torch
 
 from .. import kernels, runtime
 from .._backend import resolve_device
+from .accel import acc_dtype
+from .accel_big import BigAccelPlan, CoarseDown, RouterAccel
 from .plan import DfsPlan, accumulate_planned, build_plan
-from .router import _chain_np
 
 __all__ = ["TilePlan", "build_tile_plan"]
 
@@ -117,37 +118,6 @@ def _far_end_packed(sig_exp, sig_far, far_sel, rlo, rhi, bhi, bidx):
     return np.where(ok, fe, -1).astype(np.int32)
 
 
-def _coarse_far_replay(k_far, d_far, dst_far, sig_exp, sig_far):
-    """Replay the JAX coarse level's far values (``_CoarseRouterSmall``
-    ``_far_values``): ``sig_exp`` routes the distinct interval ends, a
-    row-pair lane gather copies each to its duplicates, ``sig_far`` delivers
-    them. Far nodes ``k_far`` span ``d_far`` slots and write output slots
-    ``dst_far``; returns (those slots, sorted; the end each reads)."""
-    e_far = k_far + d_far
-    order = np.lexsort((k_far, e_far))
-    uniq_e, inv = np.unique(e_far[order], return_inverse=True)
-    F = k_far.size
-    d_rows = -(-uniq_e.size // _S)
-    f_rows = -(-F // _S)
-    g = np.full(f_rows * _S, inv[-1], dtype=np.int64)
-    g[:F] = inv
-    g = g.reshape(f_rows, _S)
-    rlo = g.min(axis=1) // _S
-    bidx = g - (rlo * _S)[:, None]
-    if bidx.max() >= 2 * _S:
-        raise AssertionError("far group rows span more than a row pair")
-    # packed value of far slot q: row rlo (+1 where bidx_hi, clipped to the
-    # last distinct-end row) of the routed ends, lane bidx
-    cells = np.sort(dst_far)
-    q = sig_far[cells]
-    ok = q < f_rows * _S
-    r, lq = q[ok] // _S, q[ok] % _S
-    row = np.where(bidx[r, lq] >= _S, np.minimum(rlo[r] + 1, d_rows - 1), rlo[r])
-    fe = np.full(cells.size, -1, dtype=np.int64)
-    fe[ok] = sig_exp[row * _S + bidx[r, lq] % _S]
-    return cells, fe
-
-
 def _stacked_chain(tabs, p, NT):
     """Replay the JAX package's per-tile 5-stage chain of router family
     ``p`` (``ops/tile_plan.py`` ``_local_chain``; one 128-row group, so no
@@ -189,110 +159,23 @@ def _compose_down(es, dea, deb, de_sel, de_b0, re_sel, n_tree, ent_slot):
 
 
 def _coarse_down_arrays(dfs, meta, n_exit_flat):
-    """The JAX plan's static coarse-downward arrays (its ``_down["cd"]``):
-    ``pre``, ``pos``, ``ends_pre`` of the coarse DFS plan, ``e2n`` (root
-    node of each exit slot, -1 where none) and ``wmap`` (``out_slot``)."""
-    pre = dfs.preorder_np
-    k = pre.size
+    """The static coarse-downward arrays (as in the JAX plan's
+    ``_down["cd"]``): ``pre`` and ``pos`` of the coarse DFS plan, ``e2n``
+    (root node of each exit slot, -1 where none) and ``wmap`` (``out_slot``)."""
     e2n = np.full(n_exit_flat, -1, dtype=np.int32)
     e2n[meta["in_slot"][: meta["m"]]] = np.arange(meta["m"], dtype=np.int32)
     return {
-        "pre": pre.astype(np.int32),
+        "pre": dfs.preorder_np.astype(np.int32),
         "pos": dfs.pos_np.astype(np.int32),
-        "ends_pre": (np.arange(k, dtype=np.int64) + dfs.size_np[pre] - 1).astype(np.int32),
         "e2n": e2n,
         "wmap": np.asarray(meta["out_slot"]).astype(np.int32),
     }
 
 
 # ---------------------------------------------------------------------------
-# coarse level, downward: shared by both backends
-# ---------------------------------------------------------------------------
-class _CoarseDown:
-    """The coarse forest's inclusive downstream-path sum, from the packed
-    entry (``out_slot``) layout to the exit (``in_slot``) layout, zero at
-    slots without a root: the transpose of the backend's ``accumulate``.
-
-    The JAX package's ``_CoarseRouterSmall.accumulate_down`` routes through
-    ``r_win``, ``r_es``, ``r_dea``, ``r_deb`` and ``r_aout`` with mask selects
-    between flat prefix, shift and suffix sums (its ``_CoarseGather`` level
-    scatter-adds instead). The port keeps what those compose to over
-    ``n_c`` slots (``_n_down``), as indices of kernels H1 and H0:
-
-    * ``es_in`` (H1): the packed entry read at each position of the
-      (interval end, slot) order; nodes without an entry read past the input;
-    * ``g_last``, ``g_prev`` (H0): per end slot, the sorted position of its
-      run's last node and of the node before its run, else -1 (reads 0);
-    * ``win_next`` (H0): the packed entry of the next preorder slot, else -1;
-    * ``rev`` (H1): the reversal, so the suffix sum is a prefix sum;
-    * ``fin`` (H0): per exit slot, its root's position in the reversed sums.
-
-    One form for both backends: each sum has a fixed order (no atomics)."""
-
-    def build_down(self, cd, routers=None):
-        """Build the down indices from the coarse-downward arrays ``cd``
-        (:func:`_coarse_down_arrays`, or a JAX plan's) and, for a router
-        coarse level loaded from a JAX plan, its ``down_router_tables()``,
-        whose chains are replayed instead of sorting here."""
-        if getattr(self, "down", None) is not None:
-            return
-        pre = np.asarray(cd["pre"], np.int64)
-        pos = np.asarray(cd["pos"], np.int64)
-        ends = np.asarray(cd["ends_pre"], np.int64)
-        e2n = np.asarray(cd["e2n"], np.int64)
-        k = pre.size
-        n_c = self._n_down(k)
-        win = np.asarray(cd["wmap"], np.int64)[pre]  # packed entry of each slot
-        de_sel = np.zeros(n_c, dtype=bool)
-        de_b0 = np.zeros(n_c, dtype=bool)
-        if k:
-            de_sel[np.unique(ends)] = True
-            de_b0[ends.min()] = True  # the first sorted run
-        if routers is None:
-            order = np.argsort(ends, kind="stable")  # (end, slot) order
-            e_sorted = ends[order]
-            gstart = np.flatnonzero(np.r_[True, e_sorted[1:] != e_sorted[:-1]][:k])
-            glast = np.append(gstart[1:] - 1, k - 1) if k else gstart
-            gend = e_sorted[gstart]
-            g_last = np.full(n_c, -1, dtype=np.int64)
-            g_prev = np.full(n_c, -1, dtype=np.int64)
-            g_last[gend] = glast
-            g_prev[gend[1:]] = gstart[1:] - 1
-        else:
-            G = int(routers["G"])
-            if G * _S * _S != n_c:
-                raise ValueError("down router tables do not fit the coarse plan")
-            ar = np.arange(n_c, dtype=np.int64).reshape(G * _S, _S)
-            order = _chain_np(ar, G, *routers["r_es"]).ravel()[:k]
-            g_last = np.where(de_sel, _chain_np(ar, G, *routers["r_dea"]).ravel(), -1)
-            g_prev = np.where(de_sel & ~de_b0, _chain_np(ar, G, *routers["r_deb"]).ravel(), -1)
-        es_in = np.full(n_c, n_c, dtype=np.int64)
-        es_in[:k] = np.where(win[order] >= 0, win[order], n_c)
-        win_next = np.full(n_c, -1, dtype=np.int64)
-        win_next[: max(k - 1, 0)] = win[1:]
-        root_pos = np.where(e2n >= 0, pos[np.maximum(e2n, 0)], -1)
-        fin = np.where(root_pos >= 0, n_c - 1 - root_pos, -1)
-        down = {"es_in": es_in, "g_last": g_last, "g_prev": g_prev, "win_next": win_next,
-                "rev": np.arange(n_c - 1, -1, -1, dtype=np.int64), "fin": fin}
-        self.down = {name: v.astype(np.int32) for name, v in down.items()}
-        self._down_t = {name: torch.as_tensor(v, device=self.dfs.device)
-                        for name, v in self.down.items()}
-
-    def accumulate_down(self, pkf):
-        """``pkf`` ((n_out,) at ``out_slot`` layout; int32, int64 or float64)
-        to the path sums at ``in_slot`` layout, (n_in,)."""
-        t = self._down_t
-        pkf = pkf[: t["es_in"].numel()]  # padded entries past the last real one
-        cs = kernels.accel_in_scan(pkf, t["es_in"])
-        ge = kernels.permute_gather(cs, t["g_last"]) - kernels.permute_gather(cs, t["g_prev"])
-        inner = ge - kernels.permute_gather(pkf, t["win_next"])
-        return kernels.permute_gather(kernels.accel_in_scan(inner, t["rev"]), t["fin"])
-
-
-# ---------------------------------------------------------------------------
 # coarse level: plain gathers through the DFS plan (small grids)
 # ---------------------------------------------------------------------------
-class _CoarseGather(_CoarseDown):
+class _CoarseGather(CoarseDown):
     """Coarse accumulation via the DFS plan and plain gathers (few slots)."""
 
     def __init__(self, dfs: DfsPlan, in_slot, out_slot, n_in, n_out):
@@ -325,90 +208,23 @@ class _CoarseGather(_CoarseDown):
 # ---------------------------------------------------------------------------
 # coarse level: single-chunk router (kernels H0-H3)
 # ---------------------------------------------------------------------------
-class _CoarseRouterSmall(_CoarseDown):
-    """Slot-mode coarse accumulation on the single-chunk router plan.
+class _CoarseRouterSmall(RouterAccel):
+    """Slot-mode coarse accumulation on the single-chunk router plan: up to
+    2^21 slots, padded to 16,384.
 
     The JAX package's ``_CoarseRouterSmall`` routes and lane-gathers on the
-    TPU; the port keeps what those compose to, the four kernels' indices:
-    ``src_in`` (H1; entry nodes and padding read past the input, so 0),
-    ``near_end`` (H2), ``src_out`` (H0) and ``far_end`` (H3, off-tree slots
-    give 0). ``routers`` takes a JAX plan's ``router_tables()``, whose chains
-    (and the packed far-group expansion they index) are replayed instead."""
+    TPU; the port keeps what those compose to, the four kernels' indices
+    (:class:`pyflwdir_torch.ops.accel_big.RouterAccel`): ``src_in`` (H1;
+    entry nodes, whose ``in_slot`` lies past ``n_in``, and padding read past
+    the input, so 0), ``near_end`` (H2), ``src_out`` (H0) and ``far_end`` (H3,
+    off-tree slots give 0). ``routers`` takes a JAX plan's
+    ``router_tables()`` (keyed ``"G"``), whose chains (and the packed
+    far-group expansion they index) are replayed instead."""
 
     def __init__(self, dfs: DfsPlan, in_slot, out_slot, n_in=None, routers=None):
-        self.dfs = dfs
-        pre = dfs.preorder_np
-        pos = dfs.pos_np
-        size = dfs.size_np
-        n_cells = pos.size
-        n_tree = pre.size
-        in_slot = np.asarray(in_slot, dtype=np.int64)
-        out_slot = np.asarray(out_slot, dtype=np.int64)
-        self.n_in = (
-            int(n_in) if n_in is not None
-            else (int(in_slot.max() + 1) if in_slot.size else 1)
-        )
-        self.n_out = int(out_slot.max() + 1) if out_slot.size else 1
-        n_pad = max(n_cells, n_tree, self.n_in, self.n_out, 1)
-        n_pad = -(-n_pad // (_S * _S)) * (_S * _S)
-        self.ok = n_pad <= _S * _S * _S
-        if not self.ok:
-            return
-        self.n_pad = n_pad
-
-        k = np.arange(n_tree, dtype=np.int64)
-        d = size[pre] - 1  # interval k .. k + d
-        near = d < _S
-        near_end = np.full(n_pad, -1, dtype=np.int64)
-        near_end[k[near]] = k[near] + d[near]
-        # entry nodes read guaranteed-zero slots past n_in; so do padding
-        # slots (H1 reads 0 at source n_pad)
-        has_in = in_slot[pre] < self.n_in
-        src_in = np.full(n_pad, n_pad, dtype=np.int64)
-        cells_o = np.nonzero((pos >= 0) & (out_slot >= 0))[0]
-        n_out = self.n_out
-        # off-tree output slots give 0 (far_end -2), whatever src_out holds
-        far_end = np.full(n_out, -2, dtype=np.int64)
-        far_end[out_slot[cells_o]] = -1
-        far = ~near & (out_slot[pre] >= 0)
-        self.has_far = bool(far.any())
-        if routers is None:
-            src_in[k[has_in]] = in_slot[pre[has_in]]
-            src_out = np.zeros(n_out, dtype=np.int64)
-            src_out[out_slot[cells_o]] = pos[cells_o]
-            far_end[out_slot[pre[far]]] = k[far] + d[far]
-        else:
-            G = int(routers["G"])
-            ar = np.arange(G * _S * _S, dtype=np.int64).reshape(G * _S, _S)
-            src_in[k[has_in]] = _chain_np(ar, G, *routers["r_in"]).ravel()[k[has_in]]
-            src_out = _chain_np(ar, G, *routers["r_out"]).ravel()[:n_out]
-            if self.has_far:
-                sig_exp = _chain_np(ar, G, *routers["r_exp"]).ravel()
-                sig_far = _chain_np(ar, G, *routers["r_far"]).ravel()
-                cells, fe = _coarse_far_replay(k[far], d[far], out_slot[pre[far]],
-                                               sig_exp, sig_far)
-                far_end[cells] = fe
-
-        self.src_in = src_in.astype(np.int32)
-        self.near_end = near_end.astype(np.int32)
-        self.src_out = src_out.astype(np.int32)
-        self.far_end = far_end.astype(np.int32)
-        dev = dfs.device
-        self._t = {name: torch.as_tensor(getattr(self, name), device=dev)
-                   for name in ("src_in", "near_end", "src_out", "far_end")}
-
-    def _n_down(self, k):
-        return self.n_pad
-
-    def accumulate(self, x):
-        """Slot-mode accumulation: ``x`` ((n_in,) at ``in_slot`` layout,
-        int32, int64 or float64) to ``out_slot`` layout, (n_out,); slots
-        without a value give 0."""
-        t = self._t
-        c = kernels.accel_in_scan(x, t["src_in"])
-        outp = kernels.accel_near_out(c, t["near_end"])
-        out = kernels.permute_gather(outp, t["src_out"])
-        return kernels.accel_far_merge(out, None, c, t["far_end"])
+        if n_in is None:
+            n_in = int(np.max(in_slot, initial=0)) + 1
+        self._build(dfs, in_slot, out_slot, n_in, _S * _S, _S * _S * _S, routers)
 
 
 # ---------------------------------------------------------------------------
@@ -579,8 +395,7 @@ class TilePlan:
         self.NT = self.grid[0] * self.grid[1]
 
     def _coarse_level(self, dfs_c):
-        """The JAX package's coarse backend choice; raises where it would
-        take BigAccelPlan."""
+        """The JAX package's coarse backend choice."""
         meta = self._coarse_meta
         n_out = self.NT * max(self.E_pad, 1)
         if max(self.n_exit_flat, n_out) < _COARSE_ROUTER_MIN:
@@ -591,10 +406,10 @@ class TilePlan:
                                        n_in=self.n_exit_flat)
             if small.ok:
                 return small
-        raise NotImplementedError(
-            "the tile plan's coarse level needs BigAccelPlan (ops/accel_big.py) "
-            f"at this size, {_LATER}"
-        )
+        big = BigAccelPlan(dfs_c, in_slot=meta["in_slot"], out_slot=meta["out_slot"])
+        if not big.ok:
+            raise ValueError("coarse graph exceeds router capacity")
+        return big
 
     def _finish(self, idx, secs):
         t0 = time.perf_counter()
@@ -668,7 +483,8 @@ class TilePlan:
         ``b``, ``R_pad``, ``E_pad``, ``has_far``, ``has_entries``),
         ``coarse_meta`` (its ``_coarse_meta``), ``coarse_dfs`` (the coarse
         DFS plan's ``(preorder, pos, size)``) and, for a ``_CoarseRouterSmall``
-        coarse level, ``routers`` (its ``router_tables()``). Each per-tile
+        or ``BigAccelPlan`` coarse level, ``routers`` (its
+        ``router_tables()``, keyed ``"G"`` or ``"G1"``). Each per-tile
         chain is replayed on ``arange`` into the port's composed index.
         ``down`` carries the JAX plan's downward tables for
         :meth:`accumulate_down`: ``tabs`` (its ``_down["tabs"]``), ``cd`` (its
@@ -732,7 +548,9 @@ class TilePlan:
                                              coarse_meta["out_slot"],
                                              n_in=self.n_exit_flat, routers=routers)
         else:
-            raise NotImplementedError(f"a BigAccelPlan coarse level is {_LATER}")
+            self.coarse = BigAccelPlan(dfs_c, routers=routers,
+                                       in_slot=coarse_meta["in_slot"],
+                                       out_slot=coarse_meta["out_slot"])
         secs["coarse plan"] = time.perf_counter() - t0
         self._down_src = None
         if down is not None:
@@ -743,17 +561,7 @@ class TilePlan:
         return self
 
     # -- execution -----------------------------------------------------------
-    @staticmethod
-    def _acc_dtype(data):
-        """float64 for float data; int32 for integer data unless
-        ``|max| * n >= 2^31``, then int64."""
-        if data.dtype.is_floating_point:
-            return torch.float64
-        amax = 1
-        if data.numel() and data.dtype != torch.bool:
-            lo, hi = torch.aminmax(data)  # one read, no int64 copy
-            amax = max(-int(lo), int(hi))
-        return torch.int64 if amax * data.numel() >= 1 << 31 else torch.int32
+    _acc_dtype = staticmethod(acc_dtype)
 
     def accumulate(self, data):
         """Flow accumulation of ``data`` ((H*W,) tensor in raster order on
@@ -807,7 +615,8 @@ class TilePlan:
 def build_tile_plan(idxs_ds_np, shape, device=None) -> TilePlan:
     """Build a :class:`TilePlan` for a raster graph on ``device``.
 
-    Raises ValueError where the JAX package's build raises (it then falls
-    back to host sweeps) and NotImplementedError where it would take
-    ``BigAccelPlan`` for the coarse level; neither is ported yet."""
+    Raises ValueError where the JAX package's build raises (a coarse graph
+    past ``BigAccelPlan``'s 2^28 slots, entry rows past its int8 row table);
+    the methods of :class:`pyflwdir_torch.raster.FlwdirRaster` pass the error
+    on."""
     return TilePlan(idxs_ds_np, shape, device=device)

@@ -3,7 +3,10 @@ subset ported so far: shape, mask, transform, area, rank; upstream area and
 accumulation; basins, stream distance, height above the nearest drain and
 nodata filling from downstream. Above 2^21 cells these run through the tile
 plan (``ops/tile_plan.py``: ``accumulate`` upward, ``accumulate_down``
-downward), below it through the single-chunk plans and pointer doubling."""
+downward), below it through the single-chunk plans and pointer doubling.
+A tile plan that cannot be built (a coarse graph past the big router's 2^28
+slots, more than one card holds) raises the build's ValueError: no method
+leaves the card for another engine."""
 
 from __future__ import annotations
 
@@ -143,26 +146,19 @@ class FlwdirRaster(Flwdir):
         return area
 
     def _tile_plan(self):
-        """Build (once) and cache the hierarchical tile plan. Where the JAX
-        package's build fails and it falls back to host sweeps, this raises
-        NotImplementedError: the port has no such fallback yet."""
+        """Build (once) and cache the hierarchical tile plan. A coarse graph
+        past the routers' capacity raises the build's ValueError."""
         if "tile_plan" not in self._cached:
             from .ops.tile_plan import build_tile_plan
 
-            try:
-                self._cached["tile_plan"] = build_tile_plan(
-                    self._idxs_ds, self.shape, device=self.device
-                )
-            except ValueError as e:
-                raise NotImplementedError(
-                    f"tile plan build failed ({e}); the host-sweep fallback of the "
-                    "JAX package is queued for a later slice of the PyTorch port"
-                ) from e
+            self._cached["tile_plan"] = build_tile_plan(
+                self._idxs_ds, self.shape, device=self.device
+            )
         return self._cached["tile_plan"]
 
     def _accumulate_dev(self, data):
         """Flow accumulation through the cached tile plan above 2^21 cells,
-        the single-chunk engines (Flwdir._accumulate_dev) up to that."""
+        the 1-D engines (Flwdir._accumulate_dev) up to that."""
         if self.size <= self._TILE_PLAN_MIN:
             return super()._accumulate_dev(data)
         return self._tile_plan().accumulate(data)
@@ -189,9 +185,8 @@ class FlwdirRaster(Flwdir):
         """Tile plan for the downward-path operations
         (``TilePlan.accumulate_down``), optionally of the graph cut at the
         ``cut`` cells (made pits, so they are outlets for all upstream of
-        them); None up to the size threshold. Where the JAX package falls
-        back to a host sweep on a failed build this raises
-        NotImplementedError."""
+        them); None up to the size threshold. A cut graph whose coarse level
+        passes the routers' capacity raises the build's ValueError."""
         if self.size <= self._TILE_PLAN_MIN:
             return None
         if cut is None:
@@ -200,13 +195,7 @@ class FlwdirRaster(Flwdir):
 
         ar = np.arange(self.size, dtype=np.int64)
         ids2 = np.where(np.asarray(cut, bool) & self.mask, ar, self._idxs_ds)
-        try:
-            return build_tile_plan(ids2, self.shape, device=self.device)
-        except ValueError as e:
-            raise NotImplementedError(
-                f"cut-graph tile plan build failed ({e}); the host-sweep fallback of "
-                "the JAX package is queued for a later slice of the PyTorch port"
-            ) from e
+        return build_tile_plan(ids2, self.shape, device=self.device)
 
     def _down_np(self, tp, w):
         """``tp.accumulate_down`` of a host array, back on the host."""

@@ -55,13 +55,14 @@ def test_bijections_equal(plans):
     for mine, theirs in routers:
         want = getattr(jp, theirs).apply_np(ar).ravel()
         assert np.array_equal(getattr(tp, mine), want), mine
-    assert np.array_equal(tp.r_out.sigma_np, tp.sig_out)
+    assert np.array_equal(tp._t["src_in"].numpy(), tp.sig_in)
+    assert np.array_equal(tp._t["src_out"].numpy(), tp.sig_out)
 
 
 def test_composed_far_end(plans):
     ids, _, tp = plans
     dfs = tplan.build_plan(ids, device="cpu")
-    fe = tp.far_end_t.numpy()
+    fe = tp.far_end
     far = fe >= 0
     # a far cell reads its own interval end, pos + size - 1
     assert np.array_equal(fe[far], (dfs.pos_np + dfs.size_np - 1)[far])
@@ -95,7 +96,7 @@ def test_kernel_plain_versions_match_unfused_steps(plans):
     rng = np.random.RandomState(6)
     x = rng.randint(0, 50, ids.size).astype(np.float32)
     xt = torch.as_tensor(x)
-    c = kernels.accel_in_scan(xt, tp.sig_in_t)
+    c = kernels.accel_in_scan(xt, tp._t["src_in"])
     xpad = np.zeros(jp.n_pad, np.float32)
     xpad[: x.size] = x
     want_c = np.asarray(jp._cumsum2(jp.r_in.apply(jnp.asarray(xpad.reshape(-1, 128)))))
@@ -103,10 +104,19 @@ def test_kernel_plain_versions_match_unfused_steps(plans):
 
 
 def test_chain_graph_falls_outside_the_slice():
-    # a 400-cell chain: >128 far intervals share one end, so the JAX
-    # package would take its BigAccelPlan, which the port does not have yet
+    # a 400-cell chain: >128 far intervals share one end, so it falls outside
+    # the single-chunk plan and both packages take their BigAccelPlan
+    from pyflwdir_torch.ops.accel_big import BigAccelPlan
+
     n = 400
     ids = np.minimum(np.arange(n) + 1, n - 1)
     assert not jaccel.AccelPlan(jplan.build_plan(ids, fast=False), ids).ok
-    with pytest.raises(NotImplementedError, match="later slice"):
-        taccel.build_accel_plan(ids, device="cpu")
+    assert not taccel.AccelPlan(tplan.build_plan(ids, device="cpu"), device="cpu").ok
+    tp = taccel.build_accel_plan(ids, device="cpu")
+    assert isinstance(tp, BigAccelPlan) and tp.ok and tp.n_pad == 1 << 21 and tp.has_far
+    jp = jaccel.build_accel_plan(ids, jplan.build_plan(ids, fast=False))
+    assert type(jp).__name__ == "BigAccelPlan" and jp.n_pad == tp.n_pad
+    ones = np.ones(n, dtype=np.int32)
+    got = tp.accumulate(torch.as_tensor(ones)).numpy()
+    assert np.array_equal(got, np.asarray(jp.accumulate(jnp.asarray(ones))))
+    assert np.array_equal(got, np.arange(1, n + 1))

@@ -104,6 +104,34 @@ def test_accel_plan_matches_plain(dev):
     assert torch.equal(got, cpu.accumulate(x))
 
 
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.float64])
+def test_big_accel_plan_kernels_at_two_chunks(dev, dtype):
+    """H1, H2, H0 and H3 at 2^22 slots (a 1504 x 1504 graph's BigAccelPlan),
+    each on the plan's own index against its plain version, then the plan on
+    the card against the plan on the CPU."""
+    from pyflwdir_torch.ops import accel_big as tbig
+
+    ids = _demo_ids((1504, 1504), seed=17, missing=True)
+    cpu = taccel.build_accel_plan(ids, device="cpu")
+    gpu = taccel.build_accel_plan(ids, device=dev)
+    assert isinstance(gpu, tbig.BigAccelPlan) and gpu.n_pad == 1 << 22 and gpu.has_far
+    x = _data(np.random.RandomState(4), ids.size, dtype)
+    total = float(x.double().sum())
+    xd, t = x.to(dev), gpu._t
+    c = kernels.accel_in_scan(xd, t["src_in"])
+    _assert_match(c, kernels.accel_in_scan_plain(xd, t["src_in"]), total)
+    outp = kernels.accel_near_out(c, t["near_end"])
+    assert torch.equal(outp, kernels.accel_near_out_plain(c, t["near_end"]))
+    out = kernels.permute_gather(outp, t["src_out"])
+    assert torch.equal(out, kernels.permute_gather_plain(outp, t["src_out"]))
+    res = kernels.accel_far_merge(out, xd, c, t["far_end"])
+    assert torch.equal(res, kernels.accel_far_merge_plain(out, xd, c, t["far_end"]))
+    kernels.reset_launches()
+    got = gpu.accumulate(xd)
+    assert all(v == 1 for k, v in kernels.launches.items() if not k.startswith("tile_"))
+    _assert_match(got.cpu(), cpu.accumulate(x), total)
+
+
 @pytest.fixture(scope="module")
 def tile_plans():
     """One 300 x 200 tile plan (6 tiles, ragged edges) on the card and on the

@@ -136,9 +136,11 @@ def test_later_slices_raise(d8_small):
         t.basins(idxs=[3], streams=np.ones(t.shape, bool))
     with pytest.raises(ValueError):
         t.accuflux(np.ones(t.shape), direction="sideways")
+    # a grid of pits: 2.2 M local roots, past the tile plan's single-chunk
+    # coarse router; no longer a later slice
     big = pyflwdir_torch.from_array(np.zeros((2049, 1024), np.uint8), device="cpu")
-    with pytest.raises(NotImplementedError, match="tile plan"):
-        big.upstream_area()
+    assert np.array_equal(big.upstream_area(), np.ones(big.shape, np.int32))
+    assert type(big._cached["tile_plan"].coarse).__name__ == "BigAccelPlan"
 
 
 def test_sequential_oracle(rasters):

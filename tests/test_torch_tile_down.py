@@ -7,7 +7,9 @@ and to a sequential path-sum sweep; float64 within rtol 1e-12 plus
 sums keeps their absolute error, at most about n * eps * total, on each
 side). Grids: 300x260 and 260x140 (several tiles, padding, missing cells, the
 gather coarse level); 256x256 with ``_COARSE_ROUTER_MIN`` lowered in both
-packages (the router coarse level, kernels H1 and H0); 256x256 whose tiles
+packages (the router coarse level, kernels H1 and H0) and with
+``_COARSE_SMALL_MAX`` lowered to 0 as well (the ``BigAccelPlan`` coarse
+level); 256x256 whose tiles
 each drain to pits of their own (no entry cells: pass D1 routed, alone). The
 down indices built natively equal those replayed from the JAX plan's down
 tables.
@@ -15,7 +17,8 @@ tables.
 Then the raster methods on top of it (``stream_distance``, ``basins``,
 ``hand``, ``fillnodata(direction="up")``) above the tile-plan threshold
 (lowered to 0 in both packages) and below it, and
-``Flwdir.accuflux(direction="down")``.
+``Flwdir.accuflux(direction="down")``; and the engines taken, with a warning,
+where a tile plan cannot be built.
 """
 
 import pathlib
@@ -32,6 +35,7 @@ import pyflwdir_tpu
 from pyflwdir_torch import dem as tdem
 from pyflwdir_torch import kernels, runtime
 from pyflwdir_torch.codecs import d8 as td8
+from pyflwdir_torch.ops import accel_big as tbig
 from pyflwdir_torch.ops import tile_plan as ttp
 from pyflwdir_tpu.ops import tile_plan as jtpm
 
@@ -64,7 +68,7 @@ def _replay(jtp):
                R_pad=jtp.R_pad, E_pad=jtp.E_pad, F_rows=jtp.F_rows,
                has_far=jtp.has_far, has_entries=jtp.has_entries)
     dfs = jtp._coarse_dfs
-    router = isinstance(jtp.coarse, jtpm._CoarseRouterSmall)
+    router = not isinstance(jtp.coarse, jtpm._CoarseGather)
     down = dict(tabs=jtp._down["tabs"], cd=jtp._down["cd"],
                 routers=jtp.coarse.down_router_tables() if router else None)
     return ttp.TilePlan.from_stage_tables(
@@ -72,27 +76,34 @@ def _replay(jtp):
         routers=jtp.coarse.router_tables() if router else None, down=down, device="cpu")
 
 
+# name: (grid, _COARSE_ROUTER_MIN, _COARSE_SMALL_MAX, coarse level, has entries)
 _GRIDS = {
-    "300x260": (lambda: _demo_d8((300, 260), 21), None, "_CoarseGather", True),
-    "260x140": (lambda: _demo_d8((260, 140), 31), None, "_CoarseGather", True),
-    "256x256-router": (lambda: _demo_d8((256, 256), 8), 1, "_CoarseRouterSmall", True),
-    "closed-tiles": (_closed_tiles, None, "_CoarseGather", False),
+    "300x260": (lambda: _demo_d8((300, 260), 21), None, None, "_CoarseGather", True),
+    "260x140": (lambda: _demo_d8((260, 140), 31), None, None, "_CoarseGather", True),
+    "256x256-router": (lambda: _demo_d8((256, 256), 8), 1, None, "_CoarseRouterSmall", True),
+    "256x256-big": (lambda: _demo_d8((256, 256), 8), 1, 0, "BigAccelPlan", True),
+    "closed-tiles": (_closed_tiles, None, None, "_CoarseGather", False),
 }
 
 
 @pytest.fixture(scope="module", params=list(_GRIDS))
 def plans(request):
-    make, router_min, coarse_kind, has_entries = _GRIDS[request.param]
+    make, router_min, small_max, coarse_kind, has_entries = _GRIDS[request.param]
     d8 = make()
     ids = td8.from_array(d8, dtype=np.int64)[0]
-    old = (jtpm._COARSE_ROUTER_MIN, ttp._COARSE_ROUTER_MIN)
-    if router_min is not None:
-        jtpm._COARSE_ROUTER_MIN = ttp._COARSE_ROUTER_MIN = router_min
+    new = {"_COARSE_ROUTER_MIN": router_min, "_COARSE_SMALL_MAX": small_max}
+    old = {k: (getattr(jtpm, k), getattr(ttp, k)) for k in new}
     try:
+        for k, v in new.items():
+            if v is not None:
+                setattr(jtpm, k, v)
+                setattr(ttp, k, v)
         jtp = jtpm.build_tile_plan(ids, d8.shape)
         tp = ttp.build_tile_plan(ids, d8.shape, device="cpu")
     finally:
-        jtpm._COARSE_ROUTER_MIN, ttp._COARSE_ROUTER_MIN = old
+        for k, (j, t) in old.items():
+            setattr(jtpm, k, j)
+            setattr(ttp, k, t)
     assert type(jtp.coarse).__name__ == type(tp.coarse).__name__ == coarse_kind
     assert jtp.has_entries == tp.has_entries == has_entries
     seq = runtime.dfs_preorder(ids)[0]  # downstream cells before upstream ones
@@ -209,13 +220,42 @@ def test_a_plan_loaded_without_down_tables_raises(plans):
                R_pad=jtp.R_pad, E_pad=jtp.E_pad, F_rows=jtp.F_rows,
                has_far=jtp.has_far, has_entries=jtp.has_entries)
     dfs = jtp._coarse_dfs
-    routers = (jtp.coarse.router_tables()
-               if isinstance(jtp.coarse, jtpm._CoarseRouterSmall) else None)
+    routers = None if isinstance(jtp.coarse, jtpm._CoarseGather) else jtp.coarse.router_tables()
     tp = ttp.TilePlan.from_stage_tables(
         jtp._tabs_np, cfg, jtp._coarse_meta, (dfs.preorder_np, dfs.pos_np, dfs.size_np),
         routers=routers, device="cpu")
     with pytest.raises(RuntimeError, match="downward"):
         tp.accumulate_down(torch.ones(jtp.shape[0] * jtp.shape[1], dtype=torch.int32))
+
+
+def test_the_three_coarse_levels_agree(monkeypatch):
+    """One grid through the port's gather, single-chunk and BigAccelPlan
+    coarse levels: upward and downward bitwise equal, int32 and int64."""
+    d8 = _demo_d8((256, 256), 8)
+    ids = td8.from_array(d8, dtype=np.int64)[0]
+    tps = {}
+    for kind, (router_min, small_max) in (("_CoarseGather", (200_000, 1_870_000)),
+                                          ("_CoarseRouterSmall", (1, 1_870_000)),
+                                          ("BigAccelPlan", (1, 0))):
+        monkeypatch.setattr(ttp, "_COARSE_ROUTER_MIN", router_min)
+        monkeypatch.setattr(ttp, "_COARSE_SMALL_MAX", small_max)
+        tps[kind] = ttp.build_tile_plan(ids, d8.shape, device="cpu")
+        assert type(tps[kind].coarse).__name__ == kind
+    big = tps["BigAccelPlan"].coarse
+    assert big.slot_mode and big.n_pad == 1 << 21 and big._n_down(0) == big.n_pad
+    for kind in ("int32", "int64_wide"):
+        x = torch.as_tensor(_int_data(kind, ids.size))
+        up = tps["_CoarseGather"].accumulate(x)
+        down = tps["_CoarseGather"].accumulate_down(x)
+        for name in ("_CoarseRouterSmall", "BigAccelPlan"):
+            assert torch.equal(tps[name].accumulate(x), up), (name, kind)
+            assert torch.equal(tps[name].accumulate_down(x), down), (name, kind)
+    w = torch.as_tensor(np.random.RandomState(7).rand(ids.size))
+    tol = dict(rtol=1e-12, atol=2 * ids.size * _EPS * float(w.sum()))
+    np.testing.assert_allclose(tps["BigAccelPlan"].accumulate(w).numpy(),
+                               tps["_CoarseGather"].accumulate(w).numpy(), **tol)
+    np.testing.assert_allclose(tps["BigAccelPlan"].accumulate_down(w).numpy(),
+                               tps["_CoarseGather"].accumulate_down(w).numpy(), **tol)
 
 
 # ---------------------------------------------------------------------------
@@ -372,6 +412,90 @@ def test_accuflux_down(pair, dtype, nodata):
     assert got.dtype == want.dtype and got.shape == want.shape
     # the same doubling rounds add the same pairs in both packages
     assert np.array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# where no tile plan can be built
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def no_tile_plan(d8_raster, monkeypatch):
+    """The port's raster above the tile-plan threshold (lowered to 0), with a
+    tile-plan build that raises as a coarse graph past the routers' capacity
+    does."""
+    t = pyflwdir_torch.from_array(d8_raster, transform=_LATLON, latlon=True, device="cpu")
+    monkeypatch.setattr(type(t), "_TILE_PLAN_MIN", 0)
+
+    def fail(*args, **kwargs):
+        raise ValueError("coarse graph exceeds router capacity")
+
+    monkeypatch.setattr(ttp, "build_tile_plan", fail)
+    return t
+
+
+def _no_engine_switch(t, call, monkeypatch):
+    """``call`` raises the build's error, with no warning and no sweep on the
+    host or through the 1-D plans in its place."""
+    import warnings
+
+    used = []
+    for mod, name in ((runtime, "downward_sweep"), (tbig.BigAccelPlan, "accumulate"),
+                      (type(t).__mro__[1], "_accumulate_dev")):
+        monkeypatch.setattr(mod, name, lambda *a, _n=name, **k: used.append(_n))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        with pytest.raises(ValueError, match="coarse graph exceeds router capacity"):
+            call(t)
+    assert used == [] and "tile_plan" not in t._cached
+
+
+@pytest.mark.parametrize("call", [
+    lambda t: t.upstream_area(),
+    lambda t: t.upstream_area("km2"),
+    lambda t: t.accuflux(np.ones(t.shape, np.int64)),
+], ids=["upstream_area", "upstream_area_km2", "accuflux"])
+def test_failed_build_raises_upward(no_tile_plan, monkeypatch, call):
+    _no_engine_switch(no_tile_plan, call, monkeypatch)
+
+
+@pytest.mark.parametrize("call", [
+    lambda t: t.stream_distance(),
+    lambda t: t.stream_distance(mask=np.arange(t.size).reshape(t.shape) % 50 == 0),
+    lambda t: t.stream_distance(mask=np.arange(t.size).reshape(t.shape) % 50 == 0, unit="m"),
+    lambda t: t.basins(),
+    lambda t: t.hand(np.arange(t.size).reshape(t.shape) % 50 == 0,
+                     np.ones(t.shape, np.float32)),
+    lambda t: t.fillnodata(np.where(np.arange(t.size).reshape(t.shape) % 9, -1, 5)
+                           .astype(np.int16), -1, direction="up"),
+    lambda t: t.fillnodata(np.where(np.arange(t.size).reshape(t.shape) % 9, 0, (1 << 60) + 1),
+                           0, direction="up"),
+], ids=["stream_distance", "stream_distance_mask", "stream_distance_m", "basins", "hand",
+        "fillnodata_up", "fillnodata_up_int64"])
+def test_failed_build_raises_downward(no_tile_plan, monkeypatch, call):
+    _no_engine_switch(no_tile_plan, call, monkeypatch)
+
+
+def test_raster_below_the_threshold_takes_the_big_plan_for_every_dtype(d8_raster, monkeypatch):
+    """A raster up to the tile-plan threshold accumulates through the 1-D
+    engines: where the graph does not fit the single-chunk plan, integer and
+    float data both take the BigAccelPlan."""
+    from pyflwdir_torch.ops import accel as taccel
+
+    t = pyflwdir_torch.from_array(d8_raster, transform=_LATLON, latlon=True, device="cpu")
+    j = pyflwdir_tpu.from_array(d8_raster, transform=_LATLON, latlon=True)
+    calls = []
+    real = tbig.BigAccelPlan.accumulate
+    monkeypatch.setattr(tbig.BigAccelPlan, "accumulate",
+                        lambda self, data: calls.append(data.dtype) or real(self, data))
+    upa = t.upstream_area()  # this 36,400-cell graph fits the single-chunk plan
+    assert calls == [] and np.array_equal(upa, j.upstream_area())
+    monkeypatch.setattr(taccel, "build_accel_plan", lambda ids, dfs, device=None:
+                        tbig.build_big_accel_plan(ids, dfs, device=device))
+    t._cached.pop("accel")
+    assert np.array_equal(t.upstream_area(), upa)
+    km2 = t.upstream_area("km2")
+    assert calls == [torch.int32, torch.float64]
+    np.testing.assert_allclose(km2, j.upstream_area("km2"), rtol=1e-12,
+                               atol=2 * t.size * _EPS * km2.ravel()[t.idxs_pit].sum())
 
 
 def test_the_port_imports_no_jax():

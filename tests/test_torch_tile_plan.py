@@ -5,8 +5,9 @@ to the DFS plan, on the CPU (the kernels' plain versions).
 
 Grids: 300x200 (several tiles, padding, missing cells, the gather coarse
 level); 256x256 with ``_COARSE_ROUTER_MIN`` lowered in both packages (the
-router coarse level, kernels H0-H3); a 256x128 serpentine chain (the packed
-far mode).
+router coarse level, kernels H0-H3) and, with ``_COARSE_SMALL_MAX`` lowered
+to 0 as well, the ``BigAccelPlan`` coarse level; a 256x128 serpentine chain
+(the packed far mode).
 
 Float data: the port sums float64 in another order than the JAX package;
 an interval difference keeps the absolute error of the prefix sums, at most
@@ -27,8 +28,10 @@ import pyflwdir_tpu
 from pyflwdir_torch import dem as tdem
 from pyflwdir_torch import kernels
 from pyflwdir_torch.codecs import d8 as td8
+from pyflwdir_torch.ops import accel_big as tbig
 from pyflwdir_torch.ops import plan as tplan
 from pyflwdir_torch.ops import tile_plan as ttp
+from pyflwdir_tpu.ops import accel_big as jbig
 from pyflwdir_tpu.ops import plan as jplan
 from pyflwdir_tpu.ops import tile_plan as jtpm
 
@@ -59,33 +62,49 @@ def _replay(jtp):
                R_pad=jtp.R_pad, E_pad=jtp.E_pad, F_rows=jtp.F_rows,
                has_far=jtp.has_far, has_entries=jtp.has_entries)
     dfs = jtp._coarse_dfs
-    routers = (jtp.coarse.router_tables()
-               if isinstance(jtp.coarse, jtpm._CoarseRouterSmall) else None)
+    routers = None if isinstance(jtp.coarse, jtpm._CoarseGather) else jtp.coarse.router_tables()
     return ttp.TilePlan.from_stage_tables(
         jtp._tabs_np, cfg, jtp._coarse_meta, (dfs.preorder_np, dfs.pos_np, dfs.size_np),
         routers=routers, device="cpu")
 
 
+class _Thresholds:
+    """Both packages' coarse backend thresholds, patched alike and restored."""
+
+    def __init__(self, router_min=None, small_max=None):
+        self.new = {"_COARSE_ROUTER_MIN": router_min, "_COARSE_SMALL_MAX": small_max}
+
+    def __enter__(self):
+        self.old = {k: (getattr(jtpm, k), getattr(ttp, k)) for k in self.new}
+        for k, v in self.new.items():
+            if v is not None:
+                setattr(jtpm, k, v)
+                setattr(ttp, k, v)
+
+    def __exit__(self, *exc):
+        for k, (j, t) in self.old.items():
+            setattr(jtpm, k, j)
+            setattr(ttp, k, t)
+
+
+# name: (grid, _COARSE_ROUTER_MIN, _COARSE_SMALL_MAX, coarse level, far mode)
 _GRIDS = {
-    "300x200": (lambda: _demo_d8((300, 200), 3), None, "_CoarseGather", "router"),
-    "256x256-router": (lambda: _demo_d8((256, 256), 5), 1, "_CoarseRouterSmall", "router"),
-    "serpentine": (_serpentine, None, "_CoarseGather", "packed"),
+    "300x200": (lambda: _demo_d8((300, 200), 3), None, None, "_CoarseGather", "router"),
+    "256x256-router": (lambda: _demo_d8((256, 256), 5), 1, None, "_CoarseRouterSmall",
+                       "router"),
+    "256x256-big": (lambda: _demo_d8((256, 256), 5), 1, 0, "BigAccelPlan", "router"),
+    "serpentine": (_serpentine, None, None, "_CoarseGather", "packed"),
 }
 
 
 @pytest.fixture(scope="module", params=list(_GRIDS))
 def plans(request):
-    make, router_min, coarse_kind, far_mode = _GRIDS[request.param]
+    make, router_min, small_max, coarse_kind, far_mode = _GRIDS[request.param]
     d8 = make()
     ids = td8.from_array(d8, dtype=np.int64)[0]
-    old = (jtpm._COARSE_ROUTER_MIN, ttp._COARSE_ROUTER_MIN)
-    if router_min is not None:
-        jtpm._COARSE_ROUTER_MIN = ttp._COARSE_ROUTER_MIN = router_min
-    try:
+    with _Thresholds(router_min, small_max):
         jtp = jtpm.build_tile_plan(ids, d8.shape)
         tp = ttp.build_tile_plan(ids, d8.shape, device="cpu")
-    finally:
-        jtpm._COARSE_ROUTER_MIN, ttp._COARSE_ROUTER_MIN = old
     assert type(jtp.coarse).__name__ == type(tp.coarse).__name__ == coarse_kind
     assert jtp.far_mode == tp.far_mode == far_mode
     return dict(ids=ids, shape=d8.shape, jtp=jtp, tp=tp, rtp=_replay(jtp))
@@ -114,9 +133,13 @@ def test_build_decisions_equal(plans):
         assert getattr(tp, f) == getattr(jtp, f) == getattr(rtp, f), f
     for k in ("in_slot", "out_slot", "m", "D"):
         assert np.array_equal(tp._coarse_meta[k], jtp._coarse_meta[k]), k
-    if isinstance(jtp.coarse, jtpm._CoarseRouterSmall):
+    if not isinstance(jtp.coarse, jtpm._CoarseGather):
         for f in ("n_pad", "n_in", "n_out", "has_far"):
-            assert getattr(tp.coarse, f) == getattr(jtp.coarse, f), f
+            assert getattr(tp.coarse, f) == getattr(jtp.coarse, f) == getattr(rtp.coarse, f), f
+    if isinstance(jtp.coarse, jbig.BigAccelPlan):
+        assert tp.coarse.slot_mode and jtp.coarse.slot_mode
+        assert tp.coarse.G1 == jtp.coarse.r_in.G1 == 1
+        assert tp.coarse.n_in > tp.n_exit_flat  # the entry nodes' zero slots
 
 
 def test_composed_indices_equal_the_replayed_jax_tables(plans):
@@ -126,20 +149,23 @@ def test_composed_indices_equal_the_replayed_jax_tables(plans):
     for k in tp.idx:
         assert tp.idx[k].dtype == rtp.idx[k].dtype == np.int32, k
         assert np.array_equal(tp.idx[k], rtp.idx[k]), k
-    if isinstance(tp.coarse, ttp._CoarseRouterSmall):
-        for k in ("src_in", "near_end", "far_end"):
+    if isinstance(tp.coarse, tbig.RouterAccel):
+        for k in ("src_in", "near_end", "src_out", "far_end"):
             assert np.array_equal(getattr(tp.coarse, k), getattr(rtp.coarse, k)), k
         # off-tree output slots (far_end -2) give 0 whatever their source
         on = tp.coarse.far_end != -2
-        assert np.array_equal(tp.coarse.src_out[on], rtp.coarse.src_out[on])
         # against the JAX coarse level's lane and mask tables
-        jnp_ = {k: v.ravel() for k, v in plans["jtp"].coarse._np.items()}
+        jc = plans["jtp"].coarse
+        names = ("near_sel", "idx_near", "sel_next", "tree_mask")
+        jnp_ = ({k: v.ravel() for k, v in jc._np.items()} if hasattr(jc, "_np")
+                else {k: np.asarray(getattr(jc, k)).ravel() for k in names})
         assert np.array_equal(tp.coarse.near_end, ttp._near_end(
             jnp_["near_sel"], jnp_["idx_near"], jnp_["sel_next"]))
         assert np.array_equal(on, jnp_["tree_mask"][: on.size])
+        # entry nodes and padding read past the exits: H1 gives them 0
+        assert (tp.coarse.src_in >= tp.n_exit_flat).any()
+    if isinstance(tp.coarse, ttp._CoarseRouterSmall):
         assert np.array_equal(tp.coarse.src_in < tp.coarse.n_pad, jnp_["in_sel"])
-        # masked in_sel slots read past the exits: H1 gives them 0
-        assert (tp.coarse.src_in >= tp.coarse.n_in).any()
 
 
 def test_rin_rout_inverse(plans):
@@ -189,9 +215,10 @@ def test_accumulate_int_bitwise(plans, kind):
                                          torch.as_tensor(data)).numpy()
     assert np.array_equal(got, want_plan)
     assert np.array_equal(rtp.accumulate(torch.as_tensor(data)).numpy(), got)
-    if kind == "int64_wide" and isinstance(jtp.coarse, jtpm._CoarseRouterSmall):
-        # the JAX router coarse level sums in int32 whatever the input
-        # (tile_plan.py:726): past 2^31 only the DFS plan is the reference
+    if kind == "int64_wide" and not isinstance(jtp.coarse, jtpm._CoarseGather):
+        # the JAX router coarse levels sum in int32 whatever the input
+        # (tile_plan.py:726, accel_big.py:539): past 2^31 only the DFS plan
+        # is the reference
         return
     assert np.array_equal(got, want_fused)
     assert np.array_equal(got, _jax_unfused(jtp, data))
@@ -265,11 +292,20 @@ def test_raster_dispatches_to_the_tile_plan(monkeypatch):
 
 
 def test_coarse_beyond_the_small_router_raises(monkeypatch):
+    """Beyond the single-chunk router the coarse level is a BigAccelPlan, as
+    in the JAX build; beyond that one's capacity the build raises the JAX
+    build's ValueError."""
     d8 = _demo_d8((300, 200), 3)
     ids = td8.from_array(d8, dtype=np.int64)[0]
     monkeypatch.setattr(ttp, "_COARSE_ROUTER_MIN", 1)
     monkeypatch.setattr(ttp, "_COARSE_SMALL_MAX", 0)
-    with pytest.raises(NotImplementedError, match="BigAccelPlan"):
+    tp = ttp.build_tile_plan(ids, d8.shape, device="cpu")
+    assert isinstance(tp.coarse, tbig.BigAccelPlan) and tp.coarse.slot_mode
+    ones = torch.ones(ids.size, dtype=torch.int32)
+    want = tplan.accumulate_planned(tplan.build_plan(ids, device="cpu"), ones)
+    assert torch.equal(tp.accumulate(ones), want)
+    monkeypatch.setattr(tbig, "_CHUNK", 8)  # capacity 128 * 8 slots
+    with pytest.raises(ValueError, match="coarse graph exceeds router capacity"):
         ttp.build_tile_plan(ids, d8.shape, device="cpu")
 
 

@@ -52,7 +52,20 @@ Run from the repository root:  python3 chip_smoke.py [--json PATH]
    own, so the plan has no entry cells and accumulate_down is T3 in routed
    mode alone; kernel phase at its shapes, then stream_distance against the
    host sweep.
-8. Prints a JSON line of the kernels, the card, then
+8. from_dem path, after the tile path, on its 6000x6000 DEM: the device
+   depression fill, kernel F1 (one launch per sweep, one block running the
+   rows in order). Kernel phase: F1 against its plain version, bitwise, at
+   the path's shape (down and up sweeps from the seeded start and from the
+   state after 3 rounds) and with 4-connectivity at the Rhine shape. Then
+   from_dem(engine="auto") with the counters zeroed: F1 launched twice a
+   round, the filled surface bitwise equal to the tile path's host priority
+   flood cast to float32, valid acyclic D8 with no uphill step, and the new
+   graph's upstream_area() bitwise equal to the native sweep; the fill,
+   d8_from_filled and from_dem are timed apart. A 1024x1024 crop filled on
+   the card and on the CPU gives the same bits; at the Rhine shape "auto"
+   takes the host fill, and a device fill capped at max_depth 0.5 holds the
+   cap and drains.
+9. Prints a JSON line of the kernels, the card, then
    {"ok": true, "device": ...}.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
@@ -85,6 +98,7 @@ _EPS = np.finfo(np.float64).eps
 
 _ACCEL_SRC = "pyflwdir_torch/csrc/accel_kernels.cu"
 _TILE_SRC = "pyflwdir_torch/csrc/tile_kernels.cu"
+_FILL_SRC = "pyflwdir_torch/csrc/fill_kernels.cu"
 # file:line of the TPU kernel, inside the JAX package
 _KERNELS = {
     "permute_gather": ("H0", _ACCEL_SRC,
@@ -151,6 +165,8 @@ _BIG_DOWN = {
                       "RouterPlanBig._chain_fused :330 runs it for r_dea, r_deb, r_win and "
                       "r_aout in BigAccelPlan.accumulate_down ops/accel_big.py:463",
 }
+_FILL_KERNELS = {"fill_sweep": ("F1", "ops/fill.py:205 (_sweep_strip, pallas_call :239)")}
+DEM_CROP = 1024  # side of the crop filled on the card and on the CPU
 # calls of each wrapper in one coarse-level downward sweep
 _COARSE_DOWN_CALLS = {"accel_in_scan": 2, "permute_gather": 4}
 ROUTED_SHAPE = (2048, 2048)  # just above 2^21 cells; every tile closed
@@ -273,16 +289,24 @@ def _h3_bytes(n_out, n_off, n_far, s, passthrough):
             + (s * n_off if passthrough else 0))
 
 
-def _measure(name, kern, plain, lib, n_bytes, n_ops, dtype, sums=None, reps=50):
+def _measure(name, kern, plain, lib, n_bytes, n_ops, dtype, sums=None, reps=50,
+             plain_once=False, dev_reps=20):
     """Hold one kernel against its plain version, then time it, its plain
     version and the library call. Bitwise, unless ``sums`` is ``(L,
     total)`` and the data float64: the kernel then sums L terms up to
-    ``total`` in another order (:func:`_close`)."""
-    got, want = kern(), plain()
+    ``total`` in another order (:func:`_close`). ``plain_once``: the plain
+    version's time is that of the one call compared (CUDA events)."""
+    got = kern()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = plain()
+    end.record()
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
-    err = max(float((g.double() - w.double()).abs().max())
+    # equal values (+inf among them) differ by 0
+    err = max(float(torch.where(g == w, 0.0, (g.double() - w.double()).abs()).max())
               for g, w in zip(got, want) if g.numel())
     if dtype == torch.float64 and sums is not None:
         for g, w in zip(got, want):
@@ -290,10 +314,10 @@ def _measure(name, kern, plain, lib, n_bytes, n_ops, dtype, sums=None, reps=50):
     else:
         _check(all(torch.equal(g, w) for g, w in zip(got, want)),
                f"{name} bitwise equal to its plain version")
-    ms = _time_ms(kern, reps=reps)
-    plain_ms = _time_ms(plain, reps=reps)
+    ms = _time_ms(kern, reps=reps, warmup=min(5, reps))
+    plain_ms = start.elapsed_time(end) if plain_once else _time_ms(plain, reps=reps)
     lib_ms = _time_ms(lib, reps=reps) if lib is not None else None
-    dev_ms = _device_ms(kern)
+    dev_ms = _device_ms(kern, reps=dev_reps, warm=min(5, dev_reps))
     bound, bound_by = _bound_ms(n_bytes, n_ops, dtype)
     print(f"  {name}: {ms:.4f} ms per call, {dev_ms} ms on the device (plain "
           f"{plain_ms:.4f} ms, library {'-' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
@@ -551,7 +575,9 @@ def _rows(rows, counts, path, dtype):
     out = []
     for key, row in rows.items():
         kern = key.split(".")[0]
-        if kern in _KERNELS:
+        if kern in _FILL_KERNELS:
+            (tag, replaces), src = _FILL_KERNELS[kern], _FILL_SRC
+        elif kern in _KERNELS:
             tag, src, replaces = _KERNELS[kern]
             if ".coarse_down" in key:
                 replaces = (_BIG_DOWN if ".cut" in key else _COARSE_DOWN)[kern]
@@ -658,8 +684,8 @@ def _host_ms(fn, reps):
 
 
 def tile_path(dev):
-    """The 6000x6000 path through TilePlan; returns its kernel rows and
-    timings."""
+    """The 6000x6000 path through TilePlan; returns its kernel rows, its DEM
+    and host-filled surface, and timings."""
     import pyflwdir_torch
     from pyflwdir_torch import kernels, runtime
     from pyflwdir_torch.ops.tile_plan import TilePlan, _CoarseRouterSmall
@@ -756,7 +782,7 @@ def tile_path(dev):
     down_rows, down = tile_down_path(fl, tp, elev, upa, seq, dev)
     big_rows, big = big_path(fl, upa, seq, dict(ms=acc_ms, device_ms=acc_dev_ms), dev)
     cut_rows, cut = cut_path(fl, elev, upa, dev)
-    return out + down_rows + big_rows + cut_rows, dict(
+    return out + down_rows + big_rows + cut_rows, (z, elev), dict(
         down=down, big=big, cut=cut, accumulate_ms=acc_ms,
         accumulate_device_ms=acc_dev_ms, upstream_area_ms=up_ms, main_path_int32_s=t_int,
         main_path_float64_s=t_f64, fill_s=t_fill, parse_s=t_parse, tile_plan_s=t_plan,
@@ -1222,6 +1248,164 @@ def cut_path(fl, elev, upa, dev):
                        n_in=co.n_in, n_out=co.n_out, drain_cells=int(dr.sum()))
 
 
+def fill_kernel_phase(dem, seeds, bad, conn8, start_rounds, tag):
+    """F1 against its plain version on the card, bitwise, a down and an up
+    sweep of the fill of ``dem`` from its seeded start advanced by
+    ``start_rounds`` rounds; timed beside its plain version (the compared
+    call) and its bound. ``tag`` goes into the rows' names."""
+    from pyflwdir_torch import kernels
+
+    H, W = dem.shape
+    n = H * W
+    fixed = (seeds | bad).to(torch.uint8)
+    w = torch.where(seeds, dem, float("inf"))
+    for _ in range(start_rounds):
+        w = kernels.fill_sweep(kernels.fill_sweep(w, dem, fixed, conn8, True), dem, fixed,
+                               conn8, False)
+    # per cell: m_up (2 min under 8-connectivity), b, the two recurrences
+    # (2 each), min(b, new), their minimum, the floor at d and the select
+    n_ops = (11 if conn8 else 9) * n
+    rows = {}
+    for down in (True, False):
+        name = f"fill_sweep.{'down' if down else 'up'}{tag}"
+        rows[name] = _measure(
+            name, lambda: kernels.fill_sweep(w, dem, fixed, conn8, down),
+            lambda: kernels.fill_sweep_plain(w, dem, fixed, conn8, down), None,
+            # w, dem and the mask read once, w written once
+            13 * n, n_ops, torch.float32, reps=5, plain_once=True, dev_reps=3)
+        # the operations bound beside the bytes one, and the dependent row
+        # steps both ignore
+        rows[name].update(ops_bound_ms=n_ops / OPS_PER_S[torch.float32] * 1e3, chain_rows=H)
+        print(f"  {name}: {rows[name]['ms'] / H * 1e3:.3f} us per row over {H} dependent "
+              "rows")
+    return rows
+
+
+def dem_path(z, elev, host_fill_s, dev):
+    """DEM -> FlwdirRaster on the card at the 6000x6000 tile: from_dem
+    (engine="auto") through the device fill (F1) and d8_from_filled, then
+    the new graph's tile plan. ``z`` is the tile path's DEM, ``elev`` its
+    host priority flood (the reference) and ``host_fill_s`` that fill's
+    seconds. Returns its kernel rows and timings."""
+    import pyflwdir_torch
+    from pyflwdir_torch import kernels, runtime
+    from pyflwdir_torch.codecs import d8 as d8c
+    from pyflwdir_torch.ops import fill as tfill
+
+    H, W = z.shape
+    print(f"from_dem path ({H}x{W}):")
+    print(" kernel phase:")
+    dem_t, seeds, bad = tfill.fill_setup(z, nodata=-9999.0, device=dev)
+    rows = fill_kernel_phase(dem_t, seeds, bad, True, 0, "")
+    rows.update(fill_kernel_phase(dem_t, seeds, bad, True, 3, ".r3"))
+    zr = _demo_dem(SHAPE, SEED)
+    rows.update(fill_kernel_phase(*tfill.fill_setup(zr, connectivity=4, device=dev), False, 0,
+                                  ".conn4.rhine"))
+    del dem_t, seeds, bad
+
+    print(" main path:")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    fl = pyflwdir_torch.from_dem(z, nodata=-9999.0, transform=TILE_LATLON, latlon=True)
+    torch.cuda.synchronize()
+    t_dem = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    rounds = dict(tfill.last_rounds)
+    print(f"  from_dem {t_dem:.3f} s; {rounds['fill']} fill rounds, {rounds['flat']} flat "
+          f"rounds; launches {counts}")
+    _check(counts["fill_sweep"] == 2 * rounds["fill"] > 0,
+           f"from_dem(engine='auto') took the device fill: fill_sweep launched twice in each "
+           f"of {rounds['fill']} rounds")
+    t0 = time.perf_counter()
+    filled = tfill.fill_depressions_dev(z, nodata=-9999.0)
+    torch.cuda.synchronize()
+    t_fill = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    d8 = tfill.d8_from_filled(filled, nodata=-9999.0)
+    torch.cuda.synchronize()
+    t_d8 = time.perf_counter() - t0
+    print(f"  fill_depressions_dev {t_fill:.3f} s ({tfill.last_rounds['fill']} rounds, "
+          f"{t_fill / tfill.last_rounds['fill'] * 1e3:.2f} ms each); d8_from_filled "
+          f"{t_d8:.3f} s ({tfill.last_rounds['flat']} flat rounds); the tile path's host fill "
+          f"{host_fill_s:.3f} s")
+
+    t0 = time.perf_counter()
+    f_np, d8_np = filled.cpu().numpy(), d8.cpu().numpy()
+    valid = z != -9999.0
+    _check(np.array_equal(f_np[valid], elev[valid].astype(np.float32))
+           and bool(np.all(f_np[~valid] == -9999.0)),
+           "the filled surface bitwise equal to the host priority flood cast to float32 on "
+           f"valid cells ({int(valid.sum())}), nodata outside")
+    _check(d8c.isvalid(d8_np) and np.array_equal(d8c.from_array(d8_np, dtype=np.int64)[0],
+                                                 fl.idxs_ds),
+           "D8 codes valid, and from_dem's graph is the D8 of this fill")
+    mask, ids = fl.mask, fl.idxs_ds
+    _check(bool((fl.rank.ravel()[mask] >= 0).all()), "no loops: rank >= 0 on every valid cell")
+    fz = f_np.ravel()
+    moving = mask & (ids != np.arange(fl.size))
+    _check(bool(np.all(fz[ids[moving]] <= fz[moving])),
+           f"no uphill step ({fl.idxs_pit.size} pits)")
+    t_plan = time.perf_counter()
+    upa = fl.upstream_area()
+    t_upa = time.perf_counter() - t_plan
+    seq = runtime.dfs_preorder(ids)[0]
+    oracle = runtime.accuflux_sweep(ids, seq, np.ones(fl.size))
+    upa = upa.ravel()
+    _check(type(fl._cached.get("tile_plan")).__name__ == "TilePlan"
+           and np.array_equal(upa[mask], oracle[mask].astype(np.int32)),
+           "upstream_area() through the new graph's tile plan bitwise equal to the native "
+           "sweep")
+    _check(int(upa[fl.idxs_pit].sum()) == int(mask.sum()) and bool(np.all(upa[~mask] == -9999)),
+           "mass conservation; -9999 outside the mask")
+    print(f"  checks {time.perf_counter() - t0:.2f} s (tile plan + upstream_area() "
+          f"{t_upa:.2f} s)")
+    del fl, filled, d8
+
+    print(f" crop ({DEM_CROP}x{DEM_CROP}, the low corner with the coast):")
+    zc = np.ascontiguousarray(z[-DEM_CROP:, -DEM_CROP:])
+    t0 = time.perf_counter()
+    fg = tfill.fill_depressions_dev(zc, nodata=-9999.0)
+    dg = tfill.d8_from_filled(fg, nodata=-9999.0)
+    torch.cuda.synchronize()
+    t_gpu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fc = tfill.fill_depressions_dev(zc, nodata=-9999.0, device="cpu")
+    dc = tfill.d8_from_filled(fc, nodata=-9999.0)
+    t_cpu = time.perf_counter() - t0
+    _check(torch.equal(fg.cpu(), fc) and torch.equal(dg.cpu(), dc),
+           f"the fill and the D8 on the card bitwise equal to the port's CPU run "
+           f"({tfill.last_rounds['fill']} rounds; card {t_gpu:.2f} s, CPU {t_cpu:.2f} s)")
+
+    print(f" Rhine shape ({SHAPE[0]}x{SHAPE[1]}):")
+    kernels.reset_launches()
+    fr = pyflwdir_torch.from_dem(zr, transform=LATLON, latlon=True)
+    host = pyflwdir_torch.from_array(pyflwdir_torch.fill_depressions(zr)[1], device="cpu")
+    _check(kernels.launches["fill_sweep"] == 0 and np.array_equal(fr.idxs_ds, host.idxs_ds),
+           "from_dem(engine='auto') under 2^21 cells takes the host fill: no F1 launch")
+    kernels.reset_launches()
+    fm = pyflwdir_torch.from_dem(zr, max_depth=0.5, engine="device", transform=LATLON,
+                                 latlon=True)
+    capped = tfill.fill_depressions_dev(zr, max_depth=0.5).cpu().numpy()
+    depth = dict(tfill.last_rounds)
+    z32 = zr.astype(np.float32)
+    ids, mask = fm.idxs_ds, fm.mask
+    moving = mask & (ids != np.arange(fm.size))
+    cz = capped.ravel()
+    _check(kernels.launches["fill_sweep"] > 0 and bool(np.all(capped - z32 < 0.5))
+           and bool(np.all(capped >= z32)),
+           f"max_depth 0.5 on the card: the cap holds ({depth['depth']} outer rounds, "
+           f"{depth['fill']} fill rounds, {fm.idxs_pit.size} pits)")
+    upm = fm.upstream_area().ravel()
+    _check(bool((fm.rank.ravel()[mask] >= 0).all()) and bool(np.all(cz[ids[moving]] <= cz[moving]))
+           and int(upm[fm.idxs_pit].sum()) == int(mask.sum()),
+           "and the capped surface drains: no loop, no uphill step, mass conserved")
+    out = _rows(rows, counts, f"from_dem {H}x{W}", "float32")
+    return out, dict(from_dem_s=t_dem, fill_s=t_fill, d8_s=t_d8, host_fill_s=host_fill_s,
+                     fill_rounds=rounds["fill"],
+                     flat_rounds=rounds["flat"], upstream_area_s=t_upa, crop_card_s=t_gpu,
+                     crop_cpu_s=t_cpu)
+
+
 def routed_path(dev):
     """A grid above 2^21 cells whose tiles each drain to a pit of their own:
     no entry cells, so ``accumulate_down`` is T3 in routed mode alone.
@@ -1305,14 +1489,17 @@ def main(json_path=None):
           f"(nvcc {kernels.build_seconds if kernels.build_seconds is not None else 'cached'} s)")
 
     rhine_rows, rhine = rhine_path(dev)
-    tile_rows, tile = tile_path(dev)
+    tile_rows, (z, elev), tile = tile_path(dev)
+    dem_rows, dem = dem_path(z, elev, tile["fill_s"], dev)
+    del z, elev
     routed_rows, routed = routed_path(dev)
 
-    out = rhine_rows + tile_rows + routed_rows
+    out = rhine_rows + tile_rows + dem_rows + routed_rows
     if json_path:
         os.makedirs(os.path.dirname(json_path) or ".", exist_ok=True)
         with open(json_path, "w") as f:
-            json.dump(dict(card=smi, rhine=rhine, tile=tile, routed=routed, kernels=out), f, indent=1)
+            json.dump(dict(card=smi, rhine=rhine, tile=tile, dem=dem, routed=routed, kernels=out),
+                      f, indent=1)
     print(f"card: {smi}")
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,

@@ -3,7 +3,7 @@ exact host priority-flood depression fill that turns a DEM into D8 codes,
 and the height above the nearest drain.
 
 The first two run on the host (numpy and the native library); the device
-fill is queued for a later slice of the port.
+fill, its counterpart on the card, is :mod:`pyflwdir_torch.ops.fill`.
 """
 
 from __future__ import annotations

@@ -39,6 +39,10 @@ tiles:
 * ``tile_down_a`` (T3) — ``ops/tile_plan.py`` ``TilePlan._pass_down_raw``
   and, in routed mode, ``TilePlan._pass_down``
 * ``tile_down_fin`` (T4) — ``ops/tile_plan.py`` ``TilePlan._pass_down_fin``
+
+and in ``csrc/fill_kernels.cu`` for float32 rasters with a uint8 mask:
+
+* ``fill_sweep`` (F1) — ``ops/fill.py`` ``_sweep_strip``
 """
 
 from __future__ import annotations
@@ -73,6 +77,8 @@ __all__ = [
     "tile_down_a_plain",
     "tile_down_fin",
     "tile_down_fin_plain",
+    "fill_sweep",
+    "fill_sweep_plain",
 ]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -93,6 +99,7 @@ launches = {
     "tile_pass_c": 0,
     "tile_down_a": 0,
     "tile_down_fin": 0,
+    "fill_sweep": 0,
 }
 
 #: element-type codes of the kernels' entry points
@@ -132,6 +139,8 @@ def _bind(lib):
         "pf_tile_down_a": [i32, i32, vp, i64, i64, i64, i64, vp, vp, vp, vp, vp,
                            vp, i64, vp, vp, vp, vp],
         "pf_tile_down_fin": [i32, vp, i64, i64, i64, i64, vp, vp, i64, vp, vp, vp, vp],
+        "pf_fill_stage_cols": [],
+        "pf_fill_sweep": [vp, vp, vp, vp, vp, i64, i64, i32, i32, vp],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name, None)
@@ -583,4 +592,94 @@ def tile_down_fin(x, z1, A, tree_of, rout, shape):
             z1.data_ptr(), A.data_ptr(), A.shape[1], tree_of.data_ptr(), rout.data_ptr(),
             out.data_ptr())
     launches["tile_down_fin"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# F1: one row-sequential sweep of reconstruction by erosion
+# ---------------------------------------------------------------------------
+class _ClampScan:
+    """``x(+inf)`` of the inclusive scan of the clamp maps ``x -> max(d[c],
+    min(b[c], x))`` along a row of ``n`` columns, west to east (or east to
+    west where ``reverse``), by doubling: each column's map composed with the
+    one ``s`` columns before it (the JAX package's ``_clamp_combine``, the
+    earlier map applied first). Two (a, b) buffers swap between steps; their
+    views are made once, so a step is three PyTorch calls."""
+
+    def __init__(self, n, dtype, device):
+        bufs = [torch.empty((2, n), dtype=dtype, device=device) for _ in range(2)]
+        self.x = bufs[0]
+        self.steps = {}
+        for reverse in (False, True):
+            steps, s, k = [], 1, 0
+            while s < n:
+                x, y = bufs[k % 2], bufs[(k + 1) % 2]
+                if reverse:  # the map s columns east is applied first
+                    new, cur, first, keep = y[:, :-s], x[:, :-s], x[:, s:], slice(n - s, n)
+                else:
+                    new, cur, first, keep = y[:, s:], x[:, s:], x[:, :-s], slice(0, s)
+                steps.append((cur[1], first, new, cur[0], new[0], y[:, keep], x[:, keep]))
+                s, k = 2 * s, k + 1
+            self.steps[reverse] = steps
+            self.res = bufs[k % 2]
+
+    def __call__(self, d, b, reverse):
+        self.x[0].copy_(d)
+        self.x[1].copy_(b)
+        for cur_b, first, new, cur_a, new_a, keep_dst, keep_src in self.steps[reverse]:
+            # (a, b) = (max(a, min(b, a_first)), min(b, b_first))
+            torch.minimum(cur_b, first, out=new)
+            torch.maximum(cur_a, new_a, out=new_a)
+            keep_dst.copy_(keep_src)
+        return torch.maximum(self.res[0], self.res[1])
+
+
+def fill_sweep_plain(w, dem_eff, fixed, conn8, down):
+    """Plain version of :func:`fill_sweep`: a loop over the rows, each a
+    pair of clamp scans by doubling."""
+    nrow, ncol = w.shape
+    out = torch.empty_like(w)
+    scan = _ClampScan(ncol, w.dtype, w.device)
+    # the previous row's new values between two +inf columns
+    prev = torch.full((ncol + 2,), float("inf"), dtype=w.dtype, device=w.device)
+    left, mid, right = prev[:-2], prev[1:-1], prev[2:]
+    fx = fixed != 0
+    for r in range(nrow) if down else range(nrow - 1, -1, -1):
+        m_up = torch.minimum(torch.minimum(left, mid), right) if conn8 else mid
+        d_row, w_row = dem_eff[r], w[r]
+        b = torch.minimum(w_row, m_up)
+        new = scan(d_row, b, False)
+        new = torch.minimum(new, scan(d_row, torch.minimum(b, new), True))
+        torch.where(fx[r], w_row, torch.maximum(new, d_row), out=out[r])
+        mid.copy_(out[r])
+    return out
+
+
+def fill_sweep(w, dem_eff, fixed, conn8, down):
+    """One raster sweep of reconstruction by erosion: for each row in order
+    (top to bottom where ``down``, else bottom to top), ``b = min(w[r],
+    m_up)`` with ``m_up`` the minimum of the previous row's new values at
+    columns c-1..c+1 (``conn8``) or c, +inf off the grid and before the first
+    row; then ``new[c] = max(d[c], min(b[c], new[c-1]))`` west to east,
+    the same east to west on ``min(b, new)``, their minimum, at least
+    ``d``; ``fixed`` cells keep ``w``. ``w`` and ``dem_eff`` (nrow, ncol)
+    float32, NaN-free (nodata is +inf and fixed); ``fixed`` (nrow, ncol)
+    uint8. Returns the new ``w``, bitwise equal to the plain version."""
+    if w.device.type == "cpu":
+        return fill_sweep_plain(w, dem_eff, fixed, conn8, down)
+    dev = w.device
+    _check("w", w, torch.float32, dev)
+    _check("dem_eff", dem_eff, torch.float32, dev)
+    _check("fixed", fixed, torch.uint8, dev)
+    if w.dim() != 2 or dem_eff.shape != w.shape or fixed.shape != w.shape:
+        raise ValueError("fill_sweep: w, dem_eff and fixed must be 2-D of one shape")
+    nrow, ncol = w.shape
+    out = torch.empty_like(w)
+    # a row of b in device memory, for rows wider than the kernel stages
+    # in shared memory
+    scratch = torch.empty(ncol, dtype=torch.float32, device=dev)
+    _launch(load()["fill_kernels"].pf_fill_sweep, w.data_ptr(), dem_eff.data_ptr(),
+            fixed.data_ptr(), out.data_ptr(), scratch.data_ptr(), nrow, ncol,
+            int(bool(conn8)), int(bool(down)))
+    launches["fill_sweep"] += 1
     return out

@@ -1,9 +1,10 @@
-"""FlwdirRaster and ``from_array``: the raster flow-direction object, the
-subset ported so far: shape, mask, transform, area, rank; upstream area and
-accumulation; basins, stream distance, height above the nearest drain and
-nodata filling from downstream. Above 2^21 cells these run through the tile
-plan (``ops/tile_plan.py``: ``accumulate`` upward, ``accumulate_down``
-downward), below it through the single-chunk plans and pointer doubling.
+"""FlwdirRaster, ``from_array`` and ``from_dem``: the raster flow-direction
+object, the subset ported so far: shape, mask, transform, area, rank;
+upstream area and accumulation; basins, stream distance, height above the
+nearest drain and nodata filling from downstream. Above 2^21 cells these
+run through the tile plan (``ops/tile_plan.py``: ``accumulate`` upward,
+``accumulate_down`` downward), below it through the single-chunk plans and
+pointer doubling.
 A tile plan that cannot be built (a coarse graph past the big router's 2^28
 slots, more than one card holds) raises the build's ValueError: no method
 leaves the card for another engine."""
@@ -16,12 +17,68 @@ import torch
 from . import basins as basins_mod
 from . import dem as dem_mod
 from . import streams as streams_mod
+from ._backend import resolve_device
 from .codecs import FTYPES, infer_ftype
 from .flwdir import Flwdir
 from .utils import geodesy
 from .utils.affine import IDENTITY, Affine
 
-__all__ = ["FlwdirRaster", "from_array"]
+__all__ = ["FlwdirRaster", "from_array", "from_dem"]
+
+# from_dem's engine="auto" fills on the card from this many cells up; the
+# host heap costs O(n log n) single-core time past this scale
+_FROM_DEM_DEV_MIN = 1 << 21
+
+
+def _from_dem_engine(device, size):
+    """The fill ``engine="auto"`` takes: ``"device"`` on a CUDA device from
+    ``_FROM_DEM_DEV_MIN`` cells up, else the host priority flood."""
+    return "device" if device.type == "cuda" and size >= _FROM_DEM_DEV_MIN else "host"
+
+
+def from_dem(
+    data,
+    nodata=-9999.0,
+    max_depth=-1.0,
+    transform=IDENTITY,
+    latlon=False,
+    outlets="edge",
+    engine="auto",
+    device=None,
+):
+    """Flow direction raster from a DEM by steepest gradient.
+
+    ``engine="host"`` runs the exact priority-flood fill on the host
+    (:func:`pyflwdir_torch.dem.fill_depressions`), which emits the D8
+    directions. ``engine="device"`` fills on ``device``
+    (:func:`pyflwdir_torch.ops.fill.fill_depressions_dev`, kernel F1 on the
+    card) and derives D8 there (``d8_from_filled``): the same filled
+    surface, cast to float32; directions may differ from the host's on ties
+    and flats, both valid drainages of that surface. ``"auto"`` takes the
+    device on CUDA from ``_FROM_DEM_DEV_MIN`` cells up, else the host.
+    ``device`` also holds the graph; ``None`` means the card.
+    """
+    if engine not in ("auto", "host", "device"):
+        raise ValueError(f"Unknown engine: {engine}")
+    data = np.asarray(data)
+    device = resolve_device(device)
+    if engine == "auto":
+        engine = _from_dem_engine(device, data.size)
+    if engine == "device":
+        from .ops.fill import d8_from_filled, fill_depressions_dev
+
+        filled = fill_depressions_dev(
+            data, nodata=nodata, outlets=outlets, max_depth=max_depth, device=device
+        )
+        d8 = d8_from_filled(filled, nodata=nodata).cpu().numpy()
+    else:
+        d8 = dem_mod.fill_depressions(
+            data, nodata=nodata, max_depth=max_depth, outlets=outlets
+        )[1]
+    return from_array(
+        d8, ftype="d8", check_ftype=False, transform=transform, latlon=latlon,
+        device=device,
+    )
 
 
 def from_array(

@@ -240,3 +240,54 @@ def test_tile_plan_down_matches_cpu(tile_plans, dtype):
     assert torch.equal(got, gpu.accumulate_down(x.to("cuda")))
     _assert_match(got.cpu(), cpu.accumulate_down(x), float(x.double().sum()))
 
+
+
+def _fill_inputs(shape, seed, dev):
+    """A tilted noisy DEM with nodata cells, its fill seeds and an upper
+    bound with finite values and +inf: one sweep's inputs on ``dev``."""
+    from pyflwdir_torch.ops import fill as tfill
+
+    rng = np.random.RandomState(seed)
+    H, W = shape
+    z = rng.rand(H, W) * 10 + np.add.outer(np.linspace(5, 0, H), np.linspace(5, 0, W))
+    z[rng.rand(H, W) < 0.05] = -9999.0
+    dem, seeds, bad = tfill.fill_setup(z, device=dev)
+    up = np.where(rng.rand(H, W) < 0.3, np.inf, z + 3 * rng.rand(H, W)).astype(np.float32)
+    w = torch.where(seeds, dem, torch.as_tensor(up, device=dev))
+    w = torch.where(bad, float("inf"), w)
+    return w, dem, (seeds | bad).to(torch.uint8)
+
+
+@pytest.mark.parametrize("down", [True, False])
+@pytest.mark.parametrize("conn8", [True, False])
+@pytest.mark.parametrize("shape", [(301, 1000), (23, 9000)])
+def test_fill_sweep(dev, shape, conn8, down):
+    """F1 bitwise against its plain version on the same CUDA tensors, on a
+    ragged shape and on rows wider than the kernel stages in shared memory
+    (9,000 columns: b and the previous row then live in device memory)."""
+    if shape[1] == 9000:
+        assert shape[1] > kernels.load()["fill_kernels"].pf_fill_stage_cols()
+    w, dem, fixed = _fill_inputs(shape, 9, dev)
+    kernels.reset_launches()
+    got = kernels.fill_sweep(w, dem, fixed, conn8, down)
+    assert kernels.launches["fill_sweep"] == 1
+    want = kernels.fill_sweep_plain(w, dem, fixed, conn8, down)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert kernels.launches["fill_sweep"] == 1  # the plain version never launches
+
+
+def test_fill_and_d8_match_cpu(dev):
+    """The device fill through F1 and d8_from_filled on the card bitwise
+    equal to their CPU runs; two sweeps launched per round."""
+    from pyflwdir_torch.ops import fill as tfill
+
+    rng = np.random.RandomState(12)
+    z = rng.rand(300, 400) + np.add.outer(np.linspace(2, 0, 300), np.linspace(2, 0, 400))
+    z[100:120, 50:90] = -9999.0
+    kernels.reset_launches()
+    got = tfill.fill_depressions_dev(z, device=dev)
+    assert kernels.launches["fill_sweep"] == 2 * tfill.last_rounds["fill"] > 0
+    want = tfill.fill_depressions_dev(z, device="cpu")
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(tfill.d8_from_filled(got).cpu(), tfill.d8_from_filled(want))

@@ -52,7 +52,23 @@ Run from the repository root:  python3 chip_smoke.py [--json PATH]
    own, so the plan has no entry cells and accumulate_down is T3 in routed
    mode alone; kernel phase at its shapes, then stream_distance against the
    host sweep.
-8. from_dem path, after the tile path, on its 6000x6000 DEM: the device
+8. Banded and saved-plan path on the same 6000x6000 grid and plan:
+   TilePlan.accumulate_banded, the unfused pass A (kernel T1 in exits-only
+   mode) and pass C (T2 in full mode) band by band with only one band's
+   slices of the plan's indices on the card. Kernel phase: both modes on the
+   plan's own tables against their plain versions, int32 bitwise and
+   float64 by the rule. Then, with the counters zeroed, bands of 8 tile
+   rows (6 bands) on unit weights and on a seeded int32 raster through
+   ``out_cb``, bitwise equal to ``accumulate`` and the native sweep, and a
+   float64 raster by the rule; the banded call timed beside ``accumulate``
+   plus one copy of its result to the host, and the one-band sweep's kernels
+   beside the fused ones on the device. Then ``save_plans`` and
+   ``load_plans`` into a fresh FlwdirRaster, with the build steps counted
+   (none may run): the peak device memory of a banded call on the loaded
+   plan against the bytes of its upward tables, and ``upstream_area()`` and
+   ``stream_distance()`` bitwise equal to the built plan's; save, load and
+   the first call after the load timed.
+9. from_dem path, after the tile path, on its 6000x6000 DEM: the device
    depression fill, kernel F1 (one launch per sweep, one block running the
    rows in order). Kernel phase: F1 against its plain version, bitwise, at
    the path's shape (down and up sweeps from the seeded start and from the
@@ -65,7 +81,7 @@ Run from the repository root:  python3 chip_smoke.py [--json PATH]
    the card and on the CPU gives the same bits; at the Rhine shape "auto"
    takes the host fill, and a device fill capped at max_depth 0.5 holds the
    cap and drains.
-9. Prints a JSON line of the kernels, the card, then
+10. Prints a JSON line of the kernels, the card, then
    {"ok": true, "device": ...}.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
@@ -74,9 +90,11 @@ phase fails.
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -124,6 +142,11 @@ _COARSE = {
 _TILE_KERNELS = {
     "tile_pass_a": ("T1", "ops/tile_plan.py:1918 (TilePlan._pass_a_fused, pallas_call :1951)"),
     "tile_pass_c": ("T2", "ops/tile_plan.py:1973 (TilePlan._pass_c_fused, pallas_call :2013)"),
+    # the unfused passes of the banded sweep
+    "tile_pass_a_exits": ("T1", "ops/tile_plan.py:2021 (TilePlan._pass_a_tiles, pallas_call "
+                                ":2044); :1838 (TilePlan._pass_a, pallas_call :1866)"),
+    "tile_pass_c_full": ("T2", "ops/tile_plan.py:2054 (TilePlan._pass_c_tiles, pallas_call "
+                               ":2080); :1876 (TilePlan._pass_c, pallas_call :1908)"),
 }
 # T3 by mode
 _DOWN_KERNELS = {
@@ -176,6 +199,7 @@ ROUTED_SHAPE = (2048, 2048)  # just above 2^21 cells; every tile closed
 # that router's 1.87 M slots and is a BigAccelPlan
 DRAIN_CELLS = 100_000
 BIG_DRAIN_CELLS = 30_000
+BAND_TILE_ROWS = 8  # 47 tile rows in 6 bands
 _DT = {torch.int32: "int32", torch.float64: "float64"}
 
 
@@ -196,7 +220,7 @@ def _time_ms(fn, reps=50, warmup=5):
     return statistics.median(times)
 
 
-def _device_ms(fn, reps=20, warm=5, traces=2):
+def _device_ms(fn, reps=20, warm=5, traces=2, kernels_only=False):
     """Device time of one call, from ``traces`` torch.profiler traces (CUPTI)
     of ``warm + reps`` calls each: every kernel's mean duration times its
     launches per call. In a long process a trace often comes back short of
@@ -206,7 +230,8 @@ def _device_ms(fn, reps=20, warm=5, traces=2):
     launches per call round up from the fuller trace's records / calls,
     right while fewer than calls / launches calls are lost; and a kernel
     missing from one trace is found in the other. Prints a note where
-    records are missing. None when no trace holds device time."""
+    records are missing. None when no trace holds device time.
+    ``kernels_only``: copies and memsets left out."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -219,6 +244,8 @@ def _device_ms(fn, reps=20, warm=5, traces=2):
                 fn()
             torch.cuda.synchronize()
         for e in prof.key_averages():
+            if kernels_only and e.key.startswith(("Memcpy", "Memset")):
+                continue
             if e.self_device_time_total > 0:
                 total_us[e.key] = total_us.get(e.key, 0.0) + e.self_device_time_total
                 records[e.key] = records.get(e.key, 0) + e.count
@@ -571,6 +598,243 @@ def tile_down_kernel_phase(tp, dtype, dev, tag=""):
     return rows
 
 
+def banded_kernel_phase(tp, dtype, dev):
+    """T1 in exits-only mode and T2 in full mode (the banded sweep's unfused
+    passes) in ``dtype`` against their plain versions on the whole grid of
+    the tile plan ``tp``, with its own tables and the entries its coarse
+    level gives."""
+    from pyflwdir_torch import kernels
+
+    rng = np.random.RandomState(SEED)
+    H, W = tp.shape
+    n = H * W
+    if dtype == torch.float64:
+        x = torch.as_tensor(rng.rand(n), device=dev)
+    else:
+        x = torch.as_tensor(rng.randint(0, 3, n).astype(np.int32), device=dev)
+    s = x.element_size()
+    t = tp.idx_t
+    NT, T, E = tp.NT, t["rin"].shape[1], tp.E_pad
+    n_roots, n_ent = tp._coarse_meta["m"], tp._coarse_meta["D"]
+    sfx = f".{_DT[dtype]}"
+    tile_x = kernels._tiles(x.abs(), tp.shape).sum(1)
+    a_args = (x, t["rin"], t["ex_end"], tp.shape)
+    rows = {"tile_pass_a_exits" + sfx: _measure(
+        "tile_pass_a_exits" + sfx,
+        lambda: kernels.tile_pass_a(*a_args, emit_c=False),
+        lambda: kernels.tile_pass_a_plain(*a_args, emit_c=False),
+        None,
+        # x per cell and rin per slot read (2-byte tile indices); per real
+        # local root its end read and its exit written
+        s * n + 2 * NT * T + (2 + s) * n_roots, NT * T + n_roots,
+        dtype, (T, float(tile_x.max())), reps=20)}
+    exits = kernels.tile_pass_a(*a_args, emit_c=False)
+    entv = tp.entry_grid(tp.coarse.accumulate(exits.reshape(-1)))
+    n_off = int((kernels._untile(t["rout"], tp.shape) < 0).sum())
+    n_tfar = int((t["far_end"] >= 0).sum())
+    scale = float((tile_x + entv.abs().sum(1)).max())
+    args = (x, None, entv, t["ent_idx"], t["near_end"], t["far_end"], t["rout"], tp.shape)
+    rows["tile_pass_c_full" + sfx] = _measure(
+        "tile_pass_c_full" + sfx,
+        lambda: kernels.tile_pass_c(*args, rin=t["rin"]),
+        lambda: kernels.tile_pass_c_plain(*args, rin=t["rin"]),
+        None,
+        # x per cell (for the prefix sums and the passthrough), rin per slot,
+        # near_end (1 byte) per slot, each entry's value and slot, each far
+        # slot and its end, rout per cell read; out written once
+        s * n + 2 * NT * T + NT * T + (s + 2) * n_ent + 4 * n_tfar + 2 * n + s * n,
+        3 * NT * T + n_ent + n_tfar, dtype, (T + E + 3, scale), reps=20)
+    return rows
+
+
+def _unfused(tp, x):
+    """The one-band sweep's device work on the plan's resident tables: T1
+    exits only, the coarse level, T2 in full mode."""
+    from pyflwdir_torch import kernels
+
+    t = tp.idx_t
+    exits = kernels.tile_pass_a(x, t["rin"], t["ex_end"], tp.shape, emit_c=False)
+    entv = tp.entry_grid(tp.coarse.accumulate(exits.reshape(-1)))
+    return kernels.tile_pass_c(x, None, entv, t["ent_idx"], t["near_end"], t["far_end"],
+                               t["rout"], tp.shape, rin=t["rin"])
+
+
+class _Rebuilds:
+    """Counts the tile plan's build steps (phase 1, the down sort phase, the
+    plan's constructor) made inside the block."""
+
+    def __enter__(self):
+        from pyflwdir_torch import runtime
+        from pyflwdir_torch.ops.tile_plan import TilePlan
+
+        self.calls = {}
+        self._real = [(runtime, "tile_plan_phase1"), (runtime, "tile_down_phase"),
+                      (TilePlan, "__init__")]
+        self._real = [(obj, name, getattr(obj, name)) for obj, name in self._real]
+        for obj, name, fn in self._real:
+            def counted(*a, _fn=fn, _name=name, **k):
+                self.calls[_name] = self.calls.get(_name, 0) + 1
+                return _fn(*a, **k)
+
+            setattr(obj, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, fn in self._real:
+            setattr(obj, name, fn)
+
+
+def banded_path(fl, tp, upa, seq, built_s, dev):
+    """The banded sweep and saved plans on the 6000x6000 grid and its plan
+    ``tp`` (``upa`` its upstream area in cells, ``seq`` its cells with
+    downstream ones first, ``built_s`` the seconds of its build); returns
+    the kernel rows and timings."""
+    import pyflwdir_torch
+    from pyflwdir_torch import kernels, runtime
+
+    print(" banded path:")
+    t_path = time.perf_counter()
+    rows = {}
+    for dtype in (torch.int32, torch.float64):
+        print(f" kernel phase, unfused passes ({_DT[dtype]}):")
+        rows[dtype] = banded_kernel_phase(tp, dtype, dev)
+
+    print(f" main path, banded ({BAND_TILE_ROWS} tile rows a band):")
+    H, W = fl.shape
+    n = H * W
+    nb = -(-tp.grid[0] // BAND_TILE_ROWS)
+    rng = np.random.RandomState(SEED + 6)
+    w = rng.randint(0, 3, (H, W)).astype(np.int32)
+    fdata = rng.rand(H, W)
+    counts, secs, parts = {}, {}, []
+    for name, fn in (
+            ("ones", lambda: tp.accumulate_banded(None, BAND_TILE_ROWS)),
+            ("int32", lambda: tp.accumulate_banded(
+                w, BAND_TILE_ROWS, out_cb=lambda b, r0, a: parts.append((b, r0, a.copy())))),
+            ("float64", lambda: tp.accumulate_banded(fdata, BAND_TILE_ROWS))):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        secs[name] = time.perf_counter() - t0
+        counts[name] = dict(kernels.launches)
+        print(f"  accumulate_banded ({name}) {secs[name]:.3f} s; launches {counts[name]}")
+        if name == "ones":
+            ones_b = out
+        elif name == "float64":
+            f_b = out
+    want = {"tile_pass_a_exits": nb, "tile_pass_c_full": nb, **{k: 1 for k in _KERNELS}}
+    for name, c in counts.items():
+        _check(all(c[k] == want.get(k, 0) for k in c),
+               f"the banded sweep ({name}) launched T1 exits-only and T2 full once a band "
+               f"({nb} bands), H1, H2, H0 and H3 once, and no fused pass")
+
+    t0 = time.perf_counter()
+    mask = fl.mask.reshape(H, W)
+    ones = torch.ones(n, dtype=torch.int32, device=dev)
+    mono = tp.accumulate(ones).cpu().numpy().reshape(H, W)
+    _check(ones_b.dtype == np.int32 and ones_b.shape == (H, W) and np.array_equal(ones_b, mono)
+           and np.array_equal(ones_b[mask], upa[mask]),
+           "accumulate_banded(None) int32 bitwise equal to accumulate and to the native sweep")
+    _check([p[:2] for p in parts] == [(b, b * BAND_TILE_ROWS * 128) for b in range(nb)]
+           and sum(p[2].shape[0] for p in parts) == H,
+           f"out_cb took the {nb} bands in order, their rows adding up to the grid's")
+    got = np.concatenate([p[2] for p in parts])
+    want_w = runtime.accuflux_sweep(fl.idxs_ds, seq, w.ravel().astype(np.float64))
+    _check(got.dtype == np.int32
+           and np.array_equal(got, tp.accumulate(torch.as_tensor(w.ravel(), device=dev))
+                              .cpu().numpy().reshape(H, W))
+           and np.array_equal(got[mask], want_w.reshape(H, W)[mask].astype(np.int32)),
+           "accumulate_banded(int32 raster, out_cb) bitwise equal to accumulate and to the "
+           "native sweep")
+    length = 128 * 128 + 2 * _scan_len(tp.coarse.n_pad) + tp.E_pad
+    _close(f_b, runtime.accuflux_sweep(fl.idxs_ds, seq, fdata.ravel()).reshape(H, W), length,
+           float(fdata.sum()), "accumulate_banded(float64) of the native sweep")
+    fd = torch.as_tensor(fdata.ravel(), device=dev)
+    _check(np.array_equal(f_b.ravel(), tp.accumulate(fd).cpu().numpy()),
+           "accumulate_banded(float64) bitwise equal to accumulate (the same scans)")
+    _check(torch.equal(_unfused(tp, ones), tp.accumulate(ones)),
+           "the one-band sweep's kernels on resident tables bitwise equal to accumulate")
+    print(f"  checks {time.perf_counter() - t0:.2f} s")
+
+    banded_ms = _host_ms(lambda: tp.accumulate_banded(None, BAND_TILE_ROWS), 3)
+    one_band_ms = _host_ms(lambda: tp.accumulate_banded(None), 3)
+    mono_ms = _host_ms(lambda: tp.accumulate(ones).cpu().numpy(), 5)
+    unf_ms = _time_ms(lambda: _unfused(tp, ones), reps=20, warmup=3)
+    unf_dev = _device_ms(lambda: _unfused(tp, ones))
+    fused_ms = _time_ms(lambda: tp.accumulate(ones), reps=20, warmup=3)
+    fused_dev = _device_ms(lambda: tp.accumulate(ones))
+    one_band_dev = _device_ms(lambda: tp.accumulate_banded(None), reps=3, warm=1,
+                              kernels_only=True)
+    print(f"  accumulate_banded(None, {BAND_TILE_ROWS}) {banded_ms:.3f} ms, one band "
+          f"{one_band_ms:.3f} ms (its kernels {one_band_dev} ms on the device); accumulate + "
+          f"copy of its result to the host {mono_ms:.3f} ms")
+    print(f"  on resident tables: unfused (T1 exits, coarse, T2 full) {unf_ms:.4f} ms a call, "
+          f"{unf_dev} ms on the device; fused (T1, coarse, T2) {fused_ms:.4f} ms, {fused_dev} ms")
+
+    print(" saved plans:")
+    plan_dir = tempfile.mkdtemp(prefix="_plan_tmp", dir=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        t0 = time.perf_counter()
+        fl.save_plans(plan_dir, down=True)
+        t_save = time.perf_counter() - t0
+        disk = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(plan_dir)
+                   for f in fs)
+        dist = fl.stream_distance()
+        with _Rebuilds() as rb:
+            fl2 = pyflwdir_torch.FlwdirRaster(fl.idxs_ds, fl.shape, "d8", fl.idxs_pit,
+                                              transform=fl.transform, latlon=fl.latlon,
+                                              device=fl.device)
+            torch.cuda.synchronize()
+            m0 = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            tp2 = fl2.load_plans(plan_dir)
+            t_load = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            b2 = tp2.accumulate_banded(None, BAND_TILE_ROWS)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - m0
+            no_upload = tp2._idx_t is None
+            t0 = time.perf_counter()
+            upa2 = fl2.upstream_area()
+            t_first = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            dist2 = fl2.stream_distance()
+            t_first_down = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(plan_dir, ignore_errors=True)
+    up_bytes = sum(v.nbytes for v in tp.idx.values())
+    print(f"  save_plans {t_save:.3f} s ({disk} bytes on disk); load_plans {t_load:.3f} s; first "
+          f"upstream_area() after the load {t_first:.3f} s, first stream_distance() "
+          f"{t_first_down:.3f} s; the build: tile plan {built_s['tile_plan_s']:.2f} s, down "
+          f"indices {built_s['down_indices_s']:.2f} s")
+    print(f"  peak device memory of a banded call on the loaded plan {peak} bytes; its upward "
+          f"tables {up_bytes} bytes")
+    _check(not rb.calls, f"load_plans and the calls after it ran no build step ({rb.calls})")
+    _check(no_upload and np.array_equal(b2, ones_b),
+           "a banded call on the loaded plan uploaded no whole table and gave the same bits")
+    _check(peak < up_bytes / 2,
+           f"its peak device memory ({peak / 1e6:.1f} MB) under half its upward tables' "
+           f"bytes ({up_bytes / 1e6:.1f} MB)")
+    _check(np.array_equal(upa2, upa) and np.array_equal(dist2, dist),
+           "upstream_area() and stream_distance() of the loaded plan bitwise equal to the "
+           "built plan's")
+
+    t_path = time.perf_counter() - t_path
+    print(f"  banded path {t_path:.1f} s")
+    path = "tile 6000x6000 banded"
+    krows = _rows(rows[torch.int32], counts["int32"], path, "int32")
+    krows += _rows(rows[torch.float64], counts["float64"], path, "float64")
+    return krows, dict(bands=nb, banded_s=secs, banded_ms=banded_ms, one_band_ms=one_band_ms,
+                       one_band_kernels_device_ms=one_band_dev,
+                       accumulate_plus_copy_ms=mono_ms, unfused_ms=unf_ms,
+                       unfused_device_ms=unf_dev, fused_ms=fused_ms, fused_device_ms=fused_dev,
+                       save_s=t_save, plan_bytes_on_disk=disk, load_s=t_load,
+                       first_upstream_area_s=t_first, first_stream_distance_s=t_first_down,
+                       peak_bytes=peak, upward_table_bytes=up_bytes, path_s=t_path,
+                       **built_s)
+
+
 def _rows(rows, counts, path, dtype):
     out = []
     for key, row in rows.items():
@@ -742,7 +1006,7 @@ def tile_path(dev):
     counts_f64 = dict(kernels.launches)
     print(f"  int32 {t_int:.3f} s; launches {counts_int}")
     print(f"  float64 {t_f64:.3f} s; launches {counts_f64}")
-    for name in (*_TILE_KERNELS, *_KERNELS):
+    for name in ("tile_pass_a", "tile_pass_c", *_KERNELS):
         _check(counts_int[name] > 0 and counts_f64[name] > 0,
                f"{name} launched on the main path (int32 and float64)")
 
@@ -780,10 +1044,12 @@ def tile_path(dev):
     out = _rows(rows[torch.int32], counts_int, "tile 6000x6000", "int32")
     out += _rows(rows[torch.float64], counts_f64, "tile 6000x6000", "float64")
     down_rows, down = tile_down_path(fl, tp, elev, upa, seq, dev)
+    banded_rows, banded = banded_path(
+        fl, tp, upa, seq, dict(tile_plan_s=t_plan, down_indices_s=down["down_indices_s"]), dev)
     big_rows, big = big_path(fl, upa, seq, dict(ms=acc_ms, device_ms=acc_dev_ms), dev)
     cut_rows, cut = cut_path(fl, elev, upa, dev)
-    return out + down_rows + big_rows + cut_rows, (z, elev), dict(
-        down=down, big=big, cut=cut, accumulate_ms=acc_ms,
+    return out + down_rows + banded_rows + big_rows + cut_rows, (z, elev), dict(
+        down=down, banded=banded, big=big, cut=cut, accumulate_ms=acc_ms,
         accumulate_device_ms=acc_dev_ms, upstream_area_ms=up_ms, main_path_int32_s=t_int,
         main_path_float64_s=t_f64, fill_s=t_fill, parse_s=t_parse, tile_plan_s=t_plan,
         tile_plan_steps_s=tp.build_seconds, NT=tp.NT, R_pad=tp.R_pad, E_pad=tp.E_pad,

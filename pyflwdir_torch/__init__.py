@@ -6,8 +6,11 @@ D8/LDD/NEXTXY codecs, the host depression fill and the device one
 the DFS plan, the single-chunk router accumulation (``ops.accel.AccelPlan``,
 hand-written CUDA kernels in ``csrc/accel_kernels.cu``) and the large-graph
 one on the same kernels (``ops.accel_big.BigAccelPlan``, up to 2^28 slots),
-the hierarchical tile plan upward and downward (``ops.tile_plan.TilePlan``,
-``csrc/tile_kernels.cu``) and the pointer-doubling graph primitives, behind
+the hierarchical tile plan upward, downward and band by band
+(``ops.tile_plan.TilePlan``, ``csrc/tile_kernels.cu``), saved and loaded
+(``ops.plan_io``, ``FlwdirRaster.save_plans`` / ``load_plans``, which also
+read the JAX package's plan directories) and the pointer-doubling graph
+primitives, behind
 ``from_array`` / ``from_dem`` -> ``FlwdirRaster.upstream_area`` /
 ``accuflux`` / ``rank`` / ``basins`` / ``stream_distance`` / ``hand`` /
 ``fillnodata(direction="up")``.

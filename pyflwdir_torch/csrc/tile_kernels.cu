@@ -148,6 +148,39 @@ __device__ void block_scan_inplace(T* a, int n, T* warp_tot) {
   __syncthreads();
 }
 
+// Inclusive prefix sum, in preorder, of the tile's values load(s) over its
+// 16,384 slots, by the whole block: warp w owns slots [512 w, 512 w + 512),
+// 32 at a time with a shuffle scan and a running carry; one warp scans the
+// 32 warp totals. On return v[k] holds the sum at slot
+// tile_scan_slot(k) (the caller's thread), and every load has been made (a
+// barrier follows the last one), so the caller may overwrite what load read.
+// The order of the additions is fixed: T1 and T2's full mode give the same
+// bits for the same values.
+__device__ __forceinline__ int tile_scan_slot(int k) {
+  return (threadIdx.x >> 5) * kWarpSlots + (threadIdx.x & 31) + k * 32;
+}
+
+template <typename T, class Load>
+__device__ __forceinline__ void tile_prefix_scan(Load load, T (&v)[kPerThread],
+                                                 T* warp_tot) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  T carry = T(0);
+#pragma unroll
+  for (int k = 0; k < kPerThread; ++k) {
+    T a = warp_inclusive_scan(load(tile_scan_slot(k)), lane) + carry;
+    v[k] = a;
+    carry = shfl(a, 31);
+  }
+  if (lane == 0) warp_tot[warp] = carry;
+  __syncthreads();  // every load is done
+  if (warp == 0) warp_tot[lane] = warp_inclusive_scan(warp_tot[lane], lane);
+  __syncthreads();
+  const T off = warp > 0 ? warp_tot[warp - 1] : T(0);
+#pragma unroll
+  for (int k = 0; k < kPerThread; ++k) v[k] += off;
+}
+
 // ---------------------------------------------------------------------------
 // T1 tile_pass_a: per tile t,
 //   c[t, s]     = sum over slots s' <= s of x[cell(rin[t, s'])]
@@ -155,18 +188,19 @@ __device__ void block_scan_inplace(T* a, int n, T* warp_tot) {
 // where cells past the raster's H x W edge read 0.
 // Replaces ops/tile_plan.py::TilePlan._pass_a_fused (_body_a_fused: the rin
 // router chain, the Hillis-Steele tile prefix sum, the exit router and its
-// prev-difference) and the jnp.pad copy before it. Bound: x and rin read
-// once, c written once: 2 * sizeof(T) + 4 bytes per slot, plus R_pad exits.
+// prev-difference) and the jnp.pad copy before it; in exits-only mode
+// (kEmitC false, no c written) TilePlan._pass_a / _pass_a_tiles (_body_a),
+// the unfused pass A of the banded sweep. Bound: x and rin read once, c
+// written once: 2 * sizeof(T) + 4 bytes per slot (sizeof(T) + 4 without
+// c), plus R_pad exits.
 // Design: the block stages its 128 x 128 raster tile in shared memory with
 // row-coalesced loads, gathers it into preorder through rin (coalesced
-// index reads, shared-memory gathers), and scans it warp by warp: warp w
-// owns slots [512 w, 512 w + 512), 32 at a time with a shuffle scan and a
-// running carry; one warp scans the 32 warp totals. The prefix sums are
-// written to c and, over the dead raster tile, to shared memory, from which
-// the exit differences are read. Summation order differs from the JAX
-// package's (integers exact, float64 within rounding).
+// index reads, shared-memory gathers) and scans it (tile_prefix_scan). The
+// prefix sums are written to c and, over the dead raster tile, to shared
+// memory, from which the exit differences are read. Summation order differs
+// from the JAX package's (integers exact, float64 within rounding).
 // ---------------------------------------------------------------------------
-template <typename T>
+template <typename T, bool kEmitC>
 __global__ void __launch_bounds__(kTileThreads)
     tile_pass_a_kernel(const T* __restrict__ x, int64_t H, int64_t W,
                        int64_t ntx, const int32_t* __restrict__ rin,
@@ -185,29 +219,15 @@ __global__ void __launch_bounds__(kTileThreads)
   }
   __syncthreads();
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int base = warp * kWarpSlots + lane;
   const int32_t* rin_t = rin + t * kSlots;
   T v[kPerThread];
-  T carry = T(0);
-#pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    T a = warp_inclusive_scan(xs[rin_t[base + k * 32]], lane) + carry;
-    v[k] = a;
-    carry = shfl(a, 31);
-  }
-  if (lane == 0) warp_tot[warp] = carry;
-  __syncthreads();  // every gather from xs is done: xs may be overwritten
-  if (warp == 0) warp_tot[lane] = warp_inclusive_scan(warp_tot[lane], lane);
-  __syncthreads();
-  const T off = warp > 0 ? warp_tot[warp - 1] : T(0);
+  tile_prefix_scan([&](int q) { return xs[rin_t[q]]; }, v, warp_tot);
   T* c_t = c + t * kSlots;
 #pragma unroll
   for (int k = 0; k < kPerThread; ++k) {
-    const T cv = v[k] + off;
-    c_t[base + k * 32] = cv;
-    xs[base + k * 32] = cv;
+    const int q = tile_scan_slot(k);
+    if (kEmitC) c_t[q] = v[k];
+    xs[q] = v[k];
   }
   __syncthreads();
 
@@ -226,22 +246,30 @@ __global__ void __launch_bounds__(kTileThreads)
 //   outp[s] = (near_end[s] >= 0 ? c'[near_end[s]] : 0) - (s > 0 ? c'[s-1] : 0)
 //             + (far_end[s] >= 0 ? c'[far_end[s]] : 0)
 //   out[cell(l)] = rout[l] >= 0 ? outp[rout[l]] : x[cell(l)]
-// for every raster cell of the tile inside H x W.
+// for every raster cell of the tile inside H x W. In full mode (kFull) c is
+// not read: the kernel rebuilds it as T1 does, the prefix sum of
+// x[cell(rin[t, s])] (tile_prefix_scan, the same bits).
 // Replaces ops/tile_plan.py::TilePlan._pass_c_fused (_body_c_core: the
 // entry step-injection, the near lane gathers, the far fexp router + b-block
 // broadcast (or packed row-pair selection) + ffar router, the rout router
-// and the off-tree passthrough). Bound: c, ent_idx, near_end, far_end, rout
-// and x read once, out written once: 3 * sizeof(T) + 16 bytes per slot,
-// plus the entries.
+// and the off-tree passthrough); in full mode TilePlan._pass_c /
+// _pass_c_tiles (_body_c: the rin chain and tile prefix sum first), the
+// unfused pass C of the banded sweep. Bound: c (full mode: rin and every
+// x), ent_idx, near_end, far_end, rout and x read once, out written once:
+// 3 * sizeof(T) + 16 bytes per slot, plus the entries.
 // Design: one block per tile; the entries are scanned in shared memory,
 // c' is built in shared memory from coalesced reads, each thread holds its
 // 16 outp values in registers across a barrier and writes them over c' in
-// place, and the raster tile is written row-coalesced through rout.
+// place, and the raster tile is written row-coalesced through rout. Full
+// mode gathers x straight from device memory through rin (the tile's 128
+// row segments stay in L1/L2), as T3 does: a staged raster tile beside c'
+// would need 256 KB in float64, over the 227 KB a block may have.
 // ---------------------------------------------------------------------------
-template <typename T>
+template <typename T, bool kFull>
 __global__ void __launch_bounds__(kTileThreads)
     tile_pass_c_kernel(const T* __restrict__ x, int64_t H, int64_t W,
                        int64_t ntx, const T* __restrict__ c,
+                       const int32_t* __restrict__ rin,
                        const T* __restrict__ entv, int E,
                        const int32_t* __restrict__ ent_idx,
                        const int32_t* __restrict__ near_end,
@@ -263,11 +291,24 @@ __global__ void __launch_bounds__(kTileThreads)
     __syncthreads();
     block_scan_inplace(pcs, E, warp_tot);
   }
-  for (int s = threadIdx.x; s < kSlots; s += kTileThreads) {
-    T v = c[tb + s];
-    const int32_t e = ent_idx[tb + s];
-    if (e >= 0) v += pcs[e];
-    cs[s] = v;
+  if constexpr (kFull) {
+    T v[kPerThread];
+    tile_prefix_scan(
+        [&](int q) { return tile_cell(x, H, W, r0, c0, rin[tb + q]); }, v,
+        warp_tot);
+#pragma unroll
+    for (int k = 0; k < kPerThread; ++k) {
+      const int s = tile_scan_slot(k);
+      const int32_t e = ent_idx[tb + s];
+      cs[s] = e >= 0 ? v[k] + pcs[e] : v[k];
+    }
+  } else {
+    for (int s = threadIdx.x; s < kSlots; s += kTileThreads) {
+      T v = c[tb + s];
+      const int32_t e = ent_idx[tb + s];
+      if (e >= 0) v += pcs[e];
+      cs[s] = v;
+    }
   }
   __syncthreads();
 
@@ -319,7 +360,7 @@ __global__ void __launch_bounds__(kTileThreads)
 // rout) read once: 2 * sizeof(T) + 16 (+ 4) bytes per slot in this layout.
 // Design: one block per tile and one shared-memory tile, as T1. The sorted
 // values are gathered straight from x (the tile's 128 row segments stay in
-// L1/L2) and scanned in registers warp by warp as in T1; cs goes to shared
+// L1/L2) and scanned as in T1 (tile_prefix_scan); cs goes to shared
 // memory for the two boundary reads per slot; u[j + 1] is a second gather
 // from x; the suffix scan mirrors the prefix scan (shuffle down, carry from
 // the last chunk to the first, warp totals scanned from the right). Two
@@ -353,24 +394,13 @@ __global__ void __launch_bounds__(kTileThreads)
 
   // prefix sums of the tree values in (end, slot) order
   T v[kPerThread];
-  T carry = T(0);
+  tile_prefix_scan(
+      [&](int q) {
+        return q < nt ? tile_cell(x, H, W, r0, c0, es[tb + q]) : T(0);
+      },
+      v, warp_tot);
 #pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    const int q = base + k * 32;
-    T a = q < nt ? tile_cell(x, H, W, r0, c0, es[tb + q]) : T(0);
-    a = warp_inclusive_scan(a, lane) + carry;
-    v[k] = a;
-    carry = shfl(a, 31);
-  }
-  if (lane == 0) warp_tot[warp] = carry;
-  __syncthreads();
-  if (warp == 0) warp_tot[lane] = warp_inclusive_scan(warp_tot[lane], lane);
-  __syncthreads();
-  {
-    const T off = warp > 0 ? warp_tot[warp - 1] : T(0);
-#pragma unroll
-    for (int k = 0; k < kPerThread; ++k) cs[base + k * 32] = v[k] + off;
-  }
+  for (int k = 0; k < kPerThread; ++k) cs[base + k * 32] = v[k];
   __syncthreads();
 
   // per-end group sums minus the next slot's value
@@ -391,7 +421,7 @@ __global__ void __launch_bounds__(kTileThreads)
   __syncthreads();  // every read of cs and of the warp totals is done
 
   // suffix sums, from the tile's last slot to its first
-  carry = T(0);
+  T carry = T(0);
 #pragma unroll
   for (int k = kPerThread - 1; k >= 0; --k) {
     const T a = warp_inclusive_suffix_scan(v[k], lane) + carry;
@@ -509,6 +539,47 @@ int launch_tile_down_a(const void* x, int64_t H, int64_t W, int64_t NT,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, bool kEmitC>
+int launch_tile_pass_a(const void* x, int64_t H, int64_t W, int64_t NT,
+                       int64_t ntx, const int32_t* rin, const int32_t* ex_end,
+                       int64_t R, void* c, void* exits, void* stream) {
+  const int smem = kSlots * static_cast<int>(sizeof(T));
+  cudaError_t err = cudaFuncSetAttribute(
+      tile_pass_a_kernel<T, kEmitC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (NT > 0) {
+    tile_pass_a_kernel<T, kEmitC>
+        <<<static_cast<unsigned>(NT), kTileThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const T*>(x), H, W, ntx, rin, ex_end,
+            static_cast<int>(R), static_cast<T*>(c), static_cast<T*>(exits));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool kFull>
+int launch_tile_pass_c(const void* x, int64_t H, int64_t W, int64_t NT,
+                       int64_t ntx, const void* c, const int32_t* rin,
+                       const void* entv, int64_t E, const int32_t* ent_idx,
+                       const int32_t* near_end, const int32_t* far_end,
+                       const int32_t* rout, void* out, void* stream) {
+  const int smem = (kSlots + static_cast<int>(E)) * static_cast<int>(sizeof(T));
+  cudaError_t err = cudaFuncSetAttribute(
+      tile_pass_c_kernel<T, kFull>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (NT > 0) {
+    tile_pass_c_kernel<T, kFull>
+        <<<static_cast<unsigned>(NT), kTileThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const T*>(x), H, W, ntx, static_cast<const T*>(c), rin,
+            static_cast<const T*>(entv), static_cast<int>(E), ent_idx, near_end,
+            far_end, rout, static_cast<T*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -524,44 +595,35 @@ int pf_tile_max_smem() {
   return optin - kWarps * 8;  // minus the static warp totals
 }
 
+// c == nullptr: exits only (no c written)
 int pf_tile_pass_a(int dt, const void* x, int64_t H, int64_t W, int64_t NT,
                    int64_t ntx, const int32_t* rin, const int32_t* ex_end,
                    int64_t R, void* c, void* exits, void* stream) {
   return by_dtype(dt, [&](auto tag) {
     using T = typename decltype(tag)::type;
-    const int smem = kSlots * static_cast<int>(sizeof(T));
-    cudaError_t err = cudaFuncSetAttribute(
-        tile_pass_a_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (NT > 0) {
-      tile_pass_a_kernel<T><<<static_cast<unsigned>(NT), kTileThreads, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(x), H, W, ntx, rin, ex_end, static_cast<int>(R),
-          static_cast<T*>(c), static_cast<T*>(exits));
-    }
-    return static_cast<int>(cudaGetLastError());
+    return c != nullptr
+               ? launch_tile_pass_a<T, true>(x, H, W, NT, ntx, rin, ex_end, R,
+                                             c, exits, stream)
+               : launch_tile_pass_a<T, false>(x, H, W, NT, ntx, rin, ex_end, R,
+                                              c, exits, stream);
   });
 }
 
+// c == nullptr: full mode, the prefix sums rebuilt from x through rin
 int pf_tile_pass_c(int dt, const void* x, int64_t H, int64_t W, int64_t NT,
-                   int64_t ntx, const void* c, const void* entv, int64_t E,
-                   const int32_t* ent_idx, const int32_t* near_end,
-                   const int32_t* far_end, const int32_t* rout, void* out,
-                   void* stream) {
+                   int64_t ntx, const void* c, const int32_t* rin,
+                   const void* entv, int64_t E, const int32_t* ent_idx,
+                   const int32_t* near_end, const int32_t* far_end,
+                   const int32_t* rout, void* out, void* stream) {
   return by_dtype(dt, [&](auto tag) {
     using T = typename decltype(tag)::type;
-    const int smem = (kSlots + static_cast<int>(E)) * static_cast<int>(sizeof(T));
-    cudaError_t err = cudaFuncSetAttribute(
-        tile_pass_c_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (NT > 0) {
-      tile_pass_c_kernel<T><<<static_cast<unsigned>(NT), kTileThreads, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(x), H, W, ntx, static_cast<const T*>(c),
-          static_cast<const T*>(entv), static_cast<int>(E), ent_idx, near_end,
-          far_end, rout, static_cast<T*>(out));
-    }
-    return static_cast<int>(cudaGetLastError());
+    return c != nullptr
+               ? launch_tile_pass_c<T, false>(x, H, W, NT, ntx, c, rin, entv, E,
+                                              ent_idx, near_end, far_end, rout,
+                                              out, stream)
+               : launch_tile_pass_c<T, true>(x, H, W, NT, ntx, c, rin, entv, E,
+                                             ent_idx, near_end, far_end, rout,
+                                             out, stream);
   });
 }
 

@@ -29,8 +29,10 @@ class Flwdir:
     def __init__(
         self,
         idxs_ds,
+        area=None,
         idxs_pit=None,
         idxs_outlet=None,
+        idxs_seq=None,
         nnodes=None,
         cache=True,
         device=None,
@@ -49,10 +51,13 @@ class Flwdir:
         self._mv = -1
         self._pit = None if idxs_pit is None else np.asarray(idxs_pit, np.int64)
         self.idxs_outlet = idxs_outlet
+        self._seq = idxs_seq
         self._nnodes = nnodes
         self.device = resolve_device(device)
         self.cache = cache
         self._cached = dict()
+        if area is not None:
+            self._cached.update(area=area)
         if self.idxs_pit.size == 0:
             raise ValueError("Invalid FlwdirRaster: no pits found")
 
@@ -149,7 +154,9 @@ class Flwdir:
 
     @property
     def area(self):
-        """Cell area (graph objects default to unit areas)."""
+        """Cell area: the ``area`` given to the constructor, else unit areas."""
+        if "area" in self._cached:
+            return self._cached["area"]
         return np.ones(self.size, dtype=np.float32)
 
     ### GLOBAL ARITHMETICS ###

@@ -34,8 +34,12 @@ of fewer than 2^31 elements (the plans go up to 2^28 slots):
 and in ``csrc/tile_kernels.cu`` for int32, int64 and float64, on 128 x 128
 tiles:
 
-* ``tile_pass_a`` (T1) — ``ops/tile_plan.py`` ``TilePlan._pass_a_fused``
-* ``tile_pass_c`` (T2) — ``ops/tile_plan.py`` ``TilePlan._pass_c_fused``
+* ``tile_pass_a`` (T1) — ``ops/tile_plan.py`` ``TilePlan._pass_a_fused``;
+  with ``emit_c=False`` (counted as ``tile_pass_a_exits``) ``TilePlan._pass_a``
+  and ``_pass_a_tiles``
+* ``tile_pass_c`` (T2) — ``ops/tile_plan.py`` ``TilePlan._pass_c_fused``;
+  with ``c=None`` (full mode, counted as ``tile_pass_c_full``)
+  ``TilePlan._pass_c`` and ``_pass_c_tiles``
 * ``tile_down_a`` (T3) — ``ops/tile_plan.py`` ``TilePlan._pass_down_raw``
   and, in routed mode, ``TilePlan._pass_down``
 * ``tile_down_fin`` (T4) — ``ops/tile_plan.py`` ``TilePlan._pass_down_fin``
@@ -96,7 +100,9 @@ launches = {
     "accel_near_out": 0,
     "accel_far_merge": 0,
     "tile_pass_a": 0,
+    "tile_pass_a_exits": 0,
     "tile_pass_c": 0,
+    "tile_pass_c_full": 0,
     "tile_down_a": 0,
     "tile_down_fin": 0,
     "fill_sweep": 0,
@@ -134,7 +140,7 @@ def _bind(lib):
         "pf_accel_far_merge": [i32, vp, vp, vp, vp, vp, i64, i32, vp],
         "pf_tile_max_smem": [],
         "pf_tile_pass_a": [i32, vp, i64, i64, i64, i64, vp, vp, i64, vp, vp, vp],
-        "pf_tile_pass_c": [i32, vp, i64, i64, i64, i64, vp, vp, i64,
+        "pf_tile_pass_c": [i32, vp, i64, i64, i64, i64, vp, vp, vp, i64,
                            vp, vp, vp, vp, vp, vp],
         "pf_tile_down_a": [i32, i32, vp, i64, i64, i64, i64, vp, vp, vp, vp, vp,
                            vp, i64, vp, vp, vp, vp],
@@ -393,24 +399,32 @@ def _tile_args(shape, rin, x):
 # ---------------------------------------------------------------------------
 # T1: per-tile prefix sums in preorder and the local-root exit sums
 # ---------------------------------------------------------------------------
-def tile_pass_a_plain(x, rin, ex_end, shape):
-    """Plain version of :func:`tile_pass_a`."""
+def _tile_prefix_plain(x, rin, shape):
+    """The tile prefix sums in preorder, ``cumsum(x[cell(rin)])`` per tile."""
     v = torch.gather(_tiles(x, shape), 1, rin.long())
-    c = torch.cumsum(v, 1, dtype=x.dtype)
+    return torch.cumsum(v, 1, dtype=x.dtype)
+
+
+def tile_pass_a_plain(x, rin, ex_end, shape, emit_c=True):
+    """Plain version of :func:`tile_pass_a`."""
+    c = _tile_prefix_plain(x, rin, shape)
     ce = torch.gather(c, 1, ex_end.long())
     exits = ce - torch.cat([torch.zeros_like(ce[:, :1]), ce[:, :-1]], 1)
-    return exits, c
+    return (exits, c) if emit_c else exits
 
 
-def tile_pass_a(x, rin, ex_end, shape):
-    """Pass A of the tile plan (fused): ``x`` (H*W,) raster values, int32,
-    int64 or float64; ``rin`` (NT, 16384) int32, the raster cell (within its
-    128 x 128 tile, row-major) of each preorder slot; ``ex_end`` (NT, R)
-    int32, the preorder end of each local root. Cells past H or W read 0.
-    Returns ``(exits (NT, R), c (NT, 16384))``: the local-root subtree sums
-    and the tile prefix sums, in ``x``'s dtype."""
+def tile_pass_a(x, rin, ex_end, shape, emit_c=True):
+    """Pass A of the tile plan: ``x`` (H*W,) raster values, int32, int64 or
+    float64; ``rin`` (NT, 16384) int32, the raster cell (within its 128 x
+    128 tile, row-major) of each preorder slot; ``ex_end`` (NT, R) int32, the
+    preorder end of each local root. Cells past H or W read 0. Returns
+    ``(exits (NT, R), c (NT, 16384))``: the local-root subtree sums and the
+    tile prefix sums, in ``x``'s dtype; with ``emit_c=False`` the exits
+    alone (the unfused pass A: no c written or allocated). A band of whole
+    tile rows is a raster of its own: its rows, and the tables' rows of its
+    tiles."""
     if x.device.type == "cpu":
-        return tile_pass_a_plain(x, rin, ex_end, shape)
+        return tile_pass_a_plain(x, rin, ex_end, shape, emit_c)
     dev = x.device
     dt = _code("x", x, _TILE_DTYPES)
     _check("x", x, x.dtype, dev)
@@ -420,19 +434,25 @@ def tile_pass_a(x, rin, ex_end, shape):
     if ex_end.dim() != 2 or ex_end.shape[0] != NT or not 0 < ex_end.shape[1] <= rin.shape[1]:
         raise ValueError("ex_end must be (NT, R) with 0 < R <= 16384")
     R = ex_end.shape[1]
-    c = torch.empty(rin.shape, dtype=x.dtype, device=dev)
+    c = torch.empty(rin.shape, dtype=x.dtype, device=dev) if emit_c else None
     exits = torch.empty((NT, R), dtype=x.dtype, device=dev)
     _launch(load()["tile_kernels"].pf_tile_pass_a, dt, x.data_ptr(), H, W, NT, ntx,
-            rin.data_ptr(), ex_end.data_ptr(), R, c.data_ptr(), exits.data_ptr())
-    launches["tile_pass_a"] += 1
-    return exits, c
+            rin.data_ptr(), ex_end.data_ptr(), R, c.data_ptr() if emit_c else None,
+            exits.data_ptr())
+    if emit_c:
+        launches["tile_pass_a"] += 1
+        return exits, c
+    launches["tile_pass_a_exits"] += 1
+    return exits
 
 
 # ---------------------------------------------------------------------------
 # T2: entry injection, interval differences, raster order, passthrough
 # ---------------------------------------------------------------------------
-def tile_pass_c_plain(x, c, entv, ent_idx, near_end, far_end, rout, shape):
+def tile_pass_c_plain(x, c, entv, ent_idx, near_end, far_end, rout, shape, rin=None):
     """Plain version of :func:`tile_pass_c`."""
+    if c is None:
+        c = _tile_prefix_plain(x, rin, shape)
     zero = torch.zeros((), dtype=c.dtype, device=c.device)
     if entv.shape[1]:
         pc = torch.cumsum(entv, 1, dtype=entv.dtype)
@@ -447,27 +467,34 @@ def tile_pass_c_plain(x, c, entv, ent_idx, near_end, far_end, rout, shape):
     return _untile(outt, shape)
 
 
-def tile_pass_c(x, c, entv, ent_idx, near_end, far_end, rout, shape):
-    """Pass C of the tile plan (fused), resuming from pass A's ``c``.
+def tile_pass_c(x, c, entv, ent_idx, near_end, far_end, rout, shape, rin=None):
+    """Pass C of the tile plan, resuming from pass A's ``c`` (fused) or, with
+    ``c=None`` (full mode, the unfused pass C), rebuilding it from ``x``
+    through ``rin`` as pass A does, with the same bits.
 
     ``x`` (H*W,) raster values; ``c`` (NT, 16384) tile prefix sums; ``entv``
     (NT, E) entry inflows per tile from the coarse level (E may be 0);
     ``ent_idx``, ``near_end``, ``far_end`` (NT, 16384) int32 in preorder
-    layout and ``rout`` (NT, 16384) int32 in tile raster layout (see
+    layout, ``rout`` (NT, 16384) int32 in tile raster layout and, in full
+    mode, ``rin`` as :func:`tile_pass_a` takes it (see
     ``csrc/tile_kernels.cu``). Returns (H*W,) accumulated values in
     ``x``'s dtype: tree cells get their subtree sum plus their inflow, cells
     off the tree pass ``x`` through."""
     if x.device.type == "cpu":
-        return tile_pass_c_plain(x, c, entv, ent_idx, near_end, far_end, rout, shape)
+        return tile_pass_c_plain(x, c, entv, ent_idx, near_end, far_end, rout, shape, rin)
     dev = x.device
     dt = _code("x", x, _TILE_DTYPES)
-    for name, t, dtype in (("x", x, x.dtype), ("c", c, x.dtype), ("entv", entv, x.dtype),
+    full = c is None
+    if full and rin is None:
+        raise ValueError("tile_pass_c: full mode (c=None) needs rin")
+    pre = ("rin", rin, torch.int32) if full else ("c", c, x.dtype)
+    for name, t, dtype in (("x", x, x.dtype), pre, ("entv", entv, x.dtype),
                            ("ent_idx", ent_idx, torch.int32),
                            ("near_end", near_end, torch.int32),
                            ("far_end", far_end, torch.int32), ("rout", rout, torch.int32)):
         _check(name, t, dtype, dev)
     H, W, NT, ntx = _tile_args(shape, rout, x)
-    for name, t in (("c", c), ("ent_idx", ent_idx), ("near_end", near_end),
+    for name, t in (pre[:2], ("ent_idx", ent_idx), ("near_end", near_end),
                     ("far_end", far_end)):
         if t.shape != rout.shape:
             raise ValueError(f"{name} must be {tuple(rout.shape)}")
@@ -479,10 +506,11 @@ def tile_pass_c(x, c, entv, ent_idx, near_end, far_end, rout, shape):
         raise ValueError(f"{E} entries per tile in {x.dtype} exceed the shared "
                          "memory of one block")
     out = torch.empty_like(x)
-    _launch(lib.pf_tile_pass_c, dt, x.data_ptr(), H, W, NT, ntx, c.data_ptr(),
+    _launch(lib.pf_tile_pass_c, dt, x.data_ptr(), H, W, NT, ntx,
+            None if full else c.data_ptr(), rin.data_ptr() if full else None,
             entv.data_ptr(), E, ent_idx.data_ptr(), near_end.data_ptr(),
             far_end.data_ptr(), rout.data_ptr(), out.data_ptr())
-    launches["tile_pass_c"] += 1
+    launches["tile_pass_c_full" if full else "tile_pass_c"] += 1
     return out
 
 

@@ -168,7 +168,12 @@ class CoarseDown:
                 "win_next": win_next,
                 "rev": np.arange(n_c - 1, -1, -1, dtype=np.int64),
                 "fin": np.where(root_pos >= 0, n_c - 1 - root_pos, -1)}
-        self.down = {name: v.astype(np.int32) for name, v in down.items()}
+        self.set_down(down)
+
+    def set_down(self, down):
+        """Keep the composed down indices (as :meth:`build_down` makes them,
+        or as a saved plan holds them) as int32 and upload them."""
+        self.down = {name: np.asarray(v).astype(np.int32) for name, v in down.items()}
         self._down_t = {name: torch.as_tensor(v, device=self.dfs.device)
                         for name, v in self.down.items()}
 

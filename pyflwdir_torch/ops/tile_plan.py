@@ -31,6 +31,16 @@ builds the same indices from a JAX plan's tables by replaying the chains on
 Tiles are 128 rows high, the one height the CUDA kernels take; a JAX plan of
 another height is not loaded.
 
+The per-tile indices stay on the host (numpy, or memory-mapped where the
+plan was loaded from disk, ``ops/plan_io.py``) until the first monolithic
+call uploads them (``idx_t``). :meth:`TilePlan.accumulate_banded` never
+does: it runs the unfused passes band by band, with only one band's slices
+of the indices on the device::
+
+    for each band:  exits[band] = tile_pass_a(x[band], emit_c=False)  # T1, exits only
+    entries = coarse.accumulate(exits)
+    for each band:  out[band] = tile_pass_c(x[band], c=None, ...)     # T2, full mode
+
 The downward (transpose) sweep, ``TilePlan.accumulate_down``, is the sum
 of the data over each cell's downstream path, as the JAX package's::
 
@@ -156,6 +166,60 @@ def _compose_down(es, dea, deb, de_sel, de_b0, re_sel, n_tree, ent_slot):
         "ent_slot": np.ascontiguousarray(ent_slot, np.int32),
         "tree_of": np.where(on, tree_of, -1).astype(np.int32),
     }
+
+
+def _upload(a, device):
+    """A host array (numpy or a memory map, or a slice of one) as a tensor on
+    ``device``."""
+    return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+
+class _BandSink:
+    """Takes pass C's band results on the device, in band order, and hands
+    each to the host one band late: on CUDA, band b's copy to pinned memory
+    runs on a stream of its own while band b + 1's kernels run, and band b
+    reaches ``out_cb(b, r0, array)`` (or the assembled result) only after
+    band b + 1 is enqueued."""
+
+    def __init__(self, shape, out_cb, device):
+        self.shape, self.out_cb = shape, out_cb
+        self.full = None
+        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        self.pending = None
+
+    def put(self, b, r0, band):
+        done = None
+        if self.stream is not None:
+            ready = torch.cuda.Event()
+            ready.record()
+            host = torch.empty(band.shape, dtype=band.dtype, pin_memory=True)
+            with torch.cuda.stream(self.stream):
+                self.stream.wait_event(ready)
+                host.copy_(band, non_blocking=True)
+                band.record_stream(self.stream)
+                done = torch.cuda.Event()
+                done.record(self.stream)
+            band = host
+        prev, self.pending = self.pending, (b, r0, band, done)
+        if prev is not None:
+            self._flush(*prev)
+
+    def _flush(self, b, r0, band, done):
+        if done is not None:
+            done.synchronize()
+        a = band.numpy()
+        if self.out_cb is not None:
+            self.out_cb(b, r0, a)
+            return
+        if self.full is None:
+            self.full = np.empty(self.shape, a.dtype)
+        self.full[r0: r0 + a.shape[0]] = a
+
+    def finish(self):
+        if self.pending is not None:
+            self._flush(*self.pending)
+        self.pending = None
+        return self.full
 
 
 def _coarse_down_arrays(dfs, meta, n_exit_flat):
@@ -394,14 +458,36 @@ class TilePlan:
         self.pshape = (self.grid[0] * _S, self.grid[1] * _S)
         self.NT = self.grid[0] * self.grid[1]
 
-    def _coarse_level(self, dfs_c):
-        """The JAX package's coarse backend choice."""
+    def _config(self, cfg):
+        """The plan's decisions from a saved or a JAX plan's ``cfg``."""
+        if int(cfg["tile_rows"]) != _S:
+            raise NotImplementedError(
+                f"tile plans of {cfg['tile_rows']} rows: the port's tiles are 128 rows "
+                f"high; loading other heights is {_LATER}"
+            )
+        self.far_mode = cfg["far_mode"]
+        self.b = int(cfg["b"])
+        self.R_pad = int(cfg["R_pad"])
+        self.E_pad = int(cfg["E_pad"])
+        self.F_rows = int(cfg["F_rows"])
+        self.has_far = bool(cfg["has_far"])
+        self.has_entries = bool(cfg["has_entries"])
+        self.n_exit_flat = self.NT * self.R_pad
+
+    def _coarse_level(self, dfs_c, kind=None):
+        """The JAX package's coarse backend choice, or ``kind`` (the class
+        name of a saved plan's coarse level)."""
         meta = self._coarse_meta
         n_out = self.NT * max(self.E_pad, 1)
-        if max(self.n_exit_flat, n_out) < _COARSE_ROUTER_MIN:
+        if kind is None:
+            if max(self.n_exit_flat, n_out) < _COARSE_ROUTER_MIN:
+                kind = "_CoarseGather"
+            elif max(self.n_exit_flat, n_out, meta["m"] + meta["D"]) <= _COARSE_SMALL_MAX:
+                kind = "_CoarseRouterSmall"
+        if kind == "_CoarseGather":
             return _CoarseGather(dfs_c, meta["in_slot"], meta["out_slot"],
                                  self.n_exit_flat, n_out)
-        if max(self.n_exit_flat, n_out, meta["m"] + meta["D"]) <= _COARSE_SMALL_MAX:
+        if kind == "_CoarseRouterSmall":
             small = _CoarseRouterSmall(dfs_c, meta["in_slot"], meta["out_slot"],
                                        n_in=self.n_exit_flat)
             if small.ok:
@@ -412,18 +498,39 @@ class TilePlan:
         return big
 
     def _finish(self, idx, secs):
-        t0 = time.perf_counter()
         self.idx = idx
-        self.idx_t = {k: torch.as_tensor(v, device=self.device) for k, v in idx.items()}
-        secs["upload"] = time.perf_counter() - t0
+        self._idx_t = None
+        self.upload_seconds = None
         self.build_seconds = secs
         self.down_idx = None
+        self._down_idx_t = None
+
+    @property
+    def idx_t(self):
+        """The per-tile indices on the plan's device, uploaded at the first
+        call that needs them all (``upload_seconds``)."""
+        if self._idx_t is None:
+            t0 = time.perf_counter()
+            self._idx_t = {k: _upload(v, self.device) for k, v in self.idx.items()}
+            self.upload_seconds = time.perf_counter() - t0
+        return self._idx_t
+
+    @property
+    def down_idx_t(self):
+        """The downward sweep's indices on the plan's device (after
+        :meth:`_ensure_down`)."""
+        if self._down_idx_t is None:
+            self._down_idx_t = {k: _upload(v, self.device) for k, v in self.down_idx.items()}
+        return self._down_idx_t
 
     def _ensure_down(self):
         """Build, once, the downward sweep's indices (``down_idx``, uploaded
-        as ``down_idx_t``) and the coarse level's (``coarse.build_down``)."""
+        at first use as ``down_idx_t``) and the coarse level's
+        (``coarse.build_down``)."""
         if self.down_idx is not None:
             return
+        if self._down_src is None:
+            raise RuntimeError("the plan was loaded without its downward tables")
         secs = {}
         src = self._down_src
         NT, T = self.NT, _S * _S
@@ -459,10 +566,6 @@ class TilePlan:
         t0 = time.perf_counter()
         self.coarse.build_down(cd, routers=routers)
         secs["coarse down"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        self.down_idx_t = {k: torch.as_tensor(v, device=self.device)
-                           for k, v in down_idx.items()}
-        secs["upload"] = time.perf_counter() - t0
         self.down_idx = down_idx
         self.down_build_seconds = secs
         self._down_src = None
@@ -492,24 +595,12 @@ class TilePlan:
         ``coarse.down_router_tables()``); without it ``accumulate_down``
         raises. Plans of tiles other than 128 rows high raise
         NotImplementedError."""
-        if int(cfg["tile_rows"]) != _S:
-            raise NotImplementedError(
-                f"tile plans of {cfg['tile_rows']} rows: the port's tiles are 128 rows "
-                f"high; loading other heights is {_LATER}"
-            )
         self = cls.__new__(cls)
         secs = {}
         t0 = time.perf_counter()
         self._geometry(cfg["shape"], device)
+        self._config(cfg)
         NT, T = self.NT, _S * _S
-        self.far_mode = cfg["far_mode"]
-        self.b = int(cfg["b"])
-        self.R_pad = int(cfg["R_pad"])
-        self.E_pad = int(cfg["E_pad"])
-        self.F_rows = int(cfg["F_rows"])
-        self.has_far = bool(cfg["has_far"])
-        self.has_entries = bool(cfg["has_entries"])
-        self.n_exit_flat = NT * self.R_pad
 
         def flat(name):
             return np.asarray(tabs[name]).reshape(NT, T)
@@ -560,6 +651,45 @@ class TilePlan:
         self._finish(idx, secs)
         return self
 
+    @classmethod
+    def from_indices(cls, cfg, idx, coarse_meta, coarse_dfs, coarse_kind, down_idx=None,
+                     coarse_down=None, device=None) -> "TilePlan":
+        """The plan from its composed indices, as :meth:`save` writes them:
+        ``cfg`` (the geometry and decisions, as :meth:`from_stage_tables`
+        takes them), ``idx`` (the six per-tile indices, host arrays or memory
+        maps), ``coarse_meta``, ``coarse_dfs`` and ``coarse_kind`` (the
+        coarse level's class name; it is rebuilt from its DFS plan) and,
+        for :meth:`accumulate_down`, ``down_idx`` and the coarse level's
+        composed down indices ``coarse_down``. Nothing is sorted or
+        searched."""
+        self = cls.__new__(cls)
+        t0 = time.perf_counter()
+        self._geometry(cfg["shape"], device)
+        self._config(cfg)
+        self._coarse_meta = coarse_meta
+        self.coarse = self._coarse_level(DfsPlan(*coarse_dfs, device=self.device), coarse_kind)
+        self._down_src = None
+        self._finish(idx, {"coarse plan": time.perf_counter() - t0})
+        if down_idx is not None:
+            self.down_idx = down_idx
+            self.coarse.set_down(coarse_down)
+        return self
+
+    def save(self, path, down=True):
+        """Write the plan to the directory ``path`` (see
+        :func:`pyflwdir_torch.ops.plan_io.save_tile_plan`)."""
+        from .plan_io import save_tile_plan
+
+        return save_tile_plan(self, path, down=down)
+
+    @staticmethod
+    def load(path, mmap=True, device=None) -> "TilePlan":
+        """Load a saved plan, the port's or the JAX package's (see
+        :func:`pyflwdir_torch.ops.plan_io.load_tile_plan`)."""
+        from .plan_io import load_tile_plan
+
+        return load_tile_plan(path, mmap=mmap, device=device)
+
     # -- execution -----------------------------------------------------------
     _acc_dtype = staticmethod(acc_dtype)
 
@@ -587,8 +717,6 @@ class TilePlan:
         H, W = self.shape
         if data.numel() != H * W:
             raise ValueError(f"data must hold {H * W} values")
-        if self.down_idx is None and self._down_src is None:
-            raise RuntimeError("the plan was loaded without its downward tables")
         self._ensure_down()
         x = data.reshape(-1).to(self._acc_dtype(data)).contiguous()
         t, d = self.idx_t, self.down_idx_t
@@ -602,6 +730,81 @@ class TilePlan:
         else:
             out, _ = kernels.tile_down_a(x, *d1, t["rout"], self.shape, True)
         return out.to(data.dtype)
+
+    def _banded_dtypes(self, data2d, band_rows):
+        """(result dtype, accumulation dtype) of a banded call: the port's
+        rule (``acc_dtype``), with ``|max|`` of integer data found band by
+        band on the host; unit weights are int32 below 2^31 cells."""
+        n = self.shape[0] * self.shape[1]
+        if data2d is None:
+            acc = torch.int32 if n < 1 << 31 else torch.int64
+            return acc, acc
+        dtype = torch.from_numpy(np.asarray(data2d[:1, :1])).dtype
+        if dtype.is_floating_point:
+            return dtype, torch.float64
+        amax = 1
+        for r0 in range(0, self.shape[0], band_rows):
+            blk = np.asarray(data2d[r0: r0 + band_rows])
+            if blk.size:
+                amax = max(amax, -int(blk.min()), int(blk.max()))
+        return dtype, torch.int64 if amax * n >= 1 << 31 else torch.int32
+
+    def accumulate_banded(self, data2d, band_tile_rows=None, out_cb=None):
+        """Flow accumulation band by band, for plans whose indices do not fit
+        the device: pass A (kernel T1, exits only) runs band by band with
+        only that band's slices of ``rin`` and ``ex_end`` on the device, the
+        coarse level solves once, then pass C (T2 in full mode) runs band by
+        band with that band's ``rin``, ``ent_idx``, ``near_end``,
+        ``far_end`` and ``rout``. A band is ``band_tile_rows`` rows of tiles
+        (all of them where None). The indices are never uploaded whole.
+
+        ``data2d``: an (H, W) array or ``np.memmap``, read band by band (twice;
+        integer data once more beforehand, for the accumulation dtype), or
+        None for unit weights made on the device. Each band's result
+        reaches the host after the next band's pass C is enqueued; with
+        ``out_cb`` it goes to ``out_cb(band, first_row, array)`` in band
+        order (``array`` of shape (rows, W)) and the call returns None, else
+        the call returns the assembled (H, W) array. Results come in the
+        data's dtype (int32 for unit weights), equal to :meth:`accumulate`'s."""
+        H, W = self.shape
+        nty, ntx = self.grid
+        btr = nty if band_tile_rows is None else int(band_tile_rows)
+        if btr < 1:
+            raise ValueError("band_tile_rows must be at least 1")
+        if data2d is not None and tuple(data2d.shape) != (H, W):
+            raise ValueError(f"data2d must be of shape {(H, W)}")
+        bands = [(ty0, min(ty0 + btr, nty)) for ty0 in range(0, nty, btr)]
+        dtype, acc = self._banded_dtypes(data2d, btr * _S)
+        dev = self.device
+
+        def band(ty0, ty1, keys):
+            r0, r1 = ty0 * _S, min(ty1 * _S, H)
+            if data2d is None:
+                x = torch.ones((r1 - r0) * W, dtype=acc, device=dev)
+            else:
+                x = _upload(data2d[r0:r1], dev).reshape(-1).to(acc)
+            t = {k: _upload(self.idx[k][ty0 * ntx: ty1 * ntx], dev) for k in keys}
+            return r0, (r1 - r0, W), x, t
+
+        # each band's tensors are dropped before the next band's upload
+        exits = []
+        for ty0, ty1 in bands:
+            _, shape, x, t = band(ty0, ty1, ("rin", "ex_end"))
+            exits.append(kernels.tile_pass_a(x, t["rin"], t["ex_end"], shape, emit_c=False))
+            del x, t
+        entv = self.entry_grid(self.coarse.accumulate(torch.cat(exits).reshape(-1)))
+        del exits
+
+        sink = _BandSink((H, W), out_cb, dev)
+        for b, (ty0, ty1) in enumerate(bands):
+            r0, shape, x, t = band(ty0, ty1, ("rin", "ent_idx", "near_end", "far_end", "rout"))
+            out = kernels.tile_pass_c(x, None, entv[ty0 * ntx: ty1 * ntx], t["ent_idx"],
+                                      t["near_end"], t["far_end"], t["rout"], shape,
+                                      rin=t["rin"])
+            del x, t
+            sink.put(b, r0, out.to(dtype).reshape(shape))
+            del out
+        return sink.finish()
 
     def entry_grid(self, entv):
         """The coarse level's entry values (out_slot layout) as the

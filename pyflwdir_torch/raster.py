@@ -151,6 +151,7 @@ class FlwdirRaster(Flwdir):
         ftype,
         idxs_pit=None,
         idxs_outlet=None,
+        idxs_seq=None,
         nnodes=None,
         transform=IDENTITY,
         latlon=False,
@@ -161,6 +162,7 @@ class FlwdirRaster(Flwdir):
             idxs_ds=idxs_ds,
             idxs_pit=idxs_pit,
             idxs_outlet=idxs_outlet,
+            idxs_seq=idxs_seq,
             nnodes=nnodes,
             cache=cache,
             device=device,
@@ -212,6 +214,27 @@ class FlwdirRaster(Flwdir):
                 self._idxs_ds, self.shape, device=self.device
             )
         return self._cached["tile_plan"]
+
+    def save_plans(self, path, down=True):
+        """Write this raster's tile plan to the directory ``path``, so that a
+        later process can :meth:`load_plans` it instead of building it; with
+        ``down=True`` the downward indices (``stream_distance``, ``basins``,
+        ``hand``, ``fillnodata(direction="up")`` of the uncut graph) too.
+        Builds the plan first where it is not cached; a build that fails
+        raises its ValueError. Returns the manifest."""
+        return self._tile_plan().save(path, down=down)
+
+    def load_plans(self, path, mmap=True):
+        """Load a saved tile plan (the port's or the JAX package's
+        ``save_plans`` directory) into this object's cache, on its device; a
+        plan of another shape raises ValueError. Returns the plan."""
+        from .ops.tile_plan import TilePlan
+
+        tp = TilePlan.load(path, mmap=mmap, device=self.device)
+        if tuple(tp.shape) != tuple(self.shape):
+            raise ValueError(f"plan shape {tp.shape} does not match raster {self.shape}")
+        self._cached["tile_plan"] = tp
+        return tp
 
     def _accumulate_dev(self, data):
         """Flow accumulation through the cached tile plan above 2^21 cells,

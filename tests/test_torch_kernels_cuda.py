@@ -128,7 +128,9 @@ def test_big_accel_plan_kernels_at_two_chunks(dev, dtype):
     assert torch.equal(res, kernels.accel_far_merge_plain(out, xd, c, t["far_end"]))
     kernels.reset_launches()
     got = gpu.accumulate(xd)
-    assert all(v == 1 for k, v in kernels.launches.items() if not k.startswith("tile_"))
+    assert all(kernels.launches[k] == 1 for k in ("permute_gather", "accel_in_scan",
+                                                  "accel_near_out", "accel_far_merge"))
+    assert sum(kernels.launches.values()) == 4
     _assert_match(got.cpu(), cpu.accumulate(x), total)
 
 
@@ -181,6 +183,77 @@ def test_tile_plan_matches_cpu(tile_plans, dtype):
           "accel_far_merge", "tile_pass_c")
     assert all(kernels.launches[k] == (k in up) for k in kernels.launches), kernels.launches
     _assert_match(got, cpu.accumulate(x), float(x.double().sum()))
+
+
+@pytest.fixture(scope="module")
+def odd_plans():
+    """A 301 x 1000 tile plan (3 x 8 tiles, ragged in both directions, the
+    gather coarse level) on the card and on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    ids = _demo_ids((301, 1000), seed=5, missing=True)
+    gpu = ttp.build_tile_plan(ids, (301, 1000), device="cuda")
+    cpu = ttp.build_tile_plan(ids, (301, 1000), device="cpu")
+    return ids, gpu, cpu
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.float64])
+def test_tile_pass_a_exits_and_c_full(odd_plans, dtype):
+    """T1 in exits-only mode and T2 in full mode against their plain
+    versions, and bitwise against the fused pair (the same scan), on the
+    whole grid and on its second tile row as a band of its own."""
+    ids, gpu, _ = odd_plans
+    t = gpu.idx_t
+    rng = np.random.RandomState(11)
+    x = _data(rng, ids.size, dtype).to("cuda")
+    entv = _data(rng, gpu.NT * gpu.E_pad, dtype).to("cuda").reshape(gpu.NT, gpu.E_pad)
+    total = float(x.double().sum()) + float(entv.double().sum())
+    ntx = gpu.grid[1]
+    for rows, tiles in ((slice(0, 301), slice(0, gpu.NT)), (slice(128, 256), slice(ntx, 2 * ntx))):
+        shape = (rows.stop - rows.start, 1000)
+        xb = x.reshape(301, 1000)[rows].reshape(-1).contiguous()
+        tb = {k: v[tiles].contiguous() for k, v in t.items()}
+        eb = entv[tiles].contiguous()
+        kernels.reset_launches()
+        exits = kernels.tile_pass_a(xb, tb["rin"], tb["ex_end"], shape, emit_c=False)
+        assert kernels.launches["tile_pass_a_exits"] == 1
+        assert sum(kernels.launches.values()) == 1
+        _assert_match(exits, kernels.tile_pass_a_plain(xb, tb["rin"], tb["ex_end"], shape,
+                                                       emit_c=False), total)
+        ex_f, c = kernels.tile_pass_a(xb, tb["rin"], tb["ex_end"], shape)
+        assert torch.equal(exits, ex_f)
+        args = (eb, tb["ent_idx"], tb["near_end"], tb["far_end"], tb["rout"], shape)
+        kernels.reset_launches()
+        got = kernels.tile_pass_c(xb, None, *args, rin=tb["rin"])
+        assert kernels.launches["tile_pass_c_full"] == 1
+        assert sum(kernels.launches.values()) == 1
+        _assert_match(got, kernels.tile_pass_c_plain(xb, None, *args, rin=tb["rin"]), total)
+        assert torch.equal(got, kernels.tile_pass_c(xb, c, *args))
+        assert torch.equal(got, kernels.tile_pass_c(xb, None, *args, rin=tb["rin"]))
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float64])
+def test_banded_matches_cpu(odd_plans, dtype):
+    ids, _, cpu = odd_plans
+    fresh = ttp.build_tile_plan(ids, (301, 1000), device="cuda")
+    x = _data(np.random.RandomState(12), ids.size, dtype).numpy().reshape(301, 1000)
+    kernels.reset_launches()
+    got = fresh.accumulate_banded(x, band_tile_rows=1)
+    want = {"tile_pass_a_exits": 3, "tile_pass_c_full": 3}
+    assert all(kernels.launches[k] == want.get(k, 0) for k in kernels.launches), kernels.launches
+    assert fresh._idx_t is None  # no table uploaded whole
+    assert np.array_equal(got, cpu.accumulate_banded(x, band_tile_rows=1)) or (
+        dtype == torch.float64 and np.allclose(got, cpu.accumulate_banded(x, 1), rtol=1e-12,
+                                               atol=2 * x.size * _EPS * np.abs(x).sum()))
+    mono = fresh.accumulate(torch.as_tensor(x.ravel(), device="cuda")).cpu().numpy()
+    assert np.array_equal(got.ravel(), mono)  # the fused passes' order
+    parts = []
+    fresh.accumulate_banded(x, 2, out_cb=lambda b, r0, a: parts.append((b, r0, a.copy())))
+    assert [(b, r0) for b, r0, _ in parts] == [(0, 0), (1, 256)]
+    assert np.array_equal(np.concatenate([a for _, _, a in parts]), got)
+    assert np.array_equal(fresh.accumulate_banded(None, None).ravel(),
+                          fresh.accumulate(torch.ones(ids.size, dtype=torch.int32,
+                                                      device="cuda")).cpu().numpy())
 
 
 def test_permute_gather_reads_zero_at_masked_indices(dev):

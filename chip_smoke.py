@@ -81,7 +81,25 @@ Run from the repository root:  python3 chip_smoke.py [--json PATH]
    the card and on the CPU gives the same bits; at the Rhine shape "auto"
    takes the host fill, and a device fill capped at max_depth 0.5 holds the
    cap and drains.
-10. Prints a JSON line of the kernels, the card, then
+10. Sharded path, after the banded one, on a process group of this one
+   process over NCCL (started before the first path): the 6000x6000 grid's
+   D8 through parallel.build_sharded_plan (padded to 6016x6016, NT 2209).
+   Kernel phase: T4 in lite mode against fin mode on the same data; T1, T2,
+   T3 routed and T4 lite on two tile ranges that start and end in the
+   middle of a tile row (SHARD_RANGES), bitwise against the whole-grid
+   calls' slices; the four at the path's shapes (one rank's slab: every
+   tile, results as a tile stack) against their plain versions, timed.
+   Then, with the counters zeroed, TilePlan.accumulate_sharded and
+   accumulate_down_sharded in int32 and float64 and
+   tiled_accumulate(method="plan"): bitwise equal to the plan's accumulate
+   and accumulate_down, int32 bitwise equal to the native sweeps, T4 lite
+   launched once a downward call; both timed against the unsharded calls,
+   and the NCCL gathers apart. On the closed-tiles grid (7),
+   accumulate_down_sharded is T3 routed alone. Where the machine has more
+   cards, world sizes 2 and 4 as they allow, one spawned rank per card:
+   rank 0 builds and saves the plan, the others load it memory-mapped, and
+   every rank holds both sharded sweeps against the unsharded ones.
+11. Prints a JSON line of the kernels, the card, then
    {"ok": true, "device": ...}.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
@@ -189,6 +207,19 @@ _BIG_DOWN = {
                       "r_aout in BigAccelPlan.accumulate_down ops/accel_big.py:463",
 }
 _FILL_KERNELS = {"fill_sweep": ("F1", "ops/fill.py:205 (_sweep_strip, pallas_call :239)")}
+# the tile kernels in their tile-range forms, as the sharded sweeps run them
+_SHARD = {
+    "tile_pass_a": ("T1", "ops/tile_plan.py:2090 (TilePlan._pass_a_tiles_fused, pallas_call "
+                          ":2116)"),
+    "tile_pass_c": ("T2", "ops/tile_plan.py:2136 (TilePlan._pass_c_tiles_fused, pallas_call "
+                          ":2171)"),
+    "tile_down_a": ("T3", "ops/tile_plan.py:2842 (TilePlan._pass_down_tiles, pallas_call :2867)"),
+    "tile_down_lite": ("T4", "ops/tile_plan.py:2883 (TilePlan._pass_down_lite_tiles, pallas_call "
+                             ":2911); :2709 (TilePlan._pass_down_lite, pallas_call :2742)"),
+}
+# tile ranges of the 47 x 47 tile grid that start and end in the middle of a
+# tile row (the last ends the grid)
+SHARD_RANGES = ((100, 1201), (1201, 2209))
 DEM_CROP = 1024  # side of the crop filled on the card and on the CPU
 # calls of each wrapper in one coarse-level downward sweep
 _COARSE_DOWN_CALLS = {"accel_in_scan": 2, "permute_gather": 4}
@@ -835,6 +866,363 @@ def banded_path(fl, tp, upa, seq, built_s, dev):
                        **built_s)
 
 
+def sharded_kernel_phase(tp, dtype, dev):
+    """T4 in lite mode against fin mode on the same data; T1, T2, T3
+    (routed) and T4 lite on the tile ranges ``SHARD_RANGES``, each bitwise
+    against the same slice of its whole-grid call; then the four at the
+    sharded path's shapes (one rank: its slab is every tile, a tile range
+    from tile 0, results as a tile stack) against their plain versions,
+    timed. ``tp`` is the sharded plan, its down indices built."""
+    from pyflwdir_torch import kernels
+
+    H, W = shape = tp.shape
+    n = H * W
+    x = _down_data(n, dtype, dev)
+    s = x.element_size()
+    t, d = tp.idx_t, tp.down_idx_t
+    NT, T, E, ntx = tp.NT, 128 * 128, tp.E_pad, tp.grid[1]
+    sfx = f".shard.{_DT[dtype]}"
+    up = (t["ent_idx"], t["near_end"], t["far_end"], t["rout"])
+    d1 = (t["rin"], d["es"], d["g_last"], d["g_prev"], d["n_tree"], d["ent_slot"])
+
+    exits, c = kernels.tile_pass_a(x, t["rin"], t["ex_end"], shape)
+    entv = tp.entry_grid(tp.coarse.accumulate(exits.reshape(-1)))
+    out_t = kernels._tiles(kernels.tile_pass_c(x, c, entv, *up, shape), shape)
+    z1, pk = kernels.tile_down_a(x, *d1, None, shape, False)
+    abar, _ = kernels.tile_down_a(x, *d1, t["rout"], shape, True)
+    A = tp.coarse.accumulate_down(pk.reshape(-1)).reshape(NT, tp.R_pad)
+    lite = kernels.tile_down_lite(abar, A, d["tree_of"], t["rout"], shape)
+    fin = kernels.tile_down_fin(x, z1, A, d["tree_of"], t["rout"], shape)
+    torch.cuda.synchronize()
+    _check(torch.equal(lite, fin), f"T4 lite on the routed pass D1 bitwise equal to T4 fin on "
+                                   f"the raw one ({_DT[dtype]}, whole grid)")
+    abar_t, lite_t = kernels._tiles(abar, shape), kernels._tiles(lite, shape)
+    del z1, fin, abar, lite
+    for lo, hi in SHARD_RANGES:
+        r = slice(lo, hi)
+        ex_r, c_r = kernels.tile_pass_a(x, t["rin"][r], t["ex_end"][r], shape, tile0=lo)
+        out_r = kernels.tile_pass_c(x, c_r, entv[r], *(v[r] for v in up), shape, tile0=lo)
+        ab_r, pk_r = kernels.tile_down_a(x, *(v[r] for v in d1), t["rout"][r], shape, True,
+                                         tile0=lo)
+        li_r = kernels.tile_down_lite(ab_r, A[r], d["tree_of"][r], t["rout"][r], shape, tile0=lo)
+        torch.cuda.synchronize()
+        _check(torch.equal(ex_r, exits[r]) and torch.equal(c_r, c[r])
+               and torch.equal(out_r, out_t[r]) and torch.equal(ab_r, abar_t[r])
+               and torch.equal(pk_r, pk[r]) and torch.equal(li_r, lite_t[r]),
+               f"T1, T2, T3 routed and T4 lite on tiles {lo}..{hi - 1} (tile row {lo // ntx} "
+               f"column {lo % ntx} to row {(hi - 1) // ntx} column {(hi - 1) % ntx}) bitwise "
+               f"equal to the whole-grid calls' slices ({_DT[dtype]})")
+    del out_t, lite_t, ex_r, c_r, out_r, ab_r, pk_r, li_r
+
+    # bounds: the least bytes (2-byte tile indices, 1-byte near offsets),
+    # as the whole-grid rows count them; the results are a tile stack
+    n_roots, n_ent = tp._coarse_meta["m"], tp._coarse_meta["D"]
+    tile_x = kernels._tiles(x.abs(), shape).sum(1)
+    rows = {}
+    a_args = (x, t["rin"], t["ex_end"], shape)
+    rows["tile_pass_a" + sfx] = _measure(
+        "tile_pass_a" + sfx, lambda: kernels.tile_pass_a(*a_args, tile0=0),
+        lambda: kernels.tile_pass_a_plain(*a_args, tile0=0), None,
+        s * n + 2 * NT * T + s * NT * T + (2 + s) * n_roots, NT * T + n_roots, dtype,
+        (T, float(tile_x.max())), reps=20)
+    n_off = int((t["rout"] < 0).sum())
+    n_tfar = int((t["far_end"] >= 0).sum())
+    scale = float((tile_x + entv.abs().sum(1)).max())
+    c_args = (x, c, entv, *up, shape)
+    rows["tile_pass_c" + sfx] = _measure(
+        "tile_pass_c" + sfx, lambda: kernels.tile_pass_c(*c_args, tile0=0),
+        lambda: kernels.tile_pass_c_plain(*c_args, tile0=0), None,
+        s * NT * T + NT * T + (s + 2) * n_ent + 4 * n_tfar + 2 * NT * T + s * n_off
+        + s * NT * T, 2 * NT * T + n_ent + n_tfar, dtype, (E + 3, scale), reps=20)
+    n_last, n_prev = int((d["g_last"] >= 0).sum()), int((d["g_prev"] >= 0).sum())
+    n_pk = int((d["ent_slot"] >= 0).sum())
+    d_args = (x, *d1, t["rout"], shape, True)
+    rows["tile_down_a" + sfx] = _measure(
+        "tile_down_a" + sfx, lambda: kernels.tile_down_a(*d_args, tile0=0),
+        lambda: kernels.tile_down_a_plain(*d_args, tile0=0), None,
+        s * n + 4 * NT * T + 2 * (n_last + n_prev) + 2 * NT + (2 + s) * n_pk + (2 + s) * NT * T,
+        3 * NT * T + n_prev, dtype, (2 * T, float(tile_x.max())), reps=20)
+    n_tree = int(d["n_tree"].sum())
+    l_args = (abar_t, A, d["tree_of"], t["rout"], shape)
+    rows["tile_down_lite" + sfx] = _measure(
+        "tile_down_lite" + sfx, lambda: kernels.tile_down_lite(*l_args, tile0=0),
+        lambda: kernels.tile_down_lite_plain(*l_args, tile0=0), None,
+        # abar read and out written per cell, rout per cell and tree_of per
+        # tree slot (2 bytes each), A per real root; one add per tree cell
+        2 * s * NT * T + 2 * NT * T + 2 * n_tree + s * n_roots, n_tree, dtype, reps=20)
+    return rows
+
+
+def _start_group():
+    """This process as a process group of one rank over NCCL, on card 0,
+    through a TCP rendezvous on a free local port."""
+    import datetime
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=300))
+
+
+def sharded_path(fl, d8, seq, dev):
+    """The sharded sweeps on this process's one-rank NCCL group, on the
+    6000x6000 grid's D8 through ``build_sharded_plan`` (padded to
+    6016x6016); ``fl`` is the grid's raster object, ``seq`` its cells with
+    downstream ones first. Returns the kernel rows and timings."""
+    import torch.distributed as dist
+
+    from pyflwdir_torch import kernels, parallel, runtime
+    from pyflwdir_torch.ops.tile_plan import _CoarseRouterSmall
+
+    print(" sharded path:")
+    t_path = time.perf_counter()
+    mesh = parallel.make_mesh()
+    _check(mesh.size == dist.get_world_size() == 1 and dist.get_backend(mesh.group) == "nccl",
+           f"a mesh of the one rank of the NCCL group: {mesh}")
+    t0 = time.perf_counter()
+    tp, pshape = parallel.build_sharded_plan(d8, mesh)
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tp._ensure_down()
+    t_down = time.perf_counter() - t0
+    print(f"  setup: build_sharded_plan {t_build:.2f} s, down indices {t_down:.2f} s; shape "
+          f"{pshape}, NT {tp.NT}, R_pad {tp.R_pad}, E_pad {tp.E_pad}")
+    _check(tuple(pshape) == (6016, 6016) and tp.NT == 2209 and tp.has_entries
+           and isinstance(tp.coarse, _CoarseRouterSmall),
+           "build_sharded_plan padded the grid to 6016x6016 (NT 2209) with a "
+           "_CoarseRouterSmall coarse level and entry cells")
+    rows = {}
+    for dtype in (torch.int32, torch.float64):
+        print(f" kernel phase, lite mode and tile ranges ({_DT[dtype]}):")
+        rows[dtype] = sharded_kernel_phase(tp, dtype, dev)
+
+    print(" main path, sharded (one rank):")
+    H, W = TILE_SHAPE
+    rng = np.random.RandomState(SEED + 8)
+    w = np.zeros(pshape, np.int32)
+    w[:H, :W] = rng.randint(0, 3, (H, W))
+    f = np.zeros(pshape)
+    f[:H, :W] = rng.rand(H, W)
+    xs = {torch.int32: torch.as_tensor(w.ravel(), device=dev),
+          torch.float64: torch.as_tensor(f.ravel(), device=dev)}
+    chunks = 2  # accumulate_sharded's default, dropped until it divides the slab
+    while (tp.NT // mesh.size) % chunks:
+        chunks -= 1
+    counts, res = {}, {}
+    for dtype, x in xs.items():
+        kernels.reset_launches()
+        res[dtype] = (tp.accumulate_sharded(x, mesh), tp.accumulate_down_sharded(x, mesh))
+        torch.cuda.synchronize()
+        counts[dtype] = dict(kernels.launches)
+        print(f"  {_DT[dtype]}: launches {counts[dtype]}")
+    fz = f[:H, :W].astype(np.float32)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    ta = parallel.tiled_accumulate(d8, fz, mesh, method="plan")
+    t_ta = time.perf_counter() - t0
+    counts_ta = dict(kernels.launches)
+    print(f"  tiled_accumulate(method='plan') {t_ta:.2f} s (with its plan build); launches "
+          f"{counts_ta}")
+    # the coarse level: H1, H2, H0, H3 once upward; H1 twice, H0 four times down
+    want = {"tile_pass_a": chunks, "tile_pass_c": 1, "tile_down_a": 1, "tile_down_lite": 1,
+            "accel_in_scan": 3, "accel_near_out": 1, "permute_gather": 5, "accel_far_merge": 1}
+    for dtype, c in counts.items():
+        _check(all(c[k] == want.get(k, 0) for k in c),
+               f"accumulate_sharded and accumulate_down_sharded ({_DT[dtype]}) launched T1 "
+               f"{chunks}x, T2, the coarse level's kernels, T3 routed and T4 lite once each "
+               "(once a downward call), and no raw T3 or T4 fin")
+    want_ta = {"tile_pass_a": chunks, "tile_pass_c": 1, "accel_in_scan": 1, "accel_near_out": 1,
+               "permute_gather": 1, "accel_far_merge": 1}
+    _check(all(counts_ta[k] == want_ta.get(k, 0) for k in counts_ta),
+           "tiled_accumulate(method='plan') launched the sharded upward sweep's kernels")
+
+    t0 = time.perf_counter()
+    mask, ids = fl.mask, fl.idxs_ds
+    for dtype, x in xs.items():
+        up, down = res[dtype]
+        _check(torch.equal(up, tp.accumulate(x)) and torch.equal(down, tp.accumulate_down(x)),
+               f"accumulate_sharded and accumulate_down_sharded ({_DT[dtype]}) bitwise equal to "
+               "the same plan's accumulate and accumulate_down")
+    pad = np.ones(pshape, bool)
+    pad[:H, :W] = False
+    cut = [r.cpu().numpy().reshape(pshape) for r in res[torch.int32]]
+    _check(all(r.dtype == np.int32 and not r[pad].any() for r in cut),
+           "int32 results, 0 on the padding")
+    wv = w[:H, :W].ravel().astype(np.float64)
+    want_up = runtime.accuflux_sweep(ids, seq, wv)
+    want_dn = runtime.downward_sweep(ids, seq, wv)
+    up_i, dn_i = (r[:H, :W].ravel() for r in cut)
+    _check(np.array_equal(up_i[mask], want_up[mask].astype(np.int32))
+           and np.array_equal(dn_i[mask], want_dn[mask].astype(np.int32)),
+           "int32 accumulate_sharded and accumulate_down_sharded bitwise equal to the native "
+           "sequential sweeps")
+    fv = f[:H, :W].ravel()
+    up_f, dn_f = (r.cpu().numpy().reshape(pshape)[:H, :W].ravel() for r in res[torch.float64])
+    n_c = tp.coarse._down_t["es_in"].numel()
+    length_up = 128 * 128 + 2 * _scan_len(tp.coarse.n_pad) + tp.E_pad
+    _close(up_f[mask], runtime.accuflux_sweep(ids, seq, fv)[mask], length_up,
+           float(fv[mask].sum()), "accumulate_sharded(float64) of the native sweep")
+    _close(dn_f[mask], runtime.downward_sweep(ids, seq, fv)[mask],
+           2 * (128 * 128 + 2 * _scan_len(n_c)), float(fv[mask].sum()),
+           "accumulate_down_sharded(float64) of the native downward sweep")
+    want_ta = runtime.accuflux_sweep(ids, seq, fz.ravel().astype(np.float64)).reshape(H, W)
+    m2 = mask.reshape(H, W)
+    atol = 2 * length_up * _EPS * float(fz[m2].sum(dtype=np.float64))
+    _check(ta.dtype == np.float32 and ta.shape == (H, W)
+           and np.allclose(ta[m2], want_ta[m2], rtol=1e-6, atol=atol),
+           f"tiled_accumulate(method='plan') float32 of the grid's shape, within rtol 1e-6 (the "
+           f"float32 rounding of float64 sums), atol 2 L eps total = {atol:.3e} of the native "
+           "sweep")
+    print(f"  checks {time.perf_counter() - t0:.2f} s")
+    del res, cut
+
+    ones = torch.ones(pshape[0] * pshape[1], dtype=torch.int32, device=dev)
+    times = {}
+    for name, fn in (("accumulate_sharded", lambda: tp.accumulate_sharded(ones, mesh)),
+                     ("accumulate", lambda: tp.accumulate(ones)),
+                     ("accumulate_down_sharded", lambda: tp.accumulate_down_sharded(ones, mesh)),
+                     ("accumulate_down", lambda: tp.accumulate_down(ones))):
+        times[name + "_ms"] = _time_ms(fn, reps=20, warmup=3)
+        times[name + "_device_ms"] = _device_ms(fn)
+    T = 128 * 128
+    ex = torch.zeros((tp.NT, tp.R_pad), dtype=torch.int32, device=dev)
+    pk = torch.zeros((tp.NT, tp.E_pad), dtype=torch.int32, device=dev)
+    stack = torch.zeros((tp.NT, T), dtype=torch.int32, device=dev)
+    times["gather_exits_ms"] = _time_ms(lambda: mesh.all_gather(ex), reps=20)
+    times["gather_entries_ms"] = _time_ms(lambda: mesh.all_gather(pk), reps=20)
+    times["gather_result_ms"] = _time_ms(lambda: mesh.all_gather(stack), reps=20)
+    times["gather_tiles_ms"] = _time_ms(lambda: tp.gather_tiles(stack, mesh), reps=20)
+    print("  one rank, int32, wall (CUDA events) / device: " + ", ".join(
+        f"{k} {times[k + '_ms']:.4f} / {times[k + '_device_ms']} ms"
+        for k in ("accumulate_sharded", "accumulate", "accumulate_down_sharded",
+                  "accumulate_down")))
+    print(f"  all_gather over NCCL of the exits ({ex.numel()} int32) "
+          f"{times['gather_exits_ms']:.4f} ms, of the entry values ({pk.numel()}) "
+          f"{times['gather_entries_ms']:.4f} ms, of the result stack ({stack.numel()}) "
+          f"{times['gather_result_ms']:.4f} ms; with its untiling (gather_tiles) "
+          f"{times['gather_tiles_ms']:.4f} ms")
+    del ones, ex, pk, stack
+    t_path = time.perf_counter() - t_path
+    print(f"  sharded path {t_path:.1f} s")
+    path = "tile 6016x6016 sharded, 1 rank"
+    krows = _rows(rows[torch.int32], counts[torch.int32], path, "int32")
+    krows += _rows(rows[torch.float64], counts[torch.float64], path, "float64")
+    return krows, dict(times, build_s=t_build, down_indices_s=t_down, chunks=chunks,
+                       tiled_accumulate_s=t_ta, path_s=t_path, NT=tp.NT, pshape=list(pshape))
+
+
+def _sharded_rank(rank, world, port, work_dir, device_type):
+    """One spawned rank of :func:`multi_card_path`: joins the group, loads
+    the plan rank 0 built and saved (memory-mapped), runs both sharded
+    sweeps in int32 and float64 against the unsharded ones on its own
+    device, times them, and writes ``rank<r>.json`` into ``work_dir``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from pyflwdir_torch import kernels, parallel
+    from pyflwdir_torch.ops.tile_plan import TilePlan
+
+    cuda = device_type == "cuda"
+    os.environ["LOCAL_RANK"] = str(rank)
+    parallel.init_distributed(f"localhost:{port}", world, rank, device=None if cuda else "cpu",
+                              timeout=datetime.timedelta(seconds=300))
+    mesh = parallel.make_mesh(device=None if cuda else "cpu")
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    plan_dir = os.path.join(work_dir, "plan")
+    t0 = time.perf_counter()
+    if rank == 0:
+        tp, pshape = parallel.build_sharded_plan(np.load(os.path.join(work_dir, "d8.npy")), mesh)
+        tp.save(plan_dir, down=True)
+    dist.barrier()
+    if rank > 0:
+        tp = TilePlan.load(plan_dir, mmap=True, device=mesh.device)
+    t_plan = time.perf_counter() - t0
+    rng = np.random.RandomState(SEED + 9)
+    n = tp.shape[0] * tp.shape[1]
+    out = dict(rank=rank, world=world, device=str(mesh.device), plan_s=t_plan, NT=tp.NT,
+               slab=tp.NT // world, ok=True)
+    for dtype, x in ((torch.int32, torch.as_tensor(rng.randint(0, 3, n).astype(np.int32))),
+                     (torch.float64, torch.as_tensor(rng.rand(n)))):
+        x = x.to(mesh.device)
+        kernels.reset_launches()
+        up, down = tp.accumulate_sharded(x, mesh), tp.accumulate_down_sharded(x, mesh)
+        sync()
+        out[f"launches.{_DT[dtype]}"] = dict(kernels.launches)
+        out[f"ok.{_DT[dtype]}"] = bool(torch.equal(up, tp.accumulate(x))
+                                       and torch.equal(down, tp.accumulate_down(x)))
+        out["ok"] &= out[f"ok.{_DT[dtype]}"] and kernels.launches["tile_down_lite"] == 1
+    if cuda:
+        ones = torch.ones(n, dtype=torch.int32, device=mesh.device)
+        for name, fn in (("accumulate_sharded", lambda: tp.accumulate_sharded(ones, mesh)),
+                         ("accumulate_down_sharded",
+                          lambda: tp.accumulate_down_sharded(ones, mesh))):
+            out[name + "_ms"] = _time_ms(fn, reps=10, warmup=2)
+    with open(os.path.join(work_dir, f"rank{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def multi_card_path(d8, n_cards, device_type="cuda"):
+    """Where the machine has more than one card: the sharded sweeps at world
+    sizes 2 and 4, as the cards allow, one spawned rank per card over NCCL
+    (gloo where ``device_type`` is "cpu"), each holding its results bitwise
+    against the unsharded sweeps on its own card. Returns what each rank
+    wrote."""
+    import multiprocessing
+    import socket
+
+    worlds = [w for w in (2, 4) if w <= n_cards]
+    out = {}
+    for world in worlds:
+        print(f"sharded path on {world} cards (spawned ranks):")
+        work_dir = tempfile.mkdtemp(prefix="_plan_tmp",
+                                    dir=os.path.dirname(os.path.abspath(__file__)))
+        try:
+            np.save(os.path.join(work_dir, "d8.npy"), d8)
+            with socket.socket() as sock:
+                sock.bind(("localhost", 0))
+                port = sock.getsockname()[1]
+            ctx = multiprocessing.get_context("spawn")
+            procs = [ctx.Process(target=_sharded_rank,
+                                 args=(r, world, port, work_dir, device_type))
+                     for r in range(world)]
+            t0 = time.perf_counter()
+            for p in procs:
+                p.start()
+            for p in procs:
+                p.join(max(1.0, 600 - (time.perf_counter() - t0)))
+            alive = [r for r, p in enumerate(procs) if p.is_alive()]
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+            _check(not alive and all(p.exitcode == 0 for p in procs),
+                   f"{world} ranks ran to their end ({[p.exitcode for p in procs]}), in "
+                   f"{time.perf_counter() - t0:.1f} s")
+            ranks = []
+            for r in range(world):
+                with open(os.path.join(work_dir, f"rank{r}.json")) as fh:
+                    ranks.append(json.load(fh))
+        finally:
+            shutil.rmtree(work_dir, ignore_errors=True)
+        for res in ranks:
+            print(f"  rank {res['rank']} on {res['device']}: plan {res['plan_s']:.2f} s, "
+                  + ", ".join(f"{k} {v:.4f} ms" for k, v in res.items() if k.endswith("_ms")))
+        _check(all(res["ok"] for res in ranks),
+               f"on {world} ranks, accumulate_sharded and accumulate_down_sharded (int32, "
+               "float64) bitwise equal to the unsharded sweeps on every rank, T4 lite "
+               "launched once a downward call")
+        out[world] = ranks
+    return out
+
+
 def _rows(rows, counts, path, dtype):
     out = []
     for key, row in rows.items():
@@ -849,6 +1237,8 @@ def _rows(rows, counts, path, dtype):
                 replaces = (_BIG if ".cut" in key else _COARSE)[kern]
             elif ".big" in key:
                 replaces = _BIG[kern]
+        elif ".shard" in key:
+            (tag, replaces), src = _SHARD[kern], _TILE_SRC
         else:
             tag, replaces = {**_TILE_KERNELS, **_DOWN_KERNELS}[kern]
             if isinstance(replaces, dict):
@@ -948,8 +1338,8 @@ def _host_ms(fn, reps):
 
 
 def tile_path(dev):
-    """The 6000x6000 path through TilePlan; returns its kernel rows, its DEM
-    and host-filled surface, and timings."""
+    """The 6000x6000 path through TilePlan; returns its kernel rows, its DEM,
+    host-filled surface and D8, and timings."""
     import pyflwdir_torch
     from pyflwdir_torch import kernels, runtime
     from pyflwdir_torch.ops.tile_plan import TilePlan, _CoarseRouterSmall
@@ -1046,10 +1436,12 @@ def tile_path(dev):
     down_rows, down = tile_down_path(fl, tp, elev, upa, seq, dev)
     banded_rows, banded = banded_path(
         fl, tp, upa, seq, dict(tile_plan_s=t_plan, down_indices_s=down["down_indices_s"]), dev)
+    sharded_rows, sharded = sharded_path(fl, d8, seq, dev)
     big_rows, big = big_path(fl, upa, seq, dict(ms=acc_ms, device_ms=acc_dev_ms), dev)
     cut_rows, cut = cut_path(fl, elev, upa, dev)
-    return out + down_rows + banded_rows + big_rows + cut_rows, (z, elev), dict(
-        down=down, banded=banded, big=big, cut=cut, accumulate_ms=acc_ms,
+    rows = out + down_rows + banded_rows + sharded_rows + big_rows + cut_rows
+    return rows, (z, elev, d8), dict(
+        down=down, banded=banded, sharded=sharded, big=big, cut=cut, accumulate_ms=acc_ms,
         accumulate_device_ms=acc_dev_ms, upstream_area_ms=up_ms, main_path_int32_s=t_int,
         main_path_float64_s=t_f64, fill_s=t_fill, parse_s=t_parse, tile_plan_s=t_plan,
         tile_plan_steps_s=tp.build_seconds, NT=tp.NT, R_pad=tp.R_pad, E_pad=tp.E_pad,
@@ -1677,7 +2069,7 @@ def routed_path(dev):
     no entry cells, so ``accumulate_down`` is T3 in routed mode alone.
     Returns its kernel rows and timings."""
     import pyflwdir_torch
-    from pyflwdir_torch import kernels, runtime
+    from pyflwdir_torch import kernels, parallel, runtime
 
     H, W = ROUTED_SHAPE
     print(f"routed path ({H}x{W}, closed tiles):")
@@ -1722,13 +2114,23 @@ def routed_path(dev):
            and bool((dist_m.ravel()[moving] > 0).all()),
            "stream_distance('m') float32, finite, positive off the pits")
     ones = torch.ones(fl.size, dtype=torch.int32, device=dev)
+    mesh = parallel.make_mesh()
+    kernels.reset_launches()
+    sharded = tp.accumulate_down_sharded(ones, mesh)
+    counts_sh = dict(kernels.launches)
+    _check(all(counts_sh[k] == (k == "tile_down_a") for k in counts_sh)
+           and torch.equal(sharded, tp.accumulate_down(ones)),
+           "accumulate_down_sharded on one rank launched T3 (routed, on the tile range) once "
+           "and no other kernel, bitwise equal to accumulate_down")
     acc_ms = _time_ms(lambda: tp.accumulate_down(ones), reps=20, warmup=3)
+    sh_ms = _time_ms(lambda: tp.accumulate_down_sharded(ones, mesh), reps=20, warmup=3)
     print(f"  accumulate_down (T3 routed alone): median {acc_ms:.4f} ms per call, "
-          f"{fl.size / acc_ms / 1e3:.1f} Mgp/s")
+          f"{fl.size / acc_ms / 1e3:.1f} Mgp/s; accumulate_down_sharded on one rank "
+          f"{sh_ms:.4f} ms")
     path = f"closed tiles {H}x{W}"
     out = _rows(rows[torch.int32], counts_int, path, "int32")
     out += _rows(rows[torch.float64], counts_f64, path, "float64")
-    return out, dict(accumulate_down_ms=acc_ms, NT=tp.NT)
+    return out, dict(accumulate_down_ms=acc_ms, accumulate_down_sharded_ms=sh_ms, NT=tp.NT)
 
 
 def main(json_path=None):
@@ -1754,18 +2156,29 @@ def main(json_path=None):
     print(f"build: kernels and host library ready in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {kernels.build_seconds if kernels.build_seconds is not None else 'cached'} s)")
 
-    rhine_rows, rhine = rhine_path(dev)
-    tile_rows, (z, elev), tile = tile_path(dev)
-    dem_rows, dem = dem_path(z, elev, tile["fill_s"], dev)
-    del z, elev
-    routed_rows, routed = routed_path(dev)
+    import torch.distributed as dist
+
+    n_cards = torch.cuda.device_count()
+    _start_group()
+    try:
+        rhine_rows, rhine = rhine_path(dev)
+        tile_rows, (z, elev, d8), tile = tile_path(dev)
+        dem_rows, dem = dem_path(z, elev, tile["fill_s"], dev)
+        del z, elev
+        routed_rows, routed = routed_path(dev)
+    finally:
+        dist.destroy_process_group()
+    cards = {}
+    if n_cards > 1:
+        torch.cuda.empty_cache()
+        cards = multi_card_path(d8, n_cards)
 
     out = rhine_rows + tile_rows + dem_rows + routed_rows
     if json_path:
         os.makedirs(os.path.dirname(json_path) or ".", exist_ok=True)
         with open(json_path, "w") as f:
-            json.dump(dict(card=smi, rhine=rhine, tile=tile, dem=dem, routed=routed, kernels=out),
-                      f, indent=1)
+            json.dump(dict(card=smi, rhine=rhine, tile=tile, dem=dem, routed=routed,
+                           multi_card=cards, kernels=out), f, indent=1)
     print(f"card: {smi}")
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,

@@ -13,32 +13,48 @@ read the JAX package's plan directories) and the pointer-doubling graph
 primitives, behind
 ``from_array`` / ``from_dem`` -> ``FlwdirRaster.upstream_area`` /
 ``accuflux`` / ``rank`` / ``basins`` / ``stream_distance`` / ``hand`` /
-``fillnodata(direction="up")``.
+``fillnodata(direction="up")``, and sharded over the ranks of a
+``torch.distributed`` process group (``parallel``: ``make_mesh``,
+``build_sharded_plan``, ``tiled_accumulate(method="plan")``,
+``TilePlan.accumulate_sharded`` / ``accumulate_down_sharded``).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with no
 GPU and no ``device`` they raise.
 """
 
-from . import basins, codecs, dem, kernels, ops, runtime, streams, utils
+from . import basins, codecs, dem, kernels, ops, parallel, runtime, streams, utils
 from ._backend import default_device, has_cuda
+from .codecs import FTYPES, d8_to_ldd, ldd_to_d8, read_nextxy
 from .dem import fill_depressions
 from .flwdir import Flwdir
 from .raster import FlwdirRaster, from_array, from_dem
+from .utils import Affine
+from .utils.geodesy import affine_to_coords, area_grid, coords_to_idxs, idxs_to_coords
 
 __all__ = [
     "Flwdir",
     "FlwdirRaster",
     "from_array",
     "from_dem",
+    "read_nextxy",
+    "d8_to_ldd",
+    "ldd_to_d8",
     "fill_depressions",
+    "area_grid",
+    "affine_to_coords",
+    "idxs_to_coords",
+    "coords_to_idxs",
+    "Affine",
+    "FTYPES",
+    "codecs",
+    "ops",
+    "utils",
+    "streams",
+    "basins",
+    "dem",
+    "parallel",
     "default_device",
     "has_cuda",
-    "basins",
-    "codecs",
-    "dem",
     "kernels",
-    "ops",
     "runtime",
-    "streams",
-    "utils",
 ]

@@ -1,4 +1,4 @@
-"""Flow-direction codecs: D8, LDD and NEXTXY (numpy).
+"""Flow-direction codecs: D8, LDD and NEXTXY, and conversions (numpy).
 
 The ``FTYPES`` registry mirrors the reference's duck-typed codec interface
 (upstream pyflwdir ``pyflwdir.py:26-30``): each codec module exposes
@@ -6,7 +6,8 @@ The ``FTYPES`` registry mirrors the reference's duck-typed codec interface
 ``isvalid``, ``ispit``, ``isnodata``.
 """
 
-from . import d8, ldd, nextxy
+from . import convert, d8, ldd, nextxy
+from .convert import d8_to_ldd, ldd_to_d8
 from .nextxy import read_nextxy
 
 #: registry of flow-direction types (parity: reference pyflwdir.py:26-30)
@@ -34,5 +35,8 @@ __all__ = [
     "d8",
     "ldd",
     "nextxy",
+    "convert",
+    "d8_to_ldd",
+    "ldd_to_d8",
     "read_nextxy",
 ]

@@ -30,6 +30,16 @@
 //   ent_slot[e] preorder slot of packed entry e, or -1 for padding
 //   tree_of[s]  local tree (exit index) of slot s, or -1 off the tree
 //
+// A call runs on the tiles tile0 .. tile0 + NT - 1 of the raster's tile grid
+// (ntx tiles a row): block b takes tile tile0 + b, whose rows of the tables
+// are the call's row b. x is always the (H, W) raster. The raster-side
+// outputs (and T4's abar in lite mode) are the raster itself in a call on
+// the whole grid (tile0 0, stack 0), or a tile stack, block b's 16,384
+// cells at b * 16,384 in tile raster layout, in a call on a tile range
+// (stack 1): the sharded sweep's layout, which ranges that start or end in
+// the middle of a tile row gather cleanly. Cells past H or W read 0, and in
+// a stack they are written (as 0 where they pass x through).
+//
 // One CTA of 1024 threads per tile keeps the whole tile in shared memory
 // (64 KB of int32, 128 KB of int64/float64, above the 48 KB default, so
 // the launch opts in with cudaFuncSetAttribute). All four kernels move a
@@ -106,6 +116,41 @@ __device__ __forceinline__ T tile_cell(const T* __restrict__ x, int64_t H,
   const int64_t r = r0 + (l >> 7);
   const int64_t col = c0 + (l & (kLanes - 1));
   return (r < H && col < W) ? x[r * W + col] : T(0);
+}
+
+// where raster cell l of the tile at (r0, c0) goes in the call's raster-side
+// arrays: cell l of block t's stack tile (kStack), or its place in the
+// (H, W) raster, -1 past the raster's edge there
+template <bool kStack>
+__device__ __forceinline__ int64_t out_pos(int64_t tb, int64_t H, int64_t W,
+                                           int64_t r0, int64_t c0, int l) {
+  if constexpr (kStack) return tb + l;
+  const int64_t r = r0 + (l >> 7);
+  const int64_t col = c0 + (l & (kLanes - 1));
+  return (r < H && col < W) ? r * W + col : -1;
+}
+
+// x at that cell (0 past the raster's edge, in a stack)
+template <bool kStack, typename T>
+__device__ __forceinline__ T cell_x(const T* __restrict__ x, int64_t g, int64_t H,
+                                    int64_t W, int64_t r0, int64_t c0, int l) {
+  if constexpr (kStack) return tile_cell(x, H, W, r0, c0, l);
+  return x[g];
+}
+
+// set the kernel's dynamic shared memory, launch NT blocks of kTileThreads
+// on the stream, return the launch error
+template <typename... P, typename... A>
+int launch_tiles(void (*kernel)(P...), int64_t NT, int smem, void* stream,
+                 A... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (NT > 0) {
+    kernel<<<static_cast<unsigned>(NT), kTileThreads, smem,
+             static_cast<cudaStream_t>(stream)>>>(args...);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -190,9 +235,10 @@ __device__ __forceinline__ void tile_prefix_scan(Load load, T (&v)[kPerThread],
 // router chain, the Hillis-Steele tile prefix sum, the exit router and its
 // prev-difference) and the jnp.pad copy before it; in exits-only mode
 // (kEmitC false, no c written) TilePlan._pass_a / _pass_a_tiles (_body_a),
-// the unfused pass A of the banded sweep. Bound: x and rin read once, c
-// written once: 2 * sizeof(T) + 4 bytes per slot (sizeof(T) + 4 without
-// c), plus R_pad exits.
+// the unfused pass A of the banded sweep; on a tile range,
+// TilePlan._pass_a_tiles_fused (the sharded sweep's slab or chunk). Bound:
+// x and rin read once, c written once: 2 * sizeof(T) + 4 bytes per slot
+// (sizeof(T) + 4 without c), plus R_pad exits.
 // Design: the block stages its 128 x 128 raster tile in shared memory with
 // row-coalesced loads, gathers it into preorder through rin (coalesced
 // index reads, shared-memory gathers) and scans it (tile_prefix_scan). The
@@ -203,15 +249,16 @@ __device__ __forceinline__ void tile_prefix_scan(Load load, T (&v)[kPerThread],
 template <typename T, bool kEmitC>
 __global__ void __launch_bounds__(kTileThreads)
     tile_pass_a_kernel(const T* __restrict__ x, int64_t H, int64_t W,
-                       int64_t ntx, const int32_t* __restrict__ rin,
+                       int64_t ntx, int64_t tile0,
+                       const int32_t* __restrict__ rin,
                        const int32_t* __restrict__ ex_end, int R,
                        T* __restrict__ c, T* __restrict__ exits) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* xs = reinterpret_cast<T*>(smem_raw);
   __shared__ T warp_tot[kWarps];
   const int64_t t = blockIdx.x;
-  const int64_t r0 = (t / ntx) * kTileRows;
-  const int64_t c0 = (t % ntx) * kLanes;
+  const int64_t r0 = ((tile0 + t) / ntx) * kTileRows;
+  const int64_t c0 = ((tile0 + t) % ntx) * kLanes;
   for (int l = threadIdx.x; l < kSlots; l += kTileThreads) {
     const int64_t r = r0 + (l >> 7);
     const int64_t col = c0 + (l & (kLanes - 1));
@@ -254,7 +301,8 @@ __global__ void __launch_bounds__(kTileThreads)
 // broadcast (or packed row-pair selection) + ffar router, the rout router
 // and the off-tree passthrough); in full mode TilePlan._pass_c /
 // _pass_c_tiles (_body_c: the rin chain and tile prefix sum first), the
-// unfused pass C of the banded sweep. Bound: c (full mode: rin and every
+// unfused pass C of the banded sweep; on a tile range,
+// TilePlan._pass_c_tiles_fused. Bound: c (full mode: rin and every
 // x), ent_idx, near_end, far_end, rout and x read once, out written once:
 // 3 * sizeof(T) + 16 bytes per slot, plus the entries.
 // Design: one block per tile; the entries are scanned in shared memory,
@@ -263,12 +311,16 @@ __global__ void __launch_bounds__(kTileThreads)
 // place, and the raster tile is written row-coalesced through rout. Full
 // mode gathers x straight from device memory through rin (the tile's 128
 // row segments stay in L1/L2), as T3 does: a staged raster tile beside c'
-// would need 256 KB in float64, over the 227 KB a block may have.
+// would need 256 KB in float64, over the 227 KB a block may have. With
+// 4-byte values and c read, two blocks fit an SM's shared memory (66.5 KB
+// each at E = 256): the launch bound holds the kernel to 32 registers a
+// thread so that they fit its registers too (the tile-stack variant took 50
+// unbounded, one block an SM, and ran 36 % slower).
 // ---------------------------------------------------------------------------
-template <typename T, bool kFull>
-__global__ void __launch_bounds__(kTileThreads)
+template <typename T, bool kFull, bool kStack>
+__global__ void __launch_bounds__(kTileThreads, sizeof(T) == 4 && !kFull ? 2 : 1)
     tile_pass_c_kernel(const T* __restrict__ x, int64_t H, int64_t W,
-                       int64_t ntx, const T* __restrict__ c,
+                       int64_t ntx, int64_t tile0, const T* __restrict__ c,
                        const int32_t* __restrict__ rin,
                        const T* __restrict__ entv, int E,
                        const int32_t* __restrict__ ent_idx,
@@ -281,8 +333,8 @@ __global__ void __launch_bounds__(kTileThreads)
   T* pcs = cs + kSlots;
   __shared__ T warp_tot[kWarps];
   const int64_t t = blockIdx.x;
-  const int64_t r0 = (t / ntx) * kTileRows;
-  const int64_t c0 = (t % ntx) * kLanes;
+  const int64_t r0 = ((tile0 + t) / ntx) * kTileRows;
+  const int64_t c0 = ((tile0 + t) % ntx) * kLanes;
   const int64_t tb = t * kSlots;
 
   if (E > 0) {
@@ -328,12 +380,10 @@ __global__ void __launch_bounds__(kTileThreads)
   __syncthreads();
 
   for (int l = threadIdx.x; l < kSlots; l += kTileThreads) {
-    const int64_t r = r0 + (l >> 7);
-    const int64_t col = c0 + (l & (kLanes - 1));
-    if (r < H && col < W) {
-      const int64_t g = r * W + col;
+    const int64_t g = out_pos<kStack>(tb, H, W, r0, c0, l);
+    if (g >= 0) {
       const int32_t q = rout[tb + l];
-      out[g] = q >= 0 ? cs[q] : x[g];
+      out[g] = q >= 0 ? cs[q] : cell_x<kStack>(x, g, H, W, r0, c0, l);
     }
   }
 }
@@ -352,7 +402,8 @@ __global__ void __launch_bounds__(kTileThreads)
 // each entry cell of the tile. Raw mode writes z in preorder layout; routed
 // mode writes the raster, out[cell(l)] = rout[l] >= 0 ? z[rout[l]] : x[cell(l)].
 // Replaces ops/tile_plan.py::TilePlan._pass_down_raw (_body_down_raw) and,
-// routed, TilePlan._pass_down (_body_down): the rin and es router chains, the
+// routed, TilePlan._pass_down (_body_down), on a tile range
+// TilePlan._pass_down_tiles: the rin and es router chains, the
 // tile prefix sum, the dea and deb boundary routers with their de_sel and
 // de_b0 selects, the flat shift, the tile suffix sum, the enti chain and, routed, the
 // rout chain and the off-tree passthrough; and the jnp.pad copy before them.
@@ -369,10 +420,11 @@ __global__ void __launch_bounds__(kTileThreads)
 // order: results are identical from run to run; integers equal the plain
 // version bitwise, float64 within rounding (the scans add in another order).
 // ---------------------------------------------------------------------------
-template <typename T, bool kRouted>
+template <typename T, bool kRouted, bool kStack>
 __global__ void __launch_bounds__(kTileThreads)
     tile_down_a_kernel(const T* __restrict__ x, int64_t H, int64_t W,
-                       int64_t ntx, const int32_t* __restrict__ rin,
+                       int64_t ntx, int64_t tile0,
+                       const int32_t* __restrict__ rin,
                        const int32_t* __restrict__ es,
                        const int32_t* __restrict__ g_last,
                        const int32_t* __restrict__ g_prev,
@@ -384,8 +436,8 @@ __global__ void __launch_bounds__(kTileThreads)
   T* cs = reinterpret_cast<T*>(smem_raw);
   __shared__ T warp_tot[kWarps];
   const int64_t t = blockIdx.x;
-  const int64_t r0 = (t / ntx) * kTileRows;
-  const int64_t c0 = (t % ntx) * kLanes;
+  const int64_t r0 = ((tile0 + t) / ntx) * kTileRows;
+  const int64_t c0 = ((tile0 + t) % ntx) * kLanes;
   const int64_t tb = t * kSlots;
   const int nt = n_tree[t];
   const int lane = threadIdx.x & 31;
@@ -454,12 +506,10 @@ __global__ void __launch_bounds__(kTileThreads)
   }
   if (kRouted) {
     for (int l = threadIdx.x; l < kSlots; l += kTileThreads) {
-      const int64_t r = r0 + (l >> 7);
-      const int64_t col = c0 + (l & (kLanes - 1));
-      if (r < H && col < W) {
-        const int64_t g = r * W + col;
+      const int64_t g = out_pos<kStack>(tb, H, W, r0, c0, l);
+      if (g >= 0) {
         const int32_t q = rout[tb + l];
-        z[g] = q >= 0 ? cs[q] : x[g];
+        z[g] = q >= 0 ? cs[q] : cell_x<kStack>(x, g, H, W, r0, c0, l);
       }
     }
   }
@@ -482,102 +532,72 @@ __global__ void __launch_bounds__(kTileThreads)
 // Design: one block per tile; z1 + A[tree] is built in shared memory from
 // coalesced reads (A's row of the tile stays in L1), and the raster tile is
 // written row-coalesced through rout.
+//
+// Lite mode (kLite): the input is pass D1's routed result abar (T3 routed:
+// z1 in raster order, x passed through off the tree), laid out as out, and
+//   out[cell(l)] = abar[cell(l)] + (s >= 0 && tree_of[t, s] >= 0 ? A[t, tree_of[t, s]] : 0)
+// with no add where the condition fails. Routing is a permutation and abar
+// of a tree cell is z1[s], so lite mode gives fin mode's bits in every type.
+// Replaces ops/tile_plan.py::TilePlan._pass_down_lite and, on a tile range,
+// _pass_down_lite_tiles (_body_down_lite: the exi router, the re_sel select
+// and suffix sum, the rout chain and the add on tree cells), pass D2 of the
+// sharded downward sweep. Bound: abar read and out written once, rout and
+// tree_of read once, A once per root: 2 * sizeof(T) + 8 bytes per cell in
+// this layout (2 * sizeof(T) + 4 with 2-byte indices).
+// Design: one block per tile; the tile's tree_of row is staged in shared
+// memory (64 KB) from coalesced reads, each raster cell reads its tree
+// index there through rout and A from its tile's row (L1); abar and out
+// move row-coalesced.
 // ---------------------------------------------------------------------------
-template <typename T>
+template <typename T, bool kLite, bool kStack>
 __global__ void __launch_bounds__(kTileThreads)
     tile_down_fin_kernel(const T* __restrict__ x, int64_t H, int64_t W,
-                         int64_t ntx, const T* __restrict__ z1,
+                         int64_t ntx, int64_t tile0, const T* __restrict__ z1,
                          const T* __restrict__ A, int R,
                          const int32_t* __restrict__ tree_of,
                          const int32_t* __restrict__ rout,
                          T* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* zs = reinterpret_cast<T*>(smem_raw);
   const int64_t t = blockIdx.x;
-  const int64_t r0 = (t / ntx) * kTileRows;
-  const int64_t c0 = (t % ntx) * kLanes;
+  const int64_t r0 = ((tile0 + t) / ntx) * kTileRows;
+  const int64_t c0 = ((tile0 + t) % ntx) * kLanes;
   const int64_t tb = t * kSlots;
   const T* A_t = A + t * R;
-  for (int s = threadIdx.x; s < kSlots; s += kTileThreads) {
-    T v = z1[tb + s];
-    const int32_t tr = tree_of[tb + s];
-    if (tr >= 0) v += A_t[tr];
-    zs[s] = v;
-  }
-  __syncthreads();
-  for (int l = threadIdx.x; l < kSlots; l += kTileThreads) {
-    const int64_t r = r0 + (l >> 7);
-    const int64_t col = c0 + (l & (kLanes - 1));
-    if (r < H && col < W) {
-      const int64_t g = r * W + col;
-      const int32_t q = rout[tb + l];
-      out[g] = q >= 0 ? zs[q] : x[g];
+  if constexpr (kLite) {
+    int32_t* trs = reinterpret_cast<int32_t*>(smem_raw);
+    for (int s = threadIdx.x; s < kSlots; s += kTileThreads) {
+      trs[s] = tree_of[tb + s];
+    }
+    __syncthreads();
+    for (int l = threadIdx.x; l < kSlots; l += kTileThreads) {
+      const int64_t g = out_pos<kStack>(tb, H, W, r0, c0, l);
+      if (g >= 0) {
+        T v = z1[g];
+        const int32_t q = rout[tb + l];
+        if (q >= 0) {
+          const int32_t tr = trs[q];
+          if (tr >= 0) v += A_t[tr];
+        }
+        out[g] = v;
+      }
+    }
+  } else {
+    T* zs = reinterpret_cast<T*>(smem_raw);
+    for (int s = threadIdx.x; s < kSlots; s += kTileThreads) {
+      T v = z1[tb + s];
+      const int32_t tr = tree_of[tb + s];
+      if (tr >= 0) v += A_t[tr];
+      zs[s] = v;
+    }
+    __syncthreads();
+    for (int l = threadIdx.x; l < kSlots; l += kTileThreads) {
+      const int64_t g = out_pos<kStack>(tb, H, W, r0, c0, l);
+      if (g >= 0) {
+        const int32_t q = rout[tb + l];
+        out[g] = q >= 0 ? zs[q] : cell_x<kStack>(x, g, H, W, r0, c0, l);
+      }
     }
   }
-}
-
-template <typename T, bool kRouted>
-int launch_tile_down_a(const void* x, int64_t H, int64_t W, int64_t NT,
-                       int64_t ntx, const int32_t* rin, const int32_t* es,
-                       const int32_t* g_last, const int32_t* g_prev,
-                       const int32_t* n_tree, const int32_t* ent_slot,
-                       int64_t E, const int32_t* rout, void* z, void* pk,
-                       void* stream) {
-  const int smem = kSlots * static_cast<int>(sizeof(T));
-  cudaError_t err = cudaFuncSetAttribute(
-      tile_down_a_kernel<T, kRouted>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (NT > 0) {
-    tile_down_a_kernel<T, kRouted>
-        <<<static_cast<unsigned>(NT), kTileThreads, smem,
-           static_cast<cudaStream_t>(stream)>>>(
-            static_cast<const T*>(x), H, W, ntx, rin, es, g_last, g_prev,
-            n_tree, ent_slot, static_cast<int>(E), rout, static_cast<T*>(z),
-            static_cast<T*>(pk));
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, bool kEmitC>
-int launch_tile_pass_a(const void* x, int64_t H, int64_t W, int64_t NT,
-                       int64_t ntx, const int32_t* rin, const int32_t* ex_end,
-                       int64_t R, void* c, void* exits, void* stream) {
-  const int smem = kSlots * static_cast<int>(sizeof(T));
-  cudaError_t err = cudaFuncSetAttribute(
-      tile_pass_a_kernel<T, kEmitC>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (NT > 0) {
-    tile_pass_a_kernel<T, kEmitC>
-        <<<static_cast<unsigned>(NT), kTileThreads, smem,
-           static_cast<cudaStream_t>(stream)>>>(
-            static_cast<const T*>(x), H, W, ntx, rin, ex_end,
-            static_cast<int>(R), static_cast<T*>(c), static_cast<T*>(exits));
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, bool kFull>
-int launch_tile_pass_c(const void* x, int64_t H, int64_t W, int64_t NT,
-                       int64_t ntx, const void* c, const int32_t* rin,
-                       const void* entv, int64_t E, const int32_t* ent_idx,
-                       const int32_t* near_end, const int32_t* far_end,
-                       const int32_t* rout, void* out, void* stream) {
-  const int smem = (kSlots + static_cast<int>(E)) * static_cast<int>(sizeof(T));
-  cudaError_t err = cudaFuncSetAttribute(
-      tile_pass_c_kernel<T, kFull>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (NT > 0) {
-    tile_pass_c_kernel<T, kFull>
-        <<<static_cast<unsigned>(NT), kTileThreads, smem,
-           static_cast<cudaStream_t>(stream)>>>(
-            static_cast<const T*>(x), H, W, ntx, static_cast<const T*>(c), rin,
-            static_cast<const T*>(entv), static_cast<int>(E), ent_idx, near_end,
-            far_end, rout, static_cast<T*>(out));
-  }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -595,76 +615,85 @@ int pf_tile_max_smem() {
   return optin - kWarps * 8;  // minus the static warp totals
 }
 
+// Every entry runs on the tiles tile0 .. tile0 + NT - 1 of the raster's
+// grid; stack != 0: the raster-side outputs (and abar) are tile stacks.
+
 // c == nullptr: exits only (no c written)
 int pf_tile_pass_a(int dt, const void* x, int64_t H, int64_t W, int64_t NT,
-                   int64_t ntx, const int32_t* rin, const int32_t* ex_end,
-                   int64_t R, void* c, void* exits, void* stream) {
+                   int64_t ntx, int64_t tile0, const int32_t* rin,
+                   const int32_t* ex_end, int64_t R, void* c, void* exits,
+                   void* stream) {
   return by_dtype(dt, [&](auto tag) {
     using T = typename decltype(tag)::type;
-    return c != nullptr
-               ? launch_tile_pass_a<T, true>(x, H, W, NT, ntx, rin, ex_end, R,
-                                             c, exits, stream)
-               : launch_tile_pass_a<T, false>(x, H, W, NT, ntx, rin, ex_end, R,
-                                              c, exits, stream);
+    auto kernel = c != nullptr ? tile_pass_a_kernel<T, true>
+                               : tile_pass_a_kernel<T, false>;
+    return launch_tiles(kernel, NT, kSlots * static_cast<int>(sizeof(T)),
+                        stream, static_cast<const T*>(x), H, W, ntx, tile0,
+                        rin, ex_end, static_cast<int>(R), static_cast<T*>(c),
+                        static_cast<T*>(exits));
   });
 }
 
 // c == nullptr: full mode, the prefix sums rebuilt from x through rin
 int pf_tile_pass_c(int dt, const void* x, int64_t H, int64_t W, int64_t NT,
-                   int64_t ntx, const void* c, const int32_t* rin,
-                   const void* entv, int64_t E, const int32_t* ent_idx,
-                   const int32_t* near_end, const int32_t* far_end,
-                   const int32_t* rout, void* out, void* stream) {
+                   int64_t ntx, int64_t tile0, int stack, const void* c,
+                   const int32_t* rin, const void* entv, int64_t E,
+                   const int32_t* ent_idx, const int32_t* near_end,
+                   const int32_t* far_end, const int32_t* rout, void* out,
+                   void* stream) {
   return by_dtype(dt, [&](auto tag) {
     using T = typename decltype(tag)::type;
-    return c != nullptr
-               ? launch_tile_pass_c<T, false>(x, H, W, NT, ntx, c, rin, entv, E,
-                                              ent_idx, near_end, far_end, rout,
-                                              out, stream)
-               : launch_tile_pass_c<T, true>(x, H, W, NT, ntx, c, rin, entv, E,
-                                             ent_idx, near_end, far_end, rout,
-                                             out, stream);
+    auto kernel = c != nullptr ? (stack ? tile_pass_c_kernel<T, false, true>
+                                        : tile_pass_c_kernel<T, false, false>)
+                               : (stack ? tile_pass_c_kernel<T, true, true>
+                                        : tile_pass_c_kernel<T, true, false>);
+    const int smem = (kSlots + static_cast<int>(E)) * static_cast<int>(sizeof(T));
+    return launch_tiles(kernel, NT, smem, stream, static_cast<const T*>(x), H,
+                        W, ntx, tile0, static_cast<const T*>(c), rin,
+                        static_cast<const T*>(entv), static_cast<int>(E),
+                        ent_idx, near_end, far_end, rout, static_cast<T*>(out));
   });
 }
 
-// routed != 0: z is the (H*W,) raster result; else the (NT, 16384) preorder z
+// routed != 0: z is the raster-side result (the raster or a tile stack);
+// else the (NT, 16384) preorder z
 int pf_tile_down_a(int dt, int routed, const void* x, int64_t H, int64_t W,
-                   int64_t NT, int64_t ntx, const int32_t* rin,
-                   const int32_t* es, const int32_t* g_last,
-                   const int32_t* g_prev, const int32_t* n_tree,
-                   const int32_t* ent_slot, int64_t E, const int32_t* rout,
-                   void* z, void* pk, void* stream) {
+                   int64_t NT, int64_t ntx, int64_t tile0, int stack,
+                   const int32_t* rin, const int32_t* es,
+                   const int32_t* g_last, const int32_t* g_prev,
+                   const int32_t* n_tree, const int32_t* ent_slot, int64_t E,
+                   const int32_t* rout, void* z, void* pk, void* stream) {
   return by_dtype(dt, [&](auto tag) {
     using T = typename decltype(tag)::type;
-    return routed ? launch_tile_down_a<T, true>(x, H, W, NT, ntx, rin, es,
-                                                g_last, g_prev, n_tree,
-                                                ent_slot, E, rout, z, pk, stream)
-                  : launch_tile_down_a<T, false>(x, H, W, NT, ntx, rin, es,
-                                                 g_last, g_prev, n_tree,
-                                                 ent_slot, E, rout, z, pk,
-                                                 stream);
+    auto kernel = routed ? (stack ? tile_down_a_kernel<T, true, true>
+                                  : tile_down_a_kernel<T, true, false>)
+                         : tile_down_a_kernel<T, false, false>;
+    return launch_tiles(kernel, NT, kSlots * static_cast<int>(sizeof(T)),
+                        stream, static_cast<const T*>(x), H, W, ntx, tile0,
+                        rin, es, g_last, g_prev, n_tree, ent_slot,
+                        static_cast<int>(E), rout, static_cast<T*>(z),
+                        static_cast<T*>(pk));
   });
 }
 
-int pf_tile_down_fin(int dt, const void* x, int64_t H, int64_t W, int64_t NT,
-                     int64_t ntx, const void* z1, const void* A, int64_t R,
+// lite != 0: z1 is pass D1's routed result abar, laid out as out; x unused
+int pf_tile_down_fin(int dt, int lite, const void* x, int64_t H, int64_t W,
+                     int64_t NT, int64_t ntx, int64_t tile0, int stack,
+                     const void* z1, const void* A, int64_t R,
                      const int32_t* tree_of, const int32_t* rout, void* out,
                      void* stream) {
   return by_dtype(dt, [&](auto tag) {
     using T = typename decltype(tag)::type;
-    const int smem = kSlots * static_cast<int>(sizeof(T));
-    cudaError_t err = cudaFuncSetAttribute(
-        tile_down_fin_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (NT > 0) {
-      tile_down_fin_kernel<T><<<static_cast<unsigned>(NT), kTileThreads, smem,
-                                static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(x), H, W, ntx, static_cast<const T*>(z1),
-          static_cast<const T*>(A), static_cast<int>(R), tree_of, rout,
-          static_cast<T*>(out));
-    }
-    return static_cast<int>(cudaGetLastError());
+    auto kernel = lite ? (stack ? tile_down_fin_kernel<T, true, true>
+                                : tile_down_fin_kernel<T, true, false>)
+                       : (stack ? tile_down_fin_kernel<T, false, true>
+                                : tile_down_fin_kernel<T, false, false>);
+    const int smem =
+        kSlots * static_cast<int>(lite ? sizeof(int32_t) : sizeof(T));
+    return launch_tiles(kernel, NT, smem, stream, static_cast<const T*>(x), H,
+                        W, ntx, tile0, static_cast<const T*>(z1),
+                        static_cast<const T*>(A), static_cast<int>(R), tree_of,
+                        rout, static_cast<T*>(out));
   });
 }
 

@@ -34,15 +34,26 @@ of fewer than 2^31 elements (the plans go up to 2^28 slots):
 and in ``csrc/tile_kernels.cu`` for int32, int64 and float64, on 128 x 128
 tiles:
 
-* ``tile_pass_a`` (T1) — ``ops/tile_plan.py`` ``TilePlan._pass_a_fused``;
-  with ``emit_c=False`` (counted as ``tile_pass_a_exits``) ``TilePlan._pass_a``
-  and ``_pass_a_tiles``
-* ``tile_pass_c`` (T2) — ``ops/tile_plan.py`` ``TilePlan._pass_c_fused``;
-  with ``c=None`` (full mode, counted as ``tile_pass_c_full``)
-  ``TilePlan._pass_c`` and ``_pass_c_tiles``
+* ``tile_pass_a`` (T1) — ``ops/tile_plan.py`` ``TilePlan._pass_a_fused``
+  and, on a tile range, ``_pass_a_tiles_fused``; with ``emit_c=False``
+  (counted as ``tile_pass_a_exits``) ``TilePlan._pass_a`` and
+  ``_pass_a_tiles``
+* ``tile_pass_c`` (T2) — ``ops/tile_plan.py`` ``TilePlan._pass_c_fused``
+  and, on a tile range, ``_pass_c_tiles_fused``; with ``c=None`` (full
+  mode, counted as ``tile_pass_c_full``) ``TilePlan._pass_c`` and
+  ``_pass_c_tiles``
 * ``tile_down_a`` (T3) — ``ops/tile_plan.py`` ``TilePlan._pass_down_raw``
-  and, in routed mode, ``TilePlan._pass_down``
-* ``tile_down_fin`` (T4) — ``ops/tile_plan.py`` ``TilePlan._pass_down_fin``
+  and, in routed mode, ``TilePlan._pass_down`` and, on a tile range,
+  ``_pass_down_tiles``
+* ``tile_down_fin`` (T4) — ``ops/tile_plan.py`` ``TilePlan._pass_down_fin``;
+  in lite mode (``tile_down_lite``, counted apart) ``TilePlan._pass_down_lite``
+  and, on a tile range, ``_pass_down_lite_tiles``
+
+Each tile kernel runs on the whole grid or, given ``tile0``, on the tiles
+``tile0 .. tile0 + NT - 1`` (row-major over the grid; NT the tables' rows),
+a range that may start and end in the middle of a tile row: ``x`` is the
+raster either way, and the raster-side results come as a tile stack (NT,
+16384), tile raster layout, zero past the raster's edge.
 
 and in ``csrc/fill_kernels.cu`` for float32 rasters with a uint8 mask:
 
@@ -81,6 +92,8 @@ __all__ = [
     "tile_down_a_plain",
     "tile_down_fin",
     "tile_down_fin_plain",
+    "tile_down_lite",
+    "tile_down_lite_plain",
     "fill_sweep",
     "fill_sweep_plain",
 ]
@@ -105,6 +118,7 @@ launches = {
     "tile_pass_c_full": 0,
     "tile_down_a": 0,
     "tile_down_fin": 0,
+    "tile_down_lite": 0,
     "fill_sweep": 0,
 }
 
@@ -139,12 +153,14 @@ def _bind(lib):
         "pf_accel_near_out": [i32, vp, vp, vp, i64, vp],
         "pf_accel_far_merge": [i32, vp, vp, vp, vp, vp, i64, i32, vp],
         "pf_tile_max_smem": [],
-        "pf_tile_pass_a": [i32, vp, i64, i64, i64, i64, vp, vp, i64, vp, vp, vp],
-        "pf_tile_pass_c": [i32, vp, i64, i64, i64, i64, vp, vp, vp, i64,
+        # dtype, [mode,] x, H, W, NT, ntx, tile0, [stack,] ...
+        "pf_tile_pass_a": [i32, vp, i64, i64, i64, i64, i64, vp, vp, i64, vp, vp, vp],
+        "pf_tile_pass_c": [i32, vp, i64, i64, i64, i64, i64, i32, vp, vp, vp, i64,
                            vp, vp, vp, vp, vp, vp],
-        "pf_tile_down_a": [i32, i32, vp, i64, i64, i64, i64, vp, vp, vp, vp, vp,
-                           vp, i64, vp, vp, vp, vp],
-        "pf_tile_down_fin": [i32, vp, i64, i64, i64, i64, vp, vp, i64, vp, vp, vp, vp],
+        "pf_tile_down_a": [i32, i32, vp, i64, i64, i64, i64, i64, i32, vp, vp, vp, vp,
+                           vp, vp, i64, vp, vp, vp, vp],
+        "pf_tile_down_fin": [i32, i32, vp, i64, i64, i64, i64, i64, i32, vp, vp, i64, vp,
+                             vp, vp, vp],
         "pf_fill_stage_cols": [],
         "pf_fill_sweep": [vp, vp, vp, vp, vp, i64, i64, i32, i32, vp],
     }
@@ -365,7 +381,9 @@ def accel_far_merge(out, x, c, far_end):
 
 
 # ---------------------------------------------------------------------------
-# tiles of a raster: (H*W,) <-> (NT, 128*128), zero padded past H and W
+# tiles of a raster: (H*W,) <-> (NT, 128*128), zero padded past H and W; a
+# call on tiles tile0 .. tile0 + NT - 1 (tile0 not None) returns its
+# raster-side results as such a stack of its tiles
 # ---------------------------------------------------------------------------
 def _tiles(x, shape):
     H, W = shape
@@ -384,36 +402,54 @@ def _untile(xt, shape):
     return xg[:H, :W].reshape(-1)
 
 
-def _tile_args(shape, rin, x):
+def _xtiles(x, shape, tile0, nt):
+    """The tiles of the raster ``x`` a call runs on."""
+    xt = _tiles(x, shape)
+    return xt if tile0 is None else xt[tile0: tile0 + nt]
+
+
+def _raster_out(outt, shape, tile0):
+    """A call's tile results: the raster on the whole grid, else the stack."""
+    return _untile(outt, shape) if tile0 is None else outt
+
+
+def _tile_args(shape, rin, x, tile0=None):
+    """``(H, W, NT, ntx, tile0, stack)`` of a call whose tables ``rin`` (or
+    any (NT, 16384) table) cover the whole 128 x 128 tile grid of an H x W
+    raster, or, given ``tile0``, the tiles ``tile0 .. tile0 + NT - 1`` of
+    it; ``x``, where given, must be the raster."""
     H, W = (int(v) for v in shape)
     NT, T = rin.shape
     ntx = -(-W // _TILE)
-    if T != _TILE * _TILE or NT != -(-H // _TILE) * ntx:
-        raise ValueError(f"tile tables {tuple(rin.shape)} do not fit 128 x 128 "
-                         f"tiles of a {H} x {W} raster")
-    if x.numel() != H * W or x.dim() != 1:
+    n_all = -(-H // _TILE) * ntx
+    fits = NT == n_all if tile0 is None else 0 <= int(tile0) <= n_all - NT
+    if T != _TILE * _TILE or not fits:
+        where = "" if tile0 is None else f" from tile {tile0}"
+        raise ValueError(f"tile tables {tuple(rin.shape)}{where} do not fit the 128 x 128 "
+                         f"tiles of a {H} x {W} raster ({n_all} tiles)")
+    if x is not None and (x.numel() != H * W or x.dim() != 1):
         raise ValueError(f"x must be 1-D with {H * W} cells")
-    return H, W, NT, ntx
+    return H, W, NT, ntx, 0 if tile0 is None else int(tile0), int(tile0 is not None)
 
 
 # ---------------------------------------------------------------------------
 # T1: per-tile prefix sums in preorder and the local-root exit sums
 # ---------------------------------------------------------------------------
-def _tile_prefix_plain(x, rin, shape):
+def _tile_prefix_plain(x, rin, shape, tile0=None):
     """The tile prefix sums in preorder, ``cumsum(x[cell(rin)])`` per tile."""
-    v = torch.gather(_tiles(x, shape), 1, rin.long())
+    v = torch.gather(_xtiles(x, shape, tile0, rin.shape[0]), 1, rin.long())
     return torch.cumsum(v, 1, dtype=x.dtype)
 
 
-def tile_pass_a_plain(x, rin, ex_end, shape, emit_c=True):
+def tile_pass_a_plain(x, rin, ex_end, shape, emit_c=True, tile0=None):
     """Plain version of :func:`tile_pass_a`."""
-    c = _tile_prefix_plain(x, rin, shape)
+    c = _tile_prefix_plain(x, rin, shape, tile0)
     ce = torch.gather(c, 1, ex_end.long())
     exits = ce - torch.cat([torch.zeros_like(ce[:, :1]), ce[:, :-1]], 1)
     return (exits, c) if emit_c else exits
 
 
-def tile_pass_a(x, rin, ex_end, shape, emit_c=True):
+def tile_pass_a(x, rin, ex_end, shape, emit_c=True, tile0=None):
     """Pass A of the tile plan: ``x`` (H*W,) raster values, int32, int64 or
     float64; ``rin`` (NT, 16384) int32, the raster cell (within its 128 x
     128 tile, row-major) of each preorder slot; ``ex_end`` (NT, R) int32, the
@@ -422,21 +458,22 @@ def tile_pass_a(x, rin, ex_end, shape, emit_c=True):
     tile prefix sums, in ``x``'s dtype; with ``emit_c=False`` the exits
     alone (the unfused pass A: no c written or allocated). A band of whole
     tile rows is a raster of its own: its rows, and the tables' rows of its
-    tiles."""
+    tiles. With ``tile0`` the tables cover the tiles ``tile0 ..
+    tile0 + NT - 1`` of the raster's grid (a shard of the sharded sweep)."""
     if x.device.type == "cpu":
-        return tile_pass_a_plain(x, rin, ex_end, shape, emit_c)
+        return tile_pass_a_plain(x, rin, ex_end, shape, emit_c, tile0)
     dev = x.device
     dt = _code("x", x, _TILE_DTYPES)
     _check("x", x, x.dtype, dev)
     _check("rin", rin, torch.int32, dev)
     _check("ex_end", ex_end, torch.int32, dev)
-    H, W, NT, ntx = _tile_args(shape, rin, x)
+    H, W, NT, ntx, t0, _ = _tile_args(shape, rin, x, tile0)
     if ex_end.dim() != 2 or ex_end.shape[0] != NT or not 0 < ex_end.shape[1] <= rin.shape[1]:
         raise ValueError("ex_end must be (NT, R) with 0 < R <= 16384")
     R = ex_end.shape[1]
     c = torch.empty(rin.shape, dtype=x.dtype, device=dev) if emit_c else None
     exits = torch.empty((NT, R), dtype=x.dtype, device=dev)
-    _launch(load()["tile_kernels"].pf_tile_pass_a, dt, x.data_ptr(), H, W, NT, ntx,
+    _launch(load()["tile_kernels"].pf_tile_pass_a, dt, x.data_ptr(), H, W, NT, ntx, t0,
             rin.data_ptr(), ex_end.data_ptr(), R, c.data_ptr() if emit_c else None,
             exits.data_ptr())
     if emit_c:
@@ -449,10 +486,11 @@ def tile_pass_a(x, rin, ex_end, shape, emit_c=True):
 # ---------------------------------------------------------------------------
 # T2: entry injection, interval differences, raster order, passthrough
 # ---------------------------------------------------------------------------
-def tile_pass_c_plain(x, c, entv, ent_idx, near_end, far_end, rout, shape, rin=None):
+def tile_pass_c_plain(x, c, entv, ent_idx, near_end, far_end, rout, shape, rin=None,
+                      tile0=None):
     """Plain version of :func:`tile_pass_c`."""
     if c is None:
-        c = _tile_prefix_plain(x, rin, shape)
+        c = _tile_prefix_plain(x, rin, shape, tile0)
     zero = torch.zeros((), dtype=c.dtype, device=c.device)
     if entv.shape[1]:
         pc = torch.cumsum(entv, 1, dtype=entv.dtype)
@@ -463,11 +501,13 @@ def tile_pass_c_plain(x, c, entv, ent_idx, near_end, far_end, rout, shape, rin=N
     outp = torch.where(ne >= 0, torch.gather(c, 1, ne.clamp(min=0)), zero) - prev
     outp = outp + torch.where(fe >= 0, torch.gather(c, 1, fe.clamp(min=0)), zero)
     r = rout.long()
-    outt = torch.where(r >= 0, torch.gather(outp, 1, r.clamp(min=0)), _tiles(x, shape))
-    return _untile(outt, shape)
+    outt = torch.where(r >= 0, torch.gather(outp, 1, r.clamp(min=0)),
+                       _xtiles(x, shape, tile0, rout.shape[0]))
+    return _raster_out(outt, shape, tile0)
 
 
-def tile_pass_c(x, c, entv, ent_idx, near_end, far_end, rout, shape, rin=None):
+def tile_pass_c(x, c, entv, ent_idx, near_end, far_end, rout, shape, rin=None,
+                tile0=None):
     """Pass C of the tile plan, resuming from pass A's ``c`` (fused) or, with
     ``c=None`` (full mode, the unfused pass C), rebuilding it from ``x``
     through ``rin`` as pass A does, with the same bits.
@@ -479,9 +519,11 @@ def tile_pass_c(x, c, entv, ent_idx, near_end, far_end, rout, shape, rin=None):
     mode, ``rin`` as :func:`tile_pass_a` takes it (see
     ``csrc/tile_kernels.cu``). Returns (H*W,) accumulated values in
     ``x``'s dtype: tree cells get their subtree sum plus their inflow, cells
-    off the tree pass ``x`` through."""
+    off the tree pass ``x`` through; with ``tile0`` (the tables cover tiles
+    ``tile0 .. tile0 + NT - 1``) the (NT, 16384) stack of those tiles."""
     if x.device.type == "cpu":
-        return tile_pass_c_plain(x, c, entv, ent_idx, near_end, far_end, rout, shape, rin)
+        return tile_pass_c_plain(x, c, entv, ent_idx, near_end, far_end, rout, shape, rin,
+                                 tile0)
     dev = x.device
     dt = _code("x", x, _TILE_DTYPES)
     full = c is None
@@ -493,7 +535,7 @@ def tile_pass_c(x, c, entv, ent_idx, near_end, far_end, rout, shape, rin=None):
                            ("near_end", near_end, torch.int32),
                            ("far_end", far_end, torch.int32), ("rout", rout, torch.int32)):
         _check(name, t, dtype, dev)
-    H, W, NT, ntx = _tile_args(shape, rout, x)
+    H, W, NT, ntx, t0, stack = _tile_args(shape, rout, x, tile0)
     for name, t in (pre[:2], ("ent_idx", ent_idx), ("near_end", near_end),
                     ("far_end", far_end)):
         if t.shape != rout.shape:
@@ -505,8 +547,8 @@ def tile_pass_c(x, c, entv, ent_idx, near_end, far_end, rout, shape, rin=None):
     if (rout.shape[1] + E) * x.element_size() > lib.pf_tile_max_smem():
         raise ValueError(f"{E} entries per tile in {x.dtype} exceed the shared "
                          "memory of one block")
-    out = torch.empty_like(x)
-    _launch(lib.pf_tile_pass_c, dt, x.data_ptr(), H, W, NT, ntx,
+    out = torch.empty(rout.shape if stack else x.shape, dtype=x.dtype, device=dev)
+    _launch(lib.pf_tile_pass_c, dt, x.data_ptr(), H, W, NT, ntx, t0, stack,
             None if full else c.data_ptr(), rin.data_ptr() if full else None,
             entv.data_ptr(), E, ent_idx.data_ptr(), near_end.data_ptr(),
             far_end.data_ptr(), rout.data_ptr(), out.data_ptr())
@@ -525,9 +567,9 @@ def _gather0(a, idx):
 
 
 def tile_down_a_plain(x, rin, es, g_last, g_prev, n_tree, ent_slot, rout, shape,
-                      routed):
+                      routed, tile0=None):
     """Plain version of :func:`tile_down_a`."""
-    xt = _tiles(x, shape)
+    xt = _xtiles(x, shape, tile0, rin.shape[0])
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
     on = torch.arange(rin.shape[1], device=x.device)[None, :] < n_tree[:, None]
     u = torch.where(on, torch.gather(xt, 1, rin.long()), zero)
@@ -538,11 +580,12 @@ def tile_down_a_plain(x, rin, es, g_last, g_prev, n_tree, ent_slot, rout, shape,
     z = torch.flip(torch.cumsum(torch.flip(inner, [1]), 1, dtype=x.dtype), [1])
     pk = _gather0(z, ent_slot)
     if routed:
-        z = _untile(torch.where(rout >= 0, _gather0(z, rout), xt), shape)
+        z = _raster_out(torch.where(rout >= 0, _gather0(z, rout), xt), shape, tile0)
     return z, pk
 
 
-def tile_down_a(x, rin, es, g_last, g_prev, n_tree, ent_slot, rout, shape, routed):
+def tile_down_a(x, rin, es, g_last, g_prev, n_tree, ent_slot, rout, shape, routed,
+                tile0=None):
     """Pass D1 of the tile plan's downward sweep: the sum of ``x`` over the
     path from each tree cell to the root of its tree within the tile.
 
@@ -554,10 +597,12 @@ def tile_down_a(x, rin, es, g_last, g_prev, n_tree, ent_slot, rout, shape, route
     cells; ``z`` the path sums, in preorder layout (NT, 16384) or, where
     ``routed``, in raster order (H*W,) through ``rout`` ((NT, 16384) int32 in
     tile raster layout) with cells off the tree passing ``x`` through.
-    ``rout`` may be None unless ``routed``."""
+    ``rout`` may be None unless ``routed``. With ``tile0`` the tables cover
+    the tiles ``tile0 .. tile0 + NT - 1``, and routed ``z`` is their (NT,
+    16384) stack."""
     if x.device.type == "cpu":
         return tile_down_a_plain(x, rin, es, g_last, g_prev, n_tree, ent_slot, rout,
-                                 shape, routed)
+                                 shape, routed, tile0)
     dev = x.device
     dt = _code("x", x, _TILE_DTYPES)
     _check("x", x, x.dtype, dev)
@@ -566,7 +611,7 @@ def tile_down_a(x, rin, es, g_last, g_prev, n_tree, ent_slot, rout, shape, route
         tabs.append(("rout", rout))
     for name, t in (*tabs, ("n_tree", n_tree), ("ent_slot", ent_slot)):
         _check(name, t, torch.int32, dev)
-    H, W, NT, ntx = _tile_args(shape, rin, x)
+    H, W, NT, ntx, t0, stack = _tile_args(shape, rin, x, tile0)
     for name, t in tabs:
         if t.shape != rin.shape:
             raise ValueError(f"{name} must be {tuple(rin.shape)}")
@@ -575,10 +620,10 @@ def tile_down_a(x, rin, es, g_last, g_prev, n_tree, ent_slot, rout, shape, route
     if ent_slot.dim() != 2 or ent_slot.shape[0] != NT:
         raise ValueError("ent_slot must be (NT, E)")
     E = ent_slot.shape[1]
-    z = torch.empty_like(x) if routed else torch.empty(rin.shape, dtype=x.dtype, device=dev)
+    z = torch.empty(x.shape if routed and not stack else rin.shape, dtype=x.dtype, device=dev)
     pk = torch.empty((NT, E), dtype=x.dtype, device=dev)
     _launch(load()["tile_kernels"].pf_tile_down_a, dt, int(bool(routed)), x.data_ptr(),
-            H, W, NT, ntx, rin.data_ptr(), es.data_ptr(), g_last.data_ptr(),
+            H, W, NT, ntx, t0, stack, rin.data_ptr(), es.data_ptr(), g_last.data_ptr(),
             g_prev.data_ptr(), n_tree.data_ptr(), ent_slot.data_ptr(), E,
             rout.data_ptr() if routed else None, z.data_ptr(), pk.data_ptr())
     launches["tile_down_a"] += 1
@@ -588,13 +633,14 @@ def tile_down_a(x, rin, es, g_last, g_prev, n_tree, ent_slot, rout, shape, route
 # ---------------------------------------------------------------------------
 # T4: downward pass D2: add the coarse continuation of each tree, raster order
 # ---------------------------------------------------------------------------
-def tile_down_fin_plain(x, z1, A, tree_of, rout, shape):
+def tile_down_fin_plain(x, z1, A, tree_of, rout, shape, tile0=None):
     """Plain version of :func:`tile_down_fin`."""
     z = z1 + _gather0(A, tree_of)
-    return _untile(torch.where(rout >= 0, _gather0(z, rout), _tiles(x, shape)), shape)
+    xt = _xtiles(x, shape, tile0, rout.shape[0])
+    return _raster_out(torch.where(rout >= 0, _gather0(z, rout), xt), shape, tile0)
 
 
-def tile_down_fin(x, z1, A, tree_of, rout, shape):
+def tile_down_fin(x, z1, A, tree_of, rout, shape, tile0=None):
     """Pass D2 of the tile plan's downward sweep, finishing a raw pass D1.
 
     ``x`` (H*W,) raster values; ``z1`` (NT, 16384) pass D1's path sums in
@@ -602,24 +648,63 @@ def tile_down_fin(x, z1, A, tree_of, rout, shape):
     local root; ``tree_of`` (NT, 16384) int32, the local root index of each
     preorder slot, -1 off the tree; ``rout`` (NT, 16384) int32 in tile raster
     layout. Returns (H*W,) in ``x``'s dtype: tree cells get
-    ``z1 + A[tree]``, cells off the tree pass ``x`` through."""
+    ``z1 + A[tree]``, cells off the tree pass ``x`` through; with ``tile0``
+    (the tables cover tiles ``tile0 .. tile0 + NT - 1``) the (NT, 16384)
+    stack of those tiles."""
     if x.device.type == "cpu":
-        return tile_down_fin_plain(x, z1, A, tree_of, rout, shape)
-    dev = x.device
-    dt = _code("x", x, _TILE_DTYPES)
-    for name, t, dtype in (("x", x, x.dtype), ("z1", z1, x.dtype), ("A", A, x.dtype),
-                           ("tree_of", tree_of, torch.int32), ("rout", rout, torch.int32)):
+        return tile_down_fin_plain(x, z1, A, tree_of, rout, shape, tile0)
+    return _tile_down_d2(x, z1, A, tree_of, rout, shape, tile0, lite=False)
+
+
+def tile_down_lite_plain(abar, A, tree_of, rout, shape, tile0=None):
+    """Plain version of :func:`tile_down_lite`."""
+    at = _tiles(abar, shape) if tile0 is None else abar
+    r = rout.long()
+    tr = torch.gather(tree_of, 1, r.clamp(min=0)).long()
+    on = (r >= 0) & (tr >= 0)
+    add = torch.gather(A, 1, tr.clamp(min=0))
+    return _raster_out(torch.where(on, at + add, at), shape, tile0)
+
+
+def tile_down_lite(abar, A, tree_of, rout, shape, tile0=None):
+    """Pass D2 of the sharded downward sweep (T4's lite mode): add each
+    tree's coarse continuation to the routed pass D1.
+
+    ``abar`` pass D1's routed result (:func:`tile_down_a` with ``routed``):
+    the (H*W,) raster or, with ``tile0``, the (NT, 16384) stack of the tiles
+    ``tile0 .. tile0 + NT - 1``; ``A``, ``tree_of`` and ``rout`` as
+    :func:`tile_down_fin` takes them. Returns ``abar``'s layout and dtype:
+    ``abar + A[tree_of[rout]]`` on tree cells, ``abar`` elsewhere. Routing
+    is a permutation, so this is :func:`tile_down_fin` on the raw pass D1,
+    bit for bit."""
+    if abar.device.type == "cpu":
+        return tile_down_lite_plain(abar, A, tree_of, rout, shape, tile0)
+    return _tile_down_d2(None, abar, A, tree_of, rout, shape, tile0, lite=True)
+
+
+def _tile_down_d2(x, z1, A, tree_of, rout, shape, tile0, lite):
+    """Launch T4 in fin mode (``z1`` the raw pass D1) or lite mode (``z1``
+    the routed one, ``x`` unused)."""
+    dev = z1.device
+    dt = _code("z1", z1, _TILE_DTYPES)
+    checks = [("z1", z1, z1.dtype), ("A", A, z1.dtype), ("tree_of", tree_of, torch.int32),
+              ("rout", rout, torch.int32)]
+    if not lite:
+        checks.append(("x", x, z1.dtype))
+    for name, t, dtype in checks:
         _check(name, t, dtype, dev)
-    H, W, NT, ntx = _tile_args(shape, rout, x)
-    if z1.shape != rout.shape or tree_of.shape != rout.shape:
-        raise ValueError(f"z1 and tree_of must be {tuple(rout.shape)}")
+    H, W, NT, ntx, t0, stack = _tile_args(shape, rout, x, tile0)
+    z1_shape = (H * W,) if lite and not stack else rout.shape
+    if z1.shape != z1_shape or tree_of.shape != rout.shape:
+        raise ValueError(f"{'abar' if lite else 'z1'} must be {tuple(z1_shape)}, "
+                         f"tree_of {tuple(rout.shape)}")
     if A.dim() != 2 or A.shape[0] != NT or A.shape[1] < 1:
         raise ValueError("A must be (NT, R) with R > 0")
-    out = torch.empty_like(x)
-    _launch(load()["tile_kernels"].pf_tile_down_fin, dt, x.data_ptr(), H, W, NT, ntx,
-            z1.data_ptr(), A.data_ptr(), A.shape[1], tree_of.data_ptr(), rout.data_ptr(),
-            out.data_ptr())
-    launches["tile_down_fin"] += 1
+    out = torch.empty(rout.shape if stack else (H * W,), dtype=z1.dtype, device=dev)
+    _launch(load()["tile_kernels"].pf_tile_down_fin, dt, int(lite),
+            None if lite else x.data_ptr(), H, W, NT, ntx, t0, stack, z1.data_ptr(),
+            A.data_ptr(), A.shape[1], tree_of.data_ptr(), rout.data_ptr(), out.data_ptr())
+    launches["tile_down_lite" if lite else "tile_down_fin"] += 1
     return out
 
 

@@ -55,6 +55,22 @@ down phase, ``n_tree``, ``ent_slot`` and ``tree_of``; the coarse level's
 down indices likewise (``build_down``), for kernels H1 and H0. Every sum has
 a fixed order, so a result is the same from run to run in every dtype.
 
+Both sweeps also run sharded over the ranks of a
+:class:`pyflwdir_torch.parallel.Mesh` (:meth:`TilePlan.accumulate_sharded`,
+:meth:`TilePlan.accumulate_down_sharded`), as the JAX package's do under
+``shard_map``: each rank takes a contiguous slab of ``NT / size`` tiles,
+which may start and end in the middle of a tile row, runs the kernels on it
+in their tile-range form, and the ranks meet in one gather between the two
+passes and one of the result::
+
+    exits, c = tile_pass_a(x, slab)      # T1 (in chunks, each gathered at once)
+    entries  = coarse.accumulate(all_gather(exits))
+    out      = tile_pass_c(x, c, entries[slab])  # T2: the slab's tile stack
+
+    abar, pk = tile_down_a(x, slab)      # T3 routed: the slab's tile stack
+    A        = coarse.accumulate_down(all_gather(pk))
+    out      = tile_down_lite(abar, A[slab])     # T4 lite: abar + A[tree]
+
 Integer data accumulates in int32, or int64 where ``|max| * n >= 2^31``;
 float data in float64. The result comes back in the data's dtype.
 """
@@ -500,6 +516,7 @@ class TilePlan:
     def _finish(self, idx, secs):
         self.idx = idx
         self._idx_t = None
+        self._slabs = {}
         self.upload_seconds = None
         self.build_seconds = secs
         self.down_idx = None
@@ -569,6 +586,37 @@ class TilePlan:
         self.down_idx = down_idx
         self.down_build_seconds = secs
         self._down_src = None
+
+    def _slab(self, lo, hi, keys):
+        """Rows ``lo:hi`` of the per-tile indices ``keys`` (upward or, after
+        :meth:`_ensure_down`, downward) on the plan's device, uploaded once
+        and kept for later calls on the same slab."""
+        cache = self._slabs.setdefault((lo, hi), {})
+        for k in keys:
+            if k not in cache:
+                src = self.idx if k in self.idx else self.down_idx
+                cache[k] = _upload(src[k][lo:hi], self.device)
+        return {k: cache[k] for k in keys}
+
+    def _shard(self, data, mesh):
+        """This rank's slab ``(lo, hi)`` of the tile axis, and ``data`` as the
+        kernels take it."""
+        H, W = self.shape
+        if data.numel() != H * W:
+            raise ValueError(f"data must hold {H * W} values")
+        if self.NT % mesh.size:
+            raise ValueError(f"NT={self.NT} tiles must divide over {mesh.size} devices; pad "
+                             "the grid (parallel.build_sharded_plan) so the tile grid splits "
+                             "evenly")
+        n = self.NT // mesh.size
+        x = data.reshape(-1).to(self._acc_dtype(data)).contiguous()
+        return mesh.rank * n, (mesh.rank + 1) * n, x
+
+    def gather_tiles(self, out, mesh):
+        """The whole (H*W,) raster on every rank from each rank's tile stack
+        of its slab: one gather in rank order, then raster layout."""
+        full, _ = mesh.all_gather(out)
+        return kernels._untile(full.reshape(self.NT, -1), self.shape)
 
     def _tile_of(self, cells):
         """Tile index of padded-grid cell ids."""
@@ -730,6 +778,67 @@ class TilePlan:
         else:
             out, _ = kernels.tile_down_a(x, *d1, t["rout"], self.shape, True)
         return out.to(data.dtype)
+
+    def accumulate_sharded(self, data, mesh, overlap_chunks=2):
+        """:meth:`accumulate` sharded over the ranks of ``mesh``
+        (:class:`pyflwdir_torch.parallel.Mesh`), each running its slab of
+        ``NT / size`` tiles: pass A (T1 on the slab's tile range, in
+        ``overlap_chunks`` chunks, each chunk's exits gathered
+        asynchronously while the next chunk runs; the count drops until it
+        divides the slab), the coarse level on every rank on the gathered
+        exits, pass C (T2) resuming from the slab's prefix sums with its
+        rows of the entry values, and one gather of the result.
+
+        ``data``: the whole (H*W,) raster on every rank, on the plan's
+        device. Returns the whole (H*W,) result on every rank in ``data``'s
+        dtype, bitwise equal to :meth:`accumulate`'s. Each rank keeps its
+        slab's rows of the indices on the device, never the whole tables.
+        Raises ValueError where the tiles do not divide over the ranks."""
+        lo, hi, x = self._shard(data, mesh)
+        C = max(int(overlap_chunks), 1)
+        while (hi - lo) % C:
+            C -= 1
+        n = (hi - lo) // C
+        t = self._slab(lo, hi, ("rin", "ex_end", "ent_idx", "near_end", "far_end", "rout"))
+        cs, gathered = [], []
+        for k in range(C):
+            rows = slice(k * n, (k + 1) * n)
+            ex, c = kernels.tile_pass_a(x, t["rin"][rows], t["ex_end"][rows], self.shape,
+                                        tile0=lo + k * n)
+            cs.append(c)
+            gathered.append(mesh.all_gather(ex, async_op=True))
+        for _, work in gathered:
+            if work is not None:
+                work.wait()
+        # (rank, chunk, tile) is the plan's tile order
+        exits = gathered[0][0] if C == 1 else torch.stack([g for g, _ in gathered], 1)
+        entv = self.entry_grid(self.coarse.accumulate(exits.reshape(-1)))[lo:hi]
+        out = kernels.tile_pass_c(x, cs[0] if C == 1 else torch.cat(cs), entv, t["ent_idx"],
+                                  t["near_end"], t["far_end"], t["rout"], self.shape, tile0=lo)
+        return self.gather_tiles(out, mesh).to(data.dtype)
+
+    def accumulate_down_sharded(self, data, mesh):
+        """:meth:`accumulate_down` sharded over the ranks of ``mesh``, as
+        :meth:`accumulate_sharded`: pass D1 (T3 routed on the slab's tile
+        range), then, where the plan has entry cells and coarse trees, one
+        gather of the packed entry values, the coarse downward solve on
+        every rank, and pass D2 (T4 in lite mode: each tree cell adds its
+        tree's continuation); one gather of the result. Returns the whole
+        (H*W,) result on every rank in ``data``'s dtype, bitwise equal to
+        :meth:`accumulate_down`'s."""
+        self._ensure_down()
+        lo, hi, x = self._shard(data, mesh)
+        t = self._slab(lo, hi, ("rin", "es", "g_last", "g_prev", "n_tree", "ent_slot", "rout"))
+        abar, pk = kernels.tile_down_a(x, t["rin"], t["es"], t["g_last"], t["g_prev"],
+                                       t["n_tree"], t["ent_slot"], t["rout"], self.shape,
+                                       True, tile0=lo)
+        if self.has_entries and self.coarse.dfs.n_tree > 0:
+            pk_all, _ = mesh.all_gather(pk)
+            A = self.coarse.accumulate_down(pk_all.reshape(-1)).reshape(self.NT, self.R_pad)
+            tree_of = self._slab(lo, hi, ("tree_of",))["tree_of"]
+            abar = kernels.tile_down_lite(abar, A[lo:hi], tree_of, t["rout"], self.shape,
+                                          tile0=lo)
+        return self.gather_tiles(abar, mesh).to(data.dtype)
 
     def _banded_dtypes(self, data2d, band_rows):
         """(result dtype, accumulation dtype) of a banded call: the port's

@@ -190,6 +190,16 @@ class FlwdirRaster(Flwdir):
         self.transform = transform
         self.latlon = bool(latlon)
 
+    def to_array(self, ftype=None):
+        """Dense flow-direction raster in ``ftype`` (the raster's own where
+        None): (nrow, ncol) uint8 for d8 and ldd, (2, nrow, ncol) int32 for
+        nextxy. Parity: pyflwdir.py:341-360."""
+        if ftype is None:
+            ftype = self.ftype
+        if ftype not in FTYPES:
+            raise ValueError(f'ftype "{ftype}" unknown')
+        return FTYPES[ftype].to_array(self.idxs_ds, self.shape, mv=self._mv)
+
     def index(self, xs, ys, **kwargs):
         """Linear cell indices of x/y coordinates."""
         return geodesy.coords_to_idxs(xs, ys, self.transform, self.shape, **kwargs)

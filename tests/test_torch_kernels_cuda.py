@@ -314,6 +314,85 @@ def test_tile_plan_down_matches_cpu(tile_plans, dtype):
     _assert_match(got.cpu(), cpu.accumulate_down(x), float(x.double().sum()))
 
 
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.float64])
+def test_tile_down_lite(tile_plans, dtype):
+    """T4's lite mode against its plain version, and bitwise against fin
+    mode on the raw pass D1 of the same data (routing is a permutation)."""
+    ids, gpu, _ = tile_plans
+    gpu._ensure_down()
+    t, d = gpu.idx_t, gpu.down_idx_t
+    rng = np.random.RandomState(9)
+    x = _data(rng, ids.size, dtype).to("cuda")
+    A = _data(rng, gpu.NT * gpu.R_pad, dtype).to("cuda").reshape(gpu.NT, gpu.R_pad)
+    d1 = (x, t["rin"], d["es"], d["g_last"], d["g_prev"], d["n_tree"], d["ent_slot"])
+    z1, _ = kernels.tile_down_a(*d1, None, gpu.shape, False)
+    abar, _ = kernels.tile_down_a(*d1, t["rout"], gpu.shape, True)
+    args = (abar, A, d["tree_of"], t["rout"], gpu.shape)
+    kernels.reset_launches()
+    got = kernels.tile_down_lite(*args)
+    assert kernels.launches["tile_down_lite"] == 1 and sum(kernels.launches.values()) == 1
+    assert torch.equal(got, kernels.tile_down_lite_plain(*args))  # one add per cell
+    assert torch.equal(got, kernels.tile_down_fin(x, z1, A, d["tree_of"], t["rout"], gpu.shape))
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.float64])
+def test_tile_ranges(odd_plans, dtype):
+    """T1, T2, T3 (routed) and T4 (fin and lite) on tile ranges that start
+    and end in the middle of a tile row: bitwise the same slice of the
+    whole-grid call, and their plain versions."""
+    ids, gpu, _ = odd_plans
+    gpu._ensure_down()
+    t, d = gpu.idx_t, gpu.down_idx_t
+    shape = gpu.shape
+    rng = np.random.RandomState(13)
+    x = _data(rng, ids.size, dtype).to("cuda")
+    entv = _data(rng, gpu.NT * gpu.E_pad, dtype).to("cuda").reshape(gpu.NT, gpu.E_pad)
+    A = _data(rng, gpu.NT * gpu.R_pad, dtype).to("cuda").reshape(gpu.NT, gpu.R_pad)
+    total = float(x.double().sum()) + float(entv.double().sum())
+    exits, c = kernels.tile_pass_a(x, t["rin"], t["ex_end"], shape)
+    up = (t["ent_idx"], t["near_end"], t["far_end"], t["rout"])
+    out = kernels._tiles(kernels.tile_pass_c(x, c, entv, *up, shape), shape)
+    d1 = (t["rin"], d["es"], d["g_last"], d["g_prev"], d["n_tree"], d["ent_slot"])
+    z1, _ = kernels.tile_down_a(x, *d1, None, shape, False)
+    abar, pk = kernels.tile_down_a(x, *d1, t["rout"], shape, True)
+    lite = kernels.tile_down_lite(abar, A, d["tree_of"], t["rout"], shape)
+    abar, lite = kernels._tiles(abar, shape), kernels._tiles(lite, shape)
+    for lo, hi in ((5, 13), (13, gpu.NT)):
+        s = slice(lo, hi)
+        ex_r, c_r = kernels.tile_pass_a(x, t["rin"][s], t["ex_end"][s], shape, tile0=lo)
+        assert torch.equal(ex_r, exits[s]) and torch.equal(c_r, c[s])
+        got = kernels.tile_pass_c(x, c_r, entv[s], *(v[s] for v in up), shape, tile0=lo)
+        assert got.shape == (hi - lo, 128 * 128) and torch.equal(got, out[s])
+        _assert_match(got, kernels.tile_pass_c_plain(x, c_r, entv[s], *(v[s] for v in up), shape,
+                                                     tile0=lo), total)
+        ab_r, pk_r = kernels.tile_down_a(x, *(v[s] for v in d1), t["rout"][s], shape, True,
+                                         tile0=lo)
+        assert torch.equal(ab_r, abar[s]) and torch.equal(pk_r, pk[s])
+        lite_args = (ab_r, A[s], d["tree_of"][s], t["rout"][s], shape)
+        got = kernels.tile_down_lite(*lite_args, tile0=lo)
+        assert torch.equal(got, lite[s])
+        assert torch.equal(got, kernels.tile_down_lite_plain(*lite_args, tile0=lo))
+        assert torch.equal(got, kernels.tile_down_fin(x, z1[s], A[s], d["tree_of"][s],
+                                                      t["rout"][s], shape, tile0=lo))
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float64])
+def test_sharded_on_one_card(odd_plans, dtype):
+    """The sharded sweeps on a mesh of this one process: bitwise the
+    unsharded ones; T4 lite launched once a downward call."""
+    from pyflwdir_torch import parallel
+
+    ids, gpu, _ = odd_plans
+    mesh = parallel.make_mesh()
+    x = _data(np.random.RandomState(14), ids.size, dtype).to(mesh.device)
+    gpu._ensure_down()
+    assert torch.equal(gpu.accumulate_sharded(x, mesh, overlap_chunks=3), gpu.accumulate(x))
+    kernels.reset_launches()
+    got = gpu.accumulate_down_sharded(x, mesh)
+    assert kernels.launches["tile_down_lite"] == 1 and kernels.launches["tile_down_a"] == 1
+    assert torch.equal(got, gpu.accumulate_down(x))
+
+
 
 def _fill_inputs(shape, seed, dev):
     """A tilted noisy DEM with nodata cells, its fill seeds and an upper

@@ -5,13 +5,17 @@ Run from the repository root:  python3 chip_smoke.py [--json PATH]
 
 1. Prints the card (nvidia-smi name and power limit) and builds the CUDA
    kernels (one nvcc per ``pyflwdir_torch/csrc/*.cu``, sm_90a, all started
-   together) and the native host library from the sources.
+   together) and the native host library from the sources; prints the
+   registers and spills ptxas gave the H0 and F1 kernels, and the host
+   time of one read of the current stream, as a Stream object and raw.
 2. Rhine path: a 997x682 grid (the Rhine raster's shape) from a seeded DEM,
    under 2^21 cells, so the single-chunk AccelPlan (kernels H0-H3, float32).
    Kernel phase: each kernel against its plain PyTorch version on the
    card, at the shapes the path gives it, bitwise; timed (median of
    CUDA-event timings after warm-up) beside its plain version, one PyTorch
-   library call where there is one, and its bound. Then the path itself,
+   library call where there is one (the two in turns: library, kernel,
+   kernel, library), and its bound; device time from the profiler, or from
+   CUDA events around back-to-back launches where its trace is empty. Then the path itself,
    with the launch counters zeroed before it and read after: fill ->
    from_array -> upstream_area (cells, km2), accuflux, rank and roots,
    checked against the sequential native oracle, mass conservation and a
@@ -69,10 +73,11 @@ Run from the repository root:  python3 chip_smoke.py [--json PATH]
    ``stream_distance()`` bitwise equal to the built plan's; save, load and
    the first call after the load timed.
 9. from_dem path, after the tile path, on its 6000x6000 DEM: the device
-   depression fill, kernel F1 (one launch per sweep, one block running the
-   rows in order). Kernel phase: F1 against its plain version, bitwise, at
-   the path's shape (down and up sweeps from the seeded start and from the
-   state after 3 rounds) and with 4-connectivity at the Rhine shape. Then
+   depression fill, kernel F1 (one launch per sweep, one block of 1,024
+   threads running the rows in order). Kernel phase: F1 against its plain
+   version, bitwise, at the path's shape (down and up sweeps from the
+   seeded start and from the state after 3 rounds) and with 4-connectivity
+   at the Rhine shape; its microseconds a row on the device. Then
    from_dem(engine="auto") with the counters zeroed: F1 launched twice a
    round, the filled surface bitwise equal to the tile path's host priority
    flood cast to float32, valid acyclic D8 with no uphill step, and the new
@@ -372,16 +377,45 @@ def _measure(name, kern, plain, lib, n_bytes, n_ops, dtype, sums=None, reps=50,
     else:
         _check(all(torch.equal(g, w) for g, w in zip(got, want)),
                f"{name} bitwise equal to its plain version")
-    ms = _time_ms(kern, reps=reps, warmup=min(5, reps))
+    turns = None
+    if lib is None:
+        ms = _time_ms(kern, reps=reps, warmup=min(5, reps))
+        lib_ms = None
+    else:  # in turns: library, kernel, kernel, library
+        turns = [_time_ms(f, reps=reps, warmup=min(5, reps)) for f in (lib, kern, kern, lib)]
+        ms, lib_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
     plain_ms = start.elapsed_time(end) if plain_once else _time_ms(plain, reps=reps)
-    lib_ms = _time_ms(lib, reps=reps) if lib is not None else None
     dev_ms = _device_ms(kern, reps=dev_reps, warm=min(5, dev_reps))
+    dev_src = "profiler"
+    if dev_ms is None:  # an empty trace: back-to-back launches between two events
+        dev_ms, dev_src = _events_ms(kern, 20), "cuda events over 20 launches"
     bound, bound_by = _bound_ms(n_bytes, n_ops, dtype)
-    print(f"  {name}: {ms:.4f} ms per call, {dev_ms} ms on the device (plain "
+    print(f"  {name}: {ms:.4f} ms per call, {dev_ms} ms on the device ({dev_src}; plain "
           f"{plain_ms:.4f} ms, library {'-' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
           f"bound {bound:.5f} ms by {bound_by})")
+    if turns is not None:
+        print(f"    in turns (library, kernel, kernel, library): "
+              f"{', '.join(f'{t:.4f}' for t in turns)} ms; the kernel's call "
+              f"{'below' if ms < lib_ms else 'not below'} the library's")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
-                library_ms=lib_ms, device_ms=dev_ms, bytes=n_bytes)
+                library_ms=lib_ms, device_ms=dev_ms, device_source=dev_src, turns_ms=turns,
+                bytes=n_bytes)
+
+
+def _events_ms(fn, launches):
+    """Device time of one call from CUDA events around ``launches`` calls
+    queued back to back (after a warm-up call): right where a call's host
+    work is shorter than its kernels, as for F1."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / launches
 
 
 def kernel_phase(plan, dev):
@@ -1933,9 +1967,10 @@ def fill_kernel_phase(dem, seeds, bad, conn8, start_rounds, tag):
             13 * n, n_ops, torch.float32, reps=5, plain_once=True, dev_reps=3)
         # the operations bound beside the bytes one, and the dependent row
         # steps both ignore
-        rows[name].update(ops_bound_ms=n_ops / OPS_PER_S[torch.float32] * 1e3, chain_rows=H)
-        print(f"  {name}: {rows[name]['ms'] / H * 1e3:.3f} us per row over {H} dependent "
-              "rows")
+        rows[name].update(ops_bound_ms=n_ops / OPS_PER_S[torch.float32] * 1e3, chain_rows=H,
+                          us_per_row=rows[name]["device_ms"] / H * 1e3)
+        print(f"  {name}: {rows[name]['us_per_row']:.3f} us per row on the device over {H} "
+              f"dependent rows ({rows[name]['ms'] / H * 1e3:.3f} us per row of the call)")
     return rows
 
 
@@ -2133,6 +2168,44 @@ def routed_path(dev):
     return out, dict(accumulate_down_ms=acc_ms, accumulate_down_sharded_ms=sh_ms, NT=tp.NT)
 
 
+def ptxas_lines():
+    """Registers and spills of the H0 and F1 kernels, as ``nvcc -Xptxas -v``
+    reported them when the libraries were built."""
+    import re
+
+    from pyflwdir_torch import kernels
+
+    out = {}
+    for stem in ("accel_kernels", "fill_kernels"):
+        for sym, (nreg, st, ld) in kernels.ptxas_report(stem).items():
+            m = re.search(r"(permute_gather_kernel|fill_sweep_wide_kernel|fill_sweep_kernel)"
+                          r"(I(?:L[a-z]\d+E|[a-z])+E)?", sym)
+            if m:
+                name = m.group(1) + (m.group(2) or "")
+                out[name] = dict(registers=nreg, spill_stores=st, spill_loads=ld)
+                print(f"ptxas: {name}: {nreg} registers, {st} B spill stores, {ld} B spill loads")
+    return out
+
+
+def stream_lookup_us():
+    """Host microseconds of one read of the current stream: the Stream object
+    the wrappers built before (``torch.cuda.current_stream().cuda_stream``)
+    against the raw accessor they call now, 20,000 reads each, in turns."""
+    index = torch.cuda.current_device()
+    ways = {"stream_object": lambda: torch.cuda.current_stream().cuda_stream,
+            "raw_stream": lambda: torch._C._cuda_getCurrentRawStream(index)}
+    got = {k: [] for k in ways}
+    for k in ("stream_object", "raw_stream", "raw_stream", "stream_object"):
+        t0 = time.perf_counter()
+        for _ in range(20_000):
+            ways[k]()
+        got[k].append((time.perf_counter() - t0) / 20_000 * 1e6)
+    out = {k: sum(v) / 2 for k, v in got.items()}
+    print(f"stream lookup: current_stream().cuda_stream {out['stream_object']:.3f} us, "
+          f"_cuda_getCurrentRawStream {out['raw_stream']:.3f} us per read (host clock)")
+    return out
+
+
 def main(json_path=None):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2156,6 +2229,9 @@ def main(json_path=None):
     print(f"build: kernels and host library ready in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {kernels.build_seconds if kernels.build_seconds is not None else 'cached'} s)")
 
+    regs = ptxas_lines()
+    streams = stream_lookup_us()
+
     import torch.distributed as dist
 
     n_cards = torch.cuda.device_count()
@@ -2178,7 +2254,8 @@ def main(json_path=None):
         os.makedirs(os.path.dirname(json_path) or ".", exist_ok=True)
         with open(json_path, "w") as f:
             json.dump(dict(card=smi, rhine=rhine, tile=tile, dem=dem, routed=routed,
-                           multi_card=cards, kernels=out), f, indent=1)
+                           multi_card=cards, ptxas=regs, stream_lookup_us=streams,
+                           kernels=out), f, indent=1)
     print(f"card: {smi}")
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,

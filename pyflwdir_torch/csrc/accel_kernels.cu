@@ -85,22 +85,44 @@ int by_dtype(int dt, F&& f) {
 // Replaces ops/router.py::_ta (lane gather) and RouterPlan.apply (the
 // L-S-G-S-L chain) of the JAX package, ops/router_big.py::_fused_pass as
 // RouterPlanBig._chain_fused runs it (the 7-stage chain; in BigAccelPlan
-// r_out, and downward r_win, r_dea, r_deb, r_aout), and on the tile plan's coarse level
-// ops/tile_plan.py::_CoarseRouterSmall._route for r_out and, downward, for
-// r_win, r_dea, r_deb and r_aout with the mask selects after them (a masked
-// slot holds -1). Bound: 4 bytes of index + 2 * sizeof(T) per element. Design: one thread per element with a
-// grid-stride loop; src and out are coalesced, the gather goes through the
-// read-only cache.
+// r_out, and downward r_win, r_dea, r_deb, r_aout), and on the tile plan's
+// coarse level ops/tile_plan.py::_CoarseRouterSmall._route for r_out and,
+// downward, for r_win, r_dea, r_deb and r_aout with the mask selects after
+// them (a masked slot holds -1).
+// Bound: 4 bytes of index + 2 * sizeof(T) per element, each read or written
+// once; a scattered read past the 50 MB L2 fetches a 32-byte sector.
+// Design: a block of 256 threads takes a chunk of 1,024 consecutive slots,
+// thread t the slots t, t + 256, t + 512 and t + 768: four independent
+// gathers in flight a thread, and every load of src, gather instruction and
+// store of out covers 32 consecutive slots across a warp (coalesced, and a
+// DFS-local src gathers from few sectors). One chunk a block, a block per
+// chunk. Four consecutive slots a thread (a 16-byte src load, vector
+// stores, a grid of the SMs' resident blocks) ran slower on the 1-D path's
+// indices, most in float64: each gather instruction spreads a warp over 4x
+// the sectors (PERF.md, section 6). No alignment is assumed: any src view
+// and any n work alike.
 // ---------------------------------------------------------------------------
+constexpr int kGatherPer = 4;  // slots a thread
+constexpr int kGatherChunk = kThreads * kGatherPer;
+
 template <typename T>
-__global__ void permute_gather_kernel(const T* __restrict__ x,
-                                      const int32_t* __restrict__ src,
-                                      T* __restrict__ out, int64_t n) {
-  int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t p = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       p < n; p += stride) {
-    const int32_t s = src[p];
-    out[p] = s >= 0 ? ldg(x + s) : T(0);
+__global__ void __launch_bounds__(kThreads)
+permute_gather_kernel(const T* __restrict__ x, const int32_t* __restrict__ src,
+                      T* __restrict__ out, int64_t n) {
+  const int64_t p0 = static_cast<int64_t>(blockIdx.x) * kGatherChunk + threadIdx.x;
+  int32_t s[kGatherPer];
+#pragma unroll
+  for (int j = 0; j < kGatherPer; ++j) {
+    const int64_t p = p0 + j * kThreads;
+    s[j] = p < n ? __ldg(src + p) : -1;
+  }
+  T v[kGatherPer];
+#pragma unroll
+  for (int j = 0; j < kGatherPer; ++j) v[j] = s[j] >= 0 ? ldg(x + s[j]) : T(0);
+#pragma unroll
+  for (int j = 0; j < kGatherPer; ++j) {
+    const int64_t p = p0 + j * kThreads;
+    if (p < n) out[p] = v[j];
   }
 }
 
@@ -290,7 +312,8 @@ int pf_permute_gather(int dt, const void* x, const int32_t* src, void* out,
   return by_dtype(dt, [&](auto tag) {
     using T = typename decltype(tag)::type;
     if (n > 0) {
-      permute_gather_kernel<T><<<grid_for(n, kThreads), kThreads, 0,
+      const int64_t blocks = (n + kGatherChunk - 1) / kGatherChunk;  // n < 2^31
+      permute_gather_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
                                  static_cast<cudaStream_t>(stream)>>>(
           static_cast<const T*>(x), src, static_cast<T*>(out), n);
     }

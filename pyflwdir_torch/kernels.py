@@ -66,6 +66,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -103,7 +104,7 @@ _SRC_DIR = os.path.join(_HERE, "csrc")
 _BUILD_DIR = os.path.join(_HERE, "_build")
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 #: kernel launches per wrapper, counted where the wrapper launches its kernel
@@ -128,6 +129,7 @@ _TILE_DTYPES = (torch.int32, torch.int64, torch.float64)
 _TILE = 128  # rows and lanes of a tile on the card
 
 _LIBS = {}  # source stem -> loaded library, once
+_H0 = None  # pf_permute_gather, bound at its first launch
 build_seconds = None  # wall time of the nvcc builds in this process, if any
 
 
@@ -171,20 +173,26 @@ def _bind(lib):
             fn.argtypes = argtypes
 
 
+def _targets():
+    """``{source stem: (source, library path)}``, the path tagged by the
+    source's and the flags' hash."""
+    flags = " ".join(_NVCC_FLAGS).encode()
+    targets = {}
+    for src in sorted(glob.glob(os.path.join(_SRC_DIR, "*.cu"))):
+        with open(src, "rb") as f:
+            tag = hashlib.sha256(f.read() + flags).hexdigest()[:12]
+        stem = os.path.splitext(os.path.basename(src))[0]
+        targets[stem] = (src, os.path.join(_BUILD_DIR, f"lib{stem}_{tag}.so"))
+    return targets
+
+
 def load():
     """Build (once per source version) and load every kernel library;
     returns ``{source stem: library}``."""
     global build_seconds
     if _LIBS:
         return _LIBS
-    srcs = sorted(glob.glob(os.path.join(_SRC_DIR, "*.cu")))
-    flags = " ".join(_NVCC_FLAGS).encode()
-    targets = {}
-    for src in srcs:
-        with open(src, "rb") as f:
-            tag = hashlib.sha256(f.read() + flags).hexdigest()[:12]
-        stem = os.path.splitext(os.path.basename(src))[0]
-        targets[stem] = (src, os.path.join(_BUILD_DIR, f"lib{stem}_{tag}.so"))
+    targets = _targets()
     todo = {k: v for k, v in targets.items() if not os.path.exists(v[1])}
     if todo:
         os.makedirs(_BUILD_DIR, exist_ok=True)
@@ -202,6 +210,8 @@ def load():
                 _, err = proc.communicate(timeout=600)
                 if proc.returncode != 0:
                     raise RuntimeError(f"nvcc failed on {src}:\n{err}")
+                with open(so + ".ptxas.txt", "w") as f:  # registers and spills
+                    f.write(err)
                 os.replace(tmp, so)
         finally:
             for proc, *_ in procs.values():
@@ -231,8 +241,31 @@ def _code(name, t, allowed=tuple(_DTYPE_CODE)):
     return _DTYPE_CODE[t.dtype]
 
 
+def ptxas_report(stem):
+    """What ``nvcc -Xptxas -v`` said when it built ``csrc/<stem>.cu``:
+    ``{kernel symbol: (registers, spill store bytes, spill load bytes)}``."""
+    with open(_targets()[stem][1] + ".ptxas.txt") as f:
+        text = f.read()
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            spills = [0, 0]
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spills = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = (int(m.group(1)), *spills)
+            name = None
+    return out
+
+
 def _launch(fn, *args):
-    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    # the current stream's raw cudaStream_t, read on every launch (the caller
+    # may switch streams) without building a torch.cuda.Stream
+    err = fn(*args, torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice()))
     if err != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
 
@@ -251,15 +284,35 @@ def permute_gather(x, src):
     """``out[p] = x.ravel()[src[p]]``, or 0 where ``src[p] < 0``: ``x``
     float32, int32, int64 or float64, ``src`` int32 with values below
     ``x.numel()``; the output has ``src``'s shape and ``x``'s dtype. ``x``
-    and ``src`` hold fewer than 2^31 elements each (held at 2^28)."""
-    if x.device.type == "cpu":
+    and ``src`` hold fewer than 2^31 elements each (held at 2^28).
+
+    The router sweeps call this many times a sweep, so its host path is
+    short: the entry bound once, devices compared by index, the raw stream
+    read from PyTorch on every call."""
+    global _H0
+    if x.is_cpu:
         return permute_gather_plain(x, src)
-    dt = _code("x", x)
-    _check("x", x, x.dtype, x.device)
-    _check("src", src, torch.int32, x.device)
-    out = torch.empty(src.shape, dtype=x.dtype, device=x.device)
-    _launch(load()["accel_kernels"].pf_permute_gather, dt, x.data_ptr(),
-            src.data_ptr(), out.data_ptr(), src.numel())
+    dt = _DTYPE_CODE.get(x.dtype)
+    if dt is None:
+        raise TypeError(f"x: dtype {x.dtype} not in {tuple(_DTYPE_CODE)}")
+    if src.dtype != torch.int32:
+        raise TypeError(f"src: expected torch.int32, got {src.dtype}")
+    index = x.get_device()
+    if index < 0 or not src.is_cuda or src.get_device() != index:
+        raise ValueError(f"x and src must lie on one CUDA device, got {x.device} and "
+                         f"{src.device}")
+    if not (x.is_contiguous() and src.is_contiguous()):
+        raise ValueError("permute_gather: x and src must be contiguous")
+    n = src.numel()
+    if n >= 1 << 31 or x.numel() >= 1 << 31:
+        raise ValueError("permute_gather: x and src must hold fewer than 2^31 elements")
+    if _H0 is None:
+        _H0 = load()["accel_kernels"].pf_permute_gather
+    out = torch.empty_like(src, dtype=x.dtype)
+    err = _H0(dt, x.data_ptr(), src.data_ptr(), out.data_ptr(), n,
+              torch._C._cuda_getCurrentRawStream(index))
+    if err != 0:
+        raise RuntimeError(f"pf_permute_gather launch failed: CUDA error {err}")
     launches["permute_gather"] += 1
     return out
 
@@ -787,12 +840,16 @@ def fill_sweep(w, dem_eff, fixed, conn8, down):
     if w.dim() != 2 or dem_eff.shape != w.shape or fixed.shape != w.shape:
         raise ValueError("fill_sweep: w, dem_eff and fixed must be 2-D of one shape")
     nrow, ncol = w.shape
+    if w.numel() >= 1 << 31:
+        raise ValueError("fill_sweep: the raster must hold fewer than 2^31 cells")
+    lib = load()["fill_kernels"]
     out = torch.empty_like(w)
-    # a row of b in device memory, for rows wider than the kernel stages
-    # in shared memory
-    scratch = torch.empty(ncol, dtype=torch.float32, device=dev)
-    _launch(load()["fill_kernels"].pf_fill_sweep, w.data_ptr(), dem_eff.data_ptr(),
-            fixed.data_ptr(), out.data_ptr(), scratch.data_ptr(), nrow, ncol,
+    # a row of b in device memory, for rows wider than the kernel keeps in
+    # registers in one chunk
+    scratch = (torch.empty(ncol, dtype=torch.float32, device=dev)
+               if ncol > lib.pf_fill_stage_cols() else None)
+    _launch(lib.pf_fill_sweep, w.data_ptr(), dem_eff.data_ptr(), fixed.data_ptr(),
+            out.data_ptr(), None if scratch is None else scratch.data_ptr(), nrow, ncol,
             int(bool(conn8)), int(bool(down)))
     launches["fill_sweep"] += 1
     return out

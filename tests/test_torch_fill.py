@@ -39,10 +39,39 @@ def _sweep_inputs(shape, seed):
     return w, dem, (seeds | bad).to(torch.uint8)
 
 
-@pytest.mark.parametrize("down", [True, False])
-@pytest.mark.parametrize("conn8", [True, False])
-def test_sweep_plain_matches_jax(conn8, down):
-    w, dem, fixed = _sweep_inputs((61, 77), 1)
+# (name, shape, row made special): the kernel's layout edges (1,024 threads,
+# K columns a thread; rows not 16-byte aligned), one row, and a row all
+# fixed or all +inf; the first case keeps the test's original ids
+_SWEEP_CASES = [
+    ("61x77", (61, 77), None),
+    ("ncol1", (9, 1), None),
+    ("ncol2", (9, 2), None),
+    ("ncol33", (7, 33), None),
+    ("ncol1025", (5, 1025), None),
+    ("nrow1", (1, 77), None),
+    ("fixed_row", (9, 40), "fixed"),
+    ("inf_row", (9, 40), "inf"),
+]
+
+
+def _edge_sweep_inputs(shape, special):
+    w, dem, fixed = _sweep_inputs(shape, 1)
+    if special == "fixed":
+        fixed[4] = 1
+        w[4] = dem[4]
+    elif special == "inf":
+        fixed[4] = 0
+        w[4] = float("inf")
+    return w, dem, fixed
+
+
+@pytest.mark.parametrize("conn8,down,shape,special", [
+    pytest.param(conn8, down, shape, special,
+                 id=f"{conn8}-{down}" if name == "61x77" else f"{name}-{conn8}-{down}")
+    for name, shape, special in _SWEEP_CASES
+    for conn8 in (True, False) for down in (True, False)])
+def test_sweep_plain_matches_jax(conn8, down, shape, special):
+    w, dem, fixed = _edge_sweep_inputs(shape, special)
     kernels.reset_launches()
     got = kernels.fill_sweep(w, dem, fixed, conn8, down)
     assert kernels.launches["fill_sweep"] == 0  # a CPU tensor takes the plain version

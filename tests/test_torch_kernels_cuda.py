@@ -265,6 +265,29 @@ def test_permute_gather_reads_zero_at_masked_indices(dev):
     assert bool((got[src < 0] == 0).all()) and bool((src < 0).any())
 
 
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("n", [1, 3, 4, 5, (1 << 20) + 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32, torch.int64, torch.float64])
+def test_permute_gather_edges(dev, dtype, n, offset):
+    """H0 at its edges: n % 4 tails and chunks of 1,024 slots cut short, src
+    views that start 1 or 3 elements past a 16-byte boundary, and -1
+    entries at the head and the tail."""
+    rng = np.random.RandomState(n + offset)
+    n_x = max(n, 7)
+    x = _data(rng, n_x, dtype).to(dev)
+    s = rng.randint(0, n_x, n + offset).astype(np.int32)
+    s[offset] = s[-1] = -1
+    src = torch.as_tensor(s, device=dev)[offset:]
+    assert src.is_contiguous() and src.data_ptr() % 16 == 4 * offset
+    kernels.reset_launches()
+    got = kernels.permute_gather(x, src)
+    assert kernels.launches["permute_gather"] == 1
+    torch.cuda.synchronize()
+    want = kernels.permute_gather_plain(x, src)
+    assert got.dtype == dtype and torch.equal(got, want)
+    assert got[0] == 0 and got[-1] == 0
+
+
 @pytest.mark.parametrize("routed", [False, True])
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.float64])
 def test_tile_down_a(tile_plans, dtype, routed):
@@ -427,6 +450,70 @@ def test_fill_sweep(dev, shape, conn8, down):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert kernels.launches["fill_sweep"] == 1  # the plain version never launches
+
+
+def _fill_edge_inputs(nrow, ncol, dev, offset=0):
+    """One sweep's inputs at ``nrow`` x ``ncol`` from numpy: nodata (+inf in d
+    and w, fixed), seeds (fixed, w = d), an upper bound with +inf; past two
+    rows, row 1 all fixed and row 2 all +inf in w. ``offset``: the three
+    arrays as views that start ``offset`` elements into their storage."""
+    rng = np.random.RandomState(nrow * 10_007 + ncol)
+    d = (rng.rand(nrow, ncol) * 10).astype(np.float32)
+    bad = rng.rand(nrow, ncol) < 0.05
+    seed = rng.rand(nrow, ncol) < 0.1
+    d[bad] = np.inf
+    w = np.where(rng.rand(nrow, ncol) < 0.3, np.inf,
+                 d + 3 * rng.rand(nrow, ncol)).astype(np.float32)
+    fixed = bad | seed
+    w[fixed] = d[fixed]
+    if nrow > 2:
+        fixed[1] = True
+        w[1] = d[1]
+        fixed[2] = False
+        w[2] = np.inf
+
+    def put(a, dtype):
+        buf = torch.empty(a.size + offset, dtype=dtype, device=dev)
+        t = buf[offset:].view(nrow, ncol)
+        t.copy_(torch.as_tensor(a))
+        return t
+
+    return put(w, torch.float32), put(d, torch.float32), put(fixed.astype(np.uint8), torch.uint8)
+
+
+@pytest.mark.parametrize("down", [True, False])
+@pytest.mark.parametrize("conn8", [True, False])
+@pytest.mark.parametrize("nrow", [1, 2, 5])
+@pytest.mark.parametrize("ncol", [1, 2, 31, 33, 1023, 1025, 1536, 1537, 6000, 8192, 8193,
+                                  9000])
+def test_fill_sweep_edges(dev, ncol, nrow, conn8, down):
+    """F1 bitwise against its plain version at the layout's edges: 256
+    threads of K = 1 .. 6 columns up to 1,536, 512 threads of K = 4 .. 16 up
+    to 8,192, the chunked path past that, rows whose floats (ncol % 4) or
+    mask bytes (ncol % 16) are not 16-byte aligned, one and two rows, a row
+    all fixed and a row all +inf."""
+    w, dem, fixed = _fill_edge_inputs(nrow, ncol, dev)
+    kernels.reset_launches()
+    got = kernels.fill_sweep(w, dem, fixed, conn8, down)
+    assert kernels.launches["fill_sweep"] == 1
+    want = kernels.fill_sweep_plain(w, dem, fixed, conn8, down)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("offset", [1, 4])
+@pytest.mark.parametrize("ncol", [32, 6000])
+def test_fill_sweep_unaligned_views(dev, ncol, offset):
+    """Arrays whose base is off 16 bytes (a storage offset of 1 or 4
+    elements) take the kernel's loads for unaligned rows: the same bits."""
+    w, dem, fixed = _fill_edge_inputs(6, ncol, dev, offset)
+    assert w.data_ptr() % 16 != 0 or fixed.data_ptr() % 16 != 0
+    for conn8 in (True, False):
+        for down in (True, False):
+            got = kernels.fill_sweep(w, dem, fixed, conn8, down)
+            want = kernels.fill_sweep_plain(w, dem, fixed, conn8, down)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
 
 
 def test_fill_and_d8_match_cpu(dev):

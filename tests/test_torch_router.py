@@ -55,6 +55,34 @@ def test_lane_gather_bitwise(case):
     assert np.array_equal(got, want)
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+@pytest.mark.parametrize("shape", [(1, 1), (1, 3), (3, 5), (5, 3), (7, 127)])
+def test_lane_gather_bitwise_odd_lengths(shape, dtype):
+    """The JAX ``_ta`` at lengths off the 128-lane layout: the flat gathers
+    H0 takes, with n % 4 tails, against the port's lane gather."""
+    rng = np.random.RandomState(shape[0] * 1000 + shape[1])
+    x = rng.randint(-(2**20), 2**20, shape).astype(dtype)
+    idx = rng.randint(0, shape[1], shape).astype(np.int8)
+    want = np.asarray(jrouter._ta(jnp.asarray(x), jnp.asarray(idx)))
+    got = trouter.lane_gather(torch.as_tensor(x), idx).numpy()
+    assert got.dtype == x.dtype and np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32, torch.int64, torch.float64])
+@pytest.mark.parametrize("n", [1, 3, 5])
+def test_permute_gather_plain_reads_zero_at_minus_one(n, dtype):
+    """H0's plain version at the kernel's short lengths, with -1 entries at
+    the head and the tail, against numpy."""
+    rng = np.random.RandomState(n)
+    x = rng.randint(1, 100, 7)
+    src = rng.randint(0, 7, n).astype(np.int32)
+    src[0] = src[-1] = -1
+    got = kernels.permute_gather(torch.as_tensor(x).to(dtype), torch.as_tensor(src))
+    want = np.where(src >= 0, x[np.maximum(src, 0)], 0)
+    assert got.dtype == dtype and got.shape == (n,)
+    assert np.array_equal(got.numpy(), want.astype(got.numpy().dtype))
+
+
 def test_rejects_non_permutation():
     bad = np.zeros(_S * _S, dtype=np.int64)
     with pytest.raises(ValueError):

@@ -10,13 +10,26 @@ as ``A B B A``. This process fills the seeded 6000x6000 DEM once (with the
 port of the checkout it lives in) and hands the D8 raster to every run; each
 run is a process of its own that imports the port from its DIR, builds the
 grid's tile plan and its down indices, and times each kernel wrapper on the
-plan's own tables, whole grid, int32 and float64 data: ``reps`` calls back to
-back between two CUDA events, the mean per call, after warm-up. The
-wrappers: ``tile_pass_a`` (T1), ``tile_pass_c`` (T2, resuming from T1's
-prefix sums), ``tile_down_a`` (T3) raw and routed, ``tile_down_fin`` (T4).
+plan's own tables (each checkout's own device layout of them), int32 and
+float64 data: ``reps`` calls back to back between two CUDA events, the mean
+per call, after warm-up. The wrappers, on the whole grid: ``tile_pass_a``
+(T1) and its exits-only mode (``.exits``), ``tile_pass_c`` (T2, resuming
+from T1's prefix sums) and its full mode (``.full``, the prefix sums rebuilt
+from x), ``tile_down_a`` (T3) raw and routed, ``tile_down_fin`` (T4); and in
+their tile-range forms (``.range``: ``tile0=0`` over every tile, the results
+as a tile stack, as one rank of the sharded sweeps runs them): T1, T2, T3
+routed and T4 lite (``tile_down_lite``). Then, on a process group of one
+rank over NCCL and the grid's sharded plan (``build_sharded_plan``, padded
+to 6016x6016), the wall of one int32 call (``.wall``: the median over
+single calls, each between two CUDA events, so host time counts) of
+``accumulate_sharded``, ``accumulate``, ``accumulate_down_sharded`` and
+``accumulate_down``, and of the NCCL ``all_gather`` of the exits, of the
+entry values and of the result stack, these also before the sharded plan's
+tables reach the card (``.first.wall``).
 
-Prints the card, one JSON line per run, then each DIR's median over its
-runs. Needs one CUDA device.
+Prints the card, the registers and spills ``ptxas`` gave each tile kernel of
+each DIR, one JSON line per run, then each DIR's median over its runs.
+Needs one CUDA device.
 """
 
 import argparse
@@ -49,6 +62,71 @@ def _mean_ms(fn, reps, warmup=5):
     return start.elapsed_time(end) / reps
 
 
+def _median_ms(fn, reps=20, warmup=3):
+    """Median of ``reps`` single calls, each between two CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _sharded_walls(d8, out):
+    """The one-rank sharded walls and NCCL gathers into ``out``."""
+    import datetime
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from pyflwdir_torch import parallel
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1,
+                            rank=0, timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = parallel.make_mesh()
+        tp, pshape = parallel.build_sharded_plan(d8, mesh)
+        ex = torch.zeros((tp.NT, tp.R_pad), dtype=torch.int32, device="cuda")
+        pk = torch.zeros((tp.NT, tp.E_pad), dtype=torch.int32, device="cuda")
+        stack = torch.zeros((tp.NT, 128 * 128), dtype=torch.int32, device="cuda")
+        gathers = {
+            "all_gather_exits": lambda: mesh.all_gather(ex),
+            "all_gather_entries": lambda: mesh.all_gather(pk),
+            "all_gather_result": lambda: mesh.all_gather(stack),
+        }
+        # the gathers before the sharded plan's tables reach the card
+        # (.first) and after its sweeps
+        for k, fn in gathers.items():
+            out[f"{k}.first.wall.int32_ms"] = _median_ms(fn)
+        tp._ensure_down()
+        ones = torch.ones(pshape[0] * pshape[1], dtype=torch.int32, device="cuda")
+        calls = {
+            "accumulate_sharded": lambda: tp.accumulate_sharded(ones, mesh),
+            "accumulate": lambda: tp.accumulate(ones),
+            "accumulate_down_sharded": lambda: tp.accumulate_down_sharded(ones, mesh),
+            "accumulate_down": lambda: tp.accumulate_down(ones),
+            **gathers,
+        }
+        for k, fn in calls.items():
+            out[f"{k}.wall.int32_ms"] = _median_ms(fn)
+    finally:
+        dist.destroy_process_group()
+
+
 def run_one(root, d8_path, reps):
     """One run in this process, on the port of checkout ``root``."""
     root = os.path.abspath(root)
@@ -62,13 +140,15 @@ def run_one(root, d8_path, reps):
     if not os.path.abspath(pyflwdir_torch.__file__).startswith(root + os.sep):
         raise RuntimeError(f"imported {pyflwdir_torch.__file__}, not the port in {root}")
     kernels.load()
-    fl = pyflwdir_torch.from_array(np.load(d8_path))
+    out = dict(root=root, ptxas={k: list(v) for k, v in kernels.ptxas_report("tile_kernels")
+                                 .items()})
+    d8 = np.load(d8_path)
+    fl = pyflwdir_torch.from_array(d8)
     tp = fl._tile_plan()
     tp._ensure_down()
     t, d = tp.idx_t, tp.down_idx_t
     shape, n = tp.shape, fl.size
     rng = np.random.RandomState(SEED)
-    out = dict(root=root)
     for name, x in (("int32", torch.as_tensor(rng.randint(0, 3, n).astype(np.int32))),
                     ("float64", torch.as_tensor(rng.rand(n)))):
         x = x.cuda()
@@ -77,17 +157,29 @@ def run_one(root, d8_path, reps):
         d1 = (x, t["rin"], d["es"], d["g_last"], d["g_prev"], d["n_tree"], d["ent_slot"])
         z1, pk = kernels.tile_down_a(*d1, None, shape, False)
         A = tp.coarse.accumulate_down(pk.reshape(-1)).reshape(tp.NT, tp.R_pad)
+        a_args = (x, t["rin"], t["ex_end"], shape)
+        c_args = (x, c, entv, t["ent_idx"], t["near_end"], t["far_end"], t["rout"], shape)
+        full_args = (x, None, *c_args[2:])
+        abar, _ = kernels.tile_down_a(*d1, t["rout"], shape, True, tile0=0)
+        l_args = (abar, A, d["tree_of"], t["rout"], shape)
         calls = {
-            "tile_pass_a": lambda: kernels.tile_pass_a(x, t["rin"], t["ex_end"], shape),
-            "tile_pass_c": lambda: kernels.tile_pass_c(x, c, entv, t["ent_idx"], t["near_end"],
-                                                       t["far_end"], t["rout"], shape),
+            "tile_pass_a": lambda: kernels.tile_pass_a(*a_args),
+            "tile_pass_a.exits": lambda: kernels.tile_pass_a(*a_args, emit_c=False),
+            "tile_pass_c": lambda: kernels.tile_pass_c(*c_args),
+            "tile_pass_c.full": lambda: kernels.tile_pass_c(*full_args, rin=t["rin"]),
             "tile_down_a.raw": lambda: kernels.tile_down_a(*d1, None, shape, False),
             "tile_down_a.routed": lambda: kernels.tile_down_a(*d1, t["rout"], shape, True),
             "tile_down_fin": lambda: kernels.tile_down_fin(x, z1, A, d["tree_of"], t["rout"],
                                                            shape),
+            "tile_pass_a.range": lambda: kernels.tile_pass_a(*a_args, tile0=0),
+            "tile_pass_c.range": lambda: kernels.tile_pass_c(*c_args, tile0=0),
+            "tile_down_a.range": lambda: kernels.tile_down_a(*d1, t["rout"], shape, True,
+                                                             tile0=0),
+            "tile_down_lite.range": lambda: kernels.tile_down_lite(*l_args, tile0=0),
         }
         for k, fn in calls.items():
             out[f"{k}.{name}_ms"] = _mean_ms(fn, reps)
+    _sharded_walls(d8, out)
     return out
 
 
@@ -117,7 +209,7 @@ def main():
     rng = np.random.RandomState(SEED)
     z = rng.rand(*SHAPE) + np.add.outer(np.linspace(2, 0, SHAPE[0]), np.linspace(2, 0, SHAPE[1]))
     work = tempfile.mkdtemp(prefix="_plan_tmp", dir=here)
-    runs = []
+    runs, ptxas = [], {}
     try:
         d8_path = os.path.join(work, "d8.npy")
         np.save(d8_path, pyflwdir_torch.fill_depressions(z)[1])
@@ -131,8 +223,15 @@ def main():
                 if res.returncode != 0:
                     print(res.stderr, file=sys.stderr)
                     raise RuntimeError(f"the run on {d} failed")
-                runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
-                print(json.dumps(runs[-1]))
+                run = json.loads(res.stdout.strip().splitlines()[-1])
+                regs = run.pop("ptxas")
+                if d not in ptxas:
+                    ptxas[d] = regs
+                    for sym, (nreg, st, ld) in sorted(regs.items()):
+                        print(f"ptxas {d}: {sym}: {nreg} registers, {st} B spill stores, "
+                              f"{ld} B spill loads")
+                runs.append(run)
+                print(json.dumps(run))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     summary = {}
@@ -144,7 +243,7 @@ def main():
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
-            json.dump(dict(card=smi, runs=runs, median=summary), f, indent=1)
+            json.dump(dict(card=smi, runs=runs, median=summary, ptxas=ptxas), f, indent=1)
     return 0
 
 

@@ -6,8 +6,8 @@ Run from the repository root:  python3 chip_smoke.py [--json PATH]
 1. Prints the card (nvidia-smi name and power limit) and builds the CUDA
    kernels (one nvcc per ``pyflwdir_torch/csrc/*.cu``, sm_90a, all started
    together) and the native host library from the sources; prints the
-   registers and spills ptxas gave the H0 and F1 kernels, and the host
-   time of one read of the current stream, as a Stream object and raw.
+   registers and spills ptxas gave the H0, F1 and T1-T4 kernels, and the
+   host time of one read of the current stream, as a Stream object and raw.
 2. Rhine path: a 997x682 grid (the Rhine raster's shape) from a seeded DEM,
    under 2^21 cells, so the single-chunk AccelPlan (kernels H0-H3, float32).
    Kernel phase: each kernel against its plain PyTorch version on the
@@ -26,7 +26,8 @@ Run from the repository root:  python3 chip_smoke.py [--json PATH]
    H0-H3 (int32 and float64) on its coarse level. Kernel phase as above at
    the path's shapes, int32 bitwise and float64 within rtol 1e-12 plus
    2 L eps total, L the additions on the longest chain of the sums it takes
-   in another order (bitwise where it takes none). Then the path, twice with the counters zeroed: int32
+   in another order (bitwise where it takes none). The plan's tables are
+   int16 on the card. Then the path, twice with the counters zeroed: int32
    (upstream_area in cells) and float64 (upstream_area in km2, accuflux),
    checked against the native sequential sweep; then the accumulate call
    and upstream_area are timed.
@@ -68,7 +69,8 @@ Run from the repository root:  python3 chip_smoke.py [--json PATH]
    plus one copy of its result to the host, and the one-band sweep's kernels
    beside the fused ones on the device. Then ``save_plans`` and
    ``load_plans`` into a fresh FlwdirRaster, with the build steps counted
-   (none may run): the peak device memory of a banded call on the loaded
+   (none may run): the plan's upward and downward table bytes on the card
+   and on the host, the peak device memory of a banded call on the loaded
    plan against the bytes of its upward tables, and ``upstream_area()`` and
    ``stream_distance()`` bitwise equal to the built plan's; save, load and
    the first call after the load timed.
@@ -869,6 +871,11 @@ def banded_path(fl, tp, upa, seq, built_s, dev):
     finally:
         shutil.rmtree(plan_dir, ignore_errors=True)
     up_bytes = sum(v.nbytes for v in tp.idx.values())
+    card_bytes = {k: sum(v.numel() * v.element_size() for v in t.values())
+                  for k, t in (("upward", tp.idx_t), ("downward", tp.down_idx_t))}
+    print(f"  the plan's tables on the card: upward {card_bytes['upward']} bytes, downward "
+          f"{card_bytes['downward']} bytes (int16; on the host, int32: upward {up_bytes}, "
+          f"downward {sum(v.nbytes for v in tp.down_idx.values())} bytes)")
     print(f"  save_plans {t_save:.3f} s ({disk} bytes on disk); load_plans {t_load:.3f} s; first "
           f"upstream_area() after the load {t_first:.3f} s, first stream_distance() "
           f"{t_first_down:.3f} s; the build: tile plan {built_s['tile_plan_s']:.2f} s, down "
@@ -896,7 +903,8 @@ def banded_path(fl, tp, upa, seq, built_s, dev):
                        unfused_device_ms=unf_dev, fused_ms=fused_ms, fused_device_ms=fused_dev,
                        save_s=t_save, plan_bytes_on_disk=disk, load_s=t_load,
                        first_upstream_area_s=t_first, first_stream_distance_s=t_first_down,
-                       peak_bytes=peak, upward_table_bytes=up_bytes, path_s=t_path,
+                       peak_bytes=peak, upward_table_bytes=up_bytes,
+                       card_table_bytes=card_bytes, path_s=t_path,
                        **built_s)
 
 
@@ -2169,17 +2177,18 @@ def routed_path(dev):
 
 
 def ptxas_lines():
-    """Registers and spills of the H0 and F1 kernels, as ``nvcc -Xptxas -v``
-    reported them when the libraries were built."""
+    """Registers and spills of the H0, F1 and T1-T4 kernels, as ``nvcc
+    -Xptxas -v`` reported them when the libraries were built."""
     import re
 
     from pyflwdir_torch import kernels
 
     out = {}
-    for stem in ("accel_kernels", "fill_kernels"):
+    for stem in ("accel_kernels", "fill_kernels", "tile_kernels"):
         for sym, (nreg, st, ld) in kernels.ptxas_report(stem).items():
-            m = re.search(r"(permute_gather_kernel|fill_sweep_wide_kernel|fill_sweep_kernel)"
-                          r"(I(?:L[a-z]\d+E|[a-z])+E)?", sym)
+            m = re.search(r"(permute_gather_kernel|fill_sweep_wide_kernel|fill_sweep_kernel|"
+                          r"tile_pass_a_kernel|tile_pass_c_kernel|tile_down_a_kernel|"
+                          r"tile_down_fin_kernel)(I(?:L[a-z]\d+E|[a-z])+E)?", sym)
             if m:
                 name = m.group(1) + (m.group(2) or "")
                 out[name] = dict(registers=nreg, spill_stores=st, spill_loads=ld)

@@ -13,7 +13,8 @@
 // interval, so a subtree sum is a difference of two prefix sums. The JAX
 // package moves values between raster and preorder layout with 5-stage
 // lane-gather routers (ops/tile_plan.py); here the plan composes each
-// chain into one int32 index per slot, relative to its tile:
+// chain into one index per slot, relative to its tile, below 16,384 or -1,
+// so int16 on the card (int32 on the host; n_tree int32):
 //   rin[s]      raster cell (tile-local) of preorder slot s
 //   ex_end[j]   preorder end of local root j (exits)
 //   ent_idx[s]  packed rank of the last entry at a slot <= s, or -1
@@ -41,10 +42,12 @@
 // a stack they are written (as 0 where they pass x through).
 //
 // One CTA of 1024 threads per tile keeps the whole tile in shared memory
-// (64 KB of int32, 128 KB of int64/float64, above the 48 KB default, so
-// the launch opts in with cudaFuncSetAttribute). All four kernels move a
+// (64 KB of int32, 128 KB of int64/float64 a tile-sized buffer; T3 holds up
+// to 224 KB), above the 48 KB default, so the launch opts in with
+// cudaFuncSetAttribute. All four kernels move a
 // few bytes per cell and do one or two adds on them: they are bound by
-// device-memory bytes (3.35 TB/s on an H100 SXM).
+// device-memory bytes (3.35 TB/s on an H100 SXM), T3 by the latency of its
+// dependent loads as well.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -58,6 +61,9 @@ constexpr int kTileThreads = 1024;
 constexpr int kWarps = kTileThreads / 32;
 constexpr int kPerThread = kSlots / kTileThreads;  // 16
 constexpr int kWarpSlots = kSlots / kWarps;        // 512
+// T3 in 8-byte values: the chunks (of 8 a thread) whose u values wait in
+// shared memory beside the staged tile, the rest in registers
+constexpr int kDownStash = 6;
 
 template <typename T>
 __device__ __forceinline__ T shfl_up(T v, int off) {
@@ -116,6 +122,30 @@ __device__ __forceinline__ T tile_cell(const T* __restrict__ x, int64_t H,
   const int64_t r = r0 + (l >> 7);
   const int64_t col = c0 + (l & (kLanes - 1));
   return (r < H && col < W) ? x[r * W + col] : T(0);
+}
+
+// the raster tile at (r0, c0) into xs[0, kSlots), row-coalesced, 0 past H or W
+template <typename T>
+__device__ __forceinline__ void stage_tile(const T* __restrict__ x, int64_t H,
+                                           int64_t W, int64_t r0, int64_t c0,
+                                           T* xs) {
+  for (int l = threadIdx.x; l < kSlots; l += kTileThreads) {
+    xs[l] = tile_cell(x, H, W, r0, c0, l);
+  }
+}
+
+// two values of adjacent slots, moved as one 8- or 16-byte access
+template <typename T>
+struct alignas(2 * sizeof(T)) Two {
+  T x, y;
+};
+
+// the two int16 table entries of slots 2j (low half) and 2j + 1 in one word
+__device__ __forceinline__ int lo16(uint32_t w) {
+  return static_cast<int16_t>(w & 0xffffu);
+}
+__device__ __forceinline__ int hi16(uint32_t w) {
+  return static_cast<int16_t>(w >> 16);
 }
 
 // where raster cell l of the tile at (r0, c0) goes in the call's raster-side
@@ -193,12 +223,13 @@ __device__ void block_scan_inplace(T* a, int n, T* warp_tot) {
   __syncthreads();
 }
 
-// Inclusive prefix sum, in preorder, of the tile's values load(s) over its
-// 16,384 slots, by the whole block: warp w owns slots [512 w, 512 w + 512),
-// 32 at a time with a shuffle scan and a running carry; one warp scans the
-// 32 warp totals. On return v[k] holds the sum at slot
-// tile_scan_slot(k) (the caller's thread), and every load has been made (a
-// barrier follows the last one), so the caller may overwrite what load read.
+// Inclusive prefix sum, in preorder, of the tile's values over its 16,384
+// slots, by the whole block: warp w owns slots [512 w, 512 w + 512), 32 at a
+// time with a shuffle scan and a running carry; one warp scans the 32 warp
+// totals. load(k) gives the value at slot tile_scan_slot(k) of the caller's
+// thread; it is called once for each k, in order. On return v[k] holds the
+// sum at that slot, and every load has been made (a barrier follows the last
+// one), so the caller may overwrite what load read.
 // The order of the additions is fixed: T1 and T2's full mode give the same
 // bits for the same values.
 __device__ __forceinline__ int tile_scan_slot(int k) {
@@ -213,7 +244,7 @@ __device__ __forceinline__ void tile_prefix_scan(Load load, T (&v)[kPerThread],
   T carry = T(0);
 #pragma unroll
   for (int k = 0; k < kPerThread; ++k) {
-    T a = warp_inclusive_scan(load(tile_scan_slot(k)), lane) + carry;
+    T a = warp_inclusive_scan(load(k), lane) + carry;
     v[k] = a;
     carry = shfl(a, 31);
   }
@@ -226,6 +257,29 @@ __device__ __forceinline__ void tile_prefix_scan(Load load, T (&v)[kPerThread],
   for (int k = 0; k < kPerThread; ++k) v[k] += off;
 }
 
+// The raster cell of slot tile_scan_slot(k) of the caller's thread, from a
+// tile's int16 rin row, for tile_prefix_scan's load(k), which it calls once
+// for each k in order: a lane reads one 32-bit word for chunks k and k + 1
+// (k even), and lane l's cell of chunk k sits in lane l / 2's word, of chunk
+// k + 1 in lane 16 + l / 2's: half the loads of an entry a lane.
+class ScanCells {
+ public:
+  __device__ explicit ScanCells(const int16_t* rin_t)
+      : rin2_(reinterpret_cast<const uint32_t*>(rin_t)),
+        w0_((threadIdx.x >> 5) * (kWarpSlots / 2) + (threadIdx.x & 31)) {}
+  __device__ __forceinline__ int operator()(int k) {
+    if ((k & 1) == 0) w_ = rin2_[w0_ + 16 * k];
+    const int lane = threadIdx.x & 31;
+    const uint32_t u = __shfl_sync(0xffffffffu, w_, (k & 1) * 16 + (lane >> 1));
+    return (lane & 1) ? hi16(u) : lo16(u);
+  }
+
+ private:
+  const uint32_t* rin2_;
+  int w0_;
+  uint32_t w_ = 0;
+};
+
 // ---------------------------------------------------------------------------
 // T1 tile_pass_a: per tile t,
 //   c[t, s]     = sum over slots s' <= s of x[cell(rin[t, s'])]
@@ -237,11 +291,14 @@ __device__ __forceinline__ void tile_prefix_scan(Load load, T (&v)[kPerThread],
 // (kEmitC false, no c written) TilePlan._pass_a / _pass_a_tiles (_body_a),
 // the unfused pass A of the banded sweep; on a tile range,
 // TilePlan._pass_a_tiles_fused (the sharded sweep's slab or chunk). Bound:
-// x and rin read once, c written once: 2 * sizeof(T) + 4 bytes per slot
-// (sizeof(T) + 4 without c), plus R_pad exits.
+// x and rin read once, c written once: 2 * sizeof(T) + 2 bytes per slot
+// (sizeof(T) + 2 without c), plus R_pad exits.
 // Design: the block stages its 128 x 128 raster tile in shared memory with
 // row-coalesced loads, gathers it into preorder through rin (coalesced
-// index reads, shared-memory gathers) and scans it (tile_prefix_scan). The
+// index reads, a 32-bit word of two int16 entries a lane for two scan
+// chunks, ScanCells; shared-memory gathers) and scans it (tile_prefix_scan):
+// read an entry a lane, the 2-byte table timed slower on an H100 than the
+// 4-byte one in float64 exits-only mode (PERF.md §6). The
 // prefix sums are written to c and, over the dead raster tile, to shared
 // memory, from which the exit differences are read. Summation order differs
 // from the JAX package's (integers exact, float64 within rounding).
@@ -250,8 +307,8 @@ template <typename T, bool kEmitC>
 __global__ void __launch_bounds__(kTileThreads)
     tile_pass_a_kernel(const T* __restrict__ x, int64_t H, int64_t W,
                        int64_t ntx, int64_t tile0,
-                       const int32_t* __restrict__ rin,
-                       const int32_t* __restrict__ ex_end, int R,
+                       const int16_t* __restrict__ rin,
+                       const int16_t* __restrict__ ex_end, int R,
                        T* __restrict__ c, T* __restrict__ exits) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* xs = reinterpret_cast<T*>(smem_raw);
@@ -259,16 +316,12 @@ __global__ void __launch_bounds__(kTileThreads)
   const int64_t t = blockIdx.x;
   const int64_t r0 = ((tile0 + t) / ntx) * kTileRows;
   const int64_t c0 = ((tile0 + t) % ntx) * kLanes;
-  for (int l = threadIdx.x; l < kSlots; l += kTileThreads) {
-    const int64_t r = r0 + (l >> 7);
-    const int64_t col = c0 + (l & (kLanes - 1));
-    xs[l] = (r < H && col < W) ? x[r * W + col] : T(0);
-  }
+  stage_tile(x, H, W, r0, c0, xs);
   __syncthreads();
 
-  const int32_t* rin_t = rin + t * kSlots;
   T v[kPerThread];
-  tile_prefix_scan([&](int q) { return xs[rin_t[q]]; }, v, warp_tot);
+  ScanCells cell(rin + t * kSlots);
+  tile_prefix_scan([&](int k) { return xs[cell(k)]; }, v, warp_tot);
   T* c_t = c + t * kSlots;
 #pragma unroll
   for (int k = 0; k < kPerThread; ++k) {
@@ -278,7 +331,7 @@ __global__ void __launch_bounds__(kTileThreads)
   }
   __syncthreads();
 
-  const int32_t* ee = ex_end + t * R;
+  const int16_t* ee = ex_end + t * R;
   T* ex_t = exits + t * R;
   for (int j = threadIdx.x; j < R; j += kTileThreads) {
     const T hi = xs[ee[j]];
@@ -304,86 +357,128 @@ __global__ void __launch_bounds__(kTileThreads)
 // unfused pass C of the banded sweep; on a tile range,
 // TilePlan._pass_c_tiles_fused. Bound: c (full mode: rin and every
 // x), ent_idx, near_end, far_end, rout and x read once, out written once:
-// 3 * sizeof(T) + 16 bytes per slot, plus the entries.
-// Design: one block per tile; the entries are scanned in shared memory,
-// c' is built in shared memory from coalesced reads, each thread holds its
-// 16 outp values in registers across a barrier and writes them over c' in
-// place, and the raster tile is written row-coalesced through rout. Full
-// mode gathers x straight from device memory through rin (the tile's 128
-// row segments stay in L1/L2), as T3 does: a staged raster tile beside c'
-// would need 256 KB in float64, over the 227 KB a block may have. With
-// 4-byte values and c read, two blocks fit an SM's shared memory (66.5 KB
-// each at E = 256): the launch bound holds the kernel to 32 registers a
-// thread so that they fit its registers too (the tile-stack variant took 50
-// unbounded, one block an SM, and ran 36 % slower).
+// 3 * sizeof(T) + 8 bytes per slot with 2-byte tables, plus the entries.
+// Design: one block per tile, bound by device-memory bytes. The tables are
+// 2 bytes a slot, and a thread reads them two slots at a time (one 32-bit
+// word of two int16: slots 2j and 2j + 1), so each load instruction still
+// moves 128 bytes a warp; c and out move as pairs of values too. The entries
+// are scanned in shared memory; c' is built in shared memory; each thread
+// holds its 16 outp values in registers across a barrier (c'[2j - 1] from the
+// lane before by a shuffle) and writes them over c' in place; the raster
+// tile is written row-coalesced through rout. Full mode reads rin as T1
+// does (ScanCells). In 4-byte values it stages the 128 x 128 raster tile in
+// shared memory with row-coalesced loads (in the buffer c' takes next, as
+// T1 does: 64 KB) and gathers it there; in 8-byte values it gathers x from
+// device memory through rin (the tile's 128 row segments stay in L1/L2),
+// which timed faster on an H100 than staging its 128 KB (PERF.md §6).
+// The off-tree passthrough reads x from device memory. With 4-byte values two blocks fit
+// an SM's shared memory (66.5 KB each at E = 256): the launch bound holds
+// the kernel to 32 registers a thread so that they fit its registers too
+// (full mode too: two blocks an SM timed faster than one).
 // ---------------------------------------------------------------------------
 template <typename T, bool kFull, bool kStack>
-__global__ void __launch_bounds__(kTileThreads, sizeof(T) == 4 && !kFull ? 2 : 1)
+__global__ void __launch_bounds__(kTileThreads, sizeof(T) == 4 ? 2 : 1)
     tile_pass_c_kernel(const T* __restrict__ x, int64_t H, int64_t W,
                        int64_t ntx, int64_t tile0, const T* __restrict__ c,
-                       const int32_t* __restrict__ rin,
+                       const int16_t* __restrict__ rin,
                        const T* __restrict__ entv, int E,
-                       const int32_t* __restrict__ ent_idx,
-                       const int32_t* __restrict__ near_end,
-                       const int32_t* __restrict__ far_end,
-                       const int32_t* __restrict__ rout,
+                       const int16_t* __restrict__ ent_idx,
+                       const int16_t* __restrict__ near_end,
+                       const int16_t* __restrict__ far_end,
+                       const int16_t* __restrict__ rout,
                        T* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* cs = reinterpret_cast<T*>(smem_raw);
+  Two<T>* cs2 = reinterpret_cast<Two<T>*>(smem_raw);
   T* pcs = cs + kSlots;
   __shared__ T warp_tot[kWarps];
   const int64_t t = blockIdx.x;
   const int64_t r0 = ((tile0 + t) / ntx) * kTileRows;
   const int64_t c0 = ((tile0 + t) % ntx) * kLanes;
   const int64_t tb = t * kSlots;
+  const int lane = threadIdx.x & 31;
+  constexpr bool kStage = kFull && sizeof(T) == 4;  // full mode stages x
 
   if (E > 0) {
     const T* ev = entv + t * E;
     for (int i = threadIdx.x; i < E; i += kTileThreads) pcs[i] = ev[i];
-    __syncthreads();
-    block_scan_inplace(pcs, E, warp_tot);
   }
+  if constexpr (kStage) stage_tile(x, H, W, r0, c0, cs);
+  if (E > 0 || kStage) __syncthreads();
+  if (E > 0) block_scan_inplace(pcs, E, warp_tot);
   if constexpr (kFull) {
     T v[kPerThread];
-    tile_prefix_scan(
-        [&](int q) { return tile_cell(x, H, W, r0, c0, rin[tb + q]); }, v,
-        warp_tot);
+    ScanCells cell(rin + tb);
+    if constexpr (kStage) {
+      tile_prefix_scan([&](int k) { return cs[cell(k)]; }, v, warp_tot);
+    } else {
+      tile_prefix_scan([&](int k) { return tile_cell(x, H, W, r0, c0, cell(k)); },
+                       v, warp_tot);
+    }
 #pragma unroll
     for (int k = 0; k < kPerThread; ++k) {
       const int s = tile_scan_slot(k);
-      const int32_t e = ent_idx[tb + s];
+      const int e = ent_idx[tb + s];
       cs[s] = e >= 0 ? v[k] + pcs[e] : v[k];
     }
   } else {
-    for (int s = threadIdx.x; s < kSlots; s += kTileThreads) {
-      T v = c[tb + s];
-      const int32_t e = ent_idx[tb + s];
-      if (e >= 0) v += pcs[e];
-      cs[s] = v;
+    const Two<T>* c2 = reinterpret_cast<const Two<T>*>(c + tb);
+    const uint32_t* ei2 = reinterpret_cast<const uint32_t*>(ent_idx + tb);
+#pragma unroll
+    for (int k = 0; k < kPerThread / 2; ++k) {
+      const int j = threadIdx.x + k * kTileThreads;  // slots 2j, 2j + 1
+      Two<T> v = c2[j];
+      const uint32_t w = ei2[j];
+      const int e0 = lo16(w), e1 = hi16(w);
+      if (e0 >= 0) v.x += pcs[e0];
+      if (e1 >= 0) v.y += pcs[e1];
+      cs2[j] = v;
     }
   }
   __syncthreads();
 
-  T o[kPerThread];
+  const uint32_t* ne2 = reinterpret_cast<const uint32_t*>(near_end + tb);
+  const uint32_t* fe2 = reinterpret_cast<const uint32_t*>(far_end + tb);
+  Two<T> o[kPerThread / 2];
 #pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    const int s = threadIdx.x + k * kTileThreads;
-    const int32_t ne = near_end[tb + s];
-    const int32_t fe = far_end[tb + s];
-    T val = (ne >= 0 ? cs[ne] : T(0)) - (s > 0 ? cs[s - 1] : T(0));
-    if (fe >= 0) val += cs[fe];
-    o[k] = val;
+  for (int k = 0; k < kPerThread / 2; ++k) {
+    const int j = threadIdx.x + k * kTileThreads;  // slots 2j, 2j + 1
+    const Two<T> cc = cs2[j];
+    const T up = shfl_up(cc.y, 1);  // c'[2j - 1] of the lane before
+    const T prev = lane > 0 ? up : (j > 0 ? cs[2 * j - 1] : T(0));
+    const uint32_t wn = ne2[j], wf = fe2[j];
+    const int n0 = lo16(wn), n1 = hi16(wn), f0 = lo16(wf), f1 = hi16(wf);
+    T a = (n0 >= 0 ? cs[n0] : T(0)) - prev;
+    if (f0 >= 0) a += cs[f0];
+    T b = (n1 >= 0 ? cs[n1] : T(0)) - cc.x;
+    if (f1 >= 0) b += cs[f1];
+    o[k] = Two<T>{a, b};
   }
   __syncthreads();  // every read of c' is done: overwrite it with outp
 #pragma unroll
-  for (int k = 0; k < kPerThread; ++k) cs[threadIdx.x + k * kTileThreads] = o[k];
+  for (int k = 0; k < kPerThread / 2; ++k) cs2[threadIdx.x + k * kTileThreads] = o[k];
   __syncthreads();
 
-  for (int l = threadIdx.x; l < kSlots; l += kTileThreads) {
-    const int64_t g = out_pos<kStack>(tb, H, W, r0, c0, l);
-    if (g >= 0) {
-      const int32_t q = rout[tb + l];
-      out[g] = q >= 0 ? cs[q] : cell_x<kStack>(x, g, H, W, r0, c0, l);
+  const uint32_t* ro2 = reinterpret_cast<const uint32_t*>(rout + tb);
+#pragma unroll
+  for (int k = 0; k < kPerThread / 2; ++k) {
+    const int j = threadIdx.x + k * kTileThreads;
+    const uint32_t w = ro2[j];
+    const int q0 = lo16(w), q1 = hi16(w);
+    const int l = 2 * j;  // cells l and l + 1: one row, adjacent columns
+    if constexpr (kStack) {
+      Two<T> v;
+      v.x = q0 >= 0 ? cs[q0] : tile_cell(x, H, W, r0, c0, l);
+      v.y = q1 >= 0 ? cs[q1] : tile_cell(x, H, W, r0, c0, l + 1);
+      reinterpret_cast<Two<T>*>(out + tb)[j] = v;
+    } else {
+      const int64_t r = r0 + (l >> 7);
+      const int64_t col = c0 + (l & (kLanes - 1));
+      if (r < H && col < W) {
+        const int64_t g = r * W + col;
+        out[g] = q0 >= 0 ? cs[q0] : x[g];
+        if (col + 1 < W) out[g + 1] = q1 >= 0 ? cs[q1] : x[g + 1];
+      }
     }
   }
 }
@@ -408,33 +503,54 @@ __global__ void __launch_bounds__(kTileThreads, sizeof(T) == 4 && !kFull ? 2 : 1
 // de_b0 selects, the flat shift, the tile suffix sum, the enti chain and, routed, the
 // rout chain and the off-tree passthrough; and the jnp.pad copy before them.
 // Bound: x read and z (or out) written once, rin, es, g_last and g_prev (and
-// rout) read once: 2 * sizeof(T) + 16 (+ 4) bytes per slot in this layout.
-// Design: one block per tile and one shared-memory tile, as T1. The sorted
-// values are gathered straight from x (the tile's 128 row segments stay in
-// L1/L2) and scanned as in T1 (tile_prefix_scan); cs goes to shared
-// memory for the two boundary reads per slot; u[j + 1] is a second gather
-// from x; the suffix scan mirrors the prefix scan (shuffle down, carry from
-// the last chunk to the first, warp totals scanned from the right). Two
-// T-sized buffers of 8-byte values would not fit 227 KB, hence the gathers
-// from device memory instead of a staged raster tile. Every sum has a fixed
+// rout) read once: 2 * sizeof(T) + 8 (+ 2) bytes per slot with 2-byte tables.
+// Design: one block per tile, bound by the latency of its dependent loads
+// (an index, then the value it names) more than by bytes. The block stages
+// its 128 x 128 raster tile in shared memory with row-coalesced loads and
+// gathers there. Each thread takes slot pairs, p = 256 w + 32 k + lane for
+// warp w and k = 0 .. 7 (slots 2p, 2p + 1; warp w owns slots [512 w,
+// 512 w + 512)): every table is read one 32-bit word of two int16 entries a
+// pair, and each scan step covers 64 slots, half the loads and shuffles of a
+// slot a thread. Both scans add a pair first, then scan the pair sums across
+// the warp (shuffles), carry from chunk to chunk, and offset by the block
+// scan of the warp totals; the suffix scan keeps warp totals of its own, so
+// no barrier parts the two scans. cs goes to shared memory for the two
+// boundary reads per slot. u[j + 1] comes from the staged tile: in 4-byte
+// values the tile stays beside cs (two 64 KB buffers; the routed
+// passthrough reads it too), in 8-byte ones (two 128 KB buffers would not
+// fit) each thread reads its u values before cs overwrites the tile and
+// keeps those of kDownStash of its 8 chunks in shared memory beside the
+// buffer, the rest in registers (all in registers, they spilled). The
+// launch bound names one block an SM: without it ptxas held the kernel to
+// 50 registers, and it ran slower (PERF.md §6). Every sum has a fixed
 // order: results are identical from run to run; integers equal the plain
-// version bitwise, float64 within rounding (the scans add in another order).
+// version bitwise, float64 within rounding (the scans add in another
+// order).
 // ---------------------------------------------------------------------------
 template <typename T, bool kRouted, bool kStack>
-__global__ void __launch_bounds__(kTileThreads)
+__global__ void __launch_bounds__(kTileThreads, 1)
     tile_down_a_kernel(const T* __restrict__ x, int64_t H, int64_t W,
                        int64_t ntx, int64_t tile0,
-                       const int32_t* __restrict__ rin,
-                       const int32_t* __restrict__ es,
-                       const int32_t* __restrict__ g_last,
-                       const int32_t* __restrict__ g_prev,
+                       const int16_t* __restrict__ rin,
+                       const int16_t* __restrict__ es,
+                       const int16_t* __restrict__ g_last,
+                       const int16_t* __restrict__ g_prev,
                        const int32_t* __restrict__ n_tree,
-                       const int32_t* __restrict__ ent_slot, int E,
-                       const int32_t* __restrict__ rout, T* __restrict__ z,
+                       const int16_t* __restrict__ ent_slot, int E,
+                       const int16_t* __restrict__ rout, T* __restrict__ z,
                        T* __restrict__ pk) {
+  constexpr bool kKeep = sizeof(T) == 4;  // the staged tile stays beside cs
+  constexpr int kPairs = kPerThread / 2;
+  // 8-byte values: the u values of chunks k < kStash wait in shared memory
+  // beside cs, the others in registers
+  constexpr int kStash = kKeep ? 0 : kDownStash;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* cs = reinterpret_cast<T*>(smem_raw);
+  T* xs = reinterpret_cast<T*>(smem_raw);
+  T* cs = kKeep ? xs + kSlots : xs;
+  Two<T>* cs2 = reinterpret_cast<Two<T>*>(cs);
+  Two<T>* us2 = reinterpret_cast<Two<T>*>(xs + kSlots);  // the stashed u values
   __shared__ T warp_tot[kWarps];
+  __shared__ T warp_suf[kWarps];
   const int64_t t = blockIdx.x;
   const int64_t r0 = ((tile0 + t) / ntx) * kTileRows;
   const int64_t c0 = ((tile0 + t) % ntx) * kLanes;
@@ -442,74 +558,166 @@ __global__ void __launch_bounds__(kTileThreads)
   const int nt = n_tree[t];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int base = warp * kWarpSlots + lane;
+  const int p0 = warp * (kWarpSlots / 2) + lane;  // the pair of chunk k: p0 + 32 k
+  const int u0 = warp * kStash * 32 + lane;       // its stash pair of chunk k: u0 + 32 k
+  const uint32_t* es2 = reinterpret_cast<const uint32_t*>(es + tb);
+  const uint32_t* gl2 = reinterpret_cast<const uint32_t*>(g_last + tb);
+  const uint32_t* gp2 = reinterpret_cast<const uint32_t*>(g_prev + tb);
+  const uint32_t* rin2 = reinterpret_cast<const uint32_t*>(rin + tb);
+
+  stage_tile(x, H, W, r0, c0, xs);
+  __syncthreads();
+
+  // u at slots 2p + 1 and 2p + 2 (0 past the tree), from the staged tile;
+  // the cell of slot 2p + 2 is the next pair's first: the next lane's, or
+  // read by lane 31
+  auto u_next = [&](int k, T& u1, T& u2) {
+    const int p = p0 + 32 * k;
+    const uint32_t w = rin2[p];
+    uint32_t nx = __shfl_down_sync(0xffffffffu, w, 1);
+    if (lane == 31) nx = 2 * p + 2 < nt ? rin2[p + 1] : 0u;
+    u1 = 2 * p + 1 < nt ? xs[hi16(w)] : T(0);
+    u2 = 2 * p + 2 < nt ? xs[lo16(nx)] : T(0);
+  };
+  T un1[kPairs - kStash], un2[kPairs - kStash];
+  if constexpr (!kKeep) {
+#pragma unroll
+    for (int k = 0; k < kPairs; ++k) {
+      T u1, u2;
+      u_next(k, u1, u2);
+      if (k < kStash) {
+        us2[u0 + 32 * k] = Two<T>{u1, u2};
+      } else {
+        un1[k >= kStash ? k - kStash : 0] = u1;
+        un2[k >= kStash ? k - kStash : 0] = u2;
+      }
+    }
+  }
 
   // prefix sums of the tree values in (end, slot) order
-  T v[kPerThread];
-  tile_prefix_scan(
-      [&](int q) {
-        return q < nt ? tile_cell(x, H, W, r0, c0, es[tb + q]) : T(0);
-      },
-      v, warp_tot);
+  T v0[kPairs], v1[kPairs];
+  T carry = T(0);
 #pragma unroll
-  for (int k = 0; k < kPerThread; ++k) cs[base + k * 32] = v[k];
+  for (int k = 0; k < kPairs; ++k) {
+    const int p = p0 + 32 * k;
+    const uint32_t w = es2[p];
+    const T a0 = 2 * p < nt ? xs[lo16(w)] : T(0);
+    const T a1 = 2 * p + 1 < nt ? xs[hi16(w)] : T(0);
+    const T b = a0 + a1;
+    const T B = warp_inclusive_scan(b, lane);
+    const T ex = shfl_up(B, 1);
+    const T base = carry + (lane > 0 ? ex : T(0));
+    v0[k] = base + a0;
+    v1[k] = base + b;
+    carry = carry + shfl(B, 31);
+  }
+  if (lane == 0) warp_tot[warp] = carry;
+  __syncthreads();  // every read of the staged tile for the sorted values is done
+  if (warp == 0) warp_tot[lane] = warp_inclusive_scan(warp_tot[lane], lane);
+  __syncthreads();
+  {
+    const T off = warp > 0 ? warp_tot[warp - 1] : T(0);
+#pragma unroll
+    for (int k = 0; k < kPairs; ++k) cs2[p0 + 32 * k] = Two<T>{v0[k] + off, v1[k] + off};
+  }
   __syncthreads();
 
   // per-end group sums minus the next slot's value
 #pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    const int s = base + k * 32;
-    const int32_t gl = g_last[tb + s];
-    T g = T(0);
-    if (gl >= 0) {
-      g = cs[gl];
-      const int32_t gp = g_prev[tb + s];
-      if (gp >= 0) g -= cs[gp];
+  for (int k = 0; k < kPairs; ++k) {
+    const int p = p0 + 32 * k;
+    const uint32_t wl = gl2[p], wp = gp2[p];
+    const int l0 = lo16(wl), l1 = hi16(wl), q0 = lo16(wp), q1 = hi16(wp);
+    T g0 = T(0), g1 = T(0);
+    if (l0 >= 0) {
+      g0 = cs[l0];
+      if (q0 >= 0) g0 -= cs[q0];
     }
-    const T un =
-        s + 1 < nt ? tile_cell(x, H, W, r0, c0, rin[tb + s + 1]) : T(0);
-    v[k] = g - un;
+    if (l1 >= 0) {
+      g1 = cs[l1];
+      if (q1 >= 0) g1 -= cs[q1];
+    }
+    T u1, u2;
+    if constexpr (kKeep) {
+      u_next(k, u1, u2);
+    } else if (k < kStash) {
+      const Two<T> u = us2[u0 + 32 * k];
+      u1 = u.x;
+      u2 = u.y;
+    } else {
+      u1 = un1[k >= kStash ? k - kStash : 0];
+      u2 = un2[k >= kStash ? k - kStash : 0];
+    }
+    v0[k] = g0 - u1;
+    v1[k] = g1 - u2;
   }
-  __syncthreads();  // every read of cs and of the warp totals is done
 
   // suffix sums, from the tile's last slot to its first
-  T carry = T(0);
+  carry = T(0);
 #pragma unroll
-  for (int k = kPerThread - 1; k >= 0; --k) {
-    const T a = warp_inclusive_suffix_scan(v[k], lane) + carry;
-    v[k] = a;
-    carry = shfl(a, 0);
+  for (int k = kPairs - 1; k >= 0; --k) {
+    const T d = v0[k] + v1[k];
+    const T D = warp_inclusive_suffix_scan(d, lane);
+    const T ex = shfl_down(D, 1);
+    const T base = carry + (lane < 31 ? ex : T(0));
+    v1[k] = base + v1[k];
+    v0[k] = base + d;
+    carry = carry + shfl(D, 0);
   }
-  if (lane == 0) warp_tot[warp] = carry;
-  __syncthreads();
-  if (warp == 0) {
-    warp_tot[lane] = warp_inclusive_suffix_scan(warp_tot[lane], lane);
-  }
+  if (lane == 0) warp_suf[warp] = carry;
+  __syncthreads();  // and every read of cs is done
+  if (warp == 0) warp_suf[lane] = warp_inclusive_suffix_scan(warp_suf[lane], lane);
   __syncthreads();
   {
-    const T off = warp + 1 < kWarps ? warp_tot[warp + 1] : T(0);
+    const T off = warp + 1 < kWarps ? warp_suf[warp + 1] : T(0);
+    Two<T>* z2 = reinterpret_cast<Two<T>*>(z + tb);
 #pragma unroll
-    for (int k = 0; k < kPerThread; ++k) {
-      const int s = base + k * 32;
-      const T zz = v[k] + off;
-      cs[s] = zz;
-      if (!kRouted) z[tb + s] = zz;
+    for (int k = 0; k < kPairs; ++k) {
+      const Two<T> zz{v0[k] + off, v1[k] + off};
+      cs2[p0 + 32 * k] = zz;
+      if (!kRouted) z2[p0 + 32 * k] = zz;
     }
   }
   __syncthreads();
 
-  const int32_t* en = ent_slot + t * E;
+  const int16_t* en = ent_slot + t * E;
   T* pk_t = pk + t * E;
   for (int e = threadIdx.x; e < E; e += kTileThreads) {
-    const int32_t sl = en[e];
+    const int sl = en[e];
     pk_t[e] = sl >= 0 ? cs[sl] : T(0);
   }
-  if (kRouted) {
-    for (int l = threadIdx.x; l < kSlots; l += kTileThreads) {
-      const int64_t g = out_pos<kStack>(tb, H, W, r0, c0, l);
-      if (g >= 0) {
-        const int32_t q = rout[tb + l];
-        z[g] = q >= 0 ? cs[q] : cell_x<kStack>(x, g, H, W, r0, c0, l);
+  if constexpr (kRouted) {
+    // raster cells 2j and 2j + 1 (one row, adjacent columns), one rout word
+    const uint32_t* ro2 = reinterpret_cast<const uint32_t*>(rout + tb);
+#pragma unroll
+    for (int k = 0; k < kPairs; ++k) {
+      const int j = threadIdx.x + k * kTileThreads;
+      const uint32_t w = ro2[j];
+      const int qa = lo16(w), qb = hi16(w);
+      const int l = 2 * j;
+      if constexpr (kStack) {
+        Two<T> v;
+        if constexpr (kKeep) {
+          v.x = qa >= 0 ? cs[qa] : xs[l];
+          v.y = qb >= 0 ? cs[qb] : xs[l + 1];
+        } else {
+          v.x = qa >= 0 ? cs[qa] : tile_cell(x, H, W, r0, c0, l);
+          v.y = qb >= 0 ? cs[qb] : tile_cell(x, H, W, r0, c0, l + 1);
+        }
+        reinterpret_cast<Two<T>*>(z + tb)[j] = v;
+      } else {
+        const int64_t r = r0 + (l >> 7);
+        const int64_t col = c0 + (l & (kLanes - 1));
+        if (r < H && col < W) {
+          const int64_t g = r * W + col;
+          if constexpr (kKeep) {
+            z[g] = qa >= 0 ? cs[qa] : xs[l];
+            if (col + 1 < W) z[g + 1] = qb >= 0 ? cs[qb] : xs[l + 1];
+          } else {
+            z[g] = qa >= 0 ? cs[qa] : x[g];
+            if (col + 1 < W) z[g + 1] = qb >= 0 ? cs[qb] : x[g + 1];
+          }
+        }
       }
     }
   }
@@ -528,7 +736,7 @@ __global__ void __launch_bounds__(kTileThreads)
 // tree j by a suffix sum of differences, exact only in wrapping integers;
 // here each slot reads A by its tree index, exact in every type.
 // Bound: z1, tree_of and rout read once, out written once, x read off the
-// tree, A once per root: 2 * sizeof(T) + 8 bytes per slot in this layout.
+// tree, A once per root: 2 * sizeof(T) + 4 bytes per slot.
 // Design: one block per tile; z1 + A[tree] is built in shared memory from
 // coalesced reads (A's row of the tile stays in L1), and the raster tile is
 // written row-coalesced through rout.
@@ -542,10 +750,9 @@ __global__ void __launch_bounds__(kTileThreads)
 // _pass_down_lite_tiles (_body_down_lite: the exi router, the re_sel select
 // and suffix sum, the rout chain and the add on tree cells), pass D2 of the
 // sharded downward sweep. Bound: abar read and out written once, rout and
-// tree_of read once, A once per root: 2 * sizeof(T) + 8 bytes per cell in
-// this layout (2 * sizeof(T) + 4 with 2-byte indices).
+// tree_of read once, A once per root: 2 * sizeof(T) + 4 bytes per cell.
 // Design: one block per tile; the tile's tree_of row is staged in shared
-// memory (64 KB) from coalesced reads, each raster cell reads its tree
+// memory (32 KB) from coalesced reads, each raster cell reads its tree
 // index there through rout and A from its tile's row (L1); abar and out
 // move row-coalesced.
 // ---------------------------------------------------------------------------
@@ -554,8 +761,8 @@ __global__ void __launch_bounds__(kTileThreads)
     tile_down_fin_kernel(const T* __restrict__ x, int64_t H, int64_t W,
                          int64_t ntx, int64_t tile0, const T* __restrict__ z1,
                          const T* __restrict__ A, int R,
-                         const int32_t* __restrict__ tree_of,
-                         const int32_t* __restrict__ rout,
+                         const int16_t* __restrict__ tree_of,
+                         const int16_t* __restrict__ rout,
                          T* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int64_t t = blockIdx.x;
@@ -564,7 +771,7 @@ __global__ void __launch_bounds__(kTileThreads)
   const int64_t tb = t * kSlots;
   const T* A_t = A + t * R;
   if constexpr (kLite) {
-    int32_t* trs = reinterpret_cast<int32_t*>(smem_raw);
+    int16_t* trs = reinterpret_cast<int16_t*>(smem_raw);
     for (int s = threadIdx.x; s < kSlots; s += kTileThreads) {
       trs[s] = tree_of[tb + s];
     }
@@ -573,9 +780,9 @@ __global__ void __launch_bounds__(kTileThreads)
       const int64_t g = out_pos<kStack>(tb, H, W, r0, c0, l);
       if (g >= 0) {
         T v = z1[g];
-        const int32_t q = rout[tb + l];
+        const int q = rout[tb + l];
         if (q >= 0) {
-          const int32_t tr = trs[q];
+          const int tr = trs[q];
           if (tr >= 0) v += A_t[tr];
         }
         out[g] = v;
@@ -585,7 +792,7 @@ __global__ void __launch_bounds__(kTileThreads)
     T* zs = reinterpret_cast<T*>(smem_raw);
     for (int s = threadIdx.x; s < kSlots; s += kTileThreads) {
       T v = z1[tb + s];
-      const int32_t tr = tree_of[tb + s];
+      const int tr = tree_of[tb + s];
       if (tr >= 0) v += A_t[tr];
       zs[s] = v;
     }
@@ -593,7 +800,7 @@ __global__ void __launch_bounds__(kTileThreads)
     for (int l = threadIdx.x; l < kSlots; l += kTileThreads) {
       const int64_t g = out_pos<kStack>(tb, H, W, r0, c0, l);
       if (g >= 0) {
-        const int32_t q = rout[tb + l];
+        const int q = rout[tb + l];
         out[g] = q >= 0 ? zs[q] : cell_x<kStack>(x, g, H, W, r0, c0, l);
       }
     }
@@ -620,8 +827,8 @@ int pf_tile_max_smem() {
 
 // c == nullptr: exits only (no c written)
 int pf_tile_pass_a(int dt, const void* x, int64_t H, int64_t W, int64_t NT,
-                   int64_t ntx, int64_t tile0, const int32_t* rin,
-                   const int32_t* ex_end, int64_t R, void* c, void* exits,
+                   int64_t ntx, int64_t tile0, const int16_t* rin,
+                   const int16_t* ex_end, int64_t R, void* c, void* exits,
                    void* stream) {
   return by_dtype(dt, [&](auto tag) {
     using T = typename decltype(tag)::type;
@@ -637,9 +844,9 @@ int pf_tile_pass_a(int dt, const void* x, int64_t H, int64_t W, int64_t NT,
 // c == nullptr: full mode, the prefix sums rebuilt from x through rin
 int pf_tile_pass_c(int dt, const void* x, int64_t H, int64_t W, int64_t NT,
                    int64_t ntx, int64_t tile0, int stack, const void* c,
-                   const int32_t* rin, const void* entv, int64_t E,
-                   const int32_t* ent_idx, const int32_t* near_end,
-                   const int32_t* far_end, const int32_t* rout, void* out,
+                   const int16_t* rin, const void* entv, int64_t E,
+                   const int16_t* ent_idx, const int16_t* near_end,
+                   const int16_t* far_end, const int16_t* rout, void* out,
                    void* stream) {
   return by_dtype(dt, [&](auto tag) {
     using T = typename decltype(tag)::type;
@@ -659,18 +866,21 @@ int pf_tile_pass_c(int dt, const void* x, int64_t H, int64_t W, int64_t NT,
 // else the (NT, 16384) preorder z
 int pf_tile_down_a(int dt, int routed, const void* x, int64_t H, int64_t W,
                    int64_t NT, int64_t ntx, int64_t tile0, int stack,
-                   const int32_t* rin, const int32_t* es,
-                   const int32_t* g_last, const int32_t* g_prev,
-                   const int32_t* n_tree, const int32_t* ent_slot, int64_t E,
-                   const int32_t* rout, void* z, void* pk, void* stream) {
+                   const int16_t* rin, const int16_t* es,
+                   const int16_t* g_last, const int16_t* g_prev,
+                   const int32_t* n_tree, const int16_t* ent_slot, int64_t E,
+                   const int16_t* rout, void* z, void* pk, void* stream) {
   return by_dtype(dt, [&](auto tag) {
     using T = typename decltype(tag)::type;
     auto kernel = routed ? (stack ? tile_down_a_kernel<T, true, true>
                                   : tile_down_a_kernel<T, true, false>)
                          : tile_down_a_kernel<T, false, false>;
-    return launch_tiles(kernel, NT, kSlots * static_cast<int>(sizeof(T)),
-                        stream, static_cast<const T*>(x), H, W, ntx, tile0,
-                        rin, es, g_last, g_prev, n_tree, ent_slot,
+    // the staged tile and cs, or in 8-byte values one buffer for both and
+    // the stashed u values
+    const int smem = static_cast<int>(sizeof(T)) *
+                     (kSlots + (sizeof(T) == 4 ? kSlots : 2 * kDownStash * kTileThreads));
+    return launch_tiles(kernel, NT, smem, stream, static_cast<const T*>(x), H,
+                        W, ntx, tile0, rin, es, g_last, g_prev, n_tree, ent_slot,
                         static_cast<int>(E), rout, static_cast<T*>(z),
                         static_cast<T*>(pk));
   });
@@ -680,7 +890,7 @@ int pf_tile_down_a(int dt, int routed, const void* x, int64_t H, int64_t W,
 int pf_tile_down_fin(int dt, int lite, const void* x, int64_t H, int64_t W,
                      int64_t NT, int64_t ntx, int64_t tile0, int stack,
                      const void* z1, const void* A, int64_t R,
-                     const int32_t* tree_of, const int32_t* rout, void* out,
+                     const int16_t* tree_of, const int16_t* rout, void* out,
                      void* stream) {
   return by_dtype(dt, [&](auto tag) {
     using T = typename decltype(tag)::type;
@@ -689,7 +899,7 @@ int pf_tile_down_fin(int dt, int lite, const void* x, int64_t H, int64_t W,
                        : (stack ? tile_down_fin_kernel<T, false, true>
                                 : tile_down_fin_kernel<T, false, false>);
     const int smem =
-        kSlots * static_cast<int>(lite ? sizeof(int32_t) : sizeof(T));
+        kSlots * static_cast<int>(lite ? sizeof(int16_t) : sizeof(T));
     return launch_tiles(kernel, NT, smem, stream, static_cast<const T*>(x), H,
                         W, ntx, tile0, static_cast<const T*>(z1),
                         static_cast<const T*>(A), static_cast<int>(R), tree_of,

@@ -49,11 +49,14 @@ tiles:
   in lite mode (``tile_down_lite``, counted apart) ``TilePlan._pass_down_lite``
   and, on a tile range, ``_pass_down_lite_tiles``
 
-Each tile kernel runs on the whole grid or, given ``tile0``, on the tiles
-``tile0 .. tile0 + NT - 1`` (row-major over the grid; NT the tables' rows),
-a range that may start and end in the middle of a tile row: ``x`` is the
-raster either way, and the raster-side results come as a tile stack (NT,
-16384), tile raster layout, zero past the raster's edge.
+The tile kernels read the plan's per-tile tables as int16 on the card (a
+wrapper raises TypeError on any other index dtype; ``n_tree`` is int32);
+the plain versions take int16 or int32. Each tile kernel runs on the whole
+grid or, given ``tile0``, on the tiles ``tile0 .. tile0 + NT - 1``
+(row-major over the grid; NT the tables' rows), a range that may start and
+end in the middle of a tile row: ``x`` is the raster either way, and the
+raster-side results come as a tile stack (NT, 16384), tile raster layout,
+zero past the raster's edge.
 
 and in ``csrc/fill_kernels.cu`` for float32 rasters with a uint8 mask:
 
@@ -127,6 +130,7 @@ launches = {
 _DTYPE_CODE = {torch.float32: 0, torch.int32: 1, torch.int64: 2, torch.float64: 3}
 _TILE_DTYPES = (torch.int32, torch.int64, torch.float64)
 _TILE = 128  # rows and lanes of a tile on the card
+_TAB = torch.int16  # the tile kernels' index tables
 
 _LIBS = {}  # source stem -> loaded library, once
 _H0 = None  # pf_permute_gather, bound at its first launch
@@ -504,8 +508,8 @@ def tile_pass_a_plain(x, rin, ex_end, shape, emit_c=True, tile0=None):
 
 def tile_pass_a(x, rin, ex_end, shape, emit_c=True, tile0=None):
     """Pass A of the tile plan: ``x`` (H*W,) raster values, int32, int64 or
-    float64; ``rin`` (NT, 16384) int32, the raster cell (within its 128 x
-    128 tile, row-major) of each preorder slot; ``ex_end`` (NT, R) int32, the
+    float64; ``rin`` (NT, 16384) int16, the raster cell (within its 128 x
+    128 tile, row-major) of each preorder slot; ``ex_end`` (NT, R) int16, the
     preorder end of each local root. Cells past H or W read 0. Returns
     ``(exits (NT, R), c (NT, 16384))``: the local-root subtree sums and the
     tile prefix sums, in ``x``'s dtype; with ``emit_c=False`` the exits
@@ -518,9 +522,11 @@ def tile_pass_a(x, rin, ex_end, shape, emit_c=True, tile0=None):
     dev = x.device
     dt = _code("x", x, _TILE_DTYPES)
     _check("x", x, x.dtype, dev)
-    _check("rin", rin, torch.int32, dev)
-    _check("ex_end", ex_end, torch.int32, dev)
+    _check("rin", rin, _TAB, dev)
+    _check("ex_end", ex_end, _TAB, dev)
     H, W, NT, ntx, t0, _ = _tile_args(shape, rin, x, tile0)
+    if rin.data_ptr() % 4:  # read two entries a word
+        raise ValueError("rin must start on a 4-byte boundary")
     if ex_end.dim() != 2 or ex_end.shape[0] != NT or not 0 < ex_end.shape[1] <= rin.shape[1]:
         raise ValueError("ex_end must be (NT, R) with 0 < R <= 16384")
     R = ex_end.shape[1]
@@ -567,8 +573,8 @@ def tile_pass_c(x, c, entv, ent_idx, near_end, far_end, rout, shape, rin=None,
 
     ``x`` (H*W,) raster values; ``c`` (NT, 16384) tile prefix sums; ``entv``
     (NT, E) entry inflows per tile from the coarse level (E may be 0);
-    ``ent_idx``, ``near_end``, ``far_end`` (NT, 16384) int32 in preorder
-    layout, ``rout`` (NT, 16384) int32 in tile raster layout and, in full
+    ``ent_idx``, ``near_end``, ``far_end`` (NT, 16384) int16 in preorder
+    layout, ``rout`` (NT, 16384) int16 in tile raster layout and, in full
     mode, ``rin`` as :func:`tile_pass_a` takes it (see
     ``csrc/tile_kernels.cu``). Returns (H*W,) accumulated values in
     ``x``'s dtype: tree cells get their subtree sum plus their inflow, cells
@@ -582,17 +588,21 @@ def tile_pass_c(x, c, entv, ent_idx, near_end, far_end, rout, shape, rin=None,
     full = c is None
     if full and rin is None:
         raise ValueError("tile_pass_c: full mode (c=None) needs rin")
-    pre = ("rin", rin, torch.int32) if full else ("c", c, x.dtype)
+    pre = ("rin", rin, _TAB) if full else ("c", c, x.dtype)
     for name, t, dtype in (("x", x, x.dtype), pre, ("entv", entv, x.dtype),
-                           ("ent_idx", ent_idx, torch.int32),
-                           ("near_end", near_end, torch.int32),
-                           ("far_end", far_end, torch.int32), ("rout", rout, torch.int32)):
+                           ("ent_idx", ent_idx, _TAB), ("near_end", near_end, _TAB),
+                           ("far_end", far_end, _TAB), ("rout", rout, _TAB)):
         _check(name, t, dtype, dev)
     H, W, NT, ntx, t0, stack = _tile_args(shape, rout, x, tile0)
     for name, t in (pre[:2], ("ent_idx", ent_idx), ("near_end", near_end),
                     ("far_end", far_end)):
         if t.shape != rout.shape:
             raise ValueError(f"{name} must be {tuple(rout.shape)}")
+    # the kernel reads these two slots at a time
+    for name, t in (("ent_idx", ent_idx), ("near_end", near_end), ("far_end", far_end),
+                    ("rout", rout), ("rin", rin) if full else ("c", c)):
+        if t.data_ptr() % (2 * t.element_size()):
+            raise ValueError(f"{name} must start on a {2 * t.element_size()}-byte boundary")
     E = entv.shape[1]
     if entv.dim() != 2 or entv.shape[0] != NT:
         raise ValueError("entv must be (NT, E)")
@@ -643,12 +653,12 @@ def tile_down_a(x, rin, es, g_last, g_prev, n_tree, ent_slot, rout, shape, route
     path from each tree cell to the root of its tree within the tile.
 
     ``x`` (H*W,) raster values, int32, int64 or float64; ``rin``, ``es``,
-    ``g_last``, ``g_prev`` (NT, 16384) int32 and ``n_tree`` (NT,) int32 (see
-    ``csrc/tile_kernels.cu``); ``ent_slot`` (NT, E) int32, the preorder slot
+    ``g_last``, ``g_prev`` (NT, 16384) int16 and ``n_tree`` (NT,) int32 (see
+    ``csrc/tile_kernels.cu``); ``ent_slot`` (NT, E) int16, the preorder slot
     of each packed entry cell, -1 for padding (E may be 0). Cells past H or
     W read 0. Returns ``(z, pk)``: ``pk`` (NT, E) the path sums at the entry
     cells; ``z`` the path sums, in preorder layout (NT, 16384) or, where
-    ``routed``, in raster order (H*W,) through ``rout`` ((NT, 16384) int32 in
+    ``routed``, in raster order (H*W,) through ``rout`` ((NT, 16384) int16 in
     tile raster layout) with cells off the tree passing ``x`` through.
     ``rout`` may be None unless ``routed``. With ``tile0`` the tables cover
     the tiles ``tile0 .. tile0 + NT - 1``, and routed ``z`` is their (NT,
@@ -662,12 +672,15 @@ def tile_down_a(x, rin, es, g_last, g_prev, n_tree, ent_slot, rout, shape, route
     tabs = [("rin", rin), ("es", es), ("g_last", g_last), ("g_prev", g_prev)]
     if routed:
         tabs.append(("rout", rout))
-    for name, t in (*tabs, ("n_tree", n_tree), ("ent_slot", ent_slot)):
-        _check(name, t, torch.int32, dev)
+    for name, t in (*tabs, ("ent_slot", ent_slot)):
+        _check(name, t, _TAB, dev)
+    _check("n_tree", n_tree, torch.int32, dev)
     H, W, NT, ntx, t0, stack = _tile_args(shape, rin, x, tile0)
     for name, t in tabs:
         if t.shape != rin.shape:
             raise ValueError(f"{name} must be {tuple(rin.shape)}")
+        if t.data_ptr() % 4:  # the kernel reads these two slots at a time
+            raise ValueError(f"{name} must start on a 4-byte boundary")
     if n_tree.shape != (NT,):
         raise ValueError("n_tree must be (NT,)")
     if ent_slot.dim() != 2 or ent_slot.shape[0] != NT:
@@ -698,8 +711,8 @@ def tile_down_fin(x, z1, A, tree_of, rout, shape, tile0=None):
 
     ``x`` (H*W,) raster values; ``z1`` (NT, 16384) pass D1's path sums in
     preorder layout; ``A`` (NT, R) the coarse level's path sum below each
-    local root; ``tree_of`` (NT, 16384) int32, the local root index of each
-    preorder slot, -1 off the tree; ``rout`` (NT, 16384) int32 in tile raster
+    local root; ``tree_of`` (NT, 16384) int16, the local root index of each
+    preorder slot, -1 off the tree; ``rout`` (NT, 16384) int16 in tile raster
     layout. Returns (H*W,) in ``x``'s dtype: tree cells get
     ``z1 + A[tree]``, cells off the tree pass ``x`` through; with ``tile0``
     (the tables cover tiles ``tile0 .. tile0 + NT - 1``) the (NT, 16384)
@@ -740,8 +753,8 @@ def _tile_down_d2(x, z1, A, tree_of, rout, shape, tile0, lite):
     the routed one, ``x`` unused)."""
     dev = z1.device
     dt = _code("z1", z1, _TILE_DTYPES)
-    checks = [("z1", z1, z1.dtype), ("A", A, z1.dtype), ("tree_of", tree_of, torch.int32),
-              ("rout", rout, torch.int32)]
+    checks = [("z1", z1, z1.dtype), ("A", A, z1.dtype), ("tree_of", tree_of, _TAB),
+              ("rout", rout, _TAB)]
     if not lite:
         checks.append(("x", x, z1.dtype))
     for name, t, dtype in checks:

@@ -20,8 +20,8 @@ plan's 2^28 slots the build raises ValueError, as the JAX build does.
 The host build makes the JAX build's decisions (the phase-1 DFS, the far
 mode and ``b``, ``R_pad``, ``E_pad``, the coarse graph and its slots, the
 coarse backend thresholds), so the two dispatch identically. Where the JAX
-plan keeps 5-stage int8 router tables per family, the port keeps one int32
-index per slot (``rin``, ``rout``, ``ex_end``, ``near_end``, ``far_end``,
+plan keeps 5-stage int8 router tables per family, the port keeps one index
+per slot (``rin``, ``rout``, ``ex_end``, ``near_end``, ``far_end``,
 ``ent_idx``, each relative to its tile), what each chain composes to; the
 native build takes them from phase 1 directly (the far mode and ``b`` say
 only how the TPU routers deliver the far ends). :meth:`TilePlan.from_stage_tables`
@@ -31,11 +31,13 @@ builds the same indices from a JAX plan's tables by replaying the chains on
 Tiles are 128 rows high, the one height the CUDA kernels take; a JAX plan of
 another height is not loaded.
 
-The per-tile indices stay on the host (numpy, or memory-mapped where the
-plan was loaded from disk, ``ops/plan_io.py``) until the first monolithic
-call uploads them (``idx_t``). :meth:`TilePlan.accumulate_banded` never
-does: it runs the unfused passes band by band, with only one band's slices
-of the indices on the device::
+The per-tile indices stay on the host (numpy int32, or memory-mapped where
+the plan was loaded from disk, ``ops/plan_io.py``) until the first
+monolithic call uploads them (``idx_t``) as int16 (:func:`int16_table`:
+every value lies below 16,384, or is -1), which halves the bytes the kernels
+read and the plan's size on the device. :meth:`TilePlan.accumulate_banded`
+never does: it runs the unfused passes band by band, with only one band's
+slices of the indices on the device::
 
     for each band:  exits[band] = tile_pass_a(x[band], emit_c=False)  # T1, exits only
     entries = coarse.accumulate(exits)
@@ -88,7 +90,7 @@ from .accel import acc_dtype
 from .accel_big import BigAccelPlan, CoarseDown, RouterAccel
 from .plan import DfsPlan, accumulate_planned, build_plan
 
-__all__ = ["TilePlan", "build_tile_plan"]
+__all__ = ["TilePlan", "build_tile_plan", "int16_table"]
 
 _S = 128
 # below this many coarse slots plain gathers solve the coarse level
@@ -188,6 +190,27 @@ def _upload(a, device):
     """A host array (numpy or a memory map, or a slice of one) as a tensor on
     ``device``."""
     return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+
+def int16_table(a, device=None):
+    """A per-tile index table (host int32, numpy or a memory map, or a slice
+    of one) as the int16 tensor the kernels T1-T4 read, on ``device``. Every
+    such table holds a tile-local slot, cell, entry rank or tree index below
+    16,384, or -1; the values are kept as they are. Raises ValueError where a
+    value falls outside int16. The range check and the cast run on
+    ``device``: on the card they cost the host nothing beyond the copy."""
+    t = _upload(a, device)
+    if t.numel():
+        lo, hi = (int(v) for v in torch.aminmax(t))
+        if lo < -(1 << 15) or hi >= 1 << 15:
+            raise ValueError(f"tile table values {lo}..{hi} fall outside int16")
+    return t.to(torch.int16)
+
+
+def _upload_table(key, a, device):
+    """Table ``key`` of a plan on ``device``: int16, but ``n_tree`` (one count
+    per tile, up to 16,384) int32."""
+    return _upload(a, device) if key == "n_tree" else int16_table(a, device)
 
 
 class _BandSink:
@@ -524,20 +547,21 @@ class TilePlan:
 
     @property
     def idx_t(self):
-        """The per-tile indices on the plan's device, uploaded at the first
-        call that needs them all (``upload_seconds``)."""
+        """The per-tile indices on the plan's device, int16, uploaded at the
+        first call that needs them all (``upload_seconds``)."""
         if self._idx_t is None:
             t0 = time.perf_counter()
-            self._idx_t = {k: _upload(v, self.device) for k, v in self.idx.items()}
+            self._idx_t = {k: _upload_table(k, v, self.device) for k, v in self.idx.items()}
             self.upload_seconds = time.perf_counter() - t0
         return self._idx_t
 
     @property
     def down_idx_t(self):
-        """The downward sweep's indices on the plan's device (after
-        :meth:`_ensure_down`)."""
+        """The downward sweep's indices on the plan's device, int16 but
+        ``n_tree`` (int32), after :meth:`_ensure_down`."""
         if self._down_idx_t is None:
-            self._down_idx_t = {k: _upload(v, self.device) for k, v in self.down_idx.items()}
+            self._down_idx_t = {k: _upload_table(k, v, self.device)
+                                for k, v in self.down_idx.items()}
         return self._down_idx_t
 
     def _ensure_down(self):
@@ -595,7 +619,7 @@ class TilePlan:
         for k in keys:
             if k not in cache:
                 src = self.idx if k in self.idx else self.down_idx
-                cache[k] = _upload(src[k][lo:hi], self.device)
+                cache[k] = _upload_table(k, src[k][lo:hi], self.device)
         return {k: cache[k] for k in keys}
 
     def _shard(self, data, mesh):
@@ -892,7 +916,7 @@ class TilePlan:
                 x = torch.ones((r1 - r0) * W, dtype=acc, device=dev)
             else:
                 x = _upload(data2d[r0:r1], dev).reshape(-1).to(acc)
-            t = {k: _upload(self.idx[k][ty0 * ntx: ty1 * ntx], dev) for k in keys}
+            t = {k: int16_table(self.idx[k][ty0 * ntx: ty1 * ntx], dev) for k in keys}
             return r0, (r1 - r0, W), x, t
 
         # each band's tensors are dropped before the next band's upload

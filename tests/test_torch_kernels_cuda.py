@@ -417,6 +417,216 @@ def test_sharded_on_one_card(odd_plans, dtype):
 
 
 
+_T = 128 * 128
+_EDGE_SHAPE = (300, 400)  # 3 x 4 tiles, ragged in both directions
+_EDGE_RANGE = (5, 11)  # tile row 1 column 1 to tile row 2 column 2
+
+
+def _edge_tables(E, seed, dev):
+    """Synthetic int16 tables of every tile kernel for the 12 tiles of a
+    300 x 400 raster, within each table's range: rin and es permutations of a
+    tile, the other slot tables -1 or a slot, ent_idx -1 or an entry rank
+    below E (and 2^15); n_tree 0 in tile 0, 16,384 in tile 1."""
+    assert _EDGE_SHAPE == (300, 400)  # 3 x 4 tiles
+    NT = 12
+    rng = np.random.RandomState(seed)
+
+    def perm():
+        return np.stack([rng.permutation(_T) for _ in range(NT)])
+
+    def idx(hi, shape=(NT, _T), p_neg=0.3):
+        a = rng.randint(0, max(hi, 1), shape)
+        return np.where((rng.rand(*shape) < p_neg) | (hi == 0), -1, a)
+
+    # cells past the raster's edge are off the tree (rout -1), as in a plan
+    l = np.arange(_T)
+    t = np.arange(NT)[:, None]
+    H, W = _EDGE_SHAPE
+    past = ((t // 4) * 128 + l // 128 >= H) | ((t % 4) * 128 + l % 128 >= W)
+    tabs = dict(rin=perm(), es=perm(), rout=np.where(past, -1, idx(_T)), near_end=idx(_T),
+                far_end=idx(_T, p_neg=0.8), ent_idx=idx(min(E, 1 << 15)), g_last=idx(_T),
+                g_prev=idx(_T), ent_slot=idx(_T, (NT, E), 0.2), ex_end=idx(_T, (NT, 128), 0),
+                tree_of=idx(300))
+    tabs = {k: torch.as_tensor(v.astype(np.int16), device=dev) for k, v in tabs.items()}
+    n_tree = rng.randint(0, _T + 1, NT)
+    n_tree[:2] = 0, _T
+    tabs["n_tree"] = torch.as_tensor(n_tree.astype(np.int32), device=dev)
+    return tabs
+
+
+def _edge_data(rng, n, dtype, dev):
+    """Small integers; float64 integer-valued, so that every sum of the
+    synthetic tables is exact in any order and the results compare bitwise."""
+    return torch.as_tensor(rng.randint(0, 100, n)).to(dtype).to(dev)
+
+
+@pytest.mark.parametrize("E", [0, 256, "max"])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.float64])
+def test_tile_pass_c_edges(dev, dtype, E):
+    """T2 fused and full on synthetic tables, whole grid and on a tile range
+    that starts and ends in the middle of a tile row, bitwise against the
+    plain versions; full mode bitwise T1 + fused mode; E = 0, 256 and the
+    largest E one block's shared memory takes (one more raises)."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    max_e = kernels.load()["tile_kernels"].pf_tile_max_smem() // esize - _T
+    E = max_e if E == "max" else E
+    t = _edge_tables(E, 17, dev)
+    rng = np.random.RandomState(18)
+    H, W = shape = _EDGE_SHAPE
+    x = _edge_data(rng, H * W, dtype, dev)
+    c = _edge_data(rng, 12 * _T, dtype, dev).reshape(12, _T)
+    entv = _edge_data(rng, 12 * E, dtype, dev).reshape(12, E)
+    up = (t["ent_idx"], t["near_end"], t["far_end"], t["rout"])
+    kernels.reset_launches()
+    fused = kernels.tile_pass_c(x, c, entv, *up, shape)
+    full = kernels.tile_pass_c(x, None, entv, *up, shape, rin=t["rin"])
+    assert kernels.launches["tile_pass_c"] == kernels.launches["tile_pass_c_full"] == 1
+    torch.cuda.synchronize()
+    assert torch.equal(fused, kernels.tile_pass_c_plain(x, c, entv, *up, shape))
+    assert torch.equal(full, kernels.tile_pass_c_plain(x, None, entv, *up, shape, rin=t["rin"]))
+    _, c1 = kernels.tile_pass_a(x, t["rin"], t["ex_end"], shape)
+    assert torch.equal(full, kernels.tile_pass_c(x, c1, entv, *up, shape))
+    lo, hi = _EDGE_RANGE
+    s = slice(lo, hi)
+    for cc, rin, want in ((c, None, fused), (None, t["rin"], full)):
+        args = (x, None if cc is None else cc[s], entv[s], *(v[s] for v in up), shape)
+        kw = dict(rin=None if rin is None else rin[s], tile0=lo)
+        got = kernels.tile_pass_c(*args, **kw)
+        assert torch.equal(got, kernels._tiles(want, shape)[s])
+        assert torch.equal(got, kernels.tile_pass_c_plain(*args, **kw))
+    if E == max_e:
+        entv = _edge_data(rng, 12 * (E + 1), dtype, dev).reshape(12, E + 1)
+        with pytest.raises(ValueError, match="shared"):
+            kernels.tile_pass_c(x, c, entv, *up, shape)
+
+
+@pytest.mark.parametrize("E", [0, 300])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.float64])
+def test_tile_down_a_edges(dev, dtype, E):
+    """T3 raw and routed on synthetic tables (a tile with no tree slot, one
+    all tree), whole grid and on a tile range that starts and ends in the
+    middle of a tile row, bitwise against the plain versions."""
+    t = _edge_tables(E, 19, dev)
+    H, W = shape = _EDGE_SHAPE
+    x = _edge_data(np.random.RandomState(20), H * W, dtype, dev)
+    d1 = (x, t["rin"], t["es"], t["g_last"], t["g_prev"], t["n_tree"], t["ent_slot"])
+    kernels.reset_launches()
+    raw = kernels.tile_down_a(*d1, None, shape, False)
+    routed = kernels.tile_down_a(*d1, t["rout"], shape, True)
+    assert kernels.launches["tile_down_a"] == 2
+    torch.cuda.synchronize()
+    for got, want in zip((*raw, *routed), (*kernels.tile_down_a_plain(*d1, None, shape, False),
+                                           *kernels.tile_down_a_plain(*d1, t["rout"], shape,
+                                                                      True))):
+        assert torch.equal(got, want)
+    assert not raw[0][0].any() and raw[0].shape == (12, _T)  # tile 0 has no tree
+    lo, hi = _EDGE_RANGE
+    s = slice(lo, hi)
+    args = (x, *(v[s] for v in d1[1:]), t["rout"][s], shape, True)
+    got = kernels.tile_down_a(*args, tile0=lo)
+    assert torch.equal(got[0], kernels._tiles(routed[0], shape)[s])
+    assert torch.equal(got[1], routed[1][s])
+    for g, w in zip(got, kernels.tile_down_a_plain(*args, tile0=lo)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("name", ["rin", "es", "g_last", "g_prev", "rout"])
+def test_tile_down_a_rejects_unaligned_tables(dev, name):
+    """T3 reads its slot tables a 32-bit word (two entries) at a time: a
+    table that starts off a 4-byte boundary raises ValueError before any
+    launch, and the card still runs T3 after it."""
+    t = _edge_tables(0, 23, dev)
+    shape = _EDGE_SHAPE
+    x = _edge_data(np.random.RandomState(24), shape[0] * shape[1], torch.int32, dev)
+    odd = torch.empty(t[name].numel() + 1, dtype=torch.int16, device=dev)[1:]
+    odd.copy_(t[name].reshape(-1))
+    bad = dict(t, **{name: odd.view(t[name].shape)})
+    keys = ("rin", "es", "g_last", "g_prev", "n_tree", "ent_slot", "rout")
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="4-byte boundary"):
+        kernels.tile_down_a(x, *(bad[k] for k in keys), shape, True)
+    assert kernels.launches["tile_down_a"] == 0
+    args = (x, *(t[k] for k in keys), shape, True)
+    for got, want in zip(kernels.tile_down_a(*args), kernels.tile_down_a_plain(*args)):
+        assert torch.equal(got, want)
+
+
+def test_float64_sweeps_repeat_bitwise(odd_plans):
+    """T2 (fused, full, tile range) and T3 (raw, routed, tile range) on
+    float64: two calls give the same bits."""
+    ids, gpu, _ = odd_plans
+    gpu._ensure_down()
+    t, d = gpu.idx_t, gpu.down_idx_t
+    rng = np.random.RandomState(21)
+    x = torch.as_tensor(rng.rand(ids.size), device="cuda")
+    entv = torch.as_tensor(rng.rand(gpu.NT, gpu.E_pad), device="cuda")
+    _, c = kernels.tile_pass_a(x, t["rin"], t["ex_end"], gpu.shape)
+    up = (t["ent_idx"], t["near_end"], t["far_end"], t["rout"])
+    d1 = (x, t["rin"], d["es"], d["g_last"], d["g_prev"], d["n_tree"], d["ent_slot"])
+    calls = (lambda: kernels.tile_pass_c(x, c, entv, *up, gpu.shape),
+             lambda: kernels.tile_pass_c(x, None, entv, *up, gpu.shape, rin=t["rin"]),
+             lambda: kernels.tile_pass_c(x, c[3:], entv[3:], *(v[3:] for v in up), gpu.shape,
+                                         tile0=3),
+             lambda: kernels.tile_down_a(*d1, None, gpu.shape, False),
+             lambda: kernels.tile_down_a(*d1, t["rout"], gpu.shape, True),
+             lambda: kernels.tile_down_a(x, *(v[3:] for v in d1[1:]), t["rout"][3:],
+                                         gpu.shape, True, tile0=3))
+    for call in calls:
+        a, b = call(), call()
+        a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def _zeros(x, *shape):
+    return torch.zeros(shape, dtype=x.dtype, device=x.device)
+
+
+# each tile wrapper on a plan's tables (t upward, d downward)
+_WIDE = {
+    "tile_pass_a": lambda x, t, d, p: kernels.tile_pass_a(x, t["rin"], t["ex_end"], p.shape),
+    "tile_pass_c": lambda x, t, d, p: kernels.tile_pass_c(
+        x, _zeros(x, p.NT, _T), _zeros(x, p.NT, p.E_pad), t["ent_idx"], t["near_end"],
+        t["far_end"], t["rout"], p.shape),
+    "tile_pass_c_full": lambda x, t, d, p: kernels.tile_pass_c(
+        x, None, _zeros(x, p.NT, p.E_pad), t["ent_idx"], t["near_end"], t["far_end"],
+        t["rout"], p.shape, rin=t["rin"]),
+    "tile_down_a": lambda x, t, d, p: kernels.tile_down_a(
+        x, t["rin"], d["es"], d["g_last"], d["g_prev"], d["n_tree"], d["ent_slot"], t["rout"],
+        p.shape, True),
+    "tile_down_fin": lambda x, t, d, p: kernels.tile_down_fin(
+        x, _zeros(x, p.NT, _T), _zeros(x, p.NT, p.R_pad), d["tree_of"], t["rout"], p.shape),
+}
+
+
+@pytest.mark.parametrize("call", list(_WIDE))
+def test_tile_wrappers_take_int16_tables_only(tile_plans, call):
+    """On the card the tile wrappers take the plan's int16 tables (n_tree
+    int32) and raise TypeError on any other index dtype: no silent cast."""
+    ids, gpu, _ = tile_plans
+    gpu._ensure_down()
+    x = torch.ones(ids.size, dtype=torch.int32, device="cuda")
+    t, d = gpu.idx_t, gpu.down_idx_t
+    _WIDE[call](x, t, d, gpu)  # the plan's own tables launch
+    torch.cuda.synchronize()
+    raised = set()
+    for name in {**t, **d}:
+        wrong = torch.int16 if name == "n_tree" else torch.int32
+        wt = {k: v.to(wrong) if k == name else v for k, v in t.items()}
+        wd = {k: v.to(wrong) if k == name else v for k, v in d.items()}
+        try:
+            _WIDE[call](x, wt, wd, gpu)
+        except TypeError:
+            raised.add(name)
+    assert raised == _READS[call]
+
+
+_READS = {"tile_pass_a": {"rin", "ex_end"},
+          "tile_pass_c": {"ent_idx", "near_end", "far_end", "rout"},
+          "tile_pass_c_full": {"rin", "ent_idx", "near_end", "far_end", "rout"},
+          "tile_down_a": {"rin", "es", "g_last", "g_prev", "n_tree", "ent_slot", "rout"},
+          "tile_down_fin": {"tree_of", "rout"}}
+
+
 def _fill_inputs(shape, seed, dev):
     """A tilted noisy DEM with nodata cells, its fill seeds and an upper
     bound with finite values and +inf: one sweep's inputs on ``dev``."""

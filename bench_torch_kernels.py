@@ -1,5 +1,6 @@
-"""Time kernels H0 (permute_gather) and F1 (fill_sweep) on one NVIDIA GPU,
-for one or more checkouts of the repository, alternating in one call.
+"""Time kernels H0 (permute_gather), H1 (accel_in_scan), F1 (fill_sweep)
+and whole upward router sweeps on one NVIDIA GPU, for one or more checkouts
+of the repository, alternating in one call.
 
     python3 bench_torch_kernels.py DIR [DIR ...] [--rounds N] [--json PATH]
 
@@ -16,7 +17,15 @@ its DIR and times, on seeded inputs:
   calls in turns (library, kernel, kernel, library);
 * F1: one down sweep of the 6000x6000 tile's fill from its seeded start
   (the ``chip_smoke.py`` DEM without its sea), CUDA events around 3 sweeps
-  queued back to back, and its microseconds a row.
+  queued back to back, and its microseconds a row;
+* H1 on the router plans' own ``src_in`` and one whole upward sweep
+  (``plan.accumulate``: H1, H2 and H3 since the permute-merge, H1, H2, H0
+  and H3 before it): at the Rhine path's shape (the 997x682 seeded DEM's
+  ``AccelPlan``, float32) and at the 1-D path's (that 6000x6000 DEM through
+  ``from_dem``, as a ``Flwdir``: a ``BigAccelPlan`` of 37,748,736 slots,
+  int32 and float64). H1: the call, its device time and
+  ``cumsum(x[src_in])``'s call in turns; the sweep: the call and its device
+  time (every kernel and memset of a call, profiler).
 
 Prints the card, one JSON line per run, then each DIR's median over its
 runs. Needs one CUDA device.
@@ -33,6 +42,7 @@ SEED = 7
 H0_SHAPES = (("rhine_float32", 688_128, "float32"), ("big_int32", 37_748_736, "int32"),
              ("big_float64", 37_748_736, "float64"))
 TILE = (6000, 6000)
+RHINE = (997, 682)
 KEYS = ("call_ms", "device_ms", "library_ms")
 
 
@@ -69,6 +79,41 @@ def _kernel_device_ms(fn, name, calls=30):
     if not hits:
         return None
     return sum(e.self_device_time_total for e in hits) / sum(e.count for e in hits) / 1e3
+
+
+def _device_total_ms(fn, calls=30):
+    """Device time of one call: every kernel and memset the profiler
+    records over ``calls`` calls, over ``calls``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages())
+    return total / calls / 1e3 if total else None
+
+
+def _router_cases(plan, x, reps):
+    """H1 on ``plan``'s ``src_in`` and the plan's whole upward sweep on
+    ``x``."""
+    import torch
+
+    from pyflwdir_torch import kernels
+
+    src = plan._t["src_in"]
+    xpad = torch.zeros(src.numel() + 1, dtype=x.dtype, device=x.device)
+    xpad[: x.numel()] = x
+    kern, lib = (lambda: kernels.accel_in_scan(x, src)), (lambda: torch.cumsum(xpad[src], 0))
+    turns = [_time_ms(f, reps) for f in (lib, kern, kern, lib)]
+    h1 = dict(call_ms=(turns[1] + turns[2]) / 2, library_ms=(turns[0] + turns[3]) / 2,
+              device_ms=_device_total_ms(kern), turns_ms=turns)
+    sweep = dict(call_ms=_time_ms(lambda: plan.accumulate(x), reps),
+                 device_ms=_device_total_ms(lambda: plan.accumulate(x)))
+    return h1, sweep
 
 
 def run_one(root, reps):
@@ -115,6 +160,21 @@ def run_one(root, reps):
     end.synchronize()
     ms = start.elapsed_time(end) / 3
     out["fill_sweep_6000"] = dict(device_ms=ms, us_per_row=ms / TILE[0] * 1e3)
+    del dem, seeds, bad, fixed, w
+
+    rng = np.random.RandomState(SEED)
+    zr = rng.rand(*RHINE) + np.add.outer(np.linspace(2, 0, RHINE[0]), np.linspace(2, 0, RHINE[1]))
+    plan = pyflwdir_torch.from_array(pyflwdir_torch.fill_depressions(zr)[1])._accel()
+    x = torch.as_tensor(rng.randint(0, 3, plan.n_cells).astype(np.float32), device="cuda")
+    out["h1_rhine_float32"], out["sweep_rhine_float32"] = _router_cases(plan, x, reps)
+    fr = pyflwdir_torch.from_dem(z)
+    plan = pyflwdir_torch.Flwdir(fr.idxs_ds, idxs_pit=fr.idxs_pit)._accel()
+    if type(plan).__name__ != "BigAccelPlan" or plan.n_pad != 37_748_736:
+        raise AssertionError(f"the 1-D plan is a {type(plan).__name__} of {plan.n_pad} slots")
+    for dtype in ("int32", "float64"):
+        x = (torch.as_tensor(rng.rand(plan.n_cells), device="cuda") if dtype == "float64" else
+             torch.as_tensor(rng.randint(0, 3, plan.n_cells).astype(np.int32), device="cuda"))
+        out[f"h1_big_{dtype}"], out[f"sweep_big_{dtype}"] = _router_cases(plan, x, reps)
     return out
 
 

@@ -12,8 +12,9 @@ of CUDA-event timings, after warm-up, of
 
 * ``accumulate``: ``FlwdirRaster._accumulate_dev`` on an int32 device
   tensor of ones, the call ``chip_smoke.py`` reports;
-* ``plan``: ``AccelPlan.accumulate`` on the same tensor, the four kernel
-  wrappers without the dispatch in front of them.
+* ``plan``: ``AccelPlan.accumulate`` on the same tensor, the kernel
+  wrappers (three since H3 became the permute-merge, four before) without
+  the dispatch in front of them.
 
 Prints the card, one JSON line per run, then each DIR's median over its
 runs. Needs one CUDA device.

@@ -6,10 +6,11 @@ Run from the repository root:  python3 chip_smoke.py [--json PATH]
 1. Prints the card (nvidia-smi name and power limit) and builds the CUDA
    kernels (one nvcc per ``pyflwdir_torch/csrc/*.cu``, sm_90a, all started
    together) and the native host library from the sources; prints the
-   registers and spills ptxas gave the H0, F1 and T1-T4 kernels, and the
-   host time of one read of the current stream, as a Stream object and raw.
+   registers and spills ptxas gave the H0, H1, H3, F1 and T1-T4 kernels,
+   and the host time of one read of the current stream, as a Stream object
+   and raw.
 2. Rhine path: a 997x682 grid (the Rhine raster's shape) from a seeded DEM,
-   under 2^21 cells, so the single-chunk AccelPlan (kernels H0-H3, float32).
+   under 2^21 cells, so the single-chunk AccelPlan (kernels H1-H3, float32).
    Kernel phase: each kernel against its plain PyTorch version on the
    card, at the shapes the path gives it, bitwise; timed (median of
    CUDA-event timings after warm-up) beside its plain version, one PyTorch
@@ -23,7 +24,7 @@ Run from the repository root:  python3 chip_smoke.py [--json PATH]
 3. Tile path: a 6000x6000 grid (one MERIT Hydro 5x5 degree tile at 3
    arcsec) from a seeded DEM with a sea of nodata in one corner, above 2^21
    cells, so the hierarchical TilePlan: kernels T1 and T2 per tile, and
-   H0-H3 (int32 and float64) on its coarse level. Kernel phase as above at
+   H1-H3 (int32 and float64) on its coarse level. Kernel phase as above at
    the path's shapes, int32 bitwise and float64 within rtol 1e-12 plus
    2 L eps total, L the additions on the longest chain of the sums it takes
    in another order (bitwise where it takes none). The plan's tables are
@@ -41,8 +42,9 @@ Run from the repository root:  python3 chip_smoke.py [--json PATH]
    accumulate_down of one float64 input twice (the same bits) and against
    the sweep; one int32 accumulate_down timed.
 5. 1-D path: the 6000x6000 graph as a ``Flwdir`` of 36 M nodes, past 2^21
-   cells, so ``BigAccelPlan`` (G1 = 18, n_pad 37,748,736): H0-H3 at its
-   shapes, int32 and float64, against their plain versions; H0 and H1 at
+   cells, so ``BigAccelPlan`` (G1 = 18, n_pad 37,748,736): H1-H3 at its
+   shapes, int32 and float64, against their plain versions, and two float64
+   H1 calls that must give the same bits; H0 and H1 at
    2^28 slots against theirs; then upstream_area, accumulate and accuflux
    against the tile plan's result and the native sweep, timed beside the
    tile plan.
@@ -149,20 +151,21 @@ _KERNELS = {
     "accel_in_scan": ("H1", _ACCEL_SRC,
                       "ops/accel.py:200 (_accumulate_fused k1, pallas_call :226)"),
     "accel_near_out": ("H2", _ACCEL_SRC,
-                       "ops/accel.py:200 (_accumulate_fused k2, pallas_call :251)"),
+                       "ops/accel.py:200 (_accumulate_fused k2, pallas_call :251, and the "
+                       "far ends of k3, pallas_call :282)"),
     "accel_far_merge": ("H3", _ACCEL_SRC,
-                        "ops/accel.py:200 (_accumulate_fused k3, pallas_call :282)"),
+                        "ops/accel.py:200 (_accumulate_fused: k2's r_out route, pallas_call "
+                        ":251, k3's r_far route, pallas_call :282, and the merge :290-291)"),
 }
 _COARSE = {
-    "permute_gather": "ops/tile_plan.py:590 (_CoarseRouterSmall._route of r_out, "
-                      "pallas_call :613/:635/:650/:664)",
     "accel_in_scan": "ops/tile_plan.py:590 (_CoarseRouterSmall._route of r_in + in_sel, "
                      "pallas_call :613/:635/:650/:664) and the coarse cumsum",
     "accel_near_out": "ops/router_big.py:56 (lane_gather_tiled, pallas_call :83, "
-                      "in _CoarseRouterSmall._gather_pair ops/tile_plan.py:672)",
-    "accel_far_merge": "ops/router_big.py:56 (lane_gather_tiled, pallas_call :83) and "
-                       "ops/tile_plan.py:590 (_route of r_exp/r_far) in "
-                       "_CoarseRouterSmall._far_values ops/tile_plan.py:694",
+                      "in _CoarseRouterSmall._gather_pair ops/tile_plan.py:672 and for the "
+                      "far ends in _CoarseRouterSmall._far_values ops/tile_plan.py:694)",
+    "accel_far_merge": "ops/tile_plan.py:590 (_CoarseRouterSmall._route of r_out and of "
+                       "r_far in _far_values ops/tile_plan.py:694, pallas_call "
+                       ":613/:635/:650/:664) and the tree_mask select",
 }
 _TILE_KERNELS = {
     "tile_pass_a": ("T1", "ops/tile_plan.py:1918 (TilePlan._pass_a_fused, pallas_call :1951)"),
@@ -191,17 +194,16 @@ _COARSE_DOWN = {
 }
 # at BigAccelPlan's shapes (the 1-D path)
 _BIG = {
-    "permute_gather": "ops/router_big.py:178 (_fused_pass, pallas_call :183; bodies "
-                      "_f_kernels :111-175) as RouterPlanBig._chain_fused :330 runs it for "
-                      "r_out in BigAccelPlan.accumulate ops/accel_big.py:513",
     "accel_in_scan": "ops/router_big.py:178 (_fused_pass, pallas_call :183) as "
                      "RouterPlanBig._chain_fused :330 runs it for r_in, and "
                      "BigAccelPlan._cumsum ops/accel_big.py:288",
     "accel_near_out": "ops/router_big.py:56 (lane_gather_tiled, pallas_call :83) in "
-                      "BigAccelPlan._gather_pair ops/accel_big.py:322",
-    "accel_far_merge": "ops/router_big.py:56 (lane_gather_tiled, pallas_call :83) and "
-                       "ops/router_big.py:178 (_fused_pass for r_exp and r_far) in "
-                       "BigAccelPlan._far_values ops/accel_big.py:339",
+                      "BigAccelPlan._gather_pair ops/accel_big.py:322 and in "
+                      "BigAccelPlan._far_values ops/accel_big.py:339 (the far ends)",
+    "accel_far_merge": "ops/router_big.py:178 (_fused_pass, pallas_call :183; bodies "
+                       "_f_kernels :111-175) as RouterPlanBig._chain_fused :330 runs it for "
+                       "r_out in BigAccelPlan.accumulate ops/accel_big.py:513 and for r_far "
+                       "in BigAccelPlan._far_values ops/accel_big.py:339",
 }
 # the downward solve of a BigAccelPlan coarse level (the cut-graph path)
 _BIG_DOWN = {
@@ -214,6 +216,8 @@ _BIG_DOWN = {
                       "r_aout in BigAccelPlan.accumulate_down ops/accel_big.py:463",
 }
 _FILL_KERNELS = {"fill_sweep": ("F1", "ops/fill.py:205 (_sweep_strip, pallas_call :239)")}
+# the kernels of one upward router sweep (IntervalKernels._sweep)
+_UP = ("accel_in_scan", "accel_near_out", "accel_far_merge")
 # the tile kernels in their tile-range forms, as the sharded sweeps run them
 _SHARD = {
     "tile_pass_a": ("T1", "ops/tile_plan.py:2090 (TilePlan._pass_a_tiles_fused, pallas_call "
@@ -329,29 +333,37 @@ def _close(got, want, length, total, what):
            f"max |err| {err:.3e} = {err / atol:.2e} of atol)")
 
 
-def _scan_len(n):
-    """Additions on the longest chain of H1's prefix sum over ``n`` slots: in
-    a tile of 2,048, 4 in a thread, two warp scans of 5 steps and the offsets
-    (16); over the tile totals, one thread's share (tiles / 1,024) walked
-    twice with a block scan between and the tile's offset added (16)."""
-    tiles = -(-n // 2048)
-    return 32 + 2 * -(-tiles // 1024)
+def _scan_len(n, dtype=torch.float64):
+    """Additions on the longest chain of H1's prefix sum over ``n`` slots of
+    ``dtype`` (kernels.accel_in_scan_chain): a thread's slots, the warp
+    scans, the look-back window and one a hop of the window over the
+    tiles."""
+    from pyflwdir_torch import kernels
+
+    return kernels.accel_in_scan_chain(n, dtype)
 
 
-def _h2_bytes(n_pad, s):
+def _h2_bytes(n_pad, n_far, s):
     """Least bytes of H2 over ``n_pad`` slots of ``s``-byte values: c read
     once (c[k-1] and the near end c[k+d], d < 128, lie in lines read anyway),
-    the near end as a 1-byte offset, the result written."""
-    return (1 + 2 * s) * n_pad
+    the near end as a 1-byte offset, a 4-byte end and its value per far
+    slot, the result written."""
+    return (1 + 2 * s) * n_pad + (4 + s) * n_far
 
 
-def _h3_bytes(n_out, n_off, n_far, s, passthrough):
-    """Least bytes of H3 over ``n_out`` outputs: a 1-byte flag per output
-    (near, far or off-tree), a 4-byte end and its c value per far one, out
-    per tree output, the input per off-tree output where it passes through,
-    the result written."""
-    return ((1 + s) * n_out + (4 + s) * n_far + s * (n_out - n_off)
-            + (s * n_off if passthrough else 0))
+def _h3_bytes(n_out, n_off, s, passthrough):
+    """Least bytes of H3 over ``n_out`` outputs: a 4-byte source per output,
+    its subtree sum per tree output, the input per off-tree output where it
+    passes through, the result written."""
+    return (4 + s) * n_out + s * (n_out - n_off) + (s * n_off if passthrough else 0)
+
+
+def _far_slots(t):
+    """Tree slots whose interval end lies 128 or more slots on (H2's far
+    reads), from the uploaded ``end``."""
+    end = t["end"]
+    k = torch.arange(end.numel(), device=end.device)
+    return int(((end >= 0) & (end.long() - k >= 128)).sum())
 
 
 def _measure(name, kern, plain, lib, n_bytes, n_ops, dtype, sums=None, reps=50,
@@ -421,7 +433,7 @@ def _events_ms(fn, launches):
 
 
 def kernel_phase(plan, dev):
-    """H0-H3 (float32) against their plain versions on the Rhine path's
+    """H1-H3 (float32) against their plain versions on the Rhine path's
     shapes."""
     from pyflwdir_torch import kernels
 
@@ -429,39 +441,31 @@ def kernel_phase(plan, dev):
     n_cells = plan.n_cells
     # integer-valued data with a total below 2^24: the kernels' exact domain
     x = torch.as_tensor(rng.randint(0, 3, n_cells).astype(np.float32), device=dev)
-    sig_in, near_end, src_perm, far_end = (plan._t[k] for k in plan._INDICES)
-    c = kernels.accel_in_scan(x, sig_in)
-    outp = kernels.accel_near_out(c, near_end)
-    out = kernels.permute_gather(outp, src_perm)
+    t = plan._t
+    c = kernels.accel_in_scan(x, t["src_in"])
+    outp = kernels.accel_near_out(c, t["end"])
     xpad = torch.zeros(plan.n_pad, dtype=torch.float32, device=dev)
     xpad[:n_cells] = x
 
-    fe = far_end.cpu().numpy()
-    n_far = int((fe >= 0).sum())
-    n_off = int((fe == -2).sum())
+    n_off = int((t["src_res"] < 0).sum())
     n = plan.n_pad
     f32 = torch.float32
     return {
-        "permute_gather": _measure(
-            "permute_gather",
-            lambda: kernels.permute_gather(outp, src_perm),
-            lambda: kernels.permute_gather_plain(outp, src_perm),
-            lambda: outp[src_perm], 12 * n, 0, f32),
         "accel_in_scan": _measure(
             "accel_in_scan",
-            lambda: kernels.accel_in_scan(x, sig_in),
-            lambda: kernels.accel_in_scan_plain(x, sig_in),
-            lambda: torch.cumsum(xpad[sig_in], 0), 4 * n + 4 * n_cells + 4 * n, n, f32),
+            lambda: kernels.accel_in_scan(x, t["src_in"]),
+            lambda: kernels.accel_in_scan_plain(x, t["src_in"]),
+            lambda: torch.cumsum(xpad[t["src_in"]], 0), 4 * n + 4 * n_cells + 4 * n, n, f32),
         "accel_near_out": _measure(
             "accel_near_out",
-            lambda: kernels.accel_near_out(c, near_end),
-            lambda: kernels.accel_near_out_plain(c, near_end),
-            None, _h2_bytes(n, 4), n, f32),
+            lambda: kernels.accel_near_out(c, t["end"]),
+            lambda: kernels.accel_near_out_plain(c, t["end"]),
+            None, _h2_bytes(n, _far_slots(t), 4), n, f32),
         "accel_far_merge": _measure(
             "accel_far_merge",
-            lambda: kernels.accel_far_merge(out, x, c, far_end),
-            lambda: kernels.accel_far_merge_plain(out, x, c, far_end),
-            None, _h3_bytes(n_cells, n_off, n_far, 4, True), n_far, f32),
+            lambda: kernels.accel_far_merge(outp, x, t["src_res"]),
+            lambda: kernels.accel_far_merge_plain(outp, x, t["src_res"]),
+            None, _h3_bytes(n_cells, n_off, 4, True), 0, f32),
     }
 
 
@@ -504,13 +508,11 @@ def tile_kernel_phase(tp, dtype, dev, tag=""):
     # the coarse level on pass A's exits
     co = tp.coarse._t
     xe = exits.reshape(-1)
-    n_pad, n_out = co["src_in"].numel(), co["src_out"].numel()
+    n_pad, n_out = co["src_in"].numel(), co["src_res"].numel()
     src_in_np = co["src_in"].cpu().numpy()
-    fe = co["far_end"].cpu().numpy()
-    n_far, n_off = int((fe >= 0).sum()), int((fe == -2).sum())
+    n_off = int((co["src_res"] < 0).sum())
     cc = kernels.accel_in_scan(xe, co["src_in"])
-    outp = kernels.accel_near_out(cc, co["near_end"])
-    out = kernels.permute_gather(outp, co["src_out"])
+    outp = kernels.accel_near_out(cc, co["end"])
     xpad = torch.zeros(n_pad + 1, dtype=dtype, device=dev)
     xpad[: xe.numel()] = xe
     n_read = int((src_in_np < xe.numel()).sum())
@@ -520,25 +522,19 @@ def tile_kernel_phase(tp, dtype, dev, tag=""):
         lambda: kernels.accel_in_scan(xe, co["src_in"]),
         lambda: kernels.accel_in_scan_plain(xe, co["src_in"]),
         lambda: torch.cumsum(xpad[co["src_in"]], 0),
-        4 * n_pad + s * n_read + s * n_pad, n_pad, dtype, (2 * _scan_len(n_pad), total))
+        4 * n_pad + s * n_read + s * n_pad, n_pad, dtype, (2 * _scan_len(n_pad, dtype), total))
     rows["accel_near_out" + csfx] = _measure(
         "accel_near_out" + csfx,
-        lambda: kernels.accel_near_out(cc, co["near_end"]),
-        lambda: kernels.accel_near_out_plain(cc, co["near_end"]),
-        None, _h2_bytes(n_pad, s), n_pad, dtype)
-    rows["permute_gather" + csfx] = _measure(
-        "permute_gather" + csfx,
-        lambda: kernels.permute_gather(outp, co["src_out"]),
-        lambda: kernels.permute_gather_plain(outp, co["src_out"]),
-        # an index and a result per slot, a value per tree slot
-        lambda: outp[co["src_out"]], (4 + s) * n_out + s * (n_out - n_off), 0, dtype)
+        lambda: kernels.accel_near_out(cc, co["end"]),
+        lambda: kernels.accel_near_out_plain(cc, co["end"]),
+        None, _h2_bytes(n_pad, _far_slots(co), s), n_pad, dtype)
     rows["accel_far_merge" + csfx] = _measure(
         "accel_far_merge" + csfx,
-        lambda: kernels.accel_far_merge(out, None, cc, co["far_end"]),
-        lambda: kernels.accel_far_merge_plain(out, None, cc, co["far_end"]),
-        None, _h3_bytes(n_out, n_off, n_far, s, False), n_far, dtype)
+        lambda: kernels.accel_far_merge(outp, None, co["src_res"]),
+        lambda: kernels.accel_far_merge_plain(outp, None, co["src_res"]),
+        None, _h3_bytes(n_out, n_off, s, False), 0, dtype)
 
-    entv = tp.entry_grid(kernels.accel_far_merge(out, None, cc, co["far_end"]))
+    entv = tp.entry_grid(kernels.accel_far_merge(outp, None, co["src_res"]))
     n_off = int((kernels._untile(t["rout"], tp.shape) < 0).sum())
     n_tfar = int((t["far_end"] >= 0).sum())
     scale = float((tile_x + entv.abs().sum(1)).max())
@@ -789,11 +785,11 @@ def banded_path(fl, tp, upa, seq, built_s, dev):
             ones_b = out
         elif name == "float64":
             f_b = out
-    want = {"tile_pass_a_exits": nb, "tile_pass_c_full": nb, **{k: 1 for k in _KERNELS}}
+    want = {"tile_pass_a_exits": nb, "tile_pass_c_full": nb, **{k: 1 for k in _UP}}
     for name, c in counts.items():
         _check(all(c[k] == want.get(k, 0) for k in c),
                f"the banded sweep ({name}) launched T1 exits-only and T2 full once a band "
-               f"({nb} bands), H1, H2, H0 and H3 once, and no fused pass")
+               f"({nb} bands), H1, H2 and H3 once, and no fused pass or H0")
 
     t0 = time.perf_counter()
     mask = fl.mask.reshape(H, W)
@@ -1070,16 +1066,16 @@ def sharded_path(fl, d8, seq, dev):
     counts_ta = dict(kernels.launches)
     print(f"  tiled_accumulate(method='plan') {t_ta:.2f} s (with its plan build); launches "
           f"{counts_ta}")
-    # the coarse level: H1, H2, H0, H3 once upward; H1 twice, H0 four times down
+    # the coarse level: H1, H2, H3 once upward; H1 twice, H0 four times down
     want = {"tile_pass_a": chunks, "tile_pass_c": 1, "tile_down_a": 1, "tile_down_lite": 1,
-            "accel_in_scan": 3, "accel_near_out": 1, "permute_gather": 5, "accel_far_merge": 1}
+            "accel_in_scan": 3, "accel_near_out": 1, "permute_gather": 4, "accel_far_merge": 1}
     for dtype, c in counts.items():
         _check(all(c[k] == want.get(k, 0) for k in c),
                f"accumulate_sharded and accumulate_down_sharded ({_DT[dtype]}) launched T1 "
                f"{chunks}x, T2, the coarse level's kernels, T3 routed and T4 lite once each "
                "(once a downward call), and no raw T3 or T4 fin")
     want_ta = {"tile_pass_a": chunks, "tile_pass_c": 1, "accel_in_scan": 1, "accel_near_out": 1,
-               "permute_gather": 1, "accel_far_merge": 1}
+               "accel_far_merge": 1}
     _check(all(counts_ta[k] == want_ta.get(k, 0) for k in counts_ta),
            "tiled_accumulate(method='plan') launched the sharded upward sweep's kernels")
 
@@ -1329,8 +1325,9 @@ def rhine_path(dev):
     t_main = time.perf_counter() - t0
     counts = dict(kernels.launches)
     print(f"  main path {t_main:.3f} s; launches {counts}")
-    for name in _KERNELS:
+    for name in _UP:
         _check(counts[name] > 0, f"{name} launched on the main path")
+    _check(counts["permute_gather"] == 0, "no permute_gather (H0) on the upward sweeps")
 
     mask = fl.mask.reshape(SHAPE)
     rk = rnk.ravel()
@@ -1438,9 +1435,11 @@ def tile_path(dev):
     counts_f64 = dict(kernels.launches)
     print(f"  int32 {t_int:.3f} s; launches {counts_int}")
     print(f"  float64 {t_f64:.3f} s; launches {counts_f64}")
-    for name in ("tile_pass_a", "tile_pass_c", *_KERNELS):
+    for name in ("tile_pass_a", "tile_pass_c", *_UP):
         _check(counts_int[name] > 0 and counts_f64[name] > 0,
                f"{name} launched on the main path (int32 and float64)")
+    _check(counts_int["permute_gather"] == counts_f64["permute_gather"] == 0,
+           "no permute_gather (H0) on the upward sweeps")
 
     t0 = time.perf_counter()
     mask = fl.mask.reshape(TILE_SHAPE)
@@ -1646,10 +1645,12 @@ def _check_hand(fl, hnd, elev, drain, drain_cells, cut=None):
 
 
 def big_kernel_phase(plan, dtype, dev):
-    """H0-H3 in ``dtype`` against their plain versions at the 1-D
+    """H1-H3 in ``dtype`` against their plain versions at the 1-D
     BigAccelPlan's shapes, on its own indices: H1 gathers cells into
-    preorder (``src_in``), H0 preorder back to cells (``src_out``); H0 is
-    also held and timed on H1's gather (``big_in``)."""
+    preorder (``src_in``), H3 preorder back to cells (``src_res``). In
+    float64, two H1 calls on one input must give the same bits. H0 on H1's
+    gather (``src_in``) is timed beside H1 as a yardstick, not a row: the
+    1-D path no longer runs it."""
     from pyflwdir_torch import kernels
 
     rng = np.random.RandomState(SEED + 4)
@@ -1662,45 +1663,41 @@ def big_kernel_phase(plan, dtype, dev):
     s = x.element_size()
     t = plan._t
     n_read = int((t["src_in"] < n_cells).sum())
-    n_far, n_off = int((t["far_end"] >= 0).sum()), int((t["far_end"] == -2).sum())
+    n_off = int((t["src_res"] < 0).sum())
     c = kernels.accel_in_scan(x, t["src_in"])
-    outp = kernels.accel_near_out(c, t["near_end"])
-    out = kernels.permute_gather(outp, t["src_out"])
+    outp = kernels.accel_near_out(c, t["end"])
     xpad = torch.zeros(n_pad + 1, dtype=dtype, device=dev)
     xpad[:n_cells] = x
     sfx = f".big.{_DT[dtype]}"
-    return {
+    if dtype == torch.float64:
+        again = kernels.accel_in_scan(x, t["src_in"])
+        _check(torch.equal(c.view(torch.int64), again.view(torch.int64)),
+               f"two float64 accel_in_scan calls at {n_pad} slots give the same bits")
+    h0_in = dict(ms=_time_ms(lambda: kernels.permute_gather(xpad, t["src_in"]), reps=20),
+                 device_ms=_device_ms(lambda: kernels.permute_gather(xpad, t["src_in"])))
+    print(f"  yardstick: permute_gather on H1's gather (src_in): {h0_in['ms']:.4f} ms per "
+          f"call, {h0_in['device_ms']} ms on the device")
+    rows = {
         "accel_in_scan" + sfx: _measure(
             "accel_in_scan" + sfx,
             lambda: kernels.accel_in_scan(x, t["src_in"]),
             lambda: kernels.accel_in_scan_plain(x, t["src_in"]),
             lambda: torch.cumsum(xpad[t["src_in"]], 0),
-            4 * n_pad + s * n_read + s * n_pad, n_pad, dtype, (2 * _scan_len(n_pad), total),
-            reps=20),
+            4 * n_pad + s * n_read + s * n_pad, n_pad, dtype,
+            (2 * _scan_len(n_pad, dtype), total), reps=20),
         "accel_near_out" + sfx: _measure(
             "accel_near_out" + sfx,
-            lambda: kernels.accel_near_out(c, t["near_end"]),
-            lambda: kernels.accel_near_out_plain(c, t["near_end"]),
-            None, _h2_bytes(n_pad, s), n_pad, dtype, reps=20),
-        "permute_gather" + sfx: _measure(
-            "permute_gather" + sfx,
-            lambda: kernels.permute_gather(outp, t["src_out"]),
-            lambda: kernels.permute_gather_plain(outp, t["src_out"]),
-            # an index and a result per cell, a value per tree cell
-            lambda: outp[t["src_out"]], (4 + s) * n_cells + s * (n_cells - n_off), 0, dtype,
-            reps=20),
-        # the gather H1 makes, alone: cells into preorder through H0
-        "permute_gather.big_in" + sfx[4:]: _measure(
-            "permute_gather.big_in" + sfx[4:],
-            lambda: kernels.permute_gather(xpad, t["src_in"]),
-            lambda: kernels.permute_gather_plain(xpad, t["src_in"]),
-            lambda: xpad[t["src_in"]], 4 * n_pad + s * n_read + s * n_pad, 0, dtype, reps=20),
+            lambda: kernels.accel_near_out(c, t["end"]),
+            lambda: kernels.accel_near_out_plain(c, t["end"]),
+            None, _h2_bytes(n_pad, _far_slots(t), s), n_pad, dtype, reps=20),
         "accel_far_merge" + sfx: _measure(
             "accel_far_merge" + sfx,
-            lambda: kernels.accel_far_merge(out, x, c, t["far_end"]),
-            lambda: kernels.accel_far_merge_plain(out, x, c, t["far_end"]),
-            None, _h3_bytes(n_cells, n_off, n_far, s, True), n_far, dtype, reps=20),
+            lambda: kernels.accel_far_merge(outp, x, t["src_res"]),
+            lambda: kernels.accel_far_merge_plain(outp, x, t["src_res"]),
+            None, _h3_bytes(n_cells, n_off, s, True), 0, dtype, reps=20),
     }
+    rows["accel_in_scan" + sfx]["yardstick_permute_gather_in"] = h0_in
+    return rows
 
 
 def cap_check(dev):
@@ -1780,9 +1777,9 @@ def big_path(fl_r, upa, seq, tile_acc, dev):
     print(f"  int32 accumulate {t_int:.3f} s; launches {counts_int}")
     print(f"  upstream_area() + accuflux(float64) {t_f64:.3f} s; launches {counts_f64}")
     for counts, calls, what in ((counts_int, 1, "int32"), (counts_f64, 2, "float64")):
-        _check(all(counts[k] == (calls if k in _KERNELS else 0) for k in counts),
-               f"{calls} accumulation(s) ({what}) launched H1, H2, H0 and H3 once each, and "
-               "no tile kernel")
+        _check(all(counts[k] == (calls if k in _UP else 0) for k in counts),
+               f"{calls} accumulation(s) ({what}) launched H1, H2 and H3 once each, and no H0 "
+               "or tile kernel")
 
     t0 = time.perf_counter()
     oracle = runtime.accuflux_sweep(ids, seq, np.ones(n))
@@ -1801,6 +1798,8 @@ def big_path(fl_r, upa, seq, tile_acc, dev):
     # one prefix sum over n_pad slots, in another order than the sweep
     _close(acc, want, 2 * _scan_len(plan.n_pad), float(fdata.sum()),
            "accuflux(float64) of the native sweep")
+    _check(np.array_equal(acc.view(np.int64), fl.accuflux(fdata).view(np.int64)),
+           "two accuflux(float64) sweeps give the same bits")
     print(f"  checks {time.perf_counter() - t0:.2f} s")
 
     xd = torch.as_tensor(fdata, device=dev)
@@ -1887,10 +1886,10 @@ def cut_path(fl, elev, upa, dev):
                             (c_dnf, 1, "accumulate_down(float64)")):
         _check(all(c[k] == sweeps * down.get(k, 0) for k in c),
                f"{what}: {sweeps} downward sweep(s) launched T3, H1 x2, H0 x4 and T4 each")
-    up = {"tile_pass_a": 1, "tile_pass_c": 1, **{k: 1 for k in _KERNELS}}
+    up = {"tile_pass_a": 1, "tile_pass_c": 1, **{k: 1 for k in _UP}}
     for c, what in ((c_up32, "int32"), (c_upf, "float64")):
         _check(all(c[k] == up.get(k, 0) for k in c),
-               f"the upward sweep ({what}) launched T1, H1, H2, H0, H3 and T2 once each")
+               f"the upward sweep ({what}) launched T1, H1, H2, H3 and T2 once each, and no H0")
     _check(torch.equal(upf, tp.accumulate(xd)) and torch.equal(dnf, tp.accumulate_down(xd)),
            "accumulate and accumulate_down (float64) give the same bits from run to run")
 
@@ -2177,8 +2176,8 @@ def routed_path(dev):
 
 
 def ptxas_lines():
-    """Registers and spills of the H0, F1 and T1-T4 kernels, as ``nvcc
-    -Xptxas -v`` reported them when the libraries were built."""
+    """Registers and spills of the H0, H1, H3, F1 and T1-T4 kernels, as
+    ``nvcc -Xptxas -v`` reported them when the libraries were built."""
     import re
 
     from pyflwdir_torch import kernels
@@ -2186,7 +2185,8 @@ def ptxas_lines():
     out = {}
     for stem in ("accel_kernels", "fill_kernels", "tile_kernels"):
         for sym, (nreg, st, ld) in kernels.ptxas_report(stem).items():
-            m = re.search(r"(permute_gather_kernel|fill_sweep_wide_kernel|fill_sweep_kernel|"
+            m = re.search(r"(permute_gather_kernel|in_scan_kernel|permute_merge_kernel|"
+                          r"fill_sweep_wide_kernel|fill_sweep_kernel|"
                           r"tile_pass_a_kernel|tile_pass_c_kernel|tile_down_a_kernel|"
                           r"tile_down_fin_kernel)(I(?:L[a-z]\d+E|[a-z])+E)?", sym)
             if m:

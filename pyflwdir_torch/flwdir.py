@@ -93,7 +93,7 @@ class Flwdir:
     def _accumulate_dev(self, data):
         """Flow accumulation of a device tensor, dispatched as the JAX
         package does: on a graph that fits the single-chunk ``AccelPlan``
-        (float32 sums, kernels H0-H3), integer data whose total may reach
+        (float32 sums, kernels H1-H3), integer data whose total may reach
         2^24 takes the exact int64 DFS plan, other integer data the router
         plan and float data the float64 DFS plan; a ``BigAccelPlan`` takes
         integer and float data alike (int32, int64 or float64 sums); with no

@@ -22,14 +22,19 @@ of fewer than 2^31 elements (the plans go up to 2^28 slots):
   ``_CoarseRouterSmall._route`` (``r_out``)
 * ``accel_in_scan`` (H1) — ``ops/accel.py`` ``_accumulate_fused`` k1;
   ``_CoarseRouterSmall._route`` (``r_in``) and the coarse prefix sum;
-  ``BigAccelPlan``'s ``r_in`` chain (``_fused_pass``) and ``_cumsum``
-* ``accel_near_out`` (H2) — ``ops/accel.py`` ``_accumulate_fused`` k2;
-  ``_gather_pair`` of ``_CoarseRouterSmall`` and ``BigAccelPlan``
-  (``ops/router_big.py`` ``lane_gather_tiled``)
-* ``accel_far_merge`` (H3) — ``ops/accel.py`` ``_accumulate_fused`` k3 and
-  the merge after it; ``_far_values`` of ``_CoarseRouterSmall`` and
-  ``BigAccelPlan`` (``r_exp``, a row pair, ``lane_gather_tiled``, ``r_far``)
-  and their ``tree_mask`` select
+  ``BigAccelPlan``'s ``r_in`` chain (``_fused_pass``) and ``_cumsum``: one
+  pass, a look-back over a fixed window of tiles, so the sums run in one
+  order from call to call
+* ``accel_near_out`` (H2) — ``ops/accel.py`` ``_accumulate_fused`` k2 and
+  the far interval ends of k3; ``_gather_pair`` of ``_CoarseRouterSmall``
+  and ``BigAccelPlan`` (``ops/router_big.py`` ``lane_gather_tiled``) and the
+  far ends of their ``_far_values``: every tree slot's subtree sum, near
+  and far, in preorder
+* ``accel_far_merge`` (H3), the permute-merge — ``ops/accel.py``
+  ``_accumulate_fused``'s ``r_out`` and ``r_far`` routes and the merge after
+  k3; the ``r_out`` route, ``_far_values``' ``r_far`` route and the
+  ``tree_mask`` select of ``_CoarseRouterSmall`` and ``BigAccelPlan``:
+  preorder back to the outputs, off-tree outputs passing ``x`` through or 0
 
 and in ``csrc/tile_kernels.cu`` for int32, int64 and float64, on 128 x 128
 tiles:
@@ -83,6 +88,7 @@ __all__ = [
     "permute_gather",
     "permute_gather_plain",
     "accel_in_scan",
+    "accel_in_scan_chain",
     "accel_in_scan_plain",
     "accel_near_out",
     "accel_near_out_plain",
@@ -134,6 +140,7 @@ _TAB = torch.int16  # the tile kernels' index tables
 
 _LIBS = {}  # source stem -> loaded library, once
 _H0 = None  # pf_permute_gather, bound at its first launch
+_SCAN_GEOM = {}  # dtype -> H1's (threads, slots a thread, window W)
 build_seconds = None  # wall time of the nvcc builds in this process, if any
 
 
@@ -153,11 +160,11 @@ def _nvcc():
 def _bind(lib):
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     sigs = {
-        "pf_scan_tile": [],
         "pf_permute_gather": [i32, vp, vp, vp, i64, vp],
+        "pf_in_scan_geometry": [i32, ctypes.POINTER(ctypes.c_int)],
         "pf_accel_in_scan": [i32, vp, i64, vp, vp, i64, vp, i64, vp],
         "pf_accel_near_out": [i32, vp, vp, vp, i64, vp],
-        "pf_accel_far_merge": [i32, vp, vp, vp, vp, vp, i64, i32, vp],
+        "pf_accel_far_merge": [i32, vp, vp, vp, vp, i64, vp],
         "pf_tile_max_smem": [],
         # dtype, [mode,] x, H, W, NT, ntx, tile0, [stack,] ...
         "pf_tile_pass_a": [i32, vp, i64, i64, i64, i64, i64, vp, vp, i64, vp, vp, vp],
@@ -333,15 +340,39 @@ def accel_in_scan_plain(x, sig_in):
     return torch.cumsum(xpad[src], 0, dtype=x.dtype)
 
 
+def _scan_geometry(dtype):
+    """H1's ``(threads, slots a thread, window W in tiles)`` for ``dtype``."""
+    geom = _SCAN_GEOM.get(dtype)
+    if geom is None:
+        out = (ctypes.c_int * 3)()
+        if load()["accel_kernels"].pf_in_scan_geometry(_DTYPE_CODE[dtype], out) < 0:
+            raise TypeError(f"accel_in_scan: no geometry for {dtype}")
+        geom = _SCAN_GEOM[dtype] = tuple(out)
+    return geom
+
+
+def accel_in_scan_chain(n, dtype):
+    """The additions on the longest chain of the kernel's prefix sum over
+    ``n`` slots of ``dtype`` (``csrc/accel_kernels.cu``, H1): a thread's
+    slots, two warp scans of 5 steps, the window's K a lane and 5 more, 2
+    for a tile's inclusive prefix, one a hop of the window, and 2 to the
+    slot. A float64 result lies within about ``L eps`` times the sum of
+    the magnitudes of the exact prefix sum."""
+    threads, per, window = _scan_geometry(dtype)
+    tiles = max(1, -(-n // (threads * per)))
+    return per + window // 32 + 19 + (tiles - 1) // window
+
+
 def accel_in_scan(x, sig_in):
     """Inclusive prefix sum of ``x`` permuted to preorder slots.
 
     ``x``: (n_cells,) float32, int32, int64 or float64; ``sig_in``: (n_pad,)
     int32 with values in ``[0, n_pad]``, slots whose source is ``>= n_cells``
-    read 0; ``n_pad`` below 2^31 (held at 2^28: 131,072 tiles of 2,048).
-    Returns ``c`` (n_pad,) in ``x``'s dtype. The kernel sums in
-    another order than the plain version: integers are exact, float32 only
-    for integer-valued data with totals below 2^24, float64 within rounding.
+    read 0; ``n_pad`` below 2^31. Returns ``c`` (n_pad,) in ``x``'s dtype.
+    The kernel sums in another order than the plain version, the same
+    order on every call: integers are exact, float32 only for
+    integer-valued data with totals below 2^24, float64 within
+    :func:`accel_in_scan_chain` roundings.
     """
     if x.device.type == "cpu":
         return accel_in_scan_plain(x, sig_in)
@@ -352,87 +383,86 @@ def accel_in_scan(x, sig_in):
         raise ValueError("accel_in_scan: need 1-D x no longer than 1-D sig_in")
     if sig_in.numel() >= 1 << 31:
         raise ValueError("accel_in_scan: n_pad must stay below 2^31")
-    lib = load()["accel_kernels"]
+    threads, per, _ = _scan_geometry(x.dtype)
     n = sig_in.numel()
-    tile = lib.pf_scan_tile()
-    n_tiles = max(1, -(-n // tile))
+    tiles = -(-n // (threads * per))
+    # a 16-byte entry a tile for its aggregate and one for its inclusive
+    # prefix, then the ticket (pf_accel_in_scan)
+    n_bytes = 32 * tiles + 16
+    scratch = torch.empty(n_bytes, dtype=torch.uint8, device=x.device)
     c = torch.empty(n, dtype=x.dtype, device=x.device)
-    tile_sums = torch.empty(n_tiles, dtype=x.dtype, device=x.device)
-    _launch(lib.pf_accel_in_scan, dt, x.data_ptr(), x.numel(), sig_in.data_ptr(),
-            c.data_ptr(), n, tile_sums.data_ptr(), n_tiles)
+    _launch(load()["accel_kernels"].pf_accel_in_scan, dt, x.data_ptr(), x.numel(),
+            sig_in.data_ptr(), c.data_ptr(), n, scratch.data_ptr(), n_bytes)
     launches["accel_in_scan"] += 1
     return c
 
 
 # ---------------------------------------------------------------------------
-# H2: outp[k] = (near_end[k] >= 0 ? c[near_end[k]] : 0) - (k > 0 ? c[k-1] : 0)
+# H2: outp[k] = (end[k] >= 0 ? c[end[k]] : 0) - (k > 0 ? c[k-1] : 0)
 # ---------------------------------------------------------------------------
-def accel_near_out_plain(c, near_end):
+def accel_near_out_plain(c, end):
     """Plain version of :func:`accel_near_out`."""
-    ne = near_end.long()
+    ne = end.long()
     zero = torch.zeros((), dtype=c.dtype, device=c.device)
     hi = torch.where(ne >= 0, c[ne.clamp(min=0)], zero)
     lo = torch.cat([zero.reshape(1), c[:-1]])
     return hi - lo
 
 
-def accel_near_out(c, near_end):
-    """Near-interval subtree sums in preorder layout (far slots get
-    ``-c[k-1]``). ``c``: (n_pad,) float32, int32, int64 or float64;
-    ``near_end``: (n_pad,) int32; ``n_pad`` below 2^31."""
+def accel_near_out(c, end):
+    """Subtree sums in preorder layout, ``c[end[k]] - c[k-1]``: ``end[k]``
+    the slot where the interval of the node at slot k ends, near or far,
+    -1 where no output reads slot k (it gets ``-c[k-1]``). ``c``: (n_pad,)
+    float32, int32, int64 or float64; ``end``: (n_pad,) int32; ``n_pad``
+    below 2^31."""
     if c.device.type == "cpu":
-        return accel_near_out_plain(c, near_end)
+        return accel_near_out_plain(c, end)
     dt = _code("c", c)
     _check("c", c, c.dtype, c.device)
-    _check("near_end", near_end, torch.int32, c.device)
-    if near_end.shape != c.shape or c.dim() != 1:
-        raise ValueError("accel_near_out: c and near_end must be 1-D of one length")
+    _check("end", end, torch.int32, c.device)
+    if end.shape != c.shape or c.dim() != 1:
+        raise ValueError("accel_near_out: c and end must be 1-D of one length")
     outp = torch.empty_like(c)
     _launch(load()["accel_kernels"].pf_accel_near_out, dt, c.data_ptr(),
-            near_end.data_ptr(), outp.data_ptr(), c.numel())
+            end.data_ptr(), outp.data_ptr(), c.numel())
     launches["accel_near_out"] += 1
     return outp
 
 
 # ---------------------------------------------------------------------------
-# H3: res = far ? out + c[far_end] : near ? out : (x or 0)
+# H3: res[i] = src_res[i] >= 0 ? outp[src_res[i]] : (x[i] or 0)
 # ---------------------------------------------------------------------------
-def accel_far_merge_plain(out, x, c, far_end):
+def accel_far_merge_plain(outp, x, src_res):
     """Plain version of :func:`accel_far_merge`."""
-    n = far_end.numel()
-    fe = far_end.long()
-    out = out[:n]
-    zero = torch.zeros((), dtype=c.dtype, device=c.device)
-    far = torch.where(fe >= 0, c[fe.clamp(min=0)], zero)
-    off = zero if x is None else x
-    return torch.where(fe == -2, off, torch.where(fe >= 0, out + far, out))
+    i = src_res.long()
+    zero = torch.zeros((), dtype=outp.dtype, device=outp.device)
+    return torch.where(i >= 0, outp[i.clamp(min=0)], zero if x is None else x)
 
 
-def accel_far_merge(out, x, c, far_end):
-    """Add far-interval ends and pass off-tree cells through.
+def accel_far_merge(outp, x, src_res):
+    """The permute-merge: preorder subtree sums to the outputs, off-tree
+    outputs passing ``x`` through or 0.
 
-    ``out``: (>= n_cells,) near result in cell layout; ``far_end``:
-    (n_cells,) int32, the slot of a far cell's interval end, -1 for other
-    tree cells and -2 off the tree; ``c``: the prefix sums; ``x``: (n_cells,)
-    values off-tree cells pass through, or None for 0 there (the tile plan's
-    coarse level). float32, int32, int64 or float64, one dtype for all;
-    fewer than 2^31 slots and cells. Returns (n_cells,).
+    ``outp``: (n_pad,) subtree sums in preorder (:func:`accel_near_out`);
+    ``src_res``: (n_out,) int32, the preorder slot of each output, -1 off
+    the tree; ``x``: (n_out,) values off-tree outputs pass through, or None
+    for 0 there (slot mode). float32, int32, int64 or float64, one dtype for
+    both; fewer than 2^31 slots and outputs. Returns (n_out,).
     """
-    if far_end.device.type == "cpu":
-        return accel_far_merge_plain(out, x, c, far_end)
-    dev = far_end.device
-    dt = _code("c", c)
-    for name, t, dtype in (("out", out, c.dtype), ("x", x, c.dtype),
-                           ("c", c, c.dtype), ("far_end", far_end, torch.int32)):
-        if t is not None:
-            _check(name, t, dtype, dev)
-    n = far_end.numel()
-    if (x is not None and x.numel() != n) or out.numel() < n:
-        raise ValueError("accel_far_merge: x must match far_end; out must cover it")
-    res = torch.empty(n, dtype=c.dtype, device=dev)
-    _launch(load()["accel_kernels"].pf_accel_far_merge, dt, out.data_ptr(),
-            None if x is None else x.data_ptr(), c.data_ptr(), far_end.data_ptr(),
-            res.data_ptr(), n, int(x is None))
+    if src_res.device.type == "cpu":
+        return accel_far_merge_plain(outp, x, src_res)
+    dev = src_res.device
+    dt = _code("outp", outp)
+    _check("outp", outp, outp.dtype, dev)
+    _check("src_res", src_res, torch.int32, dev)
+    if x is not None:
+        _check("x", x, outp.dtype, dev)
+    n = src_res.numel()
+    if (x is not None and x.numel() != n) or n >= 1 << 31 or outp.numel() >= 1 << 31:
+        raise ValueError("accel_far_merge: x must match src_res; fewer than 2^31 elements")
+    res = torch.empty(n, dtype=outp.dtype, device=dev)
+    _launch(load()["accel_kernels"].pf_accel_far_merge, dt, outp.data_ptr(),
+            None if x is None else x.data_ptr(), src_res.data_ptr(), res.data_ptr(), n)
     launches["accel_far_merge"] += 1
     return res
 

@@ -1,11 +1,10 @@
 """Router accumulation plan for graphs of up to 2^21 cells (``AccelPlan``).
 
-One accumulation of integer-valued float32 data is four kernel launches::
+One accumulation of integer-valued float32 data is three kernel launches::
 
     c    = cumsum(x[src_in])               # H1: cells -> preorder, prefix sum
-    outp = c[near_end] - c[k-1]            # H2: near subtree sums (preorder)
-    out  = outp[src_out]                   # H0: preorder -> cells
-    res  = tree ? out + c[far_end] : x     # H3: far interval ends, off-tree
+    outp = c[end] - c[k-1]                 # H2: subtree sums (preorder)
+    res  = tree ? outp[src_res] : x        # H3: preorder -> cells, off-tree
 
 (:class:`IntervalKernels`, which the large-graph ``BigAccelPlan`` of
 ``ops/accel_big.py`` and the tile plan's router coarse level run too). The
@@ -13,9 +12,11 @@ host build makes the same bijections and masks as the JAX package's
 ``ops/accel.py`` (``sig_in``, ``sig_out``, ``sig_exp``, ``sig_far``, the
 near/far masks, ``b``, ``G``, ``n_pad`` and the ``ok`` rule), so the two
 dispatch identically. Where the TPU routes ``sig_exp``, a lane broadcast
-within b-blocks and ``sig_far`` as three chained permutations, the plan
-composes them once into ``far_end``, the slot each far cell reads, and the
-near-interval lane tables into ``near_end``.
+within b-blocks and ``sig_far`` as three chained permutations, because its
+lane gather reaches only 128 lanes, the plan composes them once into
+``far_end``, the slot each far cell reads, and the near-interval lane
+tables into ``near_end``; the kernels read both as one interval end per
+preorder slot.
 
 Sums run in float32: exact only for integer-valued data with totals below
 2^24, which ``Flwdir._accumulate_dev`` guarantees before it calls this.
@@ -61,28 +62,39 @@ def acc_dtype(data):
 
 
 class IntervalKernels:
-    """The DFS-interval accumulation as the four kernels run it, from the
-    four int32 indices every router plan composes its tables into:
+    """The DFS-interval accumulation as the three kernels run it. Every
+    router plan composes its tables into four int32 host indices:
 
     * ``src_in`` (n_pad,): the input element each preorder slot reads; a
-      source at or past the input's length reads 0 (H1);
+      source at or past the input's length reads 0;
     * ``near_end`` (n_pad,): the slot where a near interval (span < 128)
-      ends, -1 for far intervals and padding (H2);
-    * ``src_out`` (>= n_out,): the preorder slot each output element reads
-      (H0);
+      ends, -1 for far intervals and padding;
+    * ``src_out`` (>= n_out,): the preorder slot each output element reads;
     * ``far_end`` (n_out,): the slot where an output's far interval ends, -1
-      for other tree outputs, -2 off the tree (H3).
+      for other tree outputs, -2 off the tree;
+
+    and uploads three: ``src_in`` (H1); ``end`` (n_pad,), every tree slot's
+    interval end, ``near_end`` with each far end carried back to its slot
+    through ``src_out`` (-1 for padding and for far slots no output reads;
+    H2); ``src_res`` (n_out,), ``src_out`` on the tree and -1 off it (H3).
     """
 
     _INDICES = ("src_in", "near_end", "src_out", "far_end")
 
     def _set_indices(self, device, **idx):
-        """Keep the indices as numpy int32 attributes and upload them."""
-        self._t = {}
+        """Keep the indices as numpy int32 attributes; compose and upload
+        the kernels' three."""
         for name in self._INDICES:
-            arr = np.ascontiguousarray(idx[name], dtype=np.int32)
-            setattr(self, name, arr)
-            self._t[name] = torch.as_tensor(arr, device=device)
+            setattr(self, name, np.ascontiguousarray(idx[name], dtype=np.int32))
+        n_out = self.far_end.size
+        src_out = self.src_out[:n_out]
+        far = self.far_end >= 0
+        end = self.near_end.copy()
+        end[src_out[far]] = self.far_end[far]
+        src_res = np.where(self.far_end != -2, src_out, -1).astype(np.int32)
+        self._t = {name: torch.as_tensor(arr, device=device)
+                   for name, arr in (("src_in", self.src_in), ("end", end),
+                                     ("src_res", src_res))}
 
     def _sweep(self, x, passthrough):
         """``x`` (1-D; float32, int32, int64 or float64) to its subtree sums
@@ -90,9 +102,8 @@ class IntervalKernels:
         layouts are then one) or give 0."""
         t = self._t
         c = kernels.accel_in_scan(x, t["src_in"])
-        outp = kernels.accel_near_out(c, t["near_end"])
-        out = kernels.permute_gather(outp, t["src_out"])
-        return kernels.accel_far_merge(out, x if passthrough else None, c, t["far_end"])
+        outp = kernels.accel_near_out(c, t["end"])
+        return kernels.accel_far_merge(outp, x if passthrough else None, t["src_res"])
 
 
 class AccelPlan(IntervalKernels):

@@ -13,8 +13,9 @@ the near interval ends and a dense group expansion for the far ones, because
 the TPU has no fast gather. The port makes that class's decisions (``n_in``,
 ``n_out``, ``n_pad`` rounded up to 2^21, ``G1``, ``ok``, ``slot_mode``, the
 near/far split at a span of 128, ``has_far``) and keeps what its tables
-compose to: the four indices of :class:`pyflwdir_torch.ops.accel.IntervalKernels`
-(kernels H1, H2, H0, H3) and, downward, the six of :class:`CoarseDown`
+compose to: the four host indices of
+:class:`pyflwdir_torch.ops.accel.IntervalKernels`, uploaded as the three of
+kernels H1, H2 and H3, and, downward, the six of :class:`CoarseDown`
 (kernels H1 and H0). The native build takes them from the DFS plan directly;
 ``routers=`` takes a JAX plan's ``router_tables()`` and replays its chains on
 ``arange`` into the same indices.
@@ -273,7 +274,7 @@ class RouterAccel(IntervalKernels, CoarseDown):
 
     def accumulate(self, data):
         """Flow accumulation of ``data`` (a 1-D tensor on the plan's device)
-        in four kernel launches. Default mode: ``data`` (n_cells,) of any
+        in three kernel launches. Default mode: ``data`` (n_cells,) of any
         dtype, summed in int32, int64 or float64 (:func:`acc_dtype`) and
         returned in its own; tree cells get their subtree sum, off-tree cells
         pass through. Slot mode: ``data`` at ``in_slot`` layout in int32,

@@ -14,8 +14,9 @@ The coarse level is the same slot-mode accumulation as the JAX package's:
 plain gathers through the DFS plan below ``_COARSE_ROUTER_MIN`` slots
 (``_CoarseGather``), else the single-chunk router (``_CoarseRouterSmall``)
 up to ``_COARSE_SMALL_MAX`` slots and ``BigAccelPlan``
-(``ops/accel_big.py``) above that, both on kernels H0-H3; past the big
-plan's 2^28 slots the build raises ValueError, as the JAX build does.
+(``ops/accel_big.py``) above that, both on kernels H1-H3 upward and H1 and
+H0 downward; past the big plan's 2^28 slots the build raises ValueError, as
+the JAX build does.
 
 The host build makes the JAX build's decisions (the phase-1 DFS, the far
 mode and ``b``, ``R_pad``, ``E_pad``, the coarse graph and its slots, the
@@ -309,20 +310,20 @@ class _CoarseGather(CoarseDown):
 
 
 # ---------------------------------------------------------------------------
-# coarse level: single-chunk router (kernels H0-H3)
+# coarse level: single-chunk router (kernels H1-H3)
 # ---------------------------------------------------------------------------
 class _CoarseRouterSmall(RouterAccel):
     """Slot-mode coarse accumulation on the single-chunk router plan: up to
     2^21 slots, padded to 16,384.
 
     The JAX package's ``_CoarseRouterSmall`` routes and lane-gathers on the
-    TPU; the port keeps what those compose to, the four kernels' indices
-    (:class:`pyflwdir_torch.ops.accel_big.RouterAccel`): ``src_in`` (H1;
+    TPU; the port keeps what those compose to, the four host indices of
+    :class:`pyflwdir_torch.ops.accel_big.RouterAccel`: ``src_in`` (H1;
     entry nodes, whose ``in_slot`` lies past ``n_in``, and padding read past
-    the input, so 0), ``near_end`` (H2), ``src_out`` (H0) and ``far_end`` (H3,
-    off-tree slots give 0). ``routers`` takes a JAX plan's
-    ``router_tables()`` (keyed ``"G"``), whose chains (and the packed
-    far-group expansion they index) are replayed instead."""
+    the input, so 0), ``near_end`` and ``far_end`` (one interval end a slot
+    for H2) and ``src_out`` (H3; off-tree slots give 0). ``routers`` takes a
+    JAX plan's ``router_tables()`` (keyed ``"G"``), whose chains (and the
+    packed far-group expansion they index) are replayed instead."""
 
     def __init__(self, dfs: DfsPlan, in_slot, out_slot, n_in=None, routers=None):
         if n_in is None:

@@ -56,7 +56,9 @@ def test_bijections_equal(plans):
         want = getattr(jp, theirs).apply_np(ar).ravel()
         assert np.array_equal(getattr(tp, mine), want), mine
     assert np.array_equal(tp._t["src_in"].numpy(), tp.sig_in)
-    assert np.array_equal(tp._t["src_out"].numpy(), tp.sig_out)
+    # H3 reads sig_out on the tree and -1 off it
+    on = tp.tree_mask[: tp.n_cells]
+    assert np.array_equal(tp._t["src_res"].numpy(), np.where(on, tp.sig_out[: tp.n_cells], -1))
 
 
 def test_composed_far_end(plans):
@@ -67,6 +69,18 @@ def test_composed_far_end(plans):
     # a far cell reads its own interval end, pos + size - 1
     assert np.array_equal(fe[far], (dfs.pos_np + dfs.size_np - 1)[far])
     assert np.array_equal(fe == -2, dfs.pos_np < 0)
+
+
+def test_composed_end(plans):
+    ids, _, tp = plans
+    dfs = tplan.build_plan(ids, device="cpu")
+    # H2 reads every tree slot's interval end pos + size - 1, near and far;
+    # padding slots -1
+    on = dfs.pos_np >= 0
+    want = np.full(tp.n_pad, -1)
+    want[dfs.pos_np[on]] = (dfs.pos_np + dfs.size_np - 1)[on]
+    assert np.array_equal(tp._t["end"].numpy(), want)
+    assert (want[: tp.n_tree] >= np.arange(tp.n_tree) + 128).any() == tp.has_far
 
 
 def test_accumulate_ones_bitwise(plans):

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import pyflwdir_torch
@@ -39,6 +40,13 @@ def _demo_d8(shape, seed=7):
     d8 = tdem.fill_depressions(z)[1]
     d8[1, 2:5] = 247  # missing cells
     return d8
+
+
+def _jax_accumulate(jp, x):
+    """The JAX plan's ``accumulate``, compiled as one program with the
+    plan's arrays as arguments (called eagerly, each operation compiles
+    apart)."""
+    return np.asarray(jax.jit(jp.accumulate)(jnp.asarray(x), jp.arrays()))
 
 
 @pytest.fixture(scope="module")
@@ -83,6 +91,19 @@ def test_replayed_indices_equal_the_native_ones(plans):
     assert np.array_equal(tp.far_end != -2, np.asarray(jp.tree_mask).ravel()[: tp.n_out])
 
 
+@pytest.mark.parametrize("which", ["tp", "rp"])
+def test_composed_kernel_indices(plans, which):
+    """H2's interval end of every tree slot, near and far, and H3's source:
+    ``src_out`` on the tree, -1 off it; native and replayed alike."""
+    dfs, p = plans["dfs"], plans[which]
+    on = dfs.pos_np >= 0
+    want = np.full(p.n_pad, -1)
+    want[dfs.pos_np[on]] = (dfs.pos_np + dfs.size_np - 1)[on]
+    assert np.array_equal(p._t["end"].numpy(), want)
+    assert np.array_equal(p._t["src_res"].numpy(), np.where(on, p.src_out[: p.n_out], -1))
+    assert np.array_equal(p._t["src_res"].numpy()[on], dfs.pos_np[on])
+
+
 @pytest.mark.parametrize("kind", ["ones", "int32", "bool"])
 def test_accumulate_int_bitwise(plans, kind):
     ids, jp, dfs, tp, rp = (plans[k] for k in ("ids", "jp", "dfs", "tp", "rp"))
@@ -94,7 +115,7 @@ def test_accumulate_int_bitwise(plans, kind):
     got = tp.accumulate(torch.as_tensor(data))
     assert sum(kernels.launches.values()) == 0  # CPU tensors: plain versions
     assert got.dtype == torch.as_tensor(data).dtype
-    want = np.asarray(jp.accumulate(jnp.asarray(data)))
+    want = _jax_accumulate(jp, data)
     assert np.array_equal(got.numpy(), want)
     assert torch.equal(rp.accumulate(torch.as_tensor(data)), got)
     if kind != "bool":
@@ -129,7 +150,7 @@ def test_accumulate_float_close(plans):
     w32 = w.astype(np.float32)
     got32 = tp.accumulate(torch.as_tensor(w32))
     assert got32.dtype == torch.float32
-    want32 = np.asarray(jp.accumulate(jnp.asarray(w32)))
+    want32 = _jax_accumulate(jp, w32)
     scale = max(np.abs(want32).max(), 1.0)
     np.testing.assert_allclose(got32.numpy(), want32, rtol=1e-4, atol=4e-6 * scale)
 

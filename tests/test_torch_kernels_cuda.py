@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain versions on the card: bitwise for
 permutations and integer data, float64 within the rounding of sums taken
-in another order (rtol 1e-12, atol 2 n eps total), and the same bits from
+in another order (rtol 1e-12, atol 2 L eps total, L the additions on the
+longest chain of those sums, or n), and the same bits from
 run to run. Skips where there is no GPU."""
 
 import numpy as np
@@ -44,12 +45,16 @@ def _data(rng, n, dtype):
     return torch.as_tensor(rng.randint(0, 3, n)).to(dtype)
 
 
-def _assert_match(got, want, total):
+def _assert_match(got, want, total, length=None):
+    """Bitwise, or for float64 within rtol 1e-12 and 2 L eps total: L
+    ``length``, the additions on the longest chain of the sums taken in
+    another order, or at most every element."""
     torch.cuda.synchronize()
     assert got.dtype == want.dtype and got.shape == want.shape
     if got.dtype == torch.float64:
+        length = want.numel() if length is None else length
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-12,
-                                   atol=2 * want.numel() * _EPS * total)
+                                   atol=2 * length * _EPS * total)
     else:
         assert torch.equal(got, want)
 
@@ -66,29 +71,118 @@ def test_permute_gather(dev, dtype):
     assert torch.equal(got, kernels.permute_gather_plain(x, src))
 
 
-@pytest.mark.parametrize("n_x,n", [(1, 2048), (5000, 16384), (600_000, 688_128)])
+# H1 lengths, by the kernel's geometry (tile = threads * slots a thread, W
+# tiles a window): (tiles, slots past them)
+_SCAN_LENGTHS = {"one": (0, 1), "tile-1": (1, -1), "tile": (1, 0), "tile+1": (1, 1),
+                 "window-1": ("W", -1), "window": ("W", 0), "window+3": ("W", 3),
+                 "two windows+5": ("2W", 5), "2^24+3": (None, (1 << 24) + 3)}
+
+
+def _scan_n(case, dtype):
+    threads, per, window = kernels._scan_geometry(dtype)
+    tiles, rest = _SCAN_LENGTHS[case]
+    tiles = {"W": window, "2W": 2 * window, None: 0}.get(tiles, tiles)
+    return tiles * threads * per + rest
+
+
+@pytest.mark.parametrize("case", list(_SCAN_LENGTHS))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int32, torch.int64, torch.float64])
-def test_accel_in_scan(dev, n_x, n, dtype):
-    rng = np.random.RandomState(1)
+def test_accel_in_scan(dev, case, dtype):
+    """H1 at ragged lengths around its tile and window, from 1 slot past
+    2^24; a third of the sources lie at or past n_x (0) and some at n_pad,
+    the most the index holds. float64 within the kernel's chain of
+    additions, twice over (the plain cumsum rounds in another order)."""
+    n = _scan_n(case, dtype)
+    rng = np.random.RandomState(n % 1000)
+    n_x = max(1, 2 * n // 3)
     x = _data(rng, n_x, dtype).to(dev)
-    sig = torch.as_tensor(rng.permutation(n).astype(np.int32), device=dev)
+    sig_np = rng.permutation(n).astype(np.int32)
+    sig_np[rng.rand(n) < 0.01] = n
+    sig = torch.as_tensor(sig_np, device=dev)
+    kernels.reset_launches()
     got = kernels.accel_in_scan(x, sig)
-    _assert_match(got, kernels.accel_in_scan_plain(x, sig), float(x.double().sum()))
+    assert kernels.launches["accel_in_scan"] == 1 and sum(kernels.launches.values()) == 1
+    _assert_match(got, kernels.accel_in_scan_plain(x, sig), float(x.double().sum()),
+                  length=2 * kernels.accel_in_scan_chain(n, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_accel_in_scan_same_bits(dev, dtype):
+    """Two calls on one input give the same bits: the window look-back sums
+    in one order whatever the blocks' timing."""
+    n = (1 << 24) + 3
+    rng = np.random.RandomState(8)
+    x = torch.as_tensor(rng.rand(n), device=dev).to(dtype)
+    sig = torch.as_tensor(rng.permutation(n).astype(np.int32), device=dev)
+    a = kernels.accel_in_scan(x, sig)
+    for _ in range(3):
+        b = kernels.accel_in_scan(x, sig)
+        assert torch.equal(a.view(torch.int32 if dtype == torch.float32 else torch.int64),
+                           b.view(torch.int32 if dtype == torch.float32 else torch.int64))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int32, torch.int64, torch.float64])
 def test_accel_near_out_and_far_merge(dev, dtype):
+    """H2 on random interval ends and H3, the permute-merge, on random
+    sources (-1 off the tree) with off-tree outputs passing x through or
+    giving 0, each bitwise against its plain version."""
     rng = np.random.RandomState(2)
     n = 4 * 128 * 128
     c = torch.cumsum(_data(rng, n, dtype), 0, dtype=dtype).to(dev)
-    near = rng.randint(-1, n, n).astype(np.int32)
-    got = kernels.accel_near_out(c, torch.as_tensor(near, device=dev))
-    assert torch.equal(got, kernels.accel_near_out_plain(c, torch.as_tensor(near, device=dev)))
-    far = torch.as_tensor(rng.randint(-2, n, n - 100).astype(np.int32), device=dev)
-    x = _data(rng, n - 100, dtype).to(dev)
-    for xx in (x, None):  # off-tree cells pass x through, or give 0
-        res = kernels.accel_far_merge(got, xx, c, far)
-        assert torch.equal(res, kernels.accel_far_merge_plain(got, xx, c, far))
+    end = torch.as_tensor(rng.randint(-1, n, n).astype(np.int32), device=dev)
+    kernels.reset_launches()
+    outp = kernels.accel_near_out(c, end)
+    assert torch.equal(outp, kernels.accel_near_out_plain(c, end))
+    n_out = n - 100
+    src_res = torch.as_tensor(rng.randint(-1, n, n_out).astype(np.int32), device=dev)
+    x = _data(rng, n_out, dtype).to(dev)
+    for xx in (x, None):  # off-tree outputs pass x through, or give 0
+        res = kernels.accel_far_merge(outp, xx, src_res)
+        assert torch.equal(res, kernels.accel_far_merge_plain(outp, xx, src_res))
+    assert kernels.launches["accel_near_out"] == 1 and kernels.launches["accel_far_merge"] == 2
+    assert sum(kernels.launches.values()) == 3
+
+
+def _bits(t):
+    return t.view(torch.int64).cpu()
+
+
+def test_signed_zeros_through_h2_and_h3(dev):
+    """float64 with signed zeros: H1's prefix sums hold no -0 (each has a
+    +0 at its root), H2 and H3 give the plain versions' bits, sign bits
+    included, and the sweep gives the bits of the split far add it
+    replaced, out + c[far_end] after outp = 0 - c[k-1], on the same c."""
+    rng = np.random.RandomState(9)
+    n = 3 * 128 * 128
+    x = torch.zeros(n, dtype=torch.float64)
+    x[rng.rand(n) < 0.5] = -0.0
+    x[rng.rand(n) < 0.01] = 1.0
+    x[: 5000] = -0.0  # a run of -0 at the head
+    x = x.to(dev)
+    sig = torch.as_tensor(rng.permutation(n).astype(np.int32), device=dev)
+    sig[:4000] = torch.arange(4000, dtype=torch.int32, device=dev)  # leading -0 slots
+    c = kernels.accel_in_scan(x, sig)
+    neg0 = torch.tensor(-0.0, dtype=torch.float64).view(torch.int64).item()
+    assert not (_bits(c) == neg0).any()
+    k = torch.arange(n, device=dev)
+    span = torch.as_tensor(rng.randint(0, 400, n), device=dev)
+    end = torch.where(torch.as_tensor(rng.rand(n) < 0.9, device=dev),
+                      torch.clamp(k + span, max=n - 1), -1).to(torch.int32)
+    outp = kernels.accel_near_out(c, end)
+    assert torch.equal(_bits(outp), _bits(kernels.accel_near_out_plain(c, end)))
+    src_res = torch.as_tensor(rng.randint(-1, n, n).astype(np.int32), device=dev)
+    xo = torch.where(torch.as_tensor(rng.rand(n) < 0.5, device=dev), -0.0, 0.0).to(torch.float64)
+    for xx in (xo, None):
+        res = kernels.accel_far_merge(outp, xx, src_res)
+        assert torch.equal(_bits(res), _bits(kernels.accel_far_merge_plain(outp, xx, src_res)))
+    # the earlier composition: near ends in H2, far ends added after the
+    # permutation (k = 0 reads +0 for c[-1], as both kernels do)
+    far = (end.long() - k >= 128) & (end >= 0)
+    zero = torch.zeros((), dtype=torch.float64, device=dev)
+    lo = torch.cat([zero.reshape(1), c[:-1]])
+    old = torch.where(far, (zero - lo) + c[end.long().clamp(min=0)],
+                      kernels.accel_near_out_plain(c, torch.where(far, -1, end)))
+    assert torch.equal(_bits(outp), _bits(old))
 
 
 def test_accel_plan_matches_plain(dev):
@@ -99,16 +193,18 @@ def test_accel_plan_matches_plain(dev):
     x = torch.ones(ids.size, dtype=torch.int32)
     kernels.reset_launches()
     got = gpu.accumulate(x.to(dev)).cpu()
-    for name in ("permute_gather", "accel_in_scan", "accel_near_out", "accel_far_merge"):
-        assert kernels.launches[name] == 1, name
+    want = {"accel_in_scan": 1, "accel_near_out": 1, "accel_far_merge": 1}
+    assert all(kernels.launches[k] == want.get(k, 0) for k in kernels.launches), kernels.launches
     assert torch.equal(got, cpu.accumulate(x))
 
 
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.float64])
 def test_big_accel_plan_kernels_at_two_chunks(dev, dtype):
-    """H1, H2, H0 and H3 at 2^22 slots (a 1504 x 1504 graph's BigAccelPlan),
-    each on the plan's own index against its plain version, then the plan on
-    the card against the plan on the CPU."""
+    """H1, H2 and H3 at 2^22 slots (a 1504 x 1504 graph's BigAccelPlan),
+    each on the plan's own index against its plain version, H2 and H3
+    bitwise against the composition they replaced (H2 on near ends, H0 to
+    cells, far ends added), then the plan on the card against the plan on
+    the CPU."""
     from pyflwdir_torch.ops import accel_big as tbig
 
     ids = _demo_ids((1504, 1504), seed=17, missing=True)
@@ -119,18 +215,24 @@ def test_big_accel_plan_kernels_at_two_chunks(dev, dtype):
     total = float(x.double().sum())
     xd, t = x.to(dev), gpu._t
     c = kernels.accel_in_scan(xd, t["src_in"])
-    _assert_match(c, kernels.accel_in_scan_plain(xd, t["src_in"]), total)
-    outp = kernels.accel_near_out(c, t["near_end"])
-    assert torch.equal(outp, kernels.accel_near_out_plain(c, t["near_end"]))
-    out = kernels.permute_gather(outp, t["src_out"])
-    assert torch.equal(out, kernels.permute_gather_plain(outp, t["src_out"]))
-    res = kernels.accel_far_merge(out, xd, c, t["far_end"])
-    assert torch.equal(res, kernels.accel_far_merge_plain(out, xd, c, t["far_end"]))
+    _assert_match(c, kernels.accel_in_scan_plain(xd, t["src_in"]), total,
+                  length=2 * kernels.accel_in_scan_chain(gpu.n_pad, dtype))
+    outp = kernels.accel_near_out(c, t["end"])
+    assert torch.equal(outp, kernels.accel_near_out_plain(c, t["end"]))
+    res = kernels.accel_far_merge(outp, xd, t["src_res"])
+    assert torch.equal(res, kernels.accel_far_merge_plain(outp, xd, t["src_res"]))
+    host = {k: torch.as_tensor(getattr(gpu, k), device=dev)
+            for k in ("near_end", "src_out", "far_end")}
+    out = kernels.permute_gather(kernels.accel_near_out(c, host["near_end"]), host["src_out"])
+    fe = host["far_end"].long()
+    old = torch.where(fe == -2, xd, torch.where(fe >= 0, out + c[fe.clamp(min=0)], out))
+    bits = torch.int32 if dtype == torch.int32 else torch.int64
+    assert torch.equal(res.view(bits), old.view(bits))
     kernels.reset_launches()
     got = gpu.accumulate(xd)
-    assert all(kernels.launches[k] == 1 for k in ("permute_gather", "accel_in_scan",
-                                                  "accel_near_out", "accel_far_merge"))
-    assert sum(kernels.launches.values()) == 4
+    want = {"accel_in_scan": 1, "accel_near_out": 1, "accel_far_merge": 1}
+    assert all(kernels.launches[k] == want.get(k, 0) for k in kernels.launches), kernels.launches
+    assert torch.equal(got, res)
     _assert_match(got.cpu(), cpu.accumulate(x), total)
 
 
@@ -179,8 +281,7 @@ def test_tile_plan_matches_cpu(tile_plans, dtype):
     x = _data(rng, ids.size, dtype)
     kernels.reset_launches()
     got = gpu.accumulate(x.to("cuda")).cpu()
-    up = ("tile_pass_a", "accel_in_scan", "accel_near_out", "permute_gather",
-          "accel_far_merge", "tile_pass_c")
+    up = ("tile_pass_a", "accel_in_scan", "accel_near_out", "accel_far_merge", "tile_pass_c")
     assert all(kernels.launches[k] == (k in up) for k in kernels.launches), kernels.launches
     _assert_match(got, cpu.accumulate(x), float(x.double().sum()))
 

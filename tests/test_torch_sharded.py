@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from pyflwdir_torch import dem as tdem
@@ -117,14 +118,18 @@ def sharded(tmp_path_factory):
         jtp = jtpm.build_tile_plan(ids["entries"], codes.shape)
         mesh2 = jmake_mesh(2)
         wj, fj = jnp.asarray(data["int64"]), jnp.asarray(data["float64"])
+        # each JAX sweep compiled as one program, the plan's arrays passed as
+        # arguments where it takes them: called eagerly, shard_map compiles
+        # every operation of its body apart (about 50 s a sweep)
         jax_ref = {
-            "up.sharded": np.asarray(jtp.accumulate_sharded(wj, mesh2)),
-            "down.sharded": np.asarray(jtp.accumulate_down_sharded(wj, mesh2)),
-            "up.int": np.asarray(jtp.accumulate(wj)),
-            "down.int": np.asarray(jtp.accumulate_down(wj)),
-            "up.float64": np.asarray(jtp.accumulate(fj)),
-            "down.float64": np.asarray(jtp.accumulate_down(fj)),
+            "up.sharded": jax.jit(lambda v: jtp.accumulate_sharded(v, mesh2))(wj),
+            "down.sharded": jax.jit(lambda v: jtp.accumulate_down_sharded(v, mesh2))(wj),
+            "up.int": jax.jit(jtp.accumulate)(wj, jtp.arrays()),
+            "down.int": jax.jit(jtp.accumulate_down)(wj, jtp.down_arrays()),
+            "up.float64": jax.jit(jtp.accumulate)(fj, jtp.arrays()),
+            "down.float64": jax.jit(jtp.accumulate_down)(fj, jtp.down_arrays()),
         }
+        jax_ref = {k: np.asarray(v) for k, v in jax_ref.items()}
     finally:
         _join(procs)
     ranks = {w: [dict(np.load(os.path.join(d, f"rank{r}.npz"))) for r in range(w)]

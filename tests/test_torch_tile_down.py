@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import pyflwdir_torch
@@ -115,6 +116,13 @@ def _sweep(plans, w):
     return runtime.downward_sweep(plans["ids"], plans["seq"], w)
 
 
+def _jax_down(jtp, x):
+    """The JAX plan's ``accumulate_down``, compiled as one program with the
+    plan's arrays as arguments (called eagerly, each operation compiles
+    apart)."""
+    return np.asarray(jax.jit(jtp.accumulate_down)(jnp.asarray(x), jtp.down_arrays()))
+
+
 def _int_data(kind, n):
     rng = np.random.RandomState(5)
     return {"ones": np.ones(n, np.int32),
@@ -134,7 +142,7 @@ def test_accumulate_down_int_bitwise(plans, kind):
     assert sum(kernels.launches.values()) == 0  # CPU tensors: plain versions
     assert got.dtype == torch.as_tensor(data).dtype
     got = got.numpy()
-    assert np.array_equal(got, np.asarray(jtp.accumulate_down(jnp.asarray(data))))
+    assert np.array_equal(got, _jax_down(jtp, data))
     assert np.array_equal(got, _sweep(plans, data).astype(data.dtype))
     assert np.array_equal(rtp.accumulate_down(torch.as_tensor(data)).numpy(), got)
     # missing cells pass their values through
@@ -153,7 +161,7 @@ def test_accumulate_down_float64_close(plans):
     np.testing.assert_allclose(got, _sweep(plans, w), **tol)
     if isinstance(jtp.coarse, jtpm._CoarseGather):
         # the JAX router coarse level rounds float input to float32
-        np.testing.assert_allclose(got, np.asarray(jtp.accumulate_down(jnp.asarray(w))), **tol)
+        np.testing.assert_allclose(got, _jax_down(jtp, w), **tol)
     assert np.array_equal(got[ids < 0], w[ids < 0])
     # float32 data comes back float32, summed in float64
     got32 = tp.accumulate_down(torch.as_tensor(w.astype(np.float32)))

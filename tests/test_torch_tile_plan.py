@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import pyflwdir_torch
@@ -68,6 +69,13 @@ def _replay(jtp):
         routers=routers, device="cpu")
 
 
+def _jax_up(jtp, x):
+    """The JAX plan's ``accumulate``, compiled as one program with the
+    plan's arrays as arguments (called eagerly, each operation compiles
+    apart)."""
+    return np.asarray(jax.jit(jtp.accumulate)(jnp.asarray(x), jtp.arrays()))
+
+
 class _Thresholds:
     """Both packages' coarse backend thresholds, patched alike and restored."""
 
@@ -111,18 +119,22 @@ def plans(request):
 
 
 def _jax_unfused(jtp, x):
-    """The JAX plan's unfused vmap path: pass A, coarse level, pass C."""
+    """The JAX plan's unfused vmap path: pass A, coarse level, pass C,
+    compiled as one program with the plan's arrays as arguments."""
     H, W = jtp.shape
     Hp, Wp = jtp.pshape
     cfg = jtp._acc_cfg(x.dtype)
-    arrs = jtp.arrays()
-    xg = jnp.pad(jnp.asarray(x).reshape(H, W).astype(cfg["acc"]), ((0, Hp - H), (0, Wp - W)))
-    ex = jtp._pass_a(xg, arrs, cfg)
-    entv = jtp.coarse.accumulate(ex.reshape(-1), arrs["coarse"])
-    pad = jtp.NT * jtp.E_rows * 128 - entv.shape[0]
-    entv = jnp.concatenate([entv, jnp.zeros(max(pad, 0), entv.dtype)])
-    entv = entv.reshape(jtp.NT, jtp.E_rows, 128)
-    out = jtp._pass_c(xg, entv, arrs, cfg)[:H, :W]
+
+    def run(x, arrs):
+        xg = jnp.pad(x.reshape(H, W).astype(cfg["acc"]), ((0, Hp - H), (0, Wp - W)))
+        ex = jtp._pass_a(xg, arrs, cfg)
+        entv = jtp.coarse.accumulate(ex.reshape(-1), arrs["coarse"])
+        pad = jtp.NT * jtp.E_rows * 128 - entv.shape[0]
+        entv = jnp.concatenate([entv, jnp.zeros(max(pad, 0), entv.dtype)])
+        entv = entv.reshape(jtp.NT, jtp.E_rows, 128)
+        return jtp._pass_c(xg, entv, arrs, cfg)[:H, :W]
+
+    out = jax.jit(run)(jnp.asarray(x), jtp.arrays())
     return np.asarray(out).reshape(-1).astype(x.dtype)
 
 
@@ -168,6 +180,28 @@ def test_composed_indices_equal_the_replayed_jax_tables(plans):
         assert np.array_equal(tp.coarse.src_in < tp.coarse.n_pad, jnp_["in_sel"])
 
 
+def test_coarse_kernel_indices(plans):
+    """The router coarse level's H2 and H3 indices (slot mode), native and
+    replayed: each tree slot's interval end where its span is below 128 or
+    an output reads it, else -1; each output's preorder slot, -1 off the
+    tree."""
+    if not isinstance(plans["tp"].coarse, tbig.RouterAccel):
+        pytest.skip("the gather coarse level has no router indices")
+    for co in (plans["tp"].coarse, plans["rtp"].coarse):
+        pre, size = co.dfs.preorder_np, co.dfs.size_np
+        k = np.arange(pre.size)
+        e = k + size[pre] - 1
+        src_res = co._t["src_res"].numpy()
+        assert np.array_equal(src_res, np.where(co.far_end != -2, co.src_out[: co.n_out], -1))
+        read = np.zeros(co.n_pad, bool)
+        read[src_res[src_res >= 0]] = True
+        keep = (e - k < 128) | read[: pre.size]
+        want = np.full(co.n_pad, -1)
+        want[: pre.size][keep] = e[keep]
+        assert np.array_equal(co._t["end"].numpy(), want)
+        assert (keep & (e - k >= 128)).any() == co.has_far
+
+
 def test_rin_rout_inverse(plans):
     tp = plans["tp"]
     rin, rout = tp.idx["rin"], tp.idx["rout"]
@@ -184,7 +218,7 @@ def test_exits_at_real_roots_bitwise(plans):
     cfg = jtp._acc_cfg(x.dtype)
     xg = jnp.asarray(x.reshape(H, W)).astype(cfg["acc"])
     xg = jnp.pad(xg, ((0, tp.pshape[0] - H), (0, tp.pshape[1] - W)))
-    ex_j, _ = jtp._pass_a_fused(xg, jtp.arrays(), cfg)
+    ex_j, _ = jax.jit(lambda xg, arrs: jtp._pass_a_fused(xg, arrs, cfg))(xg, jtp.arrays())
     ex_j = np.asarray(ex_j).reshape(tp.NT, -1)
     ex_t, c = kernels.tile_pass_a(torch.as_tensor(x), tp.idx_t["rin"],
                                   tp.idx_t["ex_end"], tp.shape)
@@ -210,7 +244,7 @@ def test_accumulate_int_bitwise(plans, kind):
     assert sum(kernels.launches.values()) == 0  # CPU tensors: plain versions
     assert got.dtype == torch.as_tensor(data).dtype
     got = got.numpy()
-    want_fused = np.asarray(jtp.accumulate(jnp.asarray(data)))
+    want_fused = _jax_up(jtp, data)
     want_plan = tplan.accumulate_planned(tplan.build_plan(ids, device="cpu"),
                                          torch.as_tensor(data)).numpy()
     assert np.array_equal(got, want_plan)
@@ -237,7 +271,7 @@ def test_accumulate_float64_close(plans):
     tol = dict(rtol=1e-12, atol=2 * ids.size * _EPS * total)
     np.testing.assert_allclose(got, want, **tol)
     if isinstance(jtp.coarse, jtpm._CoarseGather):
-        np.testing.assert_allclose(got, np.asarray(jtp.accumulate(jnp.asarray(w))), **tol)
+        np.testing.assert_allclose(got, _jax_up(jtp, w), **tol)
     # missing cells pass their values through unchanged
     mv = ids < 0
     assert np.array_equal(got[mv], w[mv])

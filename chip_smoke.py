@@ -31,7 +31,19 @@ Run from the repository root:  python3 chip_smoke.py [--json PATH]
    int16 on the card. Then the path, twice with the counters zeroed: int32
    (upstream_area in cells) and float64 (upstream_area in km2, accuflux),
    checked against the native sequential sweep; then the accumulate call
-   and upstream_area are timed.
+   and upstream_area are timed. Order phase, on the same raster and plan:
+   the Strahler order (FlwdirRaster.stream_order: one child count and one
+   int32 TilePlan.accumulate a level, the D8 codes made on the device) with
+   the counters zeroed, bitwise equal to the native sweep, T1, T2 and the
+   coarse H1-H3 once a level; its wall time (first and a second uncached
+   call), device time and one level's split beside the native sweep's; the
+   classic order bitwise against its native sweep; accuflux of data with
+   nodata (int32 bitwise against the native sweep on the graph cut at the
+   nodata cells, float64 twice with the same bits and within the rule);
+   fillnodata(direction="down") max and sum twice with the same bits;
+   subbasins_streamorder() and subbasins_area() with their closure checks.
+   On the Rhine path (2), subbasins_pfafstetter(depth=2), timed, with its
+   closure checks.
 4. Downward path on the same 6000x6000 grid: ``TilePlan.accumulate_down``
    through kernels T3 (pass D1, raw mode), H1 and H0 on the coarse level
    and T4 (pass D2). Kernel phase: T3 in both modes, T4 and the six coarse
@@ -1362,9 +1374,22 @@ def rhine_path(dev):
     print(f"  accumulate: median {acc_ms:.4f} ms per call, "
           f"{fl.size / acc_ms / 1e3:.1f} Mgp/s; device busy {acc_dev_ms} ms of it; "
           f"upstream_area() with host copies median {up_ms:.3f} ms")
+    # Pfafstetter sub-basins: host stem walks over maps made on the card (the
+    # CPU tests hold them to the JAX package's; a CPU run here would double
+    # the walks' half minute)
+    t0 = time.perf_counter()
+    pfaf, pf_out = fl.subbasins_pfafstetter(depth=2)
+    pfaf_s = time.perf_counter() - t0
+    pf = pfaf.ravel()
+    inner = (rk >= 0) & ~np.isin(np.arange(fl.size), pf_out)
+    _check(pfaf.dtype == np.int32 and bool((pf[rk >= 0] >= 1).all()) and int(pf.max()) < 100
+           and np.unique(pf_out).size == pf_out.size
+           and np.array_equal(pf[fl.idxs_ds[inner]], pf[inner]),
+           f"subbasins_pfafstetter(depth=2) in {pfaf_s:.3f} s: {pf_out.size} outlets, labels "
+           "1-99 on every valid cell, basins closed")
     out = _rows(rows, counts, "rhine 997x682", "float32")
     return out, dict(accumulate_ms=acc_ms, accumulate_device_ms=acc_dev_ms,
-                     upstream_area_ms=up_ms, main_path_s=t_main)
+                     upstream_area_ms=up_ms, main_path_s=t_main, pfafstetter_s=pfaf_s)
 
 
 def _host_ms(fn, reps):
@@ -1474,6 +1499,8 @@ def tile_path(dev):
           f"upstream_area() with host copies median {up_ms:.3f} ms")
     out = _rows(rows[torch.int32], counts_int, "tile 6000x6000", "int32")
     out += _rows(rows[torch.float64], counts_f64, "tile 6000x6000", "float64")
+    order_rows, order = order_path(fl, tp, seq, rows[torch.int32], dev)
+    out += order_rows
     down_rows, down = tile_down_path(fl, tp, elev, upa, seq, dev)
     banded_rows, banded = banded_path(
         fl, tp, upa, seq, dict(tile_plan_s=t_plan, down_indices_s=down["down_indices_s"]), dev)
@@ -1482,11 +1509,165 @@ def tile_path(dev):
     cut_rows, cut = cut_path(fl, elev, upa, dev)
     rows = out + down_rows + banded_rows + sharded_rows + big_rows + cut_rows
     return rows, (z, elev, d8), dict(
-        down=down, banded=banded, sharded=sharded, big=big, cut=cut, accumulate_ms=acc_ms,
-        accumulate_device_ms=acc_dev_ms, upstream_area_ms=up_ms, main_path_int32_s=t_int,
-        main_path_float64_s=t_f64, fill_s=t_fill, parse_s=t_parse, tile_plan_s=t_plan,
-        tile_plan_steps_s=tp.build_seconds, NT=tp.NT, R_pad=tp.R_pad, E_pad=tp.E_pad,
-        coarse_n_pad=co.n_pad)
+        order=order, down=down, banded=banded, sharded=sharded, big=big, cut=cut,
+        accumulate_ms=acc_ms, accumulate_device_ms=acc_dev_ms, upstream_area_ms=up_ms,
+        main_path_int32_s=t_int, main_path_float64_s=t_f64, fill_s=t_fill, parse_s=t_parse,
+        tile_plan_s=t_plan, tile_plan_steps_s=tp.build_seconds, NT=tp.NT, R_pad=tp.R_pad,
+        E_pad=tp.E_pad, coarse_n_pad=co.n_pad)
+
+
+def order_path(fl, tp, seq, rows_int, dev):
+    """Stream order, the nodata accumulations and sub-basins on the
+    6000x6000 grid ``fl`` with its tile plan ``tp`` (``seq``: the native DFS
+    preorder). The Strahler call is driven with the launch counters zeroed
+    before it and read after: T1, T2 and the coarse H1-H3 once a level.
+    Returns the order path's kernel rows (the int32 phase's measurements,
+    ``rows_int``, with this path's launches) and its timings."""
+    from pyflwdir_torch import kernels, runtime
+    from pyflwdir_torch.codecs import d8 as d8c
+    from pyflwdir_torch.ops import graph, order
+
+    print(" order phase (stream order, nodata accumulations, sub-basins):")
+    H, W = fl.shape
+    n = fl.size
+    valid = fl.mask
+    res = {}
+    t0 = time.perf_counter()
+    want = runtime.strahler_order(fl.idxs_ds, seq)
+    res["native_strahler_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    codes_host = d8c.to_array(fl.idxs_ds, fl.shape)
+    res["host_d8_codes_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    codes = order.d8_codes(fl._ds, fl.shape)
+    torch.cuda.synchronize()
+    res["device_d8_codes_s"] = time.perf_counter() - t0
+    _check(np.array_equal(codes.cpu().numpy(), codes_host),
+           "D8 codes made on the device equal to codecs.d8.to_array on the host")
+    del codes_host
+
+    for key in ("strord", "d8_codes"):
+        fl._cached.pop(key, None)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    strord = fl.stream_order()
+    torch.cuda.synchronize()
+    res["first_call_s"] = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    levels = int(strord.max()) - 1
+    res.update(levels=levels, max_order=int(strord.max()), launches=counts)
+    print(f"  Strahler: {levels} levels (orders 1-{int(strord.max())}); launches {counts}")
+    _check(strord.dtype == np.uint8 and strord.shape == fl.shape
+           and np.array_equal(strord.ravel(), want),
+           "stream_order() bitwise equal to the native Strahler sweep")
+    for name in ("tile_pass_a", "tile_pass_c", *_UP):
+        _check(counts[name] == levels, f"{name} launched once per level ({levels})")
+    _check(counts["permute_gather"] == 0 and counts["tile_down_a"] == 0,
+           "no downward kernel on the Strahler path")
+    fl._cached.pop("strord")
+    t0 = time.perf_counter()
+    strord2 = fl.stream_order()
+    torch.cuda.synchronize()
+    res["second_call_s"] = time.perf_counter() - t0
+    _check(np.array_equal(strord2, strord), "a second uncached stream_order() the same")
+    codes = fl._cached["d8_codes"]
+    res["device_ms"] = _device_ms(lambda: order.strahler_tile_plan(codes, tp), reps=4, warm=1)
+    member, tgt = order._strahler_grids(codes, tp, None)
+    gen = order._generators(member, tgt).to(torch.int32)  # the first level's
+    res["level_count_ms"] = _time_ms(lambda: order._generators(member, tgt), reps=10, warmup=2)
+    res["level_accumulate_ms"] = _time_ms(lambda: tp.accumulate(gen), reps=10, warmup=2)
+    print(f"  Strahler wall: first call {res['first_call_s'] * 1e3:.1f} ms, second uncached "
+          f"{res['second_call_s'] * 1e3:.1f} ms (host clock, synchronised); device "
+          f"{res['device_ms']} ms; a level: child count {res['level_count_ms']:.4f} ms, "
+          f"accumulate {res['level_accumulate_ms']:.4f} ms (CUDA events); native sweep "
+          f"{res['native_strahler_s']:.3f} s; D8 codes on the host "
+          f"{res['host_d8_codes_s']:.3f} s, on the device {res['device_d8_codes_s']:.4f} s")
+
+    t0 = time.perf_counter()
+    usm = fl.idxs_us_main
+    res["main_upstream_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    classic = fl.stream_order("classic")
+    torch.cuda.synchronize()
+    res["classic_s"] = time.perf_counter() - t0
+    nup = fl.n_upstream.ravel()
+    t0 = time.perf_counter()
+    want = runtime.classic_order(fl.idxs_ds, seq, usm, nup)
+    res["native_classic_s"] = time.perf_counter() - t0
+    _check(np.array_equal(classic.ravel(), want), "classic stream order bitwise equal to the "
+           "native sweep")
+    print(f"  main_upstream {res['main_upstream_s']:.3f} s; classic order "
+          f"{res['classic_s']:.3f} s, native {res['native_classic_s']:.3f} s")
+
+    rng = np.random.RandomState(SEED + 3)
+    nod = (rng.rand(H, W) < 0.02).ravel() & valid
+    data = rng.randint(0, 5, n).astype(np.int32)
+    data[nod] = -9999
+    t0 = time.perf_counter()
+    got = fl.accuflux(data.reshape(H, W)).ravel()
+    res["accuflux_nodata_int32_s"] = time.perf_counter() - t0
+    # the oracle: the graph cut at the nodata cells, which become pits of data 0
+    ar = np.arange(n, dtype=np.int64)
+    ids_cut = np.where(nod, ar, fl.idxs_ds)
+    seq_cut = runtime.dfs_preorder(ids_cut)[0]
+    acc = runtime.accuflux_sweep(ids_cut, seq_cut, np.where(nod, 0, data))
+    _check(got.dtype == np.int32 and np.array_equal(got, np.where(valid & ~nod, acc, data)),
+           "int32 accuflux with nodata bitwise equal to the native sweep on the cut graph")
+    fdata = rng.rand(n)
+    fdata[nod] = -9999.0
+    t0 = time.perf_counter()
+    fa = fl.accuflux(fdata.reshape(H, W)).ravel()
+    res["accuflux_nodata_float64_s"] = time.perf_counter() - t0
+    fb = fl.accuflux(fdata.reshape(H, W)).ravel()
+    _check(np.array_equal(fa.view(np.int64), fb.view(np.int64)),
+           "float64 accuflux with nodata: two calls, the same bits")
+    acc = runtime.accuflux_sweep(ids_cut, seq_cut, np.where(nod, 0.0, fdata))
+    # each doubling round adds its terms in another order than the sweep
+    length = graph._n_rounds(n) * int(nup.max())
+    _close(fa, np.where(valid & ~nod, acc, fdata), length, float(np.abs(fdata[~nod]).sum()),
+           "float64 accuflux with nodata of the native sweep on the cut graph")
+    print(f"  accuflux with nodata: int32 {res['accuflux_nodata_int32_s']:.3f} s, float64 "
+          f"{res['accuflux_nodata_float64_s']:.3f} s")
+
+    gaps = np.where(rng.rand(n) < 0.3, -9999.0, rng.rand(n)).reshape(H, W)
+    for how in ("max", "sum"):
+        t0 = time.perf_counter()
+        a = fl.fillnodata(gaps, -9999.0, direction="down", how=how)
+        res[f"fillnodata_down_{how}_s"] = time.perf_counter() - t0
+        b = fl.fillnodata(gaps, -9999.0, direction="down", how=how)
+        _check(np.array_equal(a.view(np.int64), b.view(np.int64))
+               and bool((a[gaps != -9999.0] == gaps[gaps != -9999.0]).all()),
+               f'fillnodata(direction="down", how="{how}"): two calls, the same bits; '
+               "valid cells kept")
+    print(f"  fillnodata down: max {res['fillnodata_down_max_s']:.3f} s, sum "
+          f"{res['fillnodata_down_sum_s']:.3f} s")
+
+    t0 = time.perf_counter()
+    sb, outl = fl.subbasins_streamorder()
+    res["subbasins_streamorder_s"] = time.perf_counter() - t0
+    sbf = sb.ravel()
+    inner = (sbf > 0) & ~np.isin(ar, outl)
+    _check(sb.dtype == np.int32 and sb.max() == outl.size
+           and np.array_equal(sbf[outl], np.arange(1, outl.size + 1))
+           and np.array_equal(sbf[fl.idxs_ds[inner]], sbf[inner]),
+           f"subbasins_streamorder(): {outl.size} outlets, each its own basin's id, "
+           "basins closed")
+    t0 = time.perf_counter()
+    sa, outa = fl.subbasins_area(100.0)
+    res["subbasins_area_s"] = time.perf_counter() - t0
+    saf = sa.ravel()
+    _check(sa.dtype == np.uint32 and outa.size >= fl.idxs_pit.size
+           and np.array_equal(saf[outa], np.arange(1, outa.size + 1))
+           and int((saf > 0).sum()) == fl.nnodes,
+           f"subbasins_area(100 km2): {outa.size} outlets, each its own id, every valid "
+           "cell in a sub-basin")
+    res.update(subbasins_streamorder_outlets=int(outl.size),
+               subbasins_area_outlets=int(outa.size))
+    print(f"  subbasins_streamorder {res['subbasins_streamorder_s']:.3f} s, subbasins_area "
+          f"{res['subbasins_area_s']:.3f} s")
+    return _rows(rows_int, counts, "strahler 6000x6000", "int32"), res
 
 
 class _PlanBuilds:

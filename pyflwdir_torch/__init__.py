@@ -9,11 +9,13 @@ one on the same kernels (``ops.accel_big.BigAccelPlan``, up to 2^28 slots),
 the hierarchical tile plan upward, downward and band by band
 (``ops.tile_plan.TilePlan``, ``csrc/tile_kernels.cu``), saved and loaded
 (``ops.plan_io``, ``FlwdirRaster.save_plans`` / ``load_plans``, which also
-read the JAX package's plan directories) and the pointer-doubling graph
-primitives, behind
+read the JAX package's plan directories), the pointer-doubling graph
+primitives and stream order (``ops.order``: Strahler through the tile
+plan above 2^21 cells), behind
 ``from_array`` / ``from_dem`` -> ``FlwdirRaster.upstream_area`` /
 ``accuflux`` / ``rank`` / ``basins`` / ``stream_distance`` / ``hand`` /
-``fillnodata(direction="up")``, and sharded over the ranks of a
+``fillnodata`` / ``stream_order`` / ``subbasins_*`` / ``interbasin_mask``
+/ ``inflow_idxs`` / ``outflow_idxs``, and sharded over the ranks of a
 ``torch.distributed`` process group (``parallel``: ``make_mesh``,
 ``build_sharded_plan``, ``tiled_accumulate(method="plan")``,
 ``TilePlan.accumulate_sharded`` / ``accumulate_down_sharded``).

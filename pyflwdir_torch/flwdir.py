@@ -3,7 +3,10 @@
 Same constructor contract and accumulation dispatch as the JAX package's
 ``Flwdir``; inputs and outputs are numpy arrays, and the graph, its plans
 and the accumulation run on the object's ``device`` (CUDA unless the
-caller asks for the CPU). ``idxs_ds`` is int64.
+caller asks for the CPU). ``idxs_ds`` is int64. The Strahler order runs
+in the native host library over the DFS plan's preorder, as in the JAX
+package; the classic order, the main upstream cells and the nodata
+accumulations run by pointer doubling on the device.
 """
 
 from __future__ import annotations
@@ -11,13 +14,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import streams
+from . import runtime, streams
 from ._backend import resolve_device
 from .ops import graph
 
 __all__ = ["Flwdir"]
 
-_LATER = "is queued for a later slice of the PyTorch port (streams.py)"
+_LATER = "is queued for a later slice of the PyTorch port (ops/walk.py)"
 
 
 class Flwdir:
@@ -79,6 +82,14 @@ class Flwdir:
             self._cached["plan"] = build_plan(self._idxs_ds, device=self.device)
         return self._cached["plan"]
 
+    @property
+    def _tree(self):
+        """Device mask of the cells that reach a pit (not missing, not on or
+        above a cycle)."""
+        if "tree" not in self._cached:
+            self._cached["tree"] = torch.as_tensor(self.rank.ravel() >= 0, device=self.device)
+        return self._cached["tree"]
+
     def _accel(self):
         """Cached router plan (ops.accel.build_accel_plan): the single-chunk
         ``AccelPlan``, the large-graph ``BigAccelPlan``, or None past both."""
@@ -123,6 +134,14 @@ class Flwdir:
         return self._idxs_ds
 
     @property
+    def idxs_us_main(self):
+        """Linear indices of the main upstream cell (the largest upstream
+        area), -1 at headwaters."""
+        if "idxs_us_main" in self._cached:
+            return self._cached["idxs_us_main"]
+        return self.main_upstream()
+
+    @property
     def idxs_pit(self):
         """Linear indices of pits/outlets."""
         if self._pit is None:
@@ -159,6 +178,21 @@ class Flwdir:
             return self._cached["area"]
         return np.ones(self.size, dtype=np.float32)
 
+    @property
+    def n_upstream(self):
+        """Number of upstream cells of each cell (int8), -9 at missing cells."""
+        return graph.upstream_count(self._ds).cpu().numpy().reshape(self.shape)
+
+    def main_upstream(self, uparea=None):
+        """The main upstream cell of each cell by ``uparea`` (derived where
+        None), -1 at headwaters; of equal areas the lowest index. Cached as
+        ``idxs_us_main``."""
+        upa = torch.as_tensor(self._check_data(uparea, "uparea"), device=self.device)
+        idxs_us_main = graph.main_upstream(self._ds, upa).cpu().numpy()
+        if self.cache:
+            self._cached["idxs_us_main"] = idxs_us_main
+        return idxs_us_main
+
     ### GLOBAL ARITHMETICS ###
 
     def upstream_area(self):
@@ -170,16 +204,14 @@ class Flwdir:
 
     def fillnodata(self, data, nodata, direction="down", how="max"):
         """Fill nodata cells from the nearest valid value: ``direction="up"``
-        takes the first valid value downstream of each cell."""
+        takes the first valid value downstream of each cell, ``"down"`` the
+        min, max or sum (``how``) over the nearest valid cells upstream."""
         direction = str(direction).lower()
         dflat = torch.as_tensor(self._check_data(data, "data"), device=self.device)
         if direction == "up":
             dout = graph.fillnodata_upstream(self._ds, dflat, nodata)
         elif direction == "down":
-            raise NotImplementedError(
-                'fillnodata(direction="down") is queued for a later slice of the '
-                "PyTorch port (ops/graph.py subtree reductions)"
-            )
+            dout = graph.fillnodata_downstream(self._ds, dflat, nodata, how=how)
         else:
             raise ValueError(
                 f'Unknown flow direction: {direction}, select from ["up", "down"].'
@@ -188,15 +220,16 @@ class Flwdir:
 
     def accuflux(self, data, nodata=-9999, direction="up"):
         """Accumulated values along the flow directions: upstream sums
-        (``direction="up"``, data without ``nodata`` values) or the sum along
-        each cell's downstream path (``"down"``)."""
+        (``direction="up"``; nodata cells keep nodata and cut the flow from
+        their subtree, by pointer doubling) or the sum along each cell's
+        downstream path (``"down"``)."""
         data_np = self._check_data(data, "data")
         if direction == "up":
+            dflat = torch.as_tensor(data_np, device=self.device)
             if np.any(data_np == nodata):
-                raise NotImplementedError(
-                    f"accuflux of data holding nodata values {_LATER}"
-                )
-            accu = self._accumulate_dev(torch.as_tensor(data_np, device=self.device))
+                accu = streams.accuflux(self._ds, dflat, nodata=nodata, tree=self._tree)
+            else:
+                accu = self._accumulate_dev(dflat)
         elif direction == "down":
             accu = streams.accuflux_ds(
                 self._ds, torch.as_tensor(data_np, device=self.device), nodata=nodata
@@ -207,19 +240,71 @@ class Flwdir:
             )
         return accu.cpu().numpy().reshape(np.asarray(data).shape)
 
+    def smooth_rivlen(self, rivlen, min_rivlen, max_window=10, nodata=-9999.0):
+        """River lengths below ``min_rivlen`` smoothed over a window of up to
+        ``max_window`` cells along the main stem (the native sequential
+        sweep)."""
+        out = streams.smooth_rivlen(
+            self._idxs_ds,
+            self.idxs_us_main,
+            self._check_data(rivlen, "rivlen"),
+            min_rivlen=min_rivlen,
+            max_window=max_window,
+            nodata=nodata,
+        )
+        return out.reshape(np.asarray(rivlen).shape)
+
+    ### STREAMS ###
+
+    def stream_order(self, type="strahler", mask=None):
+        """Strahler (default) or classic stream order (uint8). Strahler runs
+        in the native host library over the DFS plan's preorder (cached where
+        there is no mask); classic by pointer doubling on the device."""
+        mask = self._check_data(mask, "mask", optional=True)
+        if type.lower() == "strahler":
+            if mask is None and "strord" in self._cached:
+                return self._cached["strord"].reshape(self.shape)
+            strord = runtime.strahler_order(
+                self._idxs_ds, self._plan.preorder_np, mask=None if mask is None else mask != 0
+            )
+            if self.cache and mask is None:
+                self._cached["strord"] = strord
+        elif type.lower() == "classic":
+            strord = streams.stream_order(
+                self._ds,
+                torch.as_tensor(self.idxs_us_main, device=self.device),
+                mask=None if mask is None else torch.as_tensor(mask != 0, device=self.device),
+            ).cpu().numpy()
+        else:
+            raise ValueError(f"Unknown stream order type: {type}")
+        return strord.reshape(self.shape)
+
     ### SHORTCUTS ###
 
-    def _check_data(self, data, name, optional=False):
-        """Check the data size and return it flattened (a scalar is
-        broadcast); None stays None where ``optional``."""
+    def _check_data(self, data, name, optional=False, flatten=True, **kwargs):
+        """Check the data's size (``flatten``) or shape and return it
+        flattened or as given; a scalar is broadcast. None stays None where
+        ``optional``; a None ``uparea`` or ``strord`` is derived
+        (:meth:`upstream_area`, :meth:`stream_order` with ``kwargs``)."""
         if data is None and optional:
             return None
+        if data is None:
+            if name == "uparea":
+                data = self.upstream_area(**kwargs)
+            elif name == "strord":
+                data = self.stream_order(**kwargs)
         data = np.atleast_1d(data)
+        if flatten:
+            if data.size == 1:
+                data = np.full(self.size, data.item(), dtype=data.dtype)
+            elif data.size != self.size:
+                raise ValueError(f'"{name}" size does not match.')
+            return np.ascontiguousarray(data.ravel())
         if data.size == 1:
-            data = np.full(self.size, data.item(), dtype=data.dtype)
-        elif data.size != self.size:
-            raise ValueError(f'"{name}" size does not match.')
-        return np.ascontiguousarray(data.ravel())
+            data = np.full(self.shape, data.item(), dtype=data.dtype)
+        elif data.shape != self.shape:
+            raise ValueError(f'"{name}" shape does not match.')
+        return data
 
     def _check_idxs_xy(self, idxs, streams=None):
         """Linear indices, flattened. Snapping them to ``streams`` is not

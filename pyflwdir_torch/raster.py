@@ -1,7 +1,9 @@
 """FlwdirRaster, ``from_array`` and ``from_dem``: the raster flow-direction
 object, the subset ported so far: shape, mask, transform, area, rank;
-upstream area and accumulation; basins, stream distance, height above the
-nearest drain and nodata filling from downstream. Above 2^21 cells these
+upstream area and accumulation; basins, sub-basins and the interbasin mask,
+inflow and outflow cells, stream order, stream distance, height above the
+nearest drain and nodata filling. Above 2^21 cells the accumulations, the
+Strahler order (one tile-plan accumulation a level) and the downward sweeps
 run through the tile plan (``ops/tile_plan.py``: ``accumulate`` upward,
 ``accumulate_down`` downward), below it through the single-chunk plans and
 pointer doubling.
@@ -20,6 +22,7 @@ from . import streams as streams_mod
 from ._backend import resolve_device
 from .codecs import FTYPES, infer_ftype
 from .flwdir import Flwdir
+from .ops import graph
 from .utils import geodesy
 from .utils.affine import IDENTITY, Affine
 
@@ -253,6 +256,34 @@ class FlwdirRaster(Flwdir):
             return super()._accumulate_dev(data)
         return self._tile_plan().accumulate(data)
 
+    def stream_order(self, type="strahler", mask=None):
+        """Strahler (default) or classic stream order (uint8). Above the
+        tile-plan threshold a Strahler order of a D8 raster with no mask runs
+        on the device through the cached tile plan
+        (:func:`pyflwdir_torch.ops.order.strahler_tile_plan`, the D8 codes
+        made on the device from the graph) and is cached; otherwise as
+        :meth:`Flwdir.stream_order`."""
+        if (
+            str(type).lower() == "strahler"
+            and mask is None
+            and self.ftype == "d8"
+            and self.size > self._TILE_PLAN_MIN
+        ):
+            if "strord" in self._cached:
+                return self._cached["strord"].reshape(self.shape)
+            from .ops.order import d8_codes, strahler_tile_plan
+
+            codes = self._cached.get("d8_codes")
+            if codes is None:  # kept, so the plan's cached grids stay keyed to it
+                codes = d8_codes(self._ds, self.shape)
+                if self.cache:
+                    self._cached["d8_codes"] = codes
+            strord = strahler_tile_plan(codes, self._tile_plan()).cpu().numpy()
+            if self.cache:
+                self._cached["strord"] = strord.ravel()
+            return strord.reshape(self.shape)
+        return super().stream_order(type=type, mask=mask)
+
     def upstream_area(self, unit="cell"):
         """Upstream area map: -9999 outside the mask; int32 in cells, float64
         in an area unit."""
@@ -318,6 +349,84 @@ class FlwdirRaster(Flwdir):
             out = self._down_np(self._tp_down(cut=cut), w)
             return np.where(self.mask, out, 0).astype(ids_np.dtype).reshape(self.shape)
         return basins_mod.basins(self._ds, idxs, ids=ids).reshape(self.shape)
+
+    def subbasins_streamorder(self, strord=None, mask=None, min_sto=-2):
+        """Sub-basins split where the stream order (derived where None)
+        changes: (int32 label map, outlet indices numbered up- to
+        downstream)."""
+        mask = self._check_data(mask, "mask", optional=True)
+        subbas, idxs_out = basins_mod.subbasins_streamorder(
+            self._ds,
+            self._check_data(strord, "strord"),
+            self.rank.ravel(),
+            mask=None if mask is None else torch.as_tensor(mask != 0, device=self.device),
+            min_sto=min_sto,
+        )
+        return subbas.cpu().numpy().reshape(self.shape), idxs_out
+
+    def subbasins_pfafstetter(self, depth=1, uparea=None, upa_min=0.0):
+        """Pfafstetter sub-basins to ``depth`` digits over the cells whose
+        ``uparea`` (in cells, derived where None) is at least ``upa_min``:
+        (int32 label map, outlet indices)."""
+        uparea = self._check_data(uparea, "uparea")
+        mask = uparea >= upa_min if upa_min is not None else None
+        subbas, idxs_out = basins_mod.subbasins_pfafstetter(
+            self.idxs_pit,
+            self._ds,
+            torch.as_tensor(self.idxs_us_main, device=self.device),
+            torch.as_tensor(uparea, device=self.device),
+            self.rank.ravel(),
+            mask=None if mask is None else torch.as_tensor(mask, device=self.device),
+            depth=depth,
+        )
+        return subbas.cpu().numpy().reshape(self.shape), idxs_out
+
+    def subbasins_area(self, area_min, uparea=None):
+        """Sub-basins of at least ``area_min`` (``uparea`` in km2, derived
+        where None): (uint32 label map, outlet indices)."""
+        subbas, idxs_out = basins_mod.subbasins_area(
+            self._idxs_ds,
+            self.rank.ravel(),
+            self.idxs_us_main,
+            self._check_data(uparea, "uparea", unit="km2"),
+            area_min,
+            device=self.device,
+        )
+        return subbas.reshape(self.shape), idxs_out
+
+    def interbasin_mask(self, region, stream=None):
+        """The most downstream contiguous area within ``region``, and, with
+        ``stream``, of the basins that hold a ``stream`` cell."""
+        stream = self._check_data(stream, "stream", optional=True)
+        mask = basins_mod.interbasin_mask(
+            self._ds,
+            torch.as_tensor(self._check_data(region, "region") != 0, device=self.device),
+            stream=None if stream is None else torch.as_tensor(stream != 0, device=self.device),
+        )
+        return mask.cpu().numpy().reshape(self.shape)
+
+    def inflow_idxs(self, region):
+        """The most upstream cells that flow into ``region`` from outside."""
+        region = torch.as_tensor(self._check_data(region, "region") != 0, device=self.device)
+        ds = self._ds
+        ar = torch.arange(self.size, dtype=ds.dtype, device=self.device)
+        dsl = graph.self_loop(ds)
+        cand = (ds >= 0) & ~region & region[dsl] & (dsl != ar)
+        cnt = graph.accumulate(ds, cand.to(torch.int32), tree=self._tree)
+        return np.flatnonzero((cand & (cnt == 1)).cpu().numpy()).astype(self._idxs_ds.dtype)
+
+    def outflow_idxs(self, region):
+        """The most downstream cells of ``region``: cells of the region that
+        leave it (a pit or a step out) with no such cell below them."""
+        region = torch.as_tensor(self._check_data(region, "region") != 0, device=self.device)
+        ds = self._ds
+        ar = torch.arange(self.size, dtype=ds.dtype, device=self.device)
+        dsl = graph.self_loop(ds)
+        crossing = (ds >= 0) & region & ((dsl == ar) | ~region[dsl])
+        cross = crossing.to(torch.int32)
+        below = graph.path_sum(ds, cross) - cross + cross[graph.reach(ds, None)]
+        return np.flatnonzero((crossing & (below == 0)).cpu().numpy()).astype(
+            self._idxs_ds.dtype)
 
     def stream_distance(self, mask=None, unit="cell"):
         """Distance to the outlet, or to the next downstream cell of
@@ -416,6 +525,13 @@ class FlwdirRaster(Flwdir):
         return hand.reshape(self.shape).astype(np.float64)
 
     ### SHORTCUTS ###
+
+    def _check_data(self, data, name, optional=False, flatten=True, **kwargs):
+        """:meth:`Flwdir._check_data`, which also derives a None ``basins``
+        (:meth:`basins` with ``kwargs``)."""
+        if data is None and name == "basins" and not optional:
+            data = self.basins(**kwargs)
+        return super()._check_data(data, name, optional, flatten=flatten, **kwargs)
 
     def _check_idxs_xy(self, idxs=None, xy=None, streams=None):
         if (xy is not None and idxs is not None) or (xy is None and idxs is None):

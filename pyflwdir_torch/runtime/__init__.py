@@ -3,8 +3,10 @@
 Binds only what the port uses so far: the priority-flood depression fill,
 the DFS preorder, the LUT flow-direction parser, the sequential
 accumulation sweeps upward and downward (the oracles the device paths are
-held against) and the tile plan's per-tile DFS, bijection padding and
-downward sort phase. The library is
+held against), the tile plan's per-tile DFS, bijection padding and
+downward sort phase, the Strahler and classic stream-order sweeps, the
+stream segments, the river-length smoothing and the area sub-basin
+outlets. The library is
 git-ignored; at first use it is built with ``make -C csrc``, and a failed
 build raises.
 """
@@ -26,6 +28,11 @@ __all__ = [
     "tile_pad_bijection",
     "tile_down_phase",
     "downward_sweep",
+    "strahler_order",
+    "classic_order",
+    "stream_segments",
+    "smooth_rivlen",
+    "subbasin_area_outlets",
 ]
 
 _CSRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "..", "csrc"))
@@ -36,6 +43,7 @@ _I32P = ctypes.POINTER(ctypes.c_int32)
 _I8P = ctypes.POINTER(ctypes.c_int8)
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 _F64P = ctypes.POINTER(ctypes.c_double)
+_U32P = ctypes.POINTER(ctypes.c_uint32)
 
 _LIB = []  # the loaded library, once
 
@@ -87,6 +95,31 @@ def _lib():
     ]
     lib.downward_sweep.restype = None
     lib.downward_sweep.argtypes = [_I64P, _I64P, ctypes.c_int64, _F64P, _F64P]
+    lib.strahler_order_host.restype = None
+    lib.strahler_order_host.argtypes = [
+        _I64P, _I64P, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, _U8P,
+    ]
+    lib.classic_order_host.restype = None
+    lib.classic_order_host.argtypes = [
+        _I64P, _I64P, _I64P, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, _I8P,
+        _U8P,
+    ]
+    for name in ("stream_segments_count", "stream_segments_fill"):
+        getattr(lib, name).restype = None
+        getattr(lib, name).argtypes = [
+            _I64P, _I64P, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, _I32P,
+            ctypes.c_int64, _I64P, _I64P,
+        ]
+    lib.smooth_rivlen_host.restype = None
+    lib.smooth_rivlen_host.argtypes = [
+        _I64P, _I64P, ctypes.c_int64, _F64P, ctypes.c_double, ctypes.c_int64,
+        ctypes.c_double,
+    ]
+    lib.subbasin_area_outlets.restype = ctypes.c_int64
+    lib.subbasin_area_outlets.argtypes = [
+        _I64P, _I64P, _I64P, ctypes.c_int64, ctypes.c_int64, _F64P, ctypes.c_double,
+        _U32P, _I64P,
+    ]
     _LIB.append(lib)
     return lib
 
@@ -325,3 +358,110 @@ def downward_sweep(idxs_ds, seq, w):
         w.ctypes.data_as(_F64P), out.ctypes.data_as(_F64P),
     )
     return out
+
+
+def _i64(a):
+    return np.ascontiguousarray(a, dtype=np.int64)
+
+
+def _mask_arg(mask):
+    """``mask`` as a contiguous uint8 array and its pointer; (None, None)
+    for no mask. Keep the array alive while the pointer is in use."""
+    if mask is None:
+        return None, None
+    m = np.ascontiguousarray(mask, dtype=np.uint8).ravel()
+    return m, m.ctypes.data_as(ctypes.c_void_p)
+
+
+def strahler_order(idxs_ds, preorder, mask=None):
+    """Strahler order (uint8) by one sweep over the DFS ``preorder``
+    reversed (``csrc/host_kernels.cpp::strahler_order_host``); cells outside
+    ``mask`` are 0 and invisible to their downstream cells."""
+    ids = _i64(idxs_ds)
+    pre = _i64(preorder)
+    out = np.zeros(ids.size, dtype=np.uint8)
+    _keep, mask_p = _mask_arg(mask)
+    _lib().strahler_order_host(
+        ids.ctypes.data_as(_I64P), pre.ctypes.data_as(_I64P), pre.size, ids.size,
+        mask_p, out.ctypes.data_as(_U8P),
+    )
+    return out
+
+
+def classic_order(idxs_ds, preorder, idxs_us_main, nup, mask=None):
+    """Classic (Hack) order (uint8) by one sweep over the DFS ``preorder``
+    (``csrc/host_kernels.cpp::classic_order_host``): main stems 1, each
+    tributary one above the stream it joins. ``nup`` is the int8 upstream
+    count."""
+    ids = _i64(idxs_ds)
+    pre = _i64(preorder)
+    usm = _i64(idxs_us_main)
+    nup8 = np.ascontiguousarray(nup, dtype=np.int8)
+    out = np.zeros(ids.size, dtype=np.uint8)
+    _keep, mask_p = _mask_arg(mask)
+    _lib().classic_order_host(
+        ids.ctypes.data_as(_I64P), pre.ctypes.data_as(_I64P),
+        usm.ctypes.data_as(_I64P), pre.size, ids.size, mask_p,
+        nup8.ctypes.data_as(_I8P), out.ctypes.data_as(_U8P),
+    )
+    return out
+
+
+def stream_segments(nxt, order, nup, mask=None, max_len=0):
+    """Confluence-to-confluence stream reaches in CSR form, reaches longer
+    than ``max_len`` cut into pieces and a stub appended at each pit
+    (``csrc/network_kernels.cpp::stream_segments_count/fill``). ``order``
+    lists the segment heads up- to downstream. Returns ``(seg_off, data)``,
+    int64."""
+    lib = _lib()
+    nxt = _i64(nxt)
+    order = _i64(order)
+    nup32 = np.ascontiguousarray(nup, dtype=np.int32)
+    _keep, mask_p = _mask_arg(mask)
+    nseg = np.zeros(1, dtype=np.int64)
+    ndata = np.zeros(1, dtype=np.int64)
+    args = (nxt.ctypes.data_as(_I64P), order.ctypes.data_as(_I64P), order.size, nxt.size,
+            mask_p, nup32.ctypes.data_as(_I32P), int(max_len))
+    lib.stream_segments_count(*args, nseg.ctypes.data_as(_I64P), ndata.ctypes.data_as(_I64P))
+    seg_off = np.empty(int(nseg[0]) + 1, dtype=np.int64)
+    data = np.empty(int(ndata[0]), dtype=np.int64)
+    lib.stream_segments_fill(*args, seg_off.ctypes.data_as(_I64P), data.ctypes.data_as(_I64P))
+    return seg_off, data
+
+
+def smooth_rivlen(nxt, us_main, rivlen, min_rivlen, max_window, nodata):
+    """River lengths below ``min_rivlen`` smoothed over a growing window, in
+    cell order (``csrc/network_kernels.cpp::smooth_rivlen_host``). Returns a
+    new float64 array."""
+    nxt = _i64(nxt)
+    us = _i64(us_main)
+    out = np.array(rivlen, dtype=np.float64).ravel()
+    if not (us.size == out.size == nxt.size):
+        raise ValueError("us_main and rivlen must hold one value per cell")
+    _lib().smooth_rivlen_host(
+        nxt.ctypes.data_as(_I64P), us.ctypes.data_as(_I64P), nxt.size,
+        out.ctypes.data_as(_F64P), float(min_rivlen), int(max_window), float(nodata),
+    )
+    return out
+
+
+def subbasin_area_outlets(nxt, us_main, order, uparea, area_min):
+    """Outlets of sub-basins of at least ``area_min`` by one down- to
+    upstream sweep over ``order``
+    (``csrc/network_kernels.cpp::subbasin_area_outlets``). Returns
+    ``(labels, outlets)``: uint32 labels at the outlets (0 elsewhere) and
+    the int64 outlet cells."""
+    nxt = _i64(nxt)
+    us = _i64(us_main)
+    order = _i64(order)
+    upa = np.ascontiguousarray(uparea, dtype=np.float64).ravel()
+    if not (us.size == upa.size == nxt.size):
+        raise ValueError("us_main and uparea must hold one value per cell")
+    labels = np.zeros(nxt.size, dtype=np.uint32)
+    outlets = np.empty(nxt.size, dtype=np.int64)
+    k = _lib().subbasin_area_outlets(
+        nxt.ctypes.data_as(_I64P), us.ctypes.data_as(_I64P), order.ctypes.data_as(_I64P),
+        order.size, nxt.size, upa.ctypes.data_as(_F64P), float(area_min),
+        labels.ctypes.data_as(_U32P), outlets.ctypes.data_as(_I64P),
+    )
+    return labels, outlets[:k]

@@ -841,3 +841,46 @@ def test_fill_and_d8_match_cpu(dev):
     want = tfill.fill_depressions_dev(z, device="cpu")
     assert torch.equal(got.cpu(), want)
     assert torch.equal(tfill.d8_from_filled(got).cpu(), tfill.d8_from_filled(want))
+
+
+def test_strahler_tile_plan_and_float_sums(dev):
+    """Strahler through a 300 x 260 tile plan (the router coarse level
+    forced) on the card: the CPU plan's result and the native sweep's,
+    with T1, T2 and the coarse H1-H3 once a level; then a float64
+    ``graph.accumulate`` (the fixed-order scatter) twice with the same
+    bits, and against the CPU within the stated rule."""
+    from pyflwdir_torch import runtime
+    from pyflwdir_torch.codecs import d8 as td8
+    from pyflwdir_torch.ops import graph, order
+
+    shape = (300, 260)
+    ids = _demo_ids(shape, seed=9, missing=True)
+    codes = td8.to_array(ids, shape)
+    old = ttp._COARSE_ROUTER_MIN
+    ttp._COARSE_ROUTER_MIN = 1
+    try:
+        gpu = ttp.build_tile_plan(ids, shape, device="cuda")
+        cpu = ttp.build_tile_plan(ids, shape, device="cpu")
+    finally:
+        ttp._COARSE_ROUTER_MIN = old
+    kernels.reset_launches()
+    got = order.strahler_tile_plan(codes, gpu).cpu()
+    levels = int(got.max()) - 1
+    assert levels >= 3
+    up = ("tile_pass_a", "accel_in_scan", "accel_near_out", "accel_far_merge", "tile_pass_c")
+    assert all(kernels.launches[k] == (levels if k in up else 0) for k in kernels.launches), \
+        kernels.launches
+    assert torch.equal(got, order.strahler_tile_plan(codes, cpu))
+    native = runtime.strahler_order(ids, runtime.dfs_preorder(ids)[0])
+    assert np.array_equal(got.numpy().ravel(), native)
+
+    x = torch.as_tensor(np.random.RandomState(3).rand(ids.size))
+    d = torch.as_tensor(ids, device=dev)
+    a = graph.accumulate(d, x.to(dev))
+    b = graph.accumulate(d, x.to(dev))
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int64), b.view(torch.int64))
+    want = graph.accumulate(torch.as_tensor(ids), x)
+    nup = np.bincount(ids[(ids >= 0) & (ids != np.arange(ids.size))], minlength=ids.size)
+    length = graph._n_rounds(ids.size) * int(nup.max())
+    _assert_match(a.cpu(), want, float(x.sum()), length)

@@ -126,12 +126,19 @@ def test_no_gpu_and_no_device_raises(d8_small, monkeypatch):
 
 def test_later_slices_raise(d8_small):
     t = pyflwdir_torch.from_array(d8_small, device="cpu")
+    j = pyflwdir_tpu.from_array(d8_small)
     data = np.ones(t.shape, np.float32)
     data[3, 3] = -9999
-    with pytest.raises(NotImplementedError, match="later slice"):
-        t.accuflux(data)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        t.fillnodata(np.ones(t.shape), -9999, direction="down")
+    # no longer later slices: accuflux of data with nodata and
+    # fillnodata(direction="down") against the JAX package
+    got = t.accuflux(data)
+    assert got.dtype == np.float32 and np.array_equal(got, j.accuflux(data))
+    assert got[3, 3] == -9999
+    fdata = np.where(np.random.RandomState(5).rand(*t.shape) < 0.4, -9999.0,
+                     np.arange(t.size).reshape(t.shape) + 1.0)
+    for how in ("max", "min", "sum"):
+        assert np.array_equal(t.fillnodata(fdata, -9999, direction="down", how=how),
+                              j.fillnodata(fdata, -9999, direction="down", how=how))
     with pytest.raises(NotImplementedError, match="later slice"):
         t.basins(idxs=[3], streams=np.ones(t.shape, bool))
     with pytest.raises(ValueError):

@@ -52,7 +52,29 @@ Run from the repository root:  python3 chip_smoke.py [--json PATH]
    read after: stream_distance() and basins() (int32), stream_distance("m")
    and hand() (float64 sums), each against a sequential host sweep;
    accumulate_down of one float64 input twice (the same bits) and against
-   the sweep; one int32 accumulate_down timed.
+   the sweep; one int32 accumulate_down timed. Then the surface phase on
+   the same raster and plan, each step timed (host clock, synchronised)
+   with the launch counters zeroed before each group and read after:
+   100,000 seeded cells snapped to the streams (1,000 cells of upstream
+   area or more; host walks, no kernel), each end a stream cell or a pit
+   and the last cell of its path(), which follows the flow and meets no
+   stream cell before it; basins(idxs=ends) (one cut-graph downward sweep:
+   T3, the coarse H1 and H0, T4, each then held against its plain version
+   on that cut plan's tables) and add_pits(streams=...)
+   on a copy of the raster, whose next upstream_area() builds a new plan
+   and equals the native sweep of the new graph; path(unit="m") from 1,000
+   headwaters, each to a pit, its length distnc at its head within the
+   rule; moving_average and moving_median (n = 5, float32, -9999 nodata)
+   without and with restrict_strord (T1, T2 and the coarse H1-H3 once a
+   Strahler level), held to np.nanmedian and a float64 mean of the walk's
+   windows at 100,000 cells, and on a 1024x1024 crop the card to the CPU
+   run; upstream_sum int32 bitwise against np.add.at, float64 twice with
+   the same bits; idxs_seq against the host's stable argsort of rank;
+   basin_bounds() and basin_outlets() of basins() bitwise against numpy
+   copies of the JAX formulas; a checkpoint.save_sharded / load_sharded
+   round trip, upstream_area() bitwise; streams(min_sto=4). On the Rhine
+   path (2), vectorize(), spread2d and region_dissolve of its basins, and
+   dump / load.
 5. 1-D path: the 6000x6000 graph as a ``Flwdir`` of 36 M nodes, past 2^21
    cells, so ``BigAccelPlan`` (G1 = 18, n_pad 37,748,736): H1-H3 at its
    shapes, int32 and float64, against their plain versions, and two float64
@@ -608,14 +630,14 @@ def tile_down_a_rows(tp, dtype, dev, modes, tag=""):
     return rows, x, raw
 
 
-def tile_down_kernel_phase(tp, dtype, dev, tag=""):
-    """T3 (both modes), the coarse level's downward H1 and H0 calls and T4
-    in ``dtype`` against their plain versions on the shapes of the tile plan
-    ``tp``, each with the inputs the downward sweep gives it; ``tag`` goes
-    into the rows' names."""
+def tile_down_kernel_phase(tp, dtype, dev, tag="", modes=("raw", "routed")):
+    """T3 (in ``modes``, raw among them), the coarse level's downward H1 and
+    H0 calls and T4 in ``dtype`` against their plain versions on the shapes
+    of the tile plan ``tp``, each with the inputs the downward sweep gives
+    it; ``tag`` goes into the rows' names."""
     from pyflwdir_torch import kernels
 
-    rows, x, (z1, pk) = tile_down_a_rows(tp, dtype, dev, ("raw", "routed"), tag)
+    rows, x, (z1, pk) = tile_down_a_rows(tp, dtype, dev, modes, tag)
     s = x.element_size()
     n = x.numel()
     t, d = tp.idx_t, tp.down_idx_t
@@ -1387,9 +1409,61 @@ def rhine_path(dev):
            and np.array_equal(pf[fl.idxs_ds[inner]], pf[inner]),
            f"subbasins_pfafstetter(depth=2) in {pfaf_s:.3f} s: {pf_out.size} outlets, labels "
            "1-99 on every valid cell, basins closed")
+    surface = rhine_surface(fl, upa)
     out = _rows(rows, counts, "rhine 997x682", "float32")
     return out, dict(accumulate_ms=acc_ms, accumulate_device_ms=acc_dev_ms,
-                     upstream_area_ms=up_ms, main_path_s=t_main, pfafstetter_s=pfaf_s)
+                     upstream_area_ms=up_ms, main_path_s=t_main, pfafstetter_s=pfaf_s,
+                     surface=surface)
+
+
+def rhine_surface(fl, upa):
+    """The object surface at the Rhine size on the raster ``fl`` (``upa``:
+    its upstream area in cells): vectorize, spread2d and region_dissolve of
+    its basins, dump and load; each timed (host clock, synchronised) and
+    checked. Returns the timings."""
+    import pyflwdir_torch
+
+    print(" surface (Rhine size):")
+    times = {}
+    valid = fl.mask
+    feats = _timed(times, "vectorize", fl.vectorize)
+    heads = np.flatnonzero(valid)
+    xs, ys = fl.xy(heads[::997])
+    xd, yd = fl.xy(fl.idxs_ds[heads[::997]])
+    sample = feats[::997]
+    _check(len(feats) == heads.size and all(
+        f["geometry"]["coordinates"] == [(a, b), (c, d)]
+        for f, a, b, c, d in zip(sample, xs, ys, xd, yd)),
+        f"vectorize(): {len(feats)} features, one a valid cell, from the cell to its "
+        "downstream cell")
+    del feats
+    bas = _timed(times, "basins", fl.basins)
+    lbs, size = np.unique(bas[bas > 0], return_counts=True)
+    small = lbs[size < 50]
+    keep = np.where(np.isin(bas, small), 0, bas)
+    out, src, dst = _timed(times, "spread2d", lambda: pyflwdir_torch.spread2d(
+        keep, nodata=0, latlon=True, transform=fl.transform))
+    _check(bool(np.all(out.ravel() == keep.ravel()[src.ravel()])) and bool(np.all(dst >= 0))
+           and bool(np.all(out[keep > 0] == keep[keep > 0])),
+           "spread2d: every cell takes the value of its source cell, sources keep theirs")
+    dis = _timed(times, "region_dissolve", lambda: pyflwdir_torch.regions.region_dissolve(
+        bas, labels=small, latlon=True, transform=fl.transform))
+    _check(not np.isin(dis, small).any() and np.array_equal(dis[keep > 0], bas[keep > 0])
+           and bool(np.all(np.isin(dis[np.isin(bas, small)], lbs[size >= 50]))),
+           f"region_dissolve: {small.size} basins under 50 cells dissolved into the "
+           f"{lbs.size - small.size} others, the others unchanged")
+    tmp = tempfile.mkdtemp(prefix="_plan_tmp", dir=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        fn = os.path.join(tmp, "flw.pkl")
+        _timed(times, "dump", lambda: fl.dump(fn))
+        fl2 = _timed(times, "load", lambda: pyflwdir_torch.FlwdirRaster.load(fn))
+        _check(fl2.device.type == "cuda" and np.array_equal(fl2.idxs_ds, fl.idxs_ds)
+               and tuple(fl2.transform) == tuple(fl.transform)
+               and np.array_equal(fl2.upstream_area(), upa),
+               "dump / load: the same raster on the card, upstream_area() bitwise equal")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return times
 
 
 def _host_ms(fn, reps):
@@ -1502,14 +1576,15 @@ def tile_path(dev):
     order_rows, order = order_path(fl, tp, seq, rows[torch.int32], dev)
     out += order_rows
     down_rows, down = tile_down_path(fl, tp, elev, upa, seq, dev)
+    surface_rows, surface = surface_path(fl, tp, d8, upa, dev)
     banded_rows, banded = banded_path(
         fl, tp, upa, seq, dict(tile_plan_s=t_plan, down_indices_s=down["down_indices_s"]), dev)
     sharded_rows, sharded = sharded_path(fl, d8, seq, dev)
     big_rows, big = big_path(fl, upa, seq, dict(ms=acc_ms, device_ms=acc_dev_ms), dev)
     cut_rows, cut = cut_path(fl, elev, upa, dev)
-    rows = out + down_rows + banded_rows + sharded_rows + big_rows + cut_rows
+    rows = out + down_rows + surface_rows + banded_rows + sharded_rows + big_rows + cut_rows
     return rows, (z, elev, d8), dict(
-        order=order, down=down, banded=banded, sharded=sharded, big=big, cut=cut,
+        order=order, down=down, surface=surface, banded=banded, sharded=sharded, big=big, cut=cut,
         accumulate_ms=acc_ms, accumulate_device_ms=acc_dev_ms, upstream_area_ms=up_ms,
         main_path_int32_s=t_int, main_path_float64_s=t_f64, fill_s=t_fill, parse_s=t_parse,
         tile_plan_s=t_plan, tile_plan_steps_s=tp.build_seconds, NT=tp.NT, R_pad=tp.R_pad,
@@ -1668,6 +1743,361 @@ def order_path(fl, tp, seq, rows_int, dev):
     print(f"  subbasins_streamorder {res['subbasins_streamorder_s']:.3f} s, subbasins_area "
           f"{res['subbasins_area_s']:.3f} s")
     return _rows(rows_int, counts, "strahler 6000x6000", "int32"), res
+
+
+SNAP_SEEDS = 100_000  # cells snapped to the streams of the surface phase
+STREAM_CELLS = 1_000  # streams: cells draining at least this many cells
+PATH_HEADS = 1_000  # headwaters whose paths the surface phase walks
+WINDOW_N = 5  # the moving windows' half width
+ORACLE_CELLS = 100_000  # cells the moving windows are held to a numpy oracle at
+
+
+def _window_np(ids, usm, n, cells, strord=None):
+    """The walk's window of ``cells`` on the host: row n the cells, rows n+1..2n
+    the steps downstream (stopping before a higher stream order than the
+    cell's own, with ``strord``), rows n-1..0 the steps up the main upstream
+    cells; -1 where absent."""
+    ar = np.arange(ids.size)
+    ds = np.where(ids < 0, ar, ids)
+    win = np.full((2 * n + 1, cells.size), -1, dtype=np.int64)
+    win[n] = cells
+    cur, stopped = cells.copy(), ids[cells] < 0
+    for k in range(1, n + 1):
+        nxt = ds[np.maximum(cur, 0)]
+        stop = (nxt == cur) | (cur < 0)
+        if strord is not None:
+            stop |= strord[np.maximum(nxt, 0)] > strord[cells]
+        stopped |= stop
+        cur = np.where(stopped, -1, nxt)
+        win[n + k] = cur
+    cur, stopped = cells.copy(), ids[cells] < 0
+    for k in range(1, n + 1):
+        nxt = np.where(cur >= 0, usm[np.maximum(cur, 0)], -1)
+        stopped |= nxt < 0
+        cur = np.where(stopped, -1, nxt)
+        win[n - k] = cur
+    return win
+
+
+def _label_extents_np(regions):
+    """The label extents of the JAX package's ``regions._label_extents``, in
+    numpy (ufunc ``at`` reductions on the host)."""
+    nrow, ncol = regions.shape
+    flat = regions.ravel()
+    cells = np.nonzero(flat > 0)[0]
+    lbs, inv = np.unique(flat[cells], return_inverse=True)
+    rows, cols = cells // ncol, cells % ncol
+    k = lbs.size
+    rmin, cmin = np.full(k, nrow, np.int64), np.full(k, ncol, np.int64)
+    rmax, cmax = np.full(k, -1, np.int64), np.full(k, -1, np.int64)
+    np.minimum.at(rmin, inv, rows)
+    np.maximum.at(rmax, inv, rows)
+    np.minimum.at(cmin, inv, cols)
+    np.maximum.at(cmax, inv, cols)
+    return lbs, rmin, rmax, cmin, cmax
+
+
+def _bounds_np(regions, transform):
+    """The JAX package's ``regions.region_bounds``, in numpy."""
+    lbs, rmin, rmax, cmin, cmax = _label_extents_np(regions)
+    xres, yres, xoff, yoff = transform[0], transform[4], transform[2], transform[5]
+    xa, xb = xoff + cmin * xres, xoff + (cmax + 1) * xres
+    ya, yb = yoff + rmin * yres, yoff + (rmax + 1) * yres
+    bboxs = np.stack([np.minimum(xa, xb), np.minimum(ya, yb), np.maximum(xa, xb),
+                      np.maximum(ya, yb)], axis=1)
+    return lbs, bboxs, np.hstack([bboxs[:, :2].min(axis=0), bboxs[:, 2:].max(axis=0)])
+
+
+def _outlets_np(regions, ids):
+    """The JAX package's ``regions.region_outlets``, in numpy."""
+    lb = regions.ravel()
+    ar = np.arange(ids.size)
+    ds = np.where(ids < 0, ar, ids)
+    is_out = (ids >= 0) & (lb > 0) & ((ds == ar) | (lb[ds] != lb))
+    out = np.flatnonzero(is_out)
+    sort = np.argsort(lb[out], kind="stable")
+    return lb[out][sort], out[sort]
+
+
+def _timed(times, key, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    times[key] = time.perf_counter() - t0
+    return out
+
+
+def _launched(counts, names):
+    return all(counts.get(k, 0) > 0 for k in names)
+
+
+def surface_path(fl, tp, d8, upa, dev):
+    """The object surface on the 6000x6000 raster ``fl`` and its plan ``tp``
+    (``d8`` its codes, ``upa`` its upstream area in cells): snapping, paths,
+    moving windows, upstream sums, the cell order, basin bounds and outlets,
+    a checkpoint and stream features, each step timed (host clock,
+    synchronised) and checked, with the launch counters zeroed before each
+    group and read after. Returns the kernel rows of the downward sweep of
+    basins(idxs=snapped), measured on its own cut plan, and the timings."""
+    import pyflwdir_torch
+    from pyflwdir_torch import checkpoint, kernels, runtime
+    from pyflwdir_torch.ops import walk
+    from pyflwdir_torch.utils import geodesy
+
+    print(" surface phase (snapping, paths, moving windows, regions, checkpoint):")
+    H, W = fl.shape
+    n = fl.size
+    ids, valid = fl.idxs_ds, fl.mask
+    ar = np.arange(n, dtype=np.int64)
+    rng = np.random.RandomState(SEED + 5)
+    times, res = {}, {}
+    up_kernels = ("tile_pass_a", "tile_pass_c", *_UP)
+    down_kernels = ("tile_down_a", "tile_down_fin", "accel_in_scan", "permute_gather")
+
+    # 1. snapping to streams, the basins of the snapped cells, add_pits
+    stream = upa.ravel() >= STREAM_CELLS
+    seeds = rng.choice(np.flatnonzero(valid), SNAP_SEEDS, replace=False)
+    kernels.reset_launches()
+    ends, lens = _timed(times, "snap", lambda: fl.snap(idxs=seeds, mask=stream))
+    paths, _ = _timed(times, "snap_paths", lambda: fl.path(idxs=seeds, mask=stream))
+    counts = dict(kernels.launches)
+    pit = ids[ends] == ends
+    before = np.concatenate([p[:-1] for p in paths])
+    _check(ends.dtype == np.int64 and bool(np.all(stream[ends] | pit))
+           and np.array_equal(ends, [p[-1] for p in paths])
+           and np.array_equal(lens, [p.size - 1 for p in paths])
+           and np.array_equal(ids[before], np.concatenate([p[1:] for p in paths]))
+           and not stream[before].any(),
+           f"snap(mask=streams): {SNAP_SEEDS} cells, each end a stream cell "
+           f"({STREAM_CELLS} cells or more) or a pit, the last cell of its path(), which "
+           f"follows the flow and meets no stream cell before it; "
+           f"{int((~stream[seeds]).sum())} seeds moved, at most {int(lens.max())} steps")
+    _check(not any(counts.values()), "snapping launched no kernel (host walks)")
+    with _PlanBuilds() as builds:
+        kernels.reset_launches()
+        bas = _timed(times, "basins_snapped", lambda: fl.basins(idxs=ends))
+        counts = dict(kernels.launches)
+    w = np.zeros(n, np.int64)
+    w[ends] = np.arange(1, ends.size + 1)
+    flat = bas.ravel()
+    inner = valid & (w == 0)
+    _check(bas.dtype == np.uint32 and np.array_equal(flat[ends], w[ends])
+           and np.array_equal(flat[inner], flat[ids[inner]])
+           and bool(np.all(flat[fl.idxs_pit[w[fl.idxs_pit] == 0]] == 0))
+           and bool(np.all(flat[~valid] == 0)),
+           f"basins(idxs=ends): {np.unique(ends).size} outlets, each its own id, basins "
+           "closed along the flow, 0 below the outlets and outside the mask")
+    _check(counts.get("tile_down_a") == 1 and counts.get("tile_down_fin") == 1
+           and _launched(counts, down_kernels)
+           and not any(counts.get(k, 0) for k in ("tile_pass_a", "tile_pass_c",
+                                                  "accel_near_out", "accel_far_merge")),
+           f"basins(idxs=ends): one cut-graph downward sweep (T3, coarse H1 and H0, T4), "
+           f"no upward kernel; launches {counts}; cut plan "
+           f"{type(builds.plans[0].coarse).__name__}, built in {builds.seconds[0]:.2f} s")
+    res["basins_cut_plan_s"] = builds.seconds[0]
+    # the sweep's kernels against their plain versions on its own cut plan;
+    # T3 runs in raw mode there
+    snap_tp = builds.plans[0]
+    coarse = type(snap_tp.coarse).__name__
+    print(f" kernel phase, cut plan of basins(idxs=snapped) (int32; coarse {coarse}):")
+    rows = tile_down_kernel_phase(snap_tp, torch.int32, dev,
+                                  ".cut.snap" if coarse == "BigAccelPlan" else ".snap", ("raw",))
+    krows = _rows(rows, counts, "surface basins(idxs=snapped) 6000x6000", "int32")
+    del snap_tp, rows, builds
+
+    cp = pyflwdir_torch.FlwdirRaster(ids.copy(), fl.shape, fl.ftype, transform=fl.transform,
+                                     latlon=fl.latlon, device=dev)
+    cp._cached.update(tile_plan=tp, ds=fl._ds, rank=fl.rank)  # state to be dropped
+    _timed(times, "add_pits_streams", lambda: cp.add_pits(idxs=seeds, streams=stream))
+    ids2 = ids.copy()
+    ids2[ends] = ends
+    _check(not cp._cached and np.array_equal(cp.idxs_ds, ids2)
+           and np.array_equal(cp.idxs_pit, np.unique(np.concatenate([fl.idxs_pit, ends]))),
+           "add_pits(streams=...): the snapped ends made pits, every cached state dropped")
+    kernels.reset_launches()
+    upa2 = _timed(times, "upstream_area_after_add_pits", cp.upstream_area)
+    counts = dict(kernels.launches)
+    seq2 = runtime.dfs_preorder(ids2)[0]
+    want = runtime.accuflux_sweep(ids2, seq2, np.ones(n))
+    _check(np.array_equal(upa2.ravel()[valid], want[valid].astype(np.int32))
+           and cp._cached["tile_plan"] is not tp,
+           "upstream_area() after add_pits on a new tile plan, bitwise equal to the native "
+           "sweep of the new graph (what a fresh object gives)")
+    _check(_launched(counts, up_kernels), f"... through T1, T2 and H1-H3; launches {counts}")
+    del cp, upa2, want, seq2, bas, paths, before
+
+    # 2. paths from headwaters, their lengths against distnc
+    hw = np.flatnonzero(valid & (fl.n_upstream.ravel() == 0))
+    heads = np.sort(rng.choice(hw, PATH_HEADS, replace=False))
+    fl._cached.pop("distnc", None)
+    kernels.reset_launches()
+    distnc = _timed(times, "distnc", lambda: fl.distnc).ravel()
+    counts = dict(kernels.launches)
+    _check(counts.get("tile_down_a") == 1 and counts.get("tile_down_fin") == 1
+           and _launched(counts, down_kernels), f"distnc: one downward sweep; launches {counts}")
+    hpaths, hdist = _timed(times, "paths_m", lambda: fl.path(idxs=heads, unit="m"))
+    last = np.array([p[-1] for p in hpaths])
+    moving = (ids >= 0) & (ids != ar)
+    w64 = _timed(times, "distance_grid_host", lambda: geodesy.distance_grid(
+        ids, fl.shape, latlon=True, transform=fl.transform))  # what distnc computes first
+    w32 = np.where(moving, w64, 0).astype(np.float32)
+    del w64
+    length = 2 * (128 * 128 + 2 * _scan_len(tp.coarse._down_t["es_in"].numel()))
+    atol = 2 * length * _EPS * float(w32.sum(dtype=np.float64))
+    err = float(np.abs(distnc[heads] - hdist).max())
+    _check(bool(np.all(ids[last] == last)) and hdist.dtype == np.float64
+           and np.allclose(distnc[heads], hdist, rtol=1e-6, atol=atol),
+           f"path(unit='m') from {PATH_HEADS} headwaters: each ends at a pit, its length "
+           f"distnc at its head (float32) within rtol 1e-6, atol 2 L eps total = {atol:.3e} "
+           f"(max |err| {err:.3e} m of up to {float(hdist.max()):.0f} m)")
+    del w32, hpaths
+
+    # 3. moving windows, without and with the stream-order stop
+    data = rng.rand(n).astype(np.float32) * 100
+    data[rng.rand(n) < 0.05] = -9999.0
+    data[~valid] = -9999.0
+    _check("idxs_us_main" in fl._cached, "the main upstream cells cached (order phase)")
+    strord = fl.stream_order().ravel()
+    levels = int(strord.max()) - 1
+    cells = np.sort(rng.choice(n, ORACLE_CELLS, replace=False))
+    for restrict in (False, True):
+        tag = "_strord" if restrict else ""
+        got = {}
+        for fn in ("moving_average", "moving_median"):
+            fl._cached.pop("strord", None)
+            kernels.reset_launches()
+            got[fn] = _timed(times, fn + tag, lambda: getattr(fl, fn)(
+                data, WINDOW_N, restrict_strord=restrict)).ravel()
+            counts = dict(kernels.launches)
+            if restrict:
+                _check(all(counts.get(k, 0) == levels for k in up_kernels),
+                       f"{fn}(restrict_strord=True): T1, T2 and the coarse H1-H3 once a "
+                       f"Strahler level ({levels}); launches {counts}")
+            else:
+                _check(not any(counts.values()), f"{fn}: no kernel launched (torch ops)")
+        win = _window_np(ids, fl.idxs_us_main, WINDOW_N, cells, strord if restrict else None)
+        vals = data[np.maximum(win, 0)]
+        ok = (win >= 0) & (vals != -9999.0)
+        centre = data[cells] != -9999.0
+        med = np.full(cells.size, -9999.0, np.float32)
+        med[centre] = np.nanmedian(np.where(ok, vals, np.nan)[:, centre], axis=0)
+        k = ok.sum(axis=0)
+        _check(np.array_equal(got["moving_median"][cells], med),
+               f"moving_median(n={WINDOW_N}{', restrict_strord' if restrict else ''}) bitwise "
+               f"equal to np.nanmedian of the walk's windows at {ORACLE_CELLS} cells "
+               f"({int((k[centre] % 2 == 0).sum())} with an even count)")
+        mean = np.where(ok, vals, 0).astype(np.float64).sum(axis=0) / np.maximum(k, 1)
+        tol = 2 * (2 * WINDOW_N + 1) * np.finfo(np.float32).eps * (
+            np.abs(np.where(ok, vals, 0)).astype(np.float64).sum(axis=0) / np.maximum(k, 1))
+        avg = got["moving_average"][cells]
+        err = np.abs(avg.astype(np.float64) - mean)
+        _check(bool(np.all(err[centre] <= tol[centre])) and bool(np.all(avg[~centre] == -9999.0)),
+               f"moving_average(n={WINDOW_N}{', restrict_strord' if restrict else ''}) within "
+               f"2 (2n+1) eps32 of the float64 window mean at {ORACLE_CELLS} cells "
+               f"(float32 sums, as the JAX expression; max |err| / tol "
+               f"{float((err[centre] / tol[centre]).max()):.2e})")
+    del win, vals, ok, got
+
+    # ... and on a 1024x1024 crop, the card against the port's CPU run
+    crop = d8[:DEM_CROP, :DEM_CROP]
+    fc = pyflwdir_torch.from_array(crop, transform=fl.transform, latlon=True, device=dev)
+    fh = pyflwdir_torch.from_array(crop, transform=fl.transform, latlon=True, device="cpu")
+    dcrop = data.reshape(H, W)[:DEM_CROP, :DEM_CROP]
+    for restrict in (False, True):
+        so_c = fc.stream_order().ravel() if restrict else None
+        win_c = walk.window_indices(fc._ds, torch.as_tensor(fc.idxs_us_main, device=dev),
+                                    WINDOW_N, None if so_c is None else
+                                    torch.as_tensor(so_c, device=dev)).cpu()
+        win_h = walk.window_indices(fh._ds, torch.as_tensor(fh.idxs_us_main), WINDOW_N,
+                                    None if so_c is None else torch.as_tensor(so_c))
+        a_c = fc.moving_average(dcrop, WINDOW_N, restrict_strord=restrict)
+        a_h = fh.moving_average(dcrop, WINDOW_N, restrict_strord=restrict)
+        m_c = fc.moving_median(dcrop, WINDOW_N, restrict_strord=restrict)
+        m_h = fh.moving_median(dcrop, WINDOW_N, restrict_strord=restrict)
+        tag = ", restrict_strord" if restrict else ""
+        _check(torch.equal(win_c, win_h) and np.array_equal(m_c, m_h),
+               f"1024x1024 crop{tag}: windows and medians of the card bitwise equal to the "
+               "CPU run's")
+        good = dcrop != -9999.0
+        _check(np.allclose(a_c[good], a_h[good], rtol=2 * (2 * WINDOW_N + 1)
+                           * np.finfo(np.float32).eps, atol=0)
+               and np.array_equal(a_c[~good], a_h[~good]),
+               f"1024x1024 crop{tag}: averages of the card within 2 (2n+1) eps32 of the "
+               f"CPU run's (bitwise: {np.array_equal(a_c, a_h)})")
+    del fc, fh
+
+    # 4. upstream sums
+    di = rng.randint(0, 1000, n).astype(np.int32)
+    di[rng.rand(n) < 0.02] = -9999
+    kernels.reset_launches()
+    us = _timed(times, "upstream_sum_int32", lambda: fl.upstream_sum(di.reshape(H, W))).ravel()
+    _check(not any(kernels.launches.values()), "upstream_sum: no kernel launched (torch ops)")
+    ds = np.where(ids < 0, ar, ids)
+    send = moving & (di != -9999) & (di[ds] != -9999)
+    want = np.zeros(n, np.int32)
+    np.add.at(want, ids[send], di[send])
+    bad = moving & ((di == -9999) | (di[ds] == -9999))
+    _check(us.dtype == np.int32 and np.array_equal(us, np.where(bad, -9999, want)),
+           "upstream_sum(int32) bitwise equal to np.add.at")
+    df = rng.rand(n)
+    a = _timed(times, "upstream_sum_float64", lambda: fl.upstream_sum(df.reshape(H, W)))
+    b = fl.upstream_sum(df.reshape(H, W))
+    _check(a.dtype == np.float64 and np.array_equal(a.view(np.int64), b.view(np.int64)),
+           "upstream_sum(float64): two calls, the same bits")
+    del di, us, want, send, bad, df, a, b
+
+    # 5. the cell order
+    fl._seq = None
+    seqc = _timed(times, "idxs_seq", lambda: fl.idxs_seq)
+    rk = fl.rank.ravel()
+    pos = np.full(n, -1, np.int64)
+    pos[seqc] = np.arange(seqc.size)
+    want = np.flatnonzero(rk >= 0)
+    want = want[np.argsort(rk[want], kind="stable")]
+    _check(np.array_equal(seqc, want) and bool(np.all(pos[ids[seqc]] <= pos[seqc])),
+           f"idxs_seq: {seqc.size} cells, each after its downstream cell, equal to the host's "
+           "stable argsort of rank")
+    del pos, want, seqc
+
+    # 6. basin bounds and outlets
+    kernels.reset_launches()
+    bas = _timed(times, "basins", fl.basins)
+    lbs, bb, tot = _timed(times, "basin_bounds", lambda: fl.basin_bounds(basins=bas))
+    lo, io = _timed(times, "basin_outlets", lambda: fl.basin_outlets(bas))
+    wl, wb, wt = _bounds_np(bas, fl.transform)
+    wlo, wio = _outlets_np(bas, ids)
+    _check(np.array_equal(lbs, wl) and np.array_equal(bb, wb) and np.array_equal(tot, wt)
+           and np.array_equal(lo, wlo) and np.array_equal(io, wio)
+           and np.array_equal(np.sort(io), fl.idxs_pit[bas.ravel()[fl.idxs_pit] > 0]),
+           f"basin_bounds() and basin_outlets() of basins() ({lbs.size} basins) bitwise "
+           "equal to numpy copies of the JAX formulas; the outlets are the pits")
+    del bas, lbs, bb
+
+    # 7. a checkpoint round trip
+    ck_dir = tempfile.mkdtemp(prefix="_plan_tmp", dir=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        _timed(times, "checkpoint_save", lambda: checkpoint.save_sharded(fl, ck_dir))
+        fl2, _ = _timed(times, "checkpoint_load", lambda: checkpoint.load_sharded(ck_dir))
+        _check(fl2.device.type == "cuda" and np.array_equal(fl2.idxs_ds, ids),
+               "load_sharded: the same graph, on the card")
+        kernels.reset_launches()
+        upa3 = _timed(times, "upstream_area_after_load", fl2.upstream_area)
+        _check(np.array_equal(upa3, upa), "upstream_area() of the loaded raster bitwise "
+               f"equal to the original's; launches {dict(kernels.launches)}")
+        _check(_launched(dict(kernels.launches), up_kernels), "... through T1, T2 and H1-H3")
+        del fl2, upa3
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+
+    # 8. stream features
+    feats = _timed(times, "streams_min_sto4", lambda: fl.streams(min_sto=4))
+    _check(len(feats) > 0 and all(f["properties"]["strord"] >= 4 for f in feats[:1000]),
+           f"streams(min_sto=4): {len(feats)} features")
+    res["streams_min_sto4_features"] = len(feats)
+    del feats
+    res.update(times_s=times, levels=levels)
+    return krows, res
 
 
 class _PlanBuilds:
@@ -2446,6 +2876,9 @@ def main(json_path=None):
             json.dump(dict(card=smi, rhine=rhine, tile=tile, dem=dem, routed=routed,
                            multi_card=cards, ptxas=regs, stream_lookup_us=streams,
                            kernels=out), f, indent=1)
+    for name, times in (("rhine", rhine["surface"]), ("tile", tile["surface"]["times_s"])):
+        print(f"surface times, {name} (host clock, synchronised; {smi}): "
+              + ", ".join(f"{k} {v:.4f} s" for k, v in times.items()))
     print(f"card: {smi}")
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,

@@ -18,17 +18,43 @@ plan above 2^21 cells), behind
 / ``inflow_idxs`` / ``outflow_idxs``, and sharded over the ranks of a
 ``torch.distributed`` process group (``parallel``: ``make_mesh``,
 ``build_sharded_plan``, ``tiled_accumulate(method="plan")``,
-``TilePlan.accumulate_sharded`` / ``accumulate_down_sharded``).
+``TilePlan.accumulate_sharded`` / ``accumulate_down_sharded``). The object
+surface around them: the window gathers and the native walks
+(``ops.walk``: ``path``, ``snap``, snapping to streams in ``add_pits`` and
+``basins``), the moving windows and upstream sums (``arithmetics``), the
+region measurements (``regions``: ``basin_bounds``, ``basin_outlets``),
+``gridtools`` / ``gis_utils`` (``spread2d``, features, ``streams``,
+``vectorize``), directory checkpoints (``checkpoint``), ``dump`` / ``load``
+and ``from_dataframe``. Not yet ported: ``slope``, ``upscale``, ``subgrid``
+and ``rivers``.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with no
 GPU and no ``device`` they raise.
 """
 
-from . import basins, codecs, dem, kernels, ops, parallel, runtime, streams, utils
+__version__ = "0.1.0"
+
+from . import (
+    arithmetics,
+    basins,
+    checkpoint,
+    codecs,
+    dem,
+    gis_utils,
+    gridtools,
+    kernels,
+    ops,
+    parallel,
+    regions,
+    runtime,
+    streams,
+    utils,
+)
 from ._backend import default_device, has_cuda
 from .codecs import FTYPES, d8_to_ldd, ldd_to_d8, read_nextxy
 from .dem import fill_depressions
-from .flwdir import Flwdir
+from .flwdir import Flwdir, from_dataframe
+from .gridtools import spread2d
 from .raster import FlwdirRaster, from_array, from_dem
 from .utils import Affine
 from .utils.geodesy import affine_to_coords, area_grid, coords_to_idxs, idxs_to_coords
@@ -38,10 +64,12 @@ __all__ = [
     "FlwdirRaster",
     "from_array",
     "from_dem",
+    "from_dataframe",
     "read_nextxy",
     "d8_to_ldd",
     "ldd_to_d8",
     "fill_depressions",
+    "spread2d",
     "area_grid",
     "affine_to_coords",
     "idxs_to_coords",
@@ -54,7 +82,13 @@ __all__ = [
     "streams",
     "basins",
     "dem",
+    "arithmetics",
+    "regions",
+    "gridtools",
+    "gis_utils",
+    "checkpoint",
     "parallel",
+    "__version__",
     "default_device",
     "has_cuda",
     "kernels",

@@ -1,26 +1,49 @@
-"""Flwdir: the graph-only flow-direction object, the subset ported so far.
+"""Flwdir: the graph-only flow-direction object.
 
 Same constructor contract and accumulation dispatch as the JAX package's
 ``Flwdir``; inputs and outputs are numpy arrays, and the graph, its plans
 and the accumulation run on the object's ``device`` (CUDA unless the
-caller asks for the CPU). ``idxs_ds`` is int64. The Strahler order runs
-in the native host library over the DFS plan's preorder, as in the JAX
-package; the classic order, the main upstream cells and the nodata
-accumulations run by pointer doubling on the device.
+caller asks for the CPU). ``idxs_ds`` and every index set it returns are
+int64. The Strahler order runs in the native host library over the DFS
+plan's preorder, as in the JAX package; the classic order, the main
+upstream cells, the nodata accumulations, the moving windows and the
+upstream sums run on the device; paths and snapping walk in the native
+host library.
 """
 
 from __future__ import annotations
 
+import pickle
+import pprint
+
 import numpy as np
 import torch
 
-from . import runtime, streams
+from . import arithmetics, runtime, streams
 from ._backend import resolve_device
 from .ops import graph
+from .ops.walk import paths as _paths
+from .ops.walk import snap_walk
 
-__all__ = ["Flwdir"]
+__all__ = ["Flwdir", "from_dataframe"]
 
-_LATER = "is queued for a later slice of the PyTorch port (ops/walk.py)"
+
+def get_loc_idx(idxs, idxs_ds):
+    """Local indices of the node ids ``idxs_ds`` among the ids ``idxs``; a
+    downstream id not among them makes the node a pit."""
+    idxs = np.asarray(idxs)
+    idxs_ds = np.asarray(idxs_ds)
+    sorter = np.argsort(idxs, kind="stable")
+    pos = np.minimum(np.searchsorted(idxs[sorter], idxs_ds, sorter=sorter), idxs.size - 1)
+    found = idxs[sorter[pos]] == idxs_ds
+    return np.where(found, sorter[pos], np.arange(idxs.size)).astype(idxs.dtype)
+
+
+def from_dataframe(df, ds_col="idx_ds", device=None):
+    """A Flwdir of the rows of ``df``: its index the node ids, the column
+    ``ds_col`` their downstream ids. ``device`` None means the card."""
+    return Flwdir(idxs_ds=get_loc_idx(idxs=df.index.values, idxs_ds=df[ds_col].values),
+                  device=device)
 
 
 class Flwdir:
@@ -63,6 +86,14 @@ class Flwdir:
             self._cached.update(area=area)
         if self.idxs_pit.size == 0:
             raise ValueError("Invalid FlwdirRaster: no pits found")
+
+    ### REPRESENTATION ###
+
+    def __str__(self):
+        return pprint.pformat(self._dict)
+
+    def __getitem__(self, idx):
+        return self.idxs_ds[idx]
 
     ### INTERNAL DEVICE STATE ###
 
@@ -126,7 +157,27 @@ class Flwdir:
             return aplan.accumulate(data)
         return accumulate_planned_fast(self._plan, data)
 
+    def _invalidate(self):
+        """Drop every derived state of the graph after ``idxs_ds`` changed:
+        the device copy, the plans (built or loaded), rank, tree, orders and
+        main upstream cells, and the cell order, pits and node count."""
+        self._cached.clear()
+        self._seq = None
+        self._nnodes = None
+        self._pit = None
+
     ### PROPERTIES ###
+
+    @property
+    def _dict(self):
+        """The constructor's arguments (numpy arrays), as ``dump`` writes
+        them."""
+        return {
+            "nnodes": self.nnodes,
+            "idxs_ds": self.idxs_ds,
+            "idxs_seq": self._seq,
+            "idxs_pit": self._pit,
+        }
 
     @property
     def idxs_ds(self):
@@ -140,6 +191,13 @@ class Flwdir:
         if "idxs_us_main" in self._cached:
             return self._cached["idxs_us_main"]
         return self.main_upstream()
+
+    @property
+    def idxs_seq(self):
+        """The cells that reach a pit, downstream cells first (int64)."""
+        if self._seq is None:
+            self.order_cells(method="sort")
+        return self._seq
 
     @property
     def idxs_pit(self):
@@ -167,9 +225,23 @@ class Flwdir:
         return rank
 
     @property
+    def isvalid(self):
+        """True when no cell is on or drains into a cycle (rank computed
+        anew)."""
+        self._cached.pop("rank", None)
+        return bool(np.all(self.rank != -1))
+
+    @property
     def mask(self):
         """Boolean array of valid cells."""
         return self.idxs_ds != self._mv
+
+    @property
+    def distnc(self):
+        """Distance to the outlet: unit steps (float32) on a graph object."""
+        if "distnc" in self._cached:
+            return self._cached["distnc"]
+        return np.ones(self.size, dtype=np.float32)
 
     @property
     def area(self):
@@ -183,6 +255,32 @@ class Flwdir:
         """Number of upstream cells of each cell (int8), -9 at missing cells."""
         return graph.upstream_count(self._ds).cpu().numpy().reshape(self.shape)
 
+    ### SET/MODIFY PROPERTIES ###
+
+    def order_cells(self, method="sort"):
+        """Order the cells that reach a pit from down- to upstream: a stable
+        sort of the device rank (both ``"sort"`` and ``"walk"``, either a
+        valid order), kept as :attr:`idxs_seq`."""
+        if method not in ("sort", "walk"):
+            raise ValueError(f'Invalid method {method}, select from ["walk", "sort"]')
+        self._seq = graph.idxs_seq(self._ds)
+        self._nnodes = int(self._seq.size)
+
+    def add_pits(self, idxs=None, streams=None):
+        """Make the cells ``idxs`` pits, first snapped downstream to the
+        ``streams`` cells where given; every derived state is dropped."""
+        idxs1 = self._check_idxs_xy(idxs, streams=streams)
+        self._idxs_ds[idxs1] = idxs1
+        pits = np.unique(np.concatenate([self.idxs_pit, idxs1]))
+        self._invalidate()
+        self._pit = pits
+
+    def repair_loops(self):
+        """Make a pit of every cell on or above a cycle."""
+        repair_idx = np.flatnonzero(self.rank.ravel() == -1)
+        if repair_idx.size > 0:
+            self.add_pits(repair_idx)
+
     def main_upstream(self, uparea=None):
         """The main upstream cell of each cell by ``uparea`` (derived where
         None), -1 at headwaters; of equal areas the lowest index. Cached as
@@ -193,7 +291,104 @@ class Flwdir:
             self._cached["idxs_us_main"] = idxs_us_main
         return idxs_us_main
 
+    ### IO ###
+
+    def dump(self, fn):
+        """Pickle the constructor's arguments (numpy arrays) to ``fn``."""
+        with open(fn, "wb") as handle:
+            pickle.dump(self._dict, handle, protocol=-1)
+
+    @classmethod
+    def load(cls, fn, device=None):
+        """An object of this class from a :meth:`dump` file, on ``device``
+        (None: the card). The file is unpickled: load only files this
+        package wrote."""
+        with open(fn, "rb") as handle:
+            kwargs = pickle.load(handle)
+        return cls(**kwargs, device=device)
+
+    ### LOCAL METHODS ###
+
+    def _nxt(self, direction):
+        direction = str(direction).lower()
+        if direction not in ["up", "down"]:
+            raise ValueError(
+                f'Unknown flow direction: {direction}, select from ["up", "down"].'
+            )
+        return self.idxs_ds if direction == "down" else self.idxs_us_main
+
+    def path(self, idxs=None, mask=None, max_length=None, direction="down"):
+        """The cells down- (or up the main upstream cells) from each of
+        ``idxs``, to a pit, a headwater, a ``mask`` cell or ``max_length``
+        steps: (list of int64 paths, float64 step counts)."""
+        return _paths(
+            idxs,
+            self._nxt(direction),
+            mask=self._check_data(mask, "mask", optional=True),
+            max_length=max_length,
+        )
+
+    def snap(self, idxs=None, mask=None, max_length=None, direction="down"):
+        """The last cell of each :meth:`path` and its length: (int64 cells,
+        float32 step counts)."""
+        return snap_walk(
+            idxs,
+            self._nxt(direction),
+            mask=self._check_data(mask, "mask", optional=True),
+            max_length=max_length,
+        )
+
     ### GLOBAL ARITHMETICS ###
+
+    def downstream(self, data):
+        """Each cell's downstream value; missing cells keep their own."""
+        dflat = self._check_data(data, "data")
+        out = dflat.copy()
+        m = self.mask
+        out[m] = dflat[self.idxs_ds[m]]
+        return out.reshape(np.asarray(data).shape)
+
+    def upstream_sum(self, data, mv=-9999):
+        """Sum of the direct upstream values, on the device: ``mv`` where the
+        cell's own or downstream value is ``mv``."""
+        out = arithmetics.upstream_sum(
+            self._ds, torch.as_tensor(self._check_data(data, "data"), device=self.device),
+            nodata=mv,
+        )
+        return out.cpu().numpy().reshape(np.asarray(data).shape)
+
+    def _window_args(self, strord, restrict_strord):
+        strord = self._check_data(strord, "strord", optional=not restrict_strord)
+        return dict(
+            idxs_ds=self._ds,
+            idxs_us_main=torch.as_tensor(self.idxs_us_main, device=self.device),
+            strord=None if strord is None else torch.as_tensor(strord, device=self.device),
+        )
+
+    def moving_average(self, data, n, weights=None, restrict_strord=False, strord=None,
+                       nodata=-9999.0):
+        """Average over the ``n`` nearest cells up and down the main stream,
+        on the device (``restrict_strord``: the downstream walk stops before
+        a higher stream order, ``strord`` derived where None)."""
+        out = arithmetics.moving_average(
+            data=torch.as_tensor(self._check_data(data, "data"), device=self.device),
+            weights=None if weights is None else torch.as_tensor(
+                self._check_data(weights, "weights"), device=self.device),
+            n=n,
+            nodata=nodata,
+            **self._window_args(strord, restrict_strord),
+        )
+        return out.cpu().numpy().reshape(np.asarray(data).shape)
+
+    def moving_median(self, data, n, restrict_strord=False, strord=None, nodata=-9999.0):
+        """Median over the window of :meth:`moving_average`, on the device."""
+        out = arithmetics.moving_median(
+            data=torch.as_tensor(self._check_data(data, "data"), device=self.device),
+            n=n,
+            nodata=nodata,
+            **self._window_args(strord, restrict_strord),
+        )
+        return out.cpu().numpy().reshape(np.asarray(data).shape)
 
     def upstream_area(self):
         """Upstream area map based on the per-cell area."""
@@ -307,8 +502,10 @@ class Flwdir:
         return data
 
     def _check_idxs_xy(self, idxs, streams=None):
-        """Linear indices, flattened. Snapping them to ``streams`` is not
-        ported yet."""
+        """Linear indices, flattened; with ``streams``, each snapped
+        downstream to the first ``streams`` cell or its pit."""
+        idxs = np.atleast_1d(idxs).ravel()
+        streams = self._check_data(streams, "streams", optional=True)
         if streams is not None:
-            raise NotImplementedError(f"snapping indices to streams {_LATER}")
-        return np.atleast_1d(idxs).ravel()
+            idxs = self.snap(idxs=idxs, mask=streams)[0]
+        return idxs

@@ -5,6 +5,10 @@ indices; ``idxs_ds[i] == i`` marks a pit, ``-1`` a missing cell. Each
 doubling round is a whole-array gather; the loop stops when the pointers
 converge, and after at most ``ceil(log2 n) + 1`` rounds.
 
+The index sets at the end (:func:`pit_indices` .. :func:`upstream_matrix`)
+have lengths the data decides: they come back to the host as int64 numpy
+arrays, the device ones from :func:`rank` and :func:`upstream_count`.
+
 The subtree reductions (:func:`accumulate`, :func:`fillnodata_downstream`)
 scatter up the tree in each round: integer sums by ``index_add_``, maxima
 and minima by ``scatter_reduce_``, all exact in any order. Float sums go
@@ -17,6 +21,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 __all__ = [
@@ -35,6 +40,13 @@ __all__ = [
     "fillnodata_upstream",
     "fillnodata_downstream",
     "propagate_downstream",
+    "pit_indices",
+    "loop_indices",
+    "headwater_indices",
+    "confluence_indices",
+    "flwdir_tuples",
+    "idxs_seq",
+    "upstream_matrix",
 ]
 
 
@@ -311,3 +323,78 @@ def propagate_downstream(idxs_ds, data):
     """``out[i] = data[idxs_ds[i]]``: one step downstream; missing cells keep
     their own value."""
     return data[self_loop(idxs_ds)]
+
+
+# ---------------------------------------------------------------------------
+# index sets, returned as host int64 arrays
+# ---------------------------------------------------------------------------
+
+
+def pit_indices(idxs_ds):
+    """Cells with ``idxs_ds[i] == i`` (host)."""
+    ids = np.asarray(idxs_ds)
+    return np.flatnonzero(ids == np.arange(ids.size)).astype(np.int64)
+
+
+def loop_indices(idxs_ds):
+    """Cells on or above a cycle (``rank == -1``), from the device
+    :func:`rank` of the tensor ``idxs_ds``."""
+    return torch.nonzero(rank(idxs_ds) == -1).ravel().cpu().numpy()
+
+
+def headwater_indices(idxs_ds, mask=None):
+    """Cells with no upstream cell (inside ``mask``), from the device
+    :func:`upstream_count`."""
+    return torch.nonzero(upstream_count(idxs_ds, mask) == 0).ravel().cpu().numpy()
+
+
+def confluence_indices(idxs_ds, mask=None):
+    """Cells with two or more upstream cells (inside ``mask``), from the
+    device :func:`upstream_count`."""
+    return torch.nonzero(upstream_count(idxs_ds, mask) > 1).ravel().cpu().numpy()
+
+
+def flwdir_tuples(idxs_ds, mask=None):
+    """A ``[cell, downstream cell]`` int64 pair for every valid cell (with
+    ``mask == 1``), a pit paired with itself (host)."""
+    ids = np.asarray(idxs_ds, dtype=np.int64)
+    keep = ids >= 0
+    if mask is not None:
+        keep = keep & (np.asarray(mask) == 1)
+    return [np.array([i, ids[i]], dtype=np.int64) for i in np.flatnonzero(keep)]
+
+
+def idxs_seq(idxs_ds, idxs_pit=None):
+    """The cells that reach a pit (that reach one of ``idxs_pit``), downstream
+    cells first: a stable sort of the device :func:`rank`, so each cell
+    follows its downstream cell and equal ranks keep the order of their
+    indices. Cells on or above a cycle and missing cells are left out."""
+    r = rank(idxs_ds)
+    valid = r >= 0
+    if idxs_pit is not None:
+        sel = torch.zeros(idxs_ds.shape[0], dtype=torch.bool, device=idxs_ds.device)
+        sel[torch.as_tensor(np.asarray(idxs_pit), device=idxs_ds.device).long()] = True
+        valid = valid & sel[roots(idxs_ds)]
+    cells = torch.nonzero(valid).ravel()
+    perm = torch.sort(r[cells], stable=True).indices
+    return cells[perm].cpu().numpy()
+
+
+def upstream_matrix(idxs_ds):
+    """(n, d) int64 matrix whose row ``i`` lists the cells draining into
+    ``i`` in ascending order, padded with -1; d is the largest fan-in
+    (host)."""
+    ids = np.asarray(idxs_ds, dtype=np.int64)
+    n = ids.size
+    ar = np.arange(n)
+    is_child = (ids >= 0) & (ids != ar)
+    children = ar[is_child]
+    parents = ids[is_child]
+    order = np.argsort(parents, kind="stable")
+    children, parents = children[order], parents[order]
+    counts = np.bincount(parents, minlength=n)
+    d = int(counts.max()) if counts.size else 0
+    out = np.full((n, max(d, 1)), -1, dtype=np.int64)
+    group_start = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    out[parents, np.arange(children.size) - group_start[parents]] = children
+    return out

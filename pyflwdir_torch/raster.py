@@ -1,8 +1,9 @@
 """FlwdirRaster, ``from_array`` and ``from_dem``: the raster flow-direction
-object, the subset ported so far: shape, mask, transform, area, rank;
-upstream area and accumulation; basins, sub-basins and the interbasin mask,
-inflow and outflow cells, stream order, stream distance, height above the
-nearest drain and nodata filling. Above 2^21 cells the accumulations, the
+object: shape, mask, transform, coordinates, area, rank; upstream area and
+accumulation; basins, sub-basins, their bounds and outlets, the interbasin
+mask, inflow and outflow cells, stream order, stream distance, height above
+the nearest drain and nodata filling; paths and snapping in metres; stream
+and flow-direction features. Above 2^21 cells the accumulations, the
 Strahler order (one tile-plan accumulation a level) and the downward sweeps
 run through the tile plan (``ops/tile_plan.py``: ``accumulate`` upward,
 ``accumulate_down`` downward), below it through the single-chunk plans and
@@ -18,13 +19,17 @@ import torch
 
 from . import basins as basins_mod
 from . import dem as dem_mod
+from . import regions as regions_mod
 from . import streams as streams_mod
 from ._backend import resolve_device
 from .codecs import FTYPES, infer_ftype
 from .flwdir import Flwdir
+from .gridtools import features as _features
 from .ops import graph
+from .ops.walk import paths as _paths
+from .ops.walk import snap_walk
 from .utils import geodesy
-from .utils.affine import IDENTITY, Affine
+from .utils.affine import IDENTITY, Affine, array_bounds
 
 __all__ = ["FlwdirRaster", "from_array", "from_dem"]
 
@@ -183,6 +188,32 @@ class FlwdirRaster(Flwdir):
         self.shape = tuple(shape)
         self.set_transform(transform, latlon)
 
+    @property
+    def _dict(self):
+        """The constructor's arguments (numpy arrays), as ``dump`` writes
+        them."""
+        return {
+            "ftype": self.ftype,
+            "shape": self.shape,
+            "nnodes": self.nnodes,
+            "transform": self.transform,
+            "latlon": self.latlon,
+            "idxs_ds": self.idxs_ds,
+            "idxs_seq": self._seq,
+            "idxs_pit": self._pit,
+        }
+
+    @property
+    def ncells(self):
+        """Number of valid cells."""
+        return self.nnodes
+
+    def add_pits(self, idxs=None, xy=None, streams=None):
+        """Make the cells ``idxs`` (or at ``xy``) pits, first snapped
+        downstream to the ``streams`` cells where given; every derived state
+        is dropped."""
+        Flwdir.add_pits(self, idxs=self._check_idxs_xy(idxs, xy, streams))
+
     def set_transform(self, transform, latlon=False):
         """Set the affine transform."""
         if not isinstance(transform, Affine):
@@ -206,6 +237,63 @@ class FlwdirRaster(Flwdir):
     def index(self, xs, ys, **kwargs):
         """Linear cell indices of x/y coordinates."""
         return geodesy.coords_to_idxs(xs, ys, self.transform, self.shape, **kwargs)
+
+    def xy(self, idxs, **kwargs):
+        """Cell-centre x/y coordinates of linear indices."""
+        return geodesy.idxs_to_coords(idxs, self.transform, self.shape, **kwargs)
+
+    @property
+    def bounds(self):
+        """The raster's ``[xmin, ymin, xmax, ymax]``."""
+        return np.array(array_bounds(*self.shape, self.transform), dtype=np.float64)
+
+    @property
+    def extent(self):
+        """The raster's ``[xmin, xmax, ymin, ymax]``."""
+        xmin, ymin, xmax, ymax = self.bounds
+        return np.array([xmin, xmax, ymin, ymax], dtype=np.float64)
+
+    @property
+    def distnc(self):
+        """Distance to the outlet in metres (``stream_distance(unit="m")``,
+        cached)."""
+        if "distnc" in self._cached:
+            return self._cached["distnc"]
+        distnc = self.stream_distance(unit="m")
+        if self.cache:
+            self._cached["distnc"] = distnc
+        return distnc
+
+    ### LOCAL METHODS ###
+
+    def _walk_args(self, idxs, xy, mask, max_length, unit, direction):
+        unit = str(unit).lower()
+        if unit not in ["m", "cell"]:
+            raise ValueError(f'Unknown unit: {unit}, select from ["m", "cell"].')
+        return dict(
+            idxs0=self._check_idxs_xy(idxs, xy),
+            idxs_nxt=self._nxt(direction),
+            mask=self._check_data(mask, "mask", optional=True),
+            max_length=max_length,
+            real_length=unit == "m",
+            ncol=self.shape[1],
+            latlon=self.latlon,
+            transform=self.transform,
+        )
+
+    def path(self, idxs=None, xy=None, mask=None, max_length=None, unit="cell",
+             direction="down"):
+        """The cells down- (or up the main upstream cells) from each of
+        ``idxs`` (or ``xy``), to a pit, a headwater, a ``mask`` cell or
+        ``max_length`` (cells or metres, ``unit``): (list of int64 paths,
+        float64 lengths)."""
+        return _paths(**self._walk_args(idxs, xy, mask, max_length, unit, direction))
+
+    def snap(self, idxs=None, xy=None, mask=None, max_length=None, unit="cell",
+             direction="down"):
+        """The last cell of each :meth:`path` and its length: (int64 cells,
+        float32 lengths)."""
+        return snap_walk(**self._walk_args(idxs, xy, mask, max_length, unit, direction))
 
     @property
     def area(self):
@@ -349,6 +437,21 @@ class FlwdirRaster(Flwdir):
             out = self._down_np(self._tp_down(cut=cut), w)
             return np.where(self.mask, out, 0).astype(ids_np.dtype).reshape(self.shape)
         return basins_mod.basins(self._ds, idxs, ids=ids).reshape(self.shape)
+
+    def basin_bounds(self, basins=None, **kwargs):
+        """Bounding box of each basin (``basins`` derived with ``kwargs``
+        where None): (labels, (k, 4) boxes, the total box); the extents
+        reduced on the device."""
+        return regions_mod.region_bounds(
+            self._check_data(basins, "basins", flatten=False, **kwargs),
+            transform=self.transform,
+            device=self.device,
+        )
+
+    def basin_outlets(self, basins):
+        """Outlet cells of each basin, on the device: (labels, int64
+        cells)."""
+        return regions_mod.region_outlets(self._check_data(basins, "basins"), self._ds)
 
     def subbasins_streamorder(self, strord=None, mask=None, min_sto=-2):
         """Sub-basins split where the stream order (derived where None)
@@ -523,6 +626,58 @@ class FlwdirRaster(Flwdir):
         hand = np.where(valid, z - zroot, -9999.0)
         hand = np.where(dr & valid, 0.0, hand)
         return hand.reshape(self.shape).astype(np.float64)
+
+    ### FEATURES ###
+
+    def vectorize(self, mask=None, xs=None, ys=None, direction="down", **kwargs):
+        """One two-cell LineString feature a valid cell (inside ``mask``):
+        the cell and its downstream (or main upstream) cell."""
+        nxt = self._nxt(direction)
+        mask = self._check_data(mask, "mask", optional=True)
+        valid = nxt != self._mv
+        if mask is not None:
+            valid &= mask != 0
+        w = np.flatnonzero(valid)
+        return self.geofeatures(np.stack([w, nxt[w]], axis=1), xs=xs, ys=ys, **kwargs)
+
+    def streams(self, mask=None, min_sto=1, xs=None, ys=None, idxs_out=None, max_len=0,
+                direction="up", **kwargs):
+        """Stream segments, confluence to confluence, as LineString features,
+        over the ``mask`` cells or those of stream order ``min_sto`` and
+        above; ``kwargs`` maps are sampled at each segment's head.
+        ``idxs_out`` (segments between given outlets) needs the sub-grid
+        module and raises NotImplementedError."""
+        if idxs_out is not None:
+            raise NotImplementedError(
+                "streams(idxs_out=...) needs subgrid.segment_indices, queued for slice 13 "
+                "of the PyTorch port")
+        if mask is not None:
+            mask = self._check_data(mask, "mask")
+        elif min_sto > 1:
+            strord = self._check_data(kwargs.get("strord"), "strord")
+            mask = strord >= min_sto
+            kwargs.update(strord=strord)
+        mask_dev = None if mask is None else torch.as_tensor(mask != 0, device=self.device)
+        nup = graph.upstream_count(self._ds, mask=mask_dev).cpu().numpy()
+        idxs = streams_mod.streams(
+            self._idxs_ds,
+            self.rank.ravel(),
+            nup,
+            mask=None if mask is None else np.asarray(mask) != 0,
+            max_len=max_len,
+        )
+        return self.geofeatures(idxs, xs=xs, ys=ys, **kwargs)
+
+    def geofeatures(self, flowpaths, xs=None, ys=None, **kwargs):
+        """LineString features of ``flowpaths`` (:func:`gridtools.features`)."""
+        return _features(
+            flowpaths=flowpaths,
+            xs=self._check_data(xs, "xs", optional=True),
+            ys=self._check_data(ys, "ys", optional=True),
+            transform=self.transform,
+            shape=self.shape,
+            **kwargs,
+        )
 
     ### SHORTCUTS ###
 

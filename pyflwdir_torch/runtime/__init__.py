@@ -5,8 +5,9 @@ the DFS preorder, the LUT flow-direction parser, the sequential
 accumulation sweeps upward and downward (the oracles the device paths are
 held against), the tile plan's per-tile DFS, bijection padding and
 downward sort phase, the Strahler and classic stream-order sweeps, the
-stream segments, the river-length smoothing and the area sub-basin
-outlets. The library is
+stream segments, the river-length smoothing, the area sub-basin
+outlets, the batched walks (paths and snapping) and the Dijkstra spread of
+the nearest observation. The library is
 git-ignored; at first use it is built with ``make -C csrc``, and a failed
 build raises.
 """
@@ -33,6 +34,8 @@ __all__ = [
     "stream_segments",
     "smooth_rivlen",
     "subbasin_area_outlets",
+    "trace_walks",
+    "spread2d",
 ]
 
 _CSRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "..", "csrc"))
@@ -119,6 +122,19 @@ def _lib():
     lib.subbasin_area_outlets.argtypes = [
         _I64P, _I64P, _I64P, ctypes.c_int64, ctypes.c_int64, _F64P, ctypes.c_double,
         _U32P, _I64P,
+    ]
+    for name in ("trace_walks_count", "trace_walks_fill"):
+        getattr(lib, name).restype = None
+        getattr(lib, name).argtypes = [
+            _I64P, ctypes.c_int64, _I64P, ctypes.c_int64, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_double,
+            _I64P, ctypes.c_void_p,
+        ]
+    lib.spread2d.restype = None
+    lib.spread2d.argtypes = [
+        _F64P, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_double, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_double, ctypes.c_double, _F64P, _I32P, ctypes.POINTER(ctypes.c_float),
     ]
     _LIB.append(lib)
     return lib
@@ -465,3 +481,77 @@ def subbasin_area_outlets(nxt, us_main, order, uparea, area_min):
         labels.ctypes.data_as(_U32P), outlets.ctypes.data_as(_I64P),
     )
     return labels, outlets[:k]
+
+
+def trace_walks(nxt, seeds, mask=None, stepx=None, stepy=None, ncol=0, max_length=-1.0):
+    """Walks along ``nxt`` from each seed, in CSR form
+    (``csrc/network_kernels.cpp::trace_walks_count/fill``): a walk stops at a
+    pit or a missing next cell, at a True ``mask`` cell (the seed included),
+    or before the step that would take its distance past ``max_length``
+    (negative: no limit). ``stepx`` / ``stepy`` are (2 nrow,) step lengths
+    indexed by the sum of the two rows, or None for unit steps. Returns
+    ``(offsets, data, dists)``: int64, int64 and float64."""
+    lib = _lib()
+    nxt = _i64(nxt)
+    seeds = _i64(seeds).ravel()
+    m = seeds.size
+    _keep, mask_p = _mask_arg(mask)
+    if stepx is not None:
+        stepx = np.ascontiguousarray(stepx, dtype=np.float64)
+        stepy = np.ascontiguousarray(stepy, dtype=np.float64)
+        sx_p = stepx.ctypes.data_as(ctypes.c_void_p)
+        sy_p = stepy.ctypes.data_as(ctypes.c_void_p)
+    else:
+        sx_p = sy_p = None
+    counts = np.empty(m, dtype=np.int64)
+    dists = np.empty(m, dtype=np.float64)
+    args = (nxt.ctypes.data_as(_I64P), nxt.size, seeds.ctypes.data_as(_I64P), m, mask_p,
+            sx_p, sy_p, int(ncol), float(max_length))
+    lib.trace_walks_count(*args, counts.ctypes.data_as(_I64P),
+                          dists.ctypes.data_as(ctypes.c_void_p))
+    offsets = np.zeros(m + 1, dtype=np.int64)
+    np.cumsum(counts, out=offsets[1:])
+    data = np.empty(int(offsets[-1]), dtype=np.int64)
+    lib.trace_walks_fill(*args, offsets.ctypes.data_as(_I64P),
+                         data.ctypes.data_as(ctypes.c_void_p))
+    return offsets, data, dists
+
+
+def spread2d(obs, msk=None, nodata=0, frc=None, latlon=False, transform=None):
+    """Each cell's nearest observation (``obs`` other than ``nodata``) by a
+    Dijkstra spread through the ``msk`` cells, the step lengths times the
+    friction ``frc`` where given, diagonal steps the hypotenuse, degrees made
+    metres a row where ``latlon`` (``csrc/host_kernels.cpp::spread2d``).
+    Returns ``(out, src, dst)``: the spread values in ``obs``' dtype, the
+    int32 linear index of each cell's source and the float32 distance to
+    it."""
+    from ..utils import geodesy
+    from ..utils.affine import IDENTITY
+
+    if transform is None:
+        transform = IDENTITY
+    obs = np.asarray(obs)
+    nrow, ncol = obs.shape
+    obs64 = np.ascontiguousarray(obs, dtype=np.float64)
+    xres, yres, north = transform[0], abs(transform[4]), transform[5]
+    dxs = dys = None
+    if latlon:
+        lats = north + (np.arange(nrow) + 0.5) * yres
+        dys = np.ascontiguousarray(geodesy.degree_metres_y(lats) * yres)
+        dxs = np.ascontiguousarray(geodesy.degree_metres_x(lats) * xres)
+    msk_arr = None if msk is None else np.ascontiguousarray(msk, dtype=np.uint8)
+    frc_arr = None if frc is None else np.ascontiguousarray(frc, dtype=np.float64)
+
+    def ptr(a):
+        return None if a is None else a.ctypes.data_as(ctypes.c_void_p)
+
+    out = np.zeros((nrow, ncol), dtype=np.float64)
+    src = np.zeros((nrow, ncol), dtype=np.int32)
+    dst = np.zeros((nrow, ncol), dtype=np.float32)
+    _lib().spread2d(
+        obs64.ctypes.data_as(_F64P), ptr(msk_arr), ptr(frc_arr), nrow, ncol,
+        float(nodata), int(bool(latlon)), ptr(dxs), ptr(dys), float(xres), float(yres),
+        out.ctypes.data_as(_F64P), src.ctypes.data_as(_I32P),
+        dst.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+    )
+    return out.astype(obs.dtype), src, dst

@@ -884,3 +884,51 @@ def test_strahler_tile_plan_and_float_sums(dev):
     nup = np.bincount(ids[(ids >= 0) & (ids != np.arange(ids.size))], minlength=ids.size)
     length = graph._n_rounds(ids.size) * int(nup.max())
     _assert_match(a.cpu(), want, float(x.sum()), length)
+
+
+def test_object_surface_on_the_card(dev):
+    """The object surface on a 300 x 260 raster on the card against the same
+    raster on the CPU: windows, medians and averages bitwise (the average
+    sums the window's rows in order), integer upstream sums bitwise and
+    float64 ones twice with the same bits and within rtol 8 eps, the cell
+    order, basin bounds and outlets bitwise; after ``add_pits`` the
+    results of a fresh object."""
+    import pyflwdir_torch
+    from pyflwdir_torch.codecs import d8 as td8
+    from pyflwdir_torch.ops import walk
+
+    shape = (300, 260)
+    codes = td8.to_array(_demo_ids(shape, seed=11, missing=True), shape)
+    gpu = pyflwdir_torch.from_array(codes, device=dev)
+    cpu = pyflwdir_torch.from_array(codes, device="cpu")
+    rng = np.random.RandomState(5)
+    data = (rng.rand(*shape) * 100).astype(np.float32)
+    data[rng.rand(*shape) < 0.1] = -9999.0
+    for restrict in (False, True):
+        so = torch.as_tensor(cpu.stream_order().ravel()) if restrict else None
+        win = walk.window_indices(gpu._ds, torch.as_tensor(gpu.idxs_us_main, device=dev), 5,
+                                  None if so is None else so.to(dev))
+        want = walk.window_indices(cpu._ds, torch.as_tensor(cpu.idxs_us_main), 5, so)
+        assert torch.equal(win.cpu(), want)
+        for fn in ("moving_median", "moving_average"):
+            a = getattr(gpu, fn)(data, 5, restrict_strord=restrict)
+            assert np.array_equal(a, getattr(cpu, fn)(data, 5, restrict_strord=restrict)), fn
+    di = rng.randint(0, 100, shape).astype(np.int32)
+    assert np.array_equal(gpu.upstream_sum(di), cpu.upstream_sum(di))
+    df = rng.rand(*shape)
+    a, b = gpu.upstream_sum(df), gpu.upstream_sum(df)
+    assert np.array_equal(a.view(np.int64), b.view(np.int64))
+    np.testing.assert_allclose(a, cpu.upstream_sum(df), rtol=8 * _EPS, atol=0)
+    assert np.array_equal(gpu.idxs_seq, cpu.idxs_seq)
+    bas = gpu.basins()
+    for x, y in zip(gpu.basin_bounds(basins=bas) + gpu.basin_outlets(bas),
+                    cpu.basin_bounds(basins=bas) + cpu.basin_outlets(bas)):
+        assert np.array_equal(x, y)
+    stream = gpu.upstream_area() >= 50
+    idxs = rng.choice(np.flatnonzero(gpu.mask), 40, replace=False)
+    gpu.add_pits(idxs=idxs, streams=stream)
+    cpu.add_pits(idxs=idxs, streams=stream)
+    fresh = pyflwdir_torch.FlwdirRaster(gpu.idxs_ds.copy(), shape, "d8", device=dev)
+    assert np.array_equal(gpu.idxs_ds, cpu.idxs_ds)
+    for name in ("upstream_area", "basins", "stream_order"):
+        assert np.array_equal(getattr(gpu, name)(), getattr(fresh, name)()), name

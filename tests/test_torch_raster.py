@@ -139,8 +139,10 @@ def test_later_slices_raise(d8_small):
     for how in ("max", "min", "sum"):
         assert np.array_equal(t.fillnodata(fdata, -9999, direction="down", how=how),
                               j.fillnodata(fdata, -9999, direction="down", how=how))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        t.basins(idxs=[3], streams=np.ones(t.shape, bool))
+    # snapping to streams: no longer a later slice
+    streams = t.upstream_area() >= 5
+    assert np.array_equal(t.basins(idxs=[3, 40], streams=streams),
+                          j.basins(idxs=[3, 40], streams=streams))
     with pytest.raises(ValueError):
         t.accuflux(np.ones(t.shape), direction="sideways")
     # a grid of pits: 2.2 M local roots, past the tile plan's single-chunk

@@ -74,7 +74,27 @@ Run from the repository root:  python3 chip_smoke.py [--json PATH]
    copies of the JAX formulas; a checkpoint.save_sharded / load_sharded
    round trip, upstream_area() bitwise; streams(min_sto=4). On the Rhine
    path (2), vectorize(), spread2d and region_dissolve of its basins, and
-   dump / load.
+   dump / load, and river_depth(method="gvf"). Then the upscale phase on
+   the same raster, each step timed and checked, the counters zeroed
+   before each group and read after (T1, T2 and the coarse H1-H3 where the
+   upstream area is derived, T3, the coarse H1 and H0 and T4 where the
+   stream distance is): upscale(10) by IHU (a valid 600x600 raster with
+   pits, each outlet pixel in its own cell, its upstream area summing to
+   its valid count; upscale_error's disconnected count), DMM, EAM and EAM+;
+   ihu_tiled(band_rows=64) on int64 / float64 memory maps, bitwise ihu()
+   where no walk left its halo; a 1200x1200 crop upscaled on the card and
+   on the CPU, bitwise, by all five; ucat_outlets(10), ucat_area in cells
+   bitwise against np.add.at, the label of 100,000 seeded cells the first
+   outlet below them (host walks), ucat_area in km2 and ucat_volume twice
+   with the same bits and within (k - 1) eps sum|term| of numpy sums;
+   subgrid_rivlen up and down, subgrid_rivslp (both, lstsq, 1,000 m; up),
+   subgrid_rivavg / subgrid_rivmed held to numpy at 10,000 outlets,
+   streams(idxs_out=...); slope(latlon=True) bitwise against a numpy copy
+   of the JAX formula; floodplains(upa_min=1000) with b 0.3 and 0 against a
+   host sweep over the rank levels (ulp rule at the threshold);
+   dem_dig_d4; dem_adjust (no cell below its downstream cell);
+   classify_estuaries bitwise against native downward sweeps of the rule;
+   river_depth(method="manning").
 5. 1-D path: the 6000x6000 graph as a ``Flwdir`` of 36 M nodes, past 2^21
    cells, so ``BigAccelPlan`` (G1 = 18, n_pad 37,748,736): H1-H3 at its
    shapes, int32 and float64, against their plain versions, and two float64
@@ -157,6 +177,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -1334,7 +1355,7 @@ def rhine_path(dev):
 
     print("rhine path (997x682):")
     t0 = time.perf_counter()
-    d8 = pyflwdir_torch.fill_depressions(_demo_dem(SHAPE, SEED))[1]
+    elev, d8 = pyflwdir_torch.fill_depressions(_demo_dem(SHAPE, SEED))
     fl = pyflwdir_torch.from_array(d8, transform=LATLON, latlon=True)
     plan = fl._accel()
     print(f"  setup: fill + parse + plans {time.perf_counter() - t0:.2f} s; "
@@ -1409,18 +1430,20 @@ def rhine_path(dev):
            and np.array_equal(pf[fl.idxs_ds[inner]], pf[inner]),
            f"subbasins_pfafstetter(depth=2) in {pfaf_s:.3f} s: {pf_out.size} outlets, labels "
            "1-99 on every valid cell, basins closed")
-    surface = rhine_surface(fl, upa)
+    surface = rhine_surface(fl, upa, elev)
     out = _rows(rows, counts, "rhine 997x682", "float32")
     return out, dict(accumulate_ms=acc_ms, accumulate_device_ms=acc_dev_ms,
                      upstream_area_ms=up_ms, main_path_s=t_main, pfafstetter_s=pfaf_s,
                      surface=surface)
 
 
-def rhine_surface(fl, upa):
+def rhine_surface(fl, upa, elev):
     """The object surface at the Rhine size on the raster ``fl`` (``upa``:
-    its upstream area in cells): vectorize, spread2d and region_dissolve of
-    its basins, dump and load; each timed (host clock, synchronised) and
-    checked. Returns the timings."""
+    its upstream area in cells, ``elev`` its filled DEM): vectorize,
+    spread2d and region_dissolve of its basins, dump and load, and the
+    gradually-varied-flow river depth (host RK4 over the rank levels, too
+    slow for the 6000x6000 tile); each timed (host clock, synchronised)
+    and checked. Returns the timings."""
     import pyflwdir_torch
 
     print(" surface (Rhine size):")
@@ -1463,6 +1486,18 @@ def rhine_surface(fl, upa):
                "dump / load: the same raster on the card, upstream_area() bitwise equal")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    rng = np.random.RandomState(SEED + 8)
+    q = rng.rand(*SHAPE) * 1000 + 1
+    w = rng.rand(*SHAPE) * 100 + 10
+    man = fl.river_depth(q, w, zs=elev, rivdst=fl.distnc)
+    gvf = _timed(times, "river_depth_gvf", lambda: fl.river_depth(
+        q, w, zs=elev, rivdst=fl.distnc, method="gvf"))
+    mask = fl.mask.reshape(SHAPE)
+    _check(bool(np.all(np.isfinite(gvf[mask]) & (gvf[mask] >= 1)))
+           and bool(np.all(gvf[~mask] == -9999.0)),
+           f"river_depth(method='gvf'): finite and >= 1 m on valid cells, -9999 elsewhere; "
+           f"{int((gvf[mask] != man[mask]).sum())} of {int(mask.sum())} cells moved from "
+           f"Manning's depth")
     return times
 
 
@@ -1575,8 +1610,10 @@ def tile_path(dev):
     out += _rows(rows[torch.float64], counts_f64, "tile 6000x6000", "float64")
     order_rows, order = order_path(fl, tp, seq, rows[torch.int32], dev)
     out += order_rows
-    down_rows, down = tile_down_path(fl, tp, elev, upa, seq, dev)
+    down_rows, down, hnd = tile_down_path(fl, tp, elev, upa, seq, dev)
     surface_rows, surface = surface_path(fl, tp, d8, upa, dev)
+    upscale = upscale_path(fl, z, elev, upa, hnd, seq, dev)
+    del hnd
     banded_rows, banded = banded_path(
         fl, tp, upa, seq, dict(tile_plan_s=t_plan, down_indices_s=down["down_indices_s"]), dev)
     sharded_rows, sharded = sharded_path(fl, d8, seq, dev)
@@ -1584,7 +1621,8 @@ def tile_path(dev):
     cut_rows, cut = cut_path(fl, elev, upa, dev)
     rows = out + down_rows + surface_rows + banded_rows + sharded_rows + big_rows + cut_rows
     return rows, (z, elev, d8), dict(
-        order=order, down=down, surface=surface, banded=banded, sharded=sharded, big=big, cut=cut,
+        order=order, down=down, surface=surface, upscale=upscale, banded=banded, sharded=sharded,
+        big=big, cut=cut,
         accumulate_ms=acc_ms, accumulate_device_ms=acc_dev_ms, upstream_area_ms=up_ms,
         main_path_int32_s=t_int, main_path_float64_s=t_f64, fill_s=t_fill, parse_s=t_parse,
         tile_plan_s=t_plan, tile_plan_steps_s=tp.build_seconds, NT=tp.NT, R_pad=tp.R_pad,
@@ -2100,6 +2138,403 @@ def surface_path(fl, tp, d8, upa, dev):
     return krows, res
 
 
+UPSCALE_CELLSIZE = 10  # 3 arcsec to 30 arcsec: the 6000x6000 tile to 600x600
+UPSCALE_CROP = 1200  # side of the crop upscaled on the card and on the CPU
+MEDIAN_OUTLETS = 10_000  # outlets whose segment medians are held to np.nanmedian
+FLOOD_KM2 = 1000  # floodplains: streams drain at least this many km2
+
+
+def _round_odd_np(s, e):
+    """numpy copy of ``dem._round_odd``."""
+    bits = s.view(np.int64 if s.dtype == np.float64 else np.int32)
+    step = np.nextafter(s, np.where(e > 0, np.inf, -np.inf).astype(s.dtype))
+    return np.where((e != 0) & ((bits & 1) == 0), step, s)
+
+
+def _hypot_np(x, y):
+    """numpy copy of ``jnp.hypot`` as XLA's CPU code runs it (float64):
+    ``max * sqrt(1 + (min / max)^2)``, the sum and square rounded once,
+    as the fused multiply-add it contracts them into gives them."""
+    x, y = np.abs(x), np.abs(y)
+    inf = np.isposinf(x) | np.isposinf(y)
+    hi, lo = np.maximum(x, y), np.minimum(x, y)
+    zero = hi == 0
+    r = lo / np.where(zero, 1.0, hi)
+    uh = r * r
+    c = r * 134217729.0
+    rh = c - (c - r)
+    rl = r - rh
+    ul = ((rh * rh - uh) + (2 * rh) * rl) + rl * rl
+    th = 1 + uh
+    tl = (1 - th) + uh
+    v = tl + ul
+    vb = v - tl
+    ev = (tl - (v - vb)) + (ul - vb)
+    out = np.where(zero, hi, hi * np.sqrt(th + _round_odd_np(v, ev)))
+    return np.where(inf, np.inf, out)
+
+
+def _slope_np(z, nodata, transform):
+    """numpy copy of the JAX package's ``dem.slope`` on a latlon grid of
+    float64 elevations (``pyflwdir_tpu/dem.py:106-143``)."""
+    from pyflwdir_torch.utils import geodesy
+
+    nrow, ncol = z.shape
+    bad = z == nodata
+    pad = np.pad(z, 1, constant_values=nodata)
+    pad_bad = np.pad(bad, 1, constant_values=True)
+
+    def nb(dr, dc):
+        v = pad[1 + dr : 1 + dr + nrow, 1 + dc : 1 + dc + ncol]
+        b = pad_bad[1 + dr : 1 + dr + nrow, 1 + dc : 1 + dc + ncol]
+        return np.where(b, z, v)
+
+    xres, yres, north = transform[0], transform[4], transform[5]
+    dzdx = ((nb(-1, -1) + 2 * nb(0, -1) + nb(1, -1))
+            - (nb(-1, 1) + 2 * nb(0, 1) + nb(1, 1))) / (8 * abs(xres))
+    dzdy = ((nb(-1, -1) + 2 * nb(-1, 0) + nb(-1, 1))
+            - (nb(1, -1) + 2 * nb(1, 0) + nb(1, 1))) / (8 * abs(yres))
+    lat = north + (np.arange(nrow) + 0.5) * yres
+    slp = _hypot_np(dzdx / geodesy.degree_metres_x(lat)[:, None],
+                    dzdy / geodesy.degree_metres_y(lat)[:, None])
+    return np.where(bad, nodata, slp).astype(np.float32)
+
+
+def _flood_np(ids, rank, z, stream):
+    """For each cell, the first ``stream`` cell at or below it (else its
+    pit) and the largest ``z`` on its path to it, that cell left out
+    (-inf where the cell is it): a host sweep over the rank levels,
+    downstream first."""
+    n = ids.size
+    t = np.arange(n)
+    pathmax = np.full(n, -np.inf, np.float32)
+    cells = np.flatnonzero(rank >= 1)
+    cells = cells[np.argsort(rank[cells], kind="stable")]
+    bounds = np.searchsorted(rank[cells], np.arange(1, int(rank.max(initial=0)) + 2))
+    for b0, b1 in zip(bounds[:-1], bounds[1:]):
+        c = cells[b0:b1]
+        d = ids[c]
+        to_stream = stream[d]
+        t[c] = np.where(stream[c], c, np.where(to_stream, d, t[d]))
+        pathmax[c] = np.where(stream[c], -np.inf,
+                              np.where(to_stream, z[c], np.maximum(z[c], pathmax[d])))
+    return t, pathmax
+
+
+def _rule(got, want, labels, terms, eps, has):
+    """Per unit catchment (outlets ``has``): |got - want| <= (k - 1) eps
+    sum|term|, k its cell count. Returns (ok, largest |err| / limit)."""
+    sel = labels > 0
+    k = np.bincount(labels[sel] - 1, minlength=has.size)
+    tot = np.bincount(labels[sel] - 1, weights=np.abs(terms[sel]), minlength=has.size)
+    err = np.abs(got.astype(np.float64) - want)[has]
+    lim = (np.maximum(k - 1, 0) * eps * tot)[has]
+    return bool(np.all(err <= lim)), float(np.max(err / np.where(lim > 0, lim, 1.0), initial=0))
+
+
+def upscale_path(fl, z, elev, upa, hnd, seq, dev):
+    """Upscaling, unit catchments, sub-grid rivers, the rest of dem and the
+    rivers on the 6000x6000 raster ``fl`` (``z`` its DEM, ``elev`` the host
+    fill of it, ``upa`` its upstream area in cells, ``hnd`` the downward
+    path's hand(), ``seq`` its cells downstream first), each step timed
+    (host clock, synchronised) and checked, with the launch counters zeroed
+    before each group and read after. The tile-plan kernels it reaches are
+    held against their plain versions by the earlier phases: here their
+    launches are checked. Returns the timings and counts."""
+    import pyflwdir_torch
+    from pyflwdir_torch import kernels, runtime, upscale
+
+    cs = UPSCALE_CELLSIZE
+    print(f" upscale phase (cellsize {cs}: upscaling, unit catchments, sub-grid rivers, "
+          "DEM steps, rivers):")
+    H, W = fl.shape
+    n = fl.size
+    ids, valid = fl.idxs_ds, fl.mask
+    ar = np.arange(n, dtype=np.int64)
+    dsl = np.where(ids < 0, ar, ids)
+    pit = valid & (ids == ar)
+    rng = np.random.RandomState(SEED + 7)
+    times, res = {}, {}
+    up_kernels = ("tile_pass_a", "tile_pass_c", *_UP)
+    down_kernels = ("tile_down_a", "tile_down_fin", "accel_in_scan", "permute_gather")
+
+    def launched_up(counts, what):
+        _check(_launched(counts, up_kernels) and not counts.get("tile_down_a"),
+               f"{what}: the derived upstream area through T1, T2 and the coarse H1-H3, no "
+               f"downward kernel; launches {counts}")
+
+    def launched_down(counts, what):
+        _check(counts.get("tile_down_a") == 1 and counts.get("tile_down_fin") == 1
+               and _launched(counts, down_kernels)
+               and not any(counts.get(k, 0) for k in ("tile_pass_a", "tile_pass_c")),
+               f"{what}: one downward sweep (T3, the coarse H1 and H0, T4), no upward "
+               f"tile kernel; launches {counts}")
+
+    # 1. upscaling
+    kernels.reset_launches()
+    f1, out1 = _timed(times, "upscale_ihu", lambda: fl.upscale(cs, method="ihu"))
+    counts = dict(kernels.launches)
+    launched_up(counts, f"upscale({cs}, method='ihu')")
+    res["upscale_ihu_launches"] = counts
+    shape1 = (-(-H // cs), -(-W // cs))
+    o1 = out1.ravel()
+    has1 = o1 >= 0
+    cell1 = np.flatnonzero(has1)
+    own = upscale.subidx_2_idx(o1[has1], W, cs, shape1[1])
+    away = cell1[own != cell1]  # IHU's last round may set a pit in a neighbour cell
+    upa1 = f1.upstream_area()
+    _check(f1.shape == shape1 and f1.device.type == "cuda" and f1.isvalid
+           and f1.idxs_pit.size >= 1
+           and bool(np.all(f1.idxs_ds[away] == away))
+           and bool(upscale.in_d8(cell1, own, shape1[1]).all())
+           and int(upa1.ravel()[f1.idxs_pit].sum()) == int(f1.mask.sum()),
+           f"upscale: a valid {shape1[0]}x{shape1[1]} raster on the card, "
+           f"{f1.idxs_pit.size} pits; each of {int(has1.sum())} outlet pixels in its own "
+           f"lowres cell but {away.size} pits in a neighbour cell (pit_out_of_cell); its "
+           "upstream_area() summing over its pits to its valid count")
+    err1 = _timed(times, "upscale_error", lambda: fl.upscale_error(f1, out1))
+    res["ihu_disconnected"] = int((err1 == 0).sum())
+    print(f"  ihu: {res['ihu_disconnected']} of {int(f1.mask.sum())} cells disconnected "
+          f"(upscale_error)")
+    lowres = {"ihu": (f1, out1)}
+    for m in ("dmm", "eam", "eam_plus"):
+        fm, om = _timed(times, f"upscale_{m}", lambda: fl.upscale(cs, method=m, uparea=upa))
+        res[f"{m}_disconnected"] = int((fl.upscale_error(fm, om) == 0).sum())
+        lowres[m] = (fm, om)
+        om = om.ravel()
+        cell = np.flatnonzero(om >= 0)
+        _check(fm.isvalid and np.array_equal(
+            upscale.subidx_2_idx(om[cell], W, cs, shape1[1]), cell),
+            f"upscale(method='{m}'): valid, each outlet pixel in its own lowres cell; "
+            f"{res[f'{m}_disconnected']} cells disconnected")
+    # the banded IHU on memory maps of the same inputs
+    upa64 = upa.ravel().astype(np.float64)
+    ids_m, out_m, _ = _timed(times, "ihu_module_float64", lambda: upscale.ihu(
+        ids, upa64, fl.shape, cs))
+    tmp = tempfile.mkdtemp(prefix="_plan_tmp", dir=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        fd = np.memmap(os.path.join(tmp, "ds.bin"), np.int64, "w+", shape=(n,))
+        fu = np.memmap(os.path.join(tmp, "upa.bin"), np.float64, "w+", shape=(n,))
+        fd[:], fu[:] = ids, upa64
+        fd.flush()
+        fu.flush()
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            ids_t, out_t, _ = _timed(times, "ihu_tiled", lambda: upscale.ihu_tiled(
+                fd, fu, fl.shape, cs, band_rows=64))
+        del fd, fu
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    esc = [str(w.message) for w in rec if "halo" in str(w.message)]
+    differ = int((ids_t != ids_m).sum() + (out_t != out_m).sum())
+    res["ihu_tiled_escapes"] = int(esc[0].split()[0]) if esc else 0
+    res["ihu_tiled_cells_differ"] = differ
+    if esc:
+        print(f"  ihu_tiled(band_rows=64): {esc[0]}; {differ} lowres values differ from ihu")
+    else:
+        _check(differ == 0, "ihu_tiled(band_rows=64) on int64 / float64 memory maps: no walk "
+               "left its halo, bitwise equal to ihu() on the same inputs")
+    print(f"  ihu with the int32 upstream area (the object's) equal to the float64 one: "
+          f"{np.array_equal(ids_m, f1.idxs_ds) and np.array_equal(out_m, o1)}")
+    # a crop upscaled on the card and on the CPU
+    zc = z[:UPSCALE_CROP, :UPSCALE_CROP]
+    d8c = pyflwdir_torch.fill_depressions(zc, nodata=-9999.0)[1]
+    fc = pyflwdir_torch.from_array(d8c, transform=fl.transform, latlon=True, device=dev)
+    fh = pyflwdir_torch.from_array(d8c, transform=fl.transform, latlon=True, device="cpu")
+    for m in ("ihu", "eam_plus", "eam", "dmm"):
+        gc, oc = fc.upscale(cs, method=m)
+        gh, oh = fh.upscale(cs, method=m)
+        _check(gc.device.type == "cuda" and np.array_equal(gc.idxs_ds, gh.idxs_ds)
+               and np.array_equal(oc, oh),
+               f"{UPSCALE_CROP}x{UPSCALE_CROP} crop, {m}: the card bitwise equal to the CPU run")
+    uc = fc.upstream_area().ravel().astype(np.float64)
+    tc = upscale.ihu_tiled(fc.idxs_ds, uc, fc.shape, cs, band_rows=16)
+    th = upscale.ihu_tiled(fh.idxs_ds, uc, fh.shape, cs, band_rows=16, device="cpu")
+    _check(all(np.array_equal(a, b) for a, b in zip(tc[:2], th[:2])),
+           f"{UPSCALE_CROP}x{UPSCALE_CROP} crop, ihu_tiled(band_rows=16): the card bitwise "
+           "equal to the CPU run")
+    del fc, fh, lowres, f1, ids_m, out_m, ids_t, out_t
+
+    # 2. unit catchments
+    kernels.reset_launches()
+    outs = _timed(times, "ucat_outlets", lambda: fl.ucat_outlets(cs))
+    counts = dict(kernels.launches)
+    launched_up(counts, f"ucat_outlets({cs})")
+    res["ucat_outlets_launches"] = counts
+    o = outs.ravel()
+    has = o >= 0
+    m = o.size
+    kernels.reset_launches()
+    lab, acell = _timed(times, "ucat_area_cell", lambda: fl.ucat_area(outs, unit="cell"))
+    _check(not any(kernels.launches.values()), "ucat_area: no kernel launched (torch ops)")
+    lf = lab.ravel()
+    inl = lf > 0
+    want = np.zeros(m, np.int64)
+    np.add.at(want, lf[inl] - 1, 1)
+    _check(acell.dtype == np.int32 and np.array_equal(acell.ravel(), np.where(has, want, -9999)),
+           f"ucat_area(unit='cell'): {int(has.sum())} catchments, bitwise equal to np.add.at "
+           "over a host copy of the labels")
+    pos = np.full(n, -1, np.int64)
+    pos[o[has]] = np.flatnonzero(has)
+    seeds = rng.choice(np.flatnonzero(valid), ORACLE_CELLS, replace=False)
+    off, data, _ = runtime.trace_walks(ids, seeds, mask=pos >= 0)
+    last = data[off[1:] - 1]
+    _check(np.array_equal(lf[seeds], np.where(pos[last] >= 0, pos[last] + 1, 0)),
+           f"ucat_area: at {ORACLE_CELLS} seeded cells the label is the first outlet at or "
+           "below the cell (host walks), 0 where the walk ends at a pit")
+    area = np.asarray(fl.area).ravel()
+    akm = _timed(times, "ucat_area_km2", lambda: fl.ucat_area(outs, unit="km2"))[1].ravel()
+    akm2 = fl.ucat_area(outs, unit="km2")[1].ravel()
+    ok, worst = _rule(akm, np.bincount(lf[inl] - 1, weights=area[inl] / 1e6, minlength=m),
+                      lf, area / 1e6, _EPS, has)
+    _check(np.array_equal(akm.view(np.int64), akm2.view(np.int64)) and ok,
+           f"ucat_area(unit='km2'): two calls the same bits, per catchment within (k - 1) "
+           f"eps sum|term| of a float64 numpy sum ({worst:.2e} of it)")
+    vol = _timed(times, "ucat_volume", lambda: fl.ucat_volume(outs, hnd))[1]
+    vol2 = fl.ucat_volume(outs, hnd)[1]
+    depths = np.arange(0.5, 3.0, 0.5, dtype=np.float32)
+    hf = np.asarray(hnd).ravel()
+    worst_v = 0.0
+    for i, d in enumerate(depths):
+        terms = (area * np.maximum(0.0, np.float64(d) - hf)).astype(np.float32)
+        want_v = np.bincount(lf[inl] - 1, weights=terms[inl].astype(np.float64), minlength=m)
+        ok, w_ = _rule(vol[i].ravel(), want_v, lf, terms.astype(np.float64),
+                       np.finfo(np.float32).eps, has)
+        _check(ok, f"ucat_volume at depth {d}: within (k - 1) eps32 sum|term| per catchment")
+        worst_v = max(worst_v, w_)
+    _check(vol.dtype == np.float32 and np.array_equal(vol, vol2)
+           and bool(np.all(np.diff(vol.reshape(depths.size, -1)[:, has], axis=0) >= 0)),
+           f"ucat_volume: float32, two calls the same bits, rising with depth (largest error "
+           f"{worst_v:.2e} of the limit)")
+    del lab, lf, inl, want, hf, vol, vol2
+
+    # 3. sub-grid rivers
+    kernels.reset_launches()
+    rl_up = _timed(times, "subgrid_rivlen_up", lambda: fl.subgrid_rivlen(outs, direction="up"))
+    res["subgrid_rivlen_launches"] = dict(kernels.launches)
+    launched_down(res["subgrid_rivlen_launches"], "subgrid_rivlen (cells: stream_distance())")
+    rl_dn = _timed(times, "subgrid_rivlen_down", lambda: fl.subgrid_rivlen(
+        outs, direction="down"))
+    _check(all(bool(np.all((r.ravel()[has] >= 0) | (r.ravel()[has] == -9999)))
+               and bool(np.all(r.ravel()[~has] == -9999)) for r in (rl_up, rl_dn)),
+           "subgrid_rivlen up and down: each length >= 0 or -9999, -9999 at missing outlets")
+    fl._cached.pop("distnc", None)
+    kernels.reset_launches()
+    slp = _timed(times, "subgrid_rivslp_both", lambda: fl.subgrid_rivslp(
+        outs, elev, length=1000, direction="both", method="lstsq"))
+    res["subgrid_rivslp_launches"] = dict(kernels.launches)
+    launched_down(res["subgrid_rivslp_launches"], "subgrid_rivslp (distnc: stream_distance('m'))")
+    slp_up = _timed(times, "subgrid_rivslp_up", lambda: fl.subgrid_rivslp(
+        outs, elev, direction="up"))
+    _check(all(bool(np.all(np.isfinite(s_) & ((s_ >= 0) | (s_ == -9999)))) for s_ in (slp, slp_up)),
+           "subgrid_rivslp both (lstsq, 1000 m) and up: finite, >= 0 or -9999")
+    data = (rng.rand(n) * 100).astype(np.float32)
+    data[rng.rand(n) < 0.05] = -9999.0
+    avg = _timed(times, "subgrid_rivavg", lambda: fl.subgrid_rivavg(outs, data)).ravel()
+    med = _timed(times, "subgrid_rivmed", lambda: fl.subgrid_rivmed(outs, data)).ravel()
+    sel = np.sort(rng.choice(np.flatnonzero(has), MEDIAN_OUTLETS, replace=False))
+    # the walks stop at any outlet pixel: walk from all, keep the sampled ones
+    off, pix, _, _ = runtime.channel_paths(fl.idxs_us_main, o)
+    segs = [data[pix[off[i]:off[i + 1]]].astype(np.float64) for i in sel]
+    want_m = np.full(sel.size, -9999.0, np.float32)
+    want_a = np.full(sel.size, np.nan)
+    k = np.zeros(sel.size, np.int64)
+    for i, v in enumerate(segs):
+        v = v[v != -9999.0]
+        if v.size:
+            want_m[i] = np.nanmedian(v)
+            want_a[i] = v.mean()
+            k[i] = v.size
+    good = k > 0
+    _check(np.array_equal(med[sel], want_m),
+           f"subgrid_rivmed: bitwise equal to np.nanmedian of the segments at {sel.size} "
+           f"outlets ({int(good.sum())} with data)")
+    tol = 0.5 * np.spacing(np.abs(want_a[good]).astype(np.float32)) + 2 * k[good] * _EPS * (
+        np.abs(want_a[good]))
+    err = np.abs(avg[sel][good] - want_a[good])
+    _check(bool(np.all(err <= tol)) and bool(np.all(avg[sel][~good] == -9999.0)),
+           f"subgrid_rivavg: within half a float32 ulp plus 2 k eps64 of the float64 segment "
+           f"means at {sel.size} outlets (largest {float(np.max(err / tol, initial=0)):.2e} "
+           "of it)")
+    feats = _timed(times, "streams_idxs_out", lambda: fl.streams(idxs_out=outs))
+    _check(len(feats) > 0, f"streams(idxs_out=...): {len(feats)} features")
+    res["streams_idxs_out_features"] = len(feats)
+    del rl_up, rl_dn, slp, slp_up, avg, med, segs, feats, data
+
+    # 4. DEM steps
+    slope = _timed(times, "slope", lambda: pyflwdir_torch.slope(
+        elev, nodata=-9999.0, latlon=True, transform=fl.transform)).cpu().numpy()
+    _check(slope.dtype == np.float32 and np.array_equal(
+        slope, _slope_np(elev, -9999.0, fl.transform)),
+        "slope(latlon=True) on the card bitwise equal to a numpy copy of the JAX formula")
+    del slope
+    kernels.reset_launches()
+    fld = _timed(times, "floodplains", lambda: fl.floodplains(elev, upa_min=FLOOD_KM2)).ravel()
+    res["floodplains_launches"] = dict(kernels.launches)
+    launched_up(res["floodplains_launches"], "floodplains (the upstream area in km2)")
+    upa_km2 = fl.upstream_area("km2").ravel()
+    stream = (upa_km2 >= FLOOD_KM2) & valid
+    z32 = elev.ravel().astype(np.float32)
+    t, pathmax = _flood_np(ids, fl.rank.ravel(), z32, stream)
+    margin = pathmax - z32[t]
+    # b = 0: a threshold of 1 m, which this DEM's relief crosses
+    for b, got in ((0.3, fld), (0.0, fl.floodplains(elev, upa_min=FLOOD_KM2, b=0.0).ravel())):
+        with np.errstate(invalid="ignore"):  # -9999 at missing cells, masked below
+            thresh = upa_km2[t].astype(np.float32) ** np.float32(b)
+        want = np.where(valid, np.where(stream | (stream[t] & (margin <= thresh)), 1, 0), -1)
+        near = valid & (np.abs(margin - thresh) <= np.spacing(thresh))
+        diff = got != want
+        _check(not np.any(diff & ~near),
+               f"floodplains(upa_min={FLOOD_KM2}, b={b}): equal to a host sweep over the rank "
+               f"levels but {int(diff.sum())} cells, each within an ulp of its threshold "
+               f"({int(near.sum())} cells within an ulp; {int((got == 1).sum())} floodplain "
+               f"or stream cells of {int(valid.sum())})")
+    del t, pathmax, margin, thresh, near, diff, want
+    dig = _timed(times, "dem_dig_d4", lambda: fl.dem_dig_d4(elev)).ravel()
+    _check(dig.dtype == np.float64 and bool(np.all(np.isfinite(dig))),
+           f"dem_dig_d4: finite, {int((dig != elev.ravel()).sum())} cells changed")
+    adj = _timed(times, "dem_adjust", lambda: fl.dem_adjust(elev)).ravel()
+    down = valid & ~pit & (fl.rank.ravel() >= 0)
+    _check(bool(np.all(adj[dsl[down]] <= adj[down])),
+           f"dem_adjust: no valid cell below its downstream cell, "
+           f"{int((adj != elev.ravel()).sum())} cells changed")
+    del fld, dig, adj
+
+    # 5. rivers
+    dst = np.asarray(fl.distnc).ravel()
+    rivwth = (1000.0 * np.exp(-dst / 20000.0) + rng.rand(n) * 20).astype(np.float32)
+    max_elv = float(np.median(elev.ravel()[pit]))
+    kernels.reset_launches()
+    est = _timed(times, "classify_estuaries", lambda: fl.classify_estuaries(
+        elev, rivwth, max_elevtn=max_elv))
+    _check(not any(kernels.launches.values()), "classify_estuaries: no kernel (torch ops)")
+    dx = dst - dst[dsl]
+    dw = rivwth[dsl] - rivwth
+    fwd = dx > 0
+    conv = np.where(fwd, dw / np.where(fwd, dx, np.float32(1)), np.float32(0))
+    cond = ((dst[dsl] == 0) & (dw <= 0)) | (fwd & (conv > 1e-2))
+    cond &= valid & ~pit
+    seed = pit & (elev.ravel() <= max_elv)
+    fails = runtime.downward_sweep(ids, seq, (valid & ~pit & ~cond).astype(np.float64))
+    root_seed = runtime.downward_sweep(ids, seq, seed.astype(np.float64))
+    chain = np.where(pit, seed, valid & (fails == 0) & (root_seed > 0))
+    fail = valid & ~pit & ~cond & chain[dsl]
+    below = np.bincount(dsl[fail], minlength=n) > 0
+    want = np.where(chain & below, 2, chain.astype(np.int8)).astype(np.int8)
+    _check(est.dtype == np.int8 and np.array_equal(est, want),
+           f"classify_estuaries: bitwise equal to host sweeps of the rule (native downward "
+           f"sweeps); {int((est == 1).sum())} estuary cells, {int((est == 2).sum())} "
+           f"upstream ends, {int(seed.sum())} seed pits")
+    q = rng.rand(n) * 1000 + 1
+    dph = _timed(times, "river_depth_manning", lambda: fl.river_depth(
+        q, rivwth + 5, zs=elev, rivdst=dst)).ravel()
+    _check(bool(np.all(np.isfinite(dph[valid]) & (dph[valid] >= 1)))
+           and bool(np.all(dph[~valid] == -9999.0)),
+           "river_depth(method='manning'): finite and >= 1 m on valid cells, -9999 elsewhere")
+    res["times_s"] = times
+    return res
+
+
 class _PlanBuilds:
     """Records the seconds of every tile-plan build made inside the block."""
 
@@ -2231,7 +2666,7 @@ def tile_down_path(fl, tp, elev, upa, seq, dev):
                      stream_distance_ms=sd_ms, main_path_int32_s=t_int,
                      main_path_float64_s=t_f64, down_indices_s=t_down,
                      down_indices_steps_s=tp.down_build_seconds,
-                     cut_plan_s=builds.seconds, coarse_n_down=n_c)
+                     cut_plan_s=builds.seconds, coarse_n_down=n_c), hnd
 
 
 def _check_hand(fl, hnd, elev, drain, drain_cells, cut=None):
@@ -2876,7 +3311,8 @@ def main(json_path=None):
             json.dump(dict(card=smi, rhine=rhine, tile=tile, dem=dem, routed=routed,
                            multi_card=cards, ptxas=regs, stream_lookup_us=streams,
                            kernels=out), f, indent=1)
-    for name, times in (("rhine", rhine["surface"]), ("tile", tile["surface"]["times_s"])):
+    for name, times in (("rhine", rhine["surface"]), ("tile", tile["surface"]["times_s"]),
+                        ("tile upscale phase", tile["upscale"]["times_s"])):
         print(f"surface times, {name} (host clock, synchronised; {smi}): "
               + ", ".join(f"{k} {v:.4f} s" for k, v in times.items()))
     print(f"card: {smi}")

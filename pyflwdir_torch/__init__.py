@@ -25,8 +25,15 @@ surface around them: the window gathers and the native walks
 region measurements (``regions``: ``basin_bounds``, ``basin_outlets``),
 ``gridtools`` / ``gis_utils`` (``spread2d``, features, ``streams``,
 ``vectorize``), directory checkpoints (``checkpoint``), ``dump`` / ``load``
-and ``from_dataframe``. Not yet ported: ``slope``, ``upscale``, ``subgrid``
-and ``rivers``.
+and ``from_dataframe``. Upscaling (``upscale``: DMM, EAM, EAM+, IHU and the
+banded IHU, the maps over every pixel on the device), unit catchments and
+the sub-grid river statistics (``subgrid``), estuaries and river depths
+(``rivers``), and the rest of ``dem`` (``slope``, ``floodplains``, the
+elevation adjustment and D4 digging), behind ``FlwdirRaster.upscale`` /
+``ucat_*`` / ``subgrid_*`` / ``floodplains`` / ``dem_dig_d4`` and
+``Flwdir.dem_adjust`` / ``classify_estuaries`` / ``river_depth``. The
+public names are the JAX package's; ``default_device``, ``has_cuda``,
+``kernels`` and ``runtime`` are the port's own, outside ``__all__``.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with no
 GPU and no ``device`` they raise.
@@ -46,13 +53,16 @@ from . import (
     ops,
     parallel,
     regions,
+    rivers,
     runtime,
     streams,
+    subgrid,
+    upscale,
     utils,
 )
 from ._backend import default_device, has_cuda
 from .codecs import FTYPES, d8_to_ldd, ldd_to_d8, read_nextxy
-from .dem import fill_depressions
+from .dem import fill_depressions, slope
 from .flwdir import Flwdir, from_dataframe
 from .gridtools import spread2d
 from .raster import FlwdirRaster, from_array, from_dem
@@ -69,6 +79,7 @@ __all__ = [
     "d8_to_ldd",
     "ldd_to_d8",
     "fill_depressions",
+    "slope",
     "spread2d",
     "area_grid",
     "affine_to_coords",
@@ -82,15 +93,14 @@ __all__ = [
     "streams",
     "basins",
     "dem",
+    "upscale",
+    "subgrid",
     "arithmetics",
+    "rivers",
     "regions",
     "gridtools",
     "gis_utils",
     "checkpoint",
     "parallel",
     "__version__",
-    "default_device",
-    "has_cuda",
-    "kernels",
-    "runtime",
 ]

@@ -6,9 +6,10 @@ and the accumulation run on the object's ``device`` (CUDA unless the
 caller asks for the CPU). ``idxs_ds`` and every index set it returns are
 int64. The Strahler order runs in the native host library over the DFS
 plan's preorder, as in the JAX package; the classic order, the main
-upstream cells, the nodata accumulations, the moving windows and the
-upstream sums run on the device; paths and snapping walk in the native
-host library.
+upstream cells, the nodata accumulations, the moving windows, the
+upstream sums and the estuary classification run on the device; paths and
+snapping walk in the native host library, and the elevation adjustment and
+the river depths run on the host, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import pprint
 import numpy as np
 import torch
 
-from . import arithmetics, runtime, streams
+from . import arithmetics, dem, rivers, runtime, streams
 from ._backend import resolve_device
 from .ops import graph
 from .ops.walk import paths as _paths
@@ -448,6 +449,78 @@ class Flwdir:
             nodata=nodata,
         )
         return out.reshape(np.asarray(rivlen).shape)
+
+    ### ELEVATION ###
+
+    def dem_adjust(self, elevtn):
+        """Hydrologically adjusted elevation, never above the cell upstream
+        of it: the native profile repair (:func:`dem.adjust_elevation`) on
+        the host, in ``elevtn``'s shape and dtype."""
+        out = dem.adjust_elevation(
+            self._idxs_ds, self.rank.ravel(), self._check_data(elevtn, "elevtn"))
+        return out.reshape(np.asarray(elevtn).shape).astype(np.asarray(elevtn).dtype)
+
+    ### RIVERS ###
+
+    def classify_estuaries(self, elevtn, rivwth, rivdst=None, min_convergence=1e-2,
+                           max_elevtn=0):
+        """Estuaries by river-width convergence (:func:`rivers.classify_estuary`,
+        on the device): flat int8, 1 estuary, 2 its upstream end, 0 else;
+        ``rivdst`` defaults to :attr:`distnc`."""
+        rivdst = self.distnc if rivdst is None else rivdst
+        est = rivers.classify_estuary(
+            self._ds,
+            self.idxs_pit,
+            rivdst=self._check_data(rivdst, "rivdst"),
+            rivwth=self._check_data(rivwth, "rivwth"),
+            elevtn=self._check_data(elevtn, "elevtn"),
+            min_convergence=min_convergence,
+            max_elevtn=max_elevtn,
+            device=self.device,
+        )
+        return est.cpu().numpy()
+
+    def river_depth(self, qbankfull, rivwth, zs=None, rivdst=None, rivslp=None, manning=0.03,
+                    method="manning", min_rivdph=1, min_rivslp=1e-5, **kwargs):
+        """River depth from Manning's equation, or refined by the
+        gradually-varied-flow solver (``method="gvf"``,
+        :func:`rivers.rivdph_gvf`); the slope from ``zs`` and ``rivdst``
+        where ``rivslp`` is None. Host numpy float64, -9999 at missing
+        cells."""
+        methods = ["manning", "gvf"]
+        if method not in methods:
+            raise ValueError(f"Method unknown {method}, select from {methods}")
+        manning = self._check_data(manning, "manning")
+        qbankfull = self._check_data(qbankfull, "qbankfull")
+        rivwth = self._check_data(rivwth, "rivwth")
+        _opt = method == "manning" and rivslp is not None
+        rivslp = self._check_data(rivslp, "rivslp", optional=True)
+        rivdst = self._check_data(rivdst, "rivdst", optional=_opt)
+        zs = self._check_data(zs, "zs", optional=_opt)
+        if rivslp is None:
+            dz = zs - self.downstream(zs)
+            dx = rivdst - self.downstream(rivdst)
+            rivslp = np.where(dx >= 1, dz / np.maximum(1, dx), -9999)
+            rivslp = self.fillnodata(rivslp, nodata=-9999)
+        rivslp = np.maximum(min_rivslp, rivslp)
+        rivdph = ((manning * qbankfull) / (np.sqrt(rivslp) * rivwth)) ** (3 / 5)
+        rivdph = np.maximum(min_rivdph, rivdph)
+        rivdph[self.idxs_ds == self._mv] = -9999.0
+        if method == "gvf":
+            rivdph = rivers.rivdph_gvf(
+                self._idxs_ds,
+                self.rank.ravel(),
+                zs=zs,
+                rivdph=rivdph,
+                qbankfull=qbankfull,
+                rivdst=rivdst,
+                rivwth=rivwth,
+                manning=manning,
+                min_rivslp=min_rivslp,
+                min_rivdph=min_rivdph,
+                **kwargs,
+            )
+        return np.asarray(rivdph).reshape(self.shape)
 
     ### STREAMS ###
 

@@ -2,8 +2,9 @@
 object: shape, mask, transform, coordinates, area, rank; upstream area and
 accumulation; basins, sub-basins, their bounds and outlets, the interbasin
 mask, inflow and outflow cells, stream order, stream distance, height above
-the nearest drain and nodata filling; paths and snapping in metres; stream
-and flow-direction features. Above 2^21 cells the accumulations, the
+the nearest drain, floodplains, D4 digging and nodata filling; paths and
+snapping in metres; stream and flow-direction features; upscaling, unit
+catchments and the sub-grid river statistics. Above 2^21 cells the accumulations, the
 Strahler order (one tile-plan accumulation a level) and the downward sweeps
 run through the tile plan (``ops/tile_plan.py``: ``accumulate`` upward,
 ``accumulate_down`` downward), below it through the single-chunk plans and
@@ -14,6 +15,8 @@ leaves the card for another engine."""
 
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 import torch
 
@@ -21,6 +24,8 @@ from . import basins as basins_mod
 from . import dem as dem_mod
 from . import regions as regions_mod
 from . import streams as streams_mod
+from . import subgrid as subgrid_mod
+from . import upscale as upscale_mod
 from ._backend import resolve_device
 from .codecs import FTYPES, infer_ftype
 from .flwdir import Flwdir
@@ -642,21 +647,28 @@ class FlwdirRaster(Flwdir):
 
     def streams(self, mask=None, min_sto=1, xs=None, ys=None, idxs_out=None, max_len=0,
                 direction="up", **kwargs):
-        """Stream segments, confluence to confluence, as LineString features,
-        over the ``mask`` cells or those of stream order ``min_sto`` and
-        above; ``kwargs`` maps are sampled at each segment's head.
-        ``idxs_out`` (segments between given outlets) needs the sub-grid
-        module and raises NotImplementedError."""
-        if idxs_out is not None:
-            raise NotImplementedError(
-                "streams(idxs_out=...) needs subgrid.segment_indices, queued for slice 13 "
-                "of the PyTorch port")
+        """Stream segments as LineString features, over the ``mask`` cells
+        or those of stream order ``min_sto`` and above: confluence to
+        confluence, or, with ``idxs_out``, between those outlet pixels along
+        the main upstream (``direction="up"``) or downstream cells
+        (:func:`subgrid.segment_indices`); ``kwargs`` maps are sampled at
+        each segment's head."""
         if mask is not None:
             mask = self._check_data(mask, "mask")
         elif min_sto > 1:
             strord = self._check_data(kwargs.get("strord"), "strord")
             mask = strord >= min_sto
             kwargs.update(strord=strord)
+        if idxs_out is not None:
+            idxs = subgrid_mod.segment_indices(
+                idxs_out=np.asarray(idxs_out).ravel(),
+                idxs_nxt=self.idxs_us_main if direction == "up" else self.idxs_ds,
+                mask=mask,
+                max_len=max_len,
+            )
+            if direction == "up":
+                idxs = [idxs0[::-1] for idxs0 in idxs]
+            return self.geofeatures(idxs, xs=xs, ys=ys, **kwargs)
         mask_dev = None if mask is None else torch.as_tensor(mask != 0, device=self.device)
         nup = graph.upstream_count(self._ds, mask=mask_dev).cpu().numpy()
         idxs = streams_mod.streams(
@@ -678,6 +690,233 @@ class FlwdirRaster(Flwdir):
             shape=self.shape,
             **kwargs,
         )
+
+    ### UPSCALE ###
+
+    def upscale(self, scale_factor, method="ihu", uparea=None, **kwargs):
+        """The flow directions upscaled by ``scale_factor``: IHU (default),
+        EAM+, EAM or DMM (:mod:`upscale`; ``"com"`` / ``"com2"`` are the old
+        names of EAM+ / IHU and warn), with ``uparea`` in cells derived where
+        None. Returns (the lowres FlwdirRaster on this raster's device, its
+        transform scaled; the outlet pixel of each lowres cell)."""
+        if self.ftype not in ["d8", "ldd"]:
+            raise ValueError("The upscale method only works for D8 or LDD flow directon data.")
+        methods = ["ihu", "eam_plus", "com2", "com", "eam", "dmm"]
+        method = str(method).lower()
+        if method not in methods:
+            methodstr = "', '".join(methods)
+            raise ValueError(f"Unknown method: {method}, select from: '{methodstr}'")
+        if "com" in method:
+            method_new = {"com": "eam_plus", "com2": "ihu"}.get(method)
+            warnings.warn(f"{method} renamed to {method_new}.", DeprecationWarning)
+            method = method_new
+        idxs_ds1, idxs_out, shape1 = getattr(upscale_mod, method)(
+            subidxs_ds=self._idxs_ds,
+            subuparea=self._check_data(uparea, "uparea"),
+            subshape=self.shape,
+            cellsize=scale_factor,
+            device=self.device,
+            **kwargs,
+        )
+        a, b, c, d, e, f = self.transform
+        flw1 = FlwdirRaster(
+            idxs_ds=idxs_ds1,
+            shape=shape1,
+            transform=Affine(a * scale_factor, b, c, d, e * scale_factor, f),
+            ftype=self.ftype,
+            latlon=self.latlon,
+            device=self.device,
+        )
+        if not flw1.isvalid:
+            raise ValueError(
+                "The upscaled flow direction network is invalid. "
+                "Please provide a minimal reproducible example."
+            )
+        return flw1, idxs_out.reshape(shape1)
+
+    def upscale_error(self, other, idxs_out):
+        """Validity of the upscaled raster ``other`` with its outlet pixels
+        ``idxs_out`` (:func:`upscale.upscale_error`): uint8 in ``other``'s
+        shape, 1 ok, 0 error, 255 missing."""
+        if self._mv != other._mv:
+            raise ValueError("the two rasters use another missing value")
+        flwerr = upscale_mod.upscale_error(
+            other._check_data(idxs_out, "idxs_out"), other._idxs_ds, self._idxs_ds)[0]
+        return flwerr.reshape(other.shape)
+
+    ### UNIT CATCHMENTS ###
+
+    def ucat_outlets(self, cellsize, uparea=None, method="eam_plus"):
+        """The unit-catchment outlet pixel of each lowres cell of
+        ``cellsize`` (:func:`subgrid.outlets`, ``uparea`` in cells derived
+        where None), in the lowres shape."""
+        methods = ["eam_plus", "dmm"]
+        method = str(method).lower()
+        if method not in methods:
+            methodstr = "', '".join(methods)
+            raise ValueError(f"Unknown method: {method}, select from: '{methodstr}'")
+        idxs_out, shape1 = subgrid_mod.outlets(
+            idxs_ds=self._ds,
+            uparea=self._check_data(uparea, "uparea"),
+            cellsize=int(cellsize),
+            shape=self.shape,
+            method=method,
+            device=self.device,
+        )
+        return idxs_out.reshape(shape1)
+
+    def ucat_area(self, idxs_out, unit="cell"):
+        """Unit-catchment map and the area of each catchment of
+        ``idxs_out`` (:func:`subgrid.ucat_area`, on the device): int32 in
+        cells, float64 in an area unit, -9999 at missing outlets."""
+        unit = str(unit).lower()
+        if unit not in geodesy.AREA_FACTORS:
+            fstr = '", "'.join(geodesy.AREA_FACTORS.keys())
+            raise ValueError(f'Unknown unit: {unit}, select from "{fstr}".')
+        if unit == "cell":
+            area = np.ones(self.size, dtype=np.int32)
+        else:
+            area = np.asarray(self.area).ravel() / geodesy.AREA_FACTORS[unit]
+        ucat_map, ucat_are = subgrid_mod.ucat_area(
+            idxs_out=np.asarray(idxs_out).ravel(),
+            idxs_ds=self._ds,
+            area=area,
+            device=self.device,
+        )
+        return (ucat_map.cpu().numpy().reshape(self.shape),
+                ucat_are.cpu().numpy().reshape(np.asarray(idxs_out).shape))
+
+    def ucat_volume(self, idxs_out, hand, depths=np.arange(0.5, 3.0, 0.5, dtype=np.float32)):
+        """Unit-catchment map and flood volume [m3] of each catchment at
+        each of ``depths`` above the ``hand`` surface
+        (:func:`subgrid.ucat_volume`, on the device): (len(depths), *lowres
+        shape) float32 sums in ``depths``' dtype."""
+        ucat_map, ucat_vol = subgrid_mod.ucat_volume(
+            idxs_out=np.asarray(idxs_out).ravel(),
+            idxs_ds=self._ds,
+            hand=self._check_data(hand, "hand"),
+            area=np.asarray(self.area).ravel(),
+            depths=depths,
+            device=self.device,
+        )
+        return (ucat_map.cpu().numpy().reshape(self.shape),
+                ucat_vol.cpu().numpy().reshape((len(depths), *np.asarray(idxs_out).shape)))
+
+    def _subgrid_args(self, idxs_out, direction, directions=("up", "down")):
+        direction = str(direction).lower()
+        if direction not in directions:
+            raise ValueError(
+                f"Unknown flow direction: {direction}, select from {list(directions)}.")
+        if idxs_out is None:
+            idxs_out = np.arange(self.size, dtype=np.intp).reshape(self.shape)
+        return np.asarray(idxs_out), direction
+
+    def subgrid_rivlen(self, idxs_out, mask=None, direction="up", unit="cell"):
+        """Sub-grid river length from each outlet pixel to the next one up
+        the main stream or downstream (:func:`subgrid.segment_length`), in
+        cells or metres."""
+        idxs_out, direction = self._subgrid_args(idxs_out, direction)
+        if unit not in ["m", "cell"]:
+            raise ValueError(f'Unknown unit: {unit}, select from ["m", "cell"]')
+        distnc = self.distnc if unit == "m" else self.stream_distance(unit=unit)
+        rivlen = subgrid_mod.segment_length(
+            idxs_out=idxs_out.ravel(),
+            idxs_nxt=self._nxt(direction),
+            mask=self._check_data(mask, "mask", optional=True),
+            distnc=np.asarray(distnc).ravel(),
+        )
+        return rivlen.reshape(idxs_out.shape)
+
+    def subgrid_rivslp(self, idxs_out, elevtn, length=1000, direction="both", method="mean",
+                       mask=None):
+        """Sub-grid river slope: over a main-stem window of ``length``
+        metres centred on each outlet pixel (``direction="both"``,
+        :func:`subgrid.fixed_length_slope`), else over the segment up or
+        down (:func:`subgrid.segment_slope`); least squares where
+        ``method="lstsq"``, else between the ends."""
+        idxs_out, direction = self._subgrid_args(idxs_out, direction, ("both", "up", "down"))
+        elevtn = self._check_data(elevtn, "elevtn")
+        mask = self._check_data(mask, "mask", optional=True)
+        distnc = np.asarray(self.distnc).ravel()
+        if direction == "both":
+            rivslp = subgrid_mod.fixed_length_slope(
+                idxs_out=idxs_out.ravel(),
+                idxs_ds=self._idxs_ds,
+                idxs_us_main=self.idxs_us_main,
+                elevtn=elevtn,
+                distnc=distnc,
+                length=length,
+                mask=mask,
+                lstsq=method == "lstsq",
+            )
+        else:
+            rivslp = subgrid_mod.segment_slope(
+                idxs_out=idxs_out.ravel(),
+                idxs_nxt=self._nxt(direction),
+                elevtn=elevtn,
+                distnc=distnc,
+                mask=mask,
+                lstsq=method == "lstsq",
+            )
+        return rivslp.reshape(idxs_out.shape)
+
+    def _subgrid_stat(self, fn, idxs_out, data, weights, nodata, mask, direction):
+        idxs_out, direction = self._subgrid_args(idxs_out, direction)
+        if weights is None:
+            weights = np.ones(self.size, dtype=np.float32)
+        out = fn(
+            idxs_out=idxs_out.ravel(),
+            idxs_nxt=self._nxt(direction),
+            data=self._check_data(data, "data"),
+            weights=np.asarray(weights).ravel(),
+            nodata=nodata,
+            mask=self._check_data(mask, "mask", optional=True),
+        )
+        return out.reshape(idxs_out.shape)
+
+    def subgrid_rivavg(self, idxs_out, data, weights=None, nodata=-9999.0, mask=None,
+                       direction="up"):
+        """Weighted mean of ``data`` over each sub-grid river segment
+        (:func:`subgrid.segment_average`)."""
+        return self._subgrid_stat(subgrid_mod.segment_average, idxs_out, data, weights, nodata,
+                                  mask, direction)
+
+    def subgrid_rivmed(self, idxs_out, data, weights=None, nodata=-9999.0, mask=None,
+                       direction="up"):
+        """Median of ``data`` over each sub-grid river segment
+        (:func:`subgrid.segment_median`)."""
+        return self._subgrid_stat(subgrid_mod.segment_median, idxs_out, data, weights, nodata,
+                                  mask, direction)
+
+    ### ELEVATION ###
+
+    def dem_dig_d4(self, elevtn, rivmsk=None, nodata=-9999.0):
+        """Elevation with a D4-connected channel dug along every diagonal
+        link (:func:`dem.dig_4connectivity`, native, on the host), in
+        ``elevtn``'s dtype."""
+        elv_out = dem_mod.dig_4connectivity(
+            self._idxs_ds,
+            self.rank.ravel(),
+            self._check_data(elevtn, "elevtn"),
+            shape=self.shape,
+            mask=self._check_data(rivmsk, "rivmsk", optional=True),
+            nodata=nodata,
+        )
+        return elv_out.reshape(self.shape).astype(np.asarray(elevtn).dtype)
+
+    def floodplains(self, elevtn, uparea=None, upa_min=1000, b=0.3):
+        """Geomorphic floodplains (:func:`dem.floodplains`, on the device),
+        ``uparea`` in km2 derived where None: int8, 1 floodplain or stream,
+        0 not, -1 missing."""
+        dev = self.device
+        fldpln = dem_mod.floodplains(
+            self._ds,
+            torch.as_tensor(self._check_data(elevtn, "elevtn"), device=dev),
+            torch.as_tensor(self._check_data(uparea, "uparea", unit="km2"), device=dev),
+            upa_min=upa_min,
+            b=b,
+        )
+        return fldpln.cpu().numpy().reshape(self.shape)
 
     ### SHORTCUTS ###
 

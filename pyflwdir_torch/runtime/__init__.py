@@ -6,8 +6,11 @@ accumulation sweeps upward and downward (the oracles the device paths are
 held against), the tile plan's per-tile DFS, bijection padding and
 downward sort phase, the Strahler and classic stream-order sweeps, the
 stream segments, the river-length smoothing, the area sub-basin
-outlets, the batched walks (paths and snapping) and the Dijkstra spread of
-the nearest observation. The library is
+outlets, the batched walks (paths and snapping), the Dijkstra spread of
+the nearest observation, the channel walks between outlet pixels and the
+fixed-length windows of the sub-grid statistics, the streamline profile
+repairs (elevation adjustment, D4 digging) and the IHU upscaling repairs.
+The library is
 git-ignored; at first use it is built with ``make -C csrc``, and a failed
 build raises.
 """
@@ -36,6 +39,14 @@ __all__ = [
     "subbasin_area_outlets",
     "trace_walks",
     "spread2d",
+    "channel_paths",
+    "fixed_windows",
+    "adjust_elevation",
+    "repair_profile",
+    "dig_d4",
+    "ihu_relocate",
+    "ihu_opt_rivlen",
+    "ihu_min_error",
 ]
 
 _CSRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "..", "csrc"))
@@ -135,6 +146,43 @@ def _lib():
         _F64P, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
         ctypes.c_double, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_double, ctypes.c_double, _F64P, _I32P, ctypes.POINTER(ctypes.c_float),
+    ]
+    lib.ucat_paths_count.restype = None
+    lib.ucat_paths_count.argtypes = [
+        _I64P, ctypes.c_int64, _I64P, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_int32, _I64P, _I64P, _I8P,
+    ]
+    lib.ucat_paths_fill.restype = None
+    lib.ucat_paths_fill.argtypes = [_I64P, ctypes.c_int64, _I64P, ctypes.c_int64, _I64P, _I64P]
+    lib.fixed_window_count.restype = None
+    lib.fixed_window_count.argtypes = [
+        _I64P, _I64P, _F64P, ctypes.c_void_p, _I64P, ctypes.c_int64, ctypes.c_double,
+        _I64P, _I64P,
+    ]
+    lib.fixed_window_fill.restype = None
+    lib.fixed_window_fill.argtypes = [_I64P, _I64P, ctypes.c_int64, _I64P, _I64P]
+    lib.adjust_elevation_host.restype = None
+    lib.adjust_elevation_host.argtypes = [_I64P, _I64P, ctypes.c_int64, ctypes.c_int64, _F64P]
+    lib.repair_profile_host.restype = None
+    lib.repair_profile_host.argtypes = [_F64P, ctypes.c_int64]
+    lib.dig_d4_host.restype = None
+    lib.dig_d4_host.argtypes = [
+        _I64P, _I64P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, _F64P, ctypes.c_double, ctypes.c_double,
+    ]
+    dims = [ctypes.c_int64] * 6  # nlow, nsub, nrow, ncol, subncol, cellsize
+    lib.ihu_relocate.restype = ctypes.c_int64
+    lib.ihu_relocate.argtypes = [_I64P, _I64P, _I64P, _F64P, *dims, _I64P, ctypes.c_int64,
+                                 _I64P]
+    lib.ihu_opt_rivlen.restype = None
+    lib.ihu_opt_rivlen.argtypes = [
+        _I64P, _I64P, _I32P, _U8P, _I64P, _F64P, *dims, _I64P, ctypes.c_int64,
+        ctypes.c_double, ctypes.c_double,
+    ]
+    lib.ihu_min_error.restype = None
+    lib.ihu_min_error.argtypes = [
+        _I64P, _I64P, _I32P, _U8P, _I64P, _F64P, *dims, _I64P, ctypes.c_int64,
+        ctypes.c_double, ctypes.c_double, ctypes.c_int64,
     ]
     _LIB.append(lib)
     return lib
@@ -555,3 +603,179 @@ def spread2d(obs, msk=None, nodata=0, frc=None, latlon=False, transform=None):
         dst.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
     )
     return out.astype(obs.dtype), src, dst
+
+
+def channel_paths(nxt, seeds, mask=None, max_len=0, include_outlet=False):
+    """Walks along ``nxt`` from each outlet pixel in ``seeds`` to the next
+    outlet pixel, in CSR form (``csrc/network_kernels.cpp::ucat_paths_count
+    / ucat_paths_fill``; upstream pyflwdir ``subgrid.py:146-410`` walk
+    semantics). Returns ``(offsets, data, ends, kinds)``: the (m + 1,)
+    offsets and the concatenated pixels (int64), each walk's last pixel and
+    its kind (int8: 0 other, 1 outlet, 2 pit)."""
+    lib = _lib()
+    nxt = _i64(nxt)
+    seeds = _i64(seeds).ravel()
+    m = seeds.size
+    counts = np.empty(m, dtype=np.int64)
+    ends = np.empty(m, dtype=np.int64)
+    kinds = np.empty(m, dtype=np.int8)
+    _keep, mask_p = _mask_arg(mask)
+    if _keep is not None and _keep.size != nxt.size:
+        raise ValueError("mask must hold one value per cell")
+    lib.ucat_paths_count(
+        nxt.ctypes.data_as(_I64P), nxt.size, seeds.ctypes.data_as(_I64P), m, mask_p,
+        int(max_len), int(bool(include_outlet)), counts.ctypes.data_as(_I64P),
+        ends.ctypes.data_as(_I64P), kinds.ctypes.data_as(_I8P),
+    )
+    offsets = np.zeros(m + 1, dtype=np.int64)
+    np.cumsum(counts, out=offsets[1:])
+    data = np.empty(int(offsets[-1]), dtype=np.int64)
+    # the fill walks the pointer chain for each seed's counted length only
+    seeds_safe = np.where(seeds < 0, 0, seeds)
+    lib.ucat_paths_fill(
+        nxt.ctypes.data_as(_I64P), nxt.size, seeds_safe.ctypes.data_as(_I64P), m,
+        offsets.ctypes.data_as(_I64P), data.ctypes.data_as(_I64P),
+    )
+    return offsets, data, ends, kinds
+
+
+def fixed_windows(nxt, us_main, distnc, seeds, length, mask=None):
+    """Main-stem windows of about ``length`` (in ``distnc`` units) centred
+    on each of ``seeds``, in CSR form
+    (``csrc/network_kernels.cpp::fixed_window_count / fixed_window_fill``;
+    upstream pyflwdir ``subgrid.py:488-559`` walk semantics). Returns
+    ``(offsets, data)``, int64."""
+    lib = _lib()
+    nxt = _i64(nxt)
+    us = _i64(us_main)
+    seeds = _i64(seeds).ravel()
+    dst = np.ascontiguousarray(distnc, dtype=np.float64).ravel()
+    if not (us.size == dst.size == nxt.size):
+        raise ValueError("us_main and distnc must hold one value per cell")
+    m = seeds.size
+    starts = np.empty(m, dtype=np.int64)
+    counts = np.empty(m, dtype=np.int64)
+    _keep, mask_p = _mask_arg(mask)
+    lib.fixed_window_count(
+        nxt.ctypes.data_as(_I64P), us.ctypes.data_as(_I64P), dst.ctypes.data_as(_F64P),
+        mask_p, seeds.ctypes.data_as(_I64P), m, float(length),
+        starts.ctypes.data_as(_I64P), counts.ctypes.data_as(_I64P),
+    )
+    offsets = np.zeros(m + 1, dtype=np.int64)
+    np.cumsum(counts, out=offsets[1:])
+    data = np.empty(int(offsets[-1]), dtype=np.int64)
+    lib.fixed_window_fill(
+        us.ctypes.data_as(_I64P), starts.ctypes.data_as(_I64P), m,
+        offsets.ctypes.data_as(_I64P), data.ctypes.data_as(_I64P),
+    )
+    return offsets, data
+
+
+def adjust_elevation(nxt, order, elevtn):
+    """Streamline profile conditioning in the headwater-first ``order``
+    (``csrc/network_kernels.cpp::adjust_elevation_host``; upstream pyflwdir
+    ``dem.py:147-225`` semantics). Returns a new float64 array."""
+    nxt = _i64(nxt)
+    order = _i64(order)
+    z = np.array(elevtn, dtype=np.float64).ravel()
+    if z.size != nxt.size:
+        raise ValueError("elevtn must hold one value per cell")
+    _lib().adjust_elevation_host(
+        nxt.ctypes.data_as(_I64P), order.ctypes.data_as(_I64P), order.size, nxt.size,
+        z.ctypes.data_as(_F64P),
+    )
+    return z
+
+
+def repair_profile(profile):
+    """Minimum-modification repair of one up- to downstream profile
+    (``csrc/network_kernels.cpp::repair_profile_host``). Returns a new
+    float64 array."""
+    z = np.array(profile, dtype=np.float64).ravel()
+    _lib().repair_profile_host(z.ctypes.data_as(_F64P), z.size)
+    return z
+
+
+def dig_d4(nxt, order, shape, elevtn, mask=None, nodata=-9999.0, dz_min=1e-3):
+    """Dig a D4-connected channel along each diagonal D8 link, in the
+    headwater-first ``order`` (``csrc/network_kernels.cpp::dig_d4_host``;
+    upstream pyflwdir ``dem.py:405-439`` semantics). Returns a new float64
+    array."""
+    nxt = _i64(nxt)
+    order = _i64(order)
+    z = np.array(elevtn, dtype=np.float64).ravel()
+    if not (z.size == nxt.size == int(shape[0]) * int(shape[1])):
+        raise ValueError("elevtn must hold one value per cell of shape")
+    _keep, mask_p = _mask_arg(mask)
+    _lib().dig_d4_host(
+        nxt.ctypes.data_as(_I64P), order.ctypes.data_as(_I64P), order.size, nxt.size,
+        int(shape[0]), int(shape[1]), mask_p, z.ctypes.data_as(_F64P), float(nodata),
+        float(dz_min),
+    )
+    return z
+
+
+def _ihu_args(cell_ds, cell_out, pix_ds, pix_upa, shape, subncol, cellsize):
+    """The pointers and dimensions the IHU repairs share. ``cell_ds`` and
+    ``cell_out`` are mutated in place, so they must already be contiguous
+    int64; ``pix_ds`` int64 and ``pix_upa`` float64 are read only."""
+    for name, a, dt in (("cell_ds", cell_ds, np.int64), ("cell_out", cell_out, np.int64),
+                        ("pix_ds", pix_ds, np.int64), ("pix_upa", pix_upa, np.float64)):
+        if a.dtype != dt or not a.flags.c_contiguous:
+            raise TypeError(f"{name} must be a contiguous {np.dtype(dt).name} array")
+    if cell_out.size != cell_ds.size or pix_upa.size != pix_ds.size:
+        raise ValueError("cell_out / pix_upa must match cell_ds / pix_ds")
+    return (
+        cell_ds.ctypes.data_as(_I64P), cell_out.ctypes.data_as(_I64P),
+        pix_ds.ctypes.data_as(_I64P), pix_upa.ctypes.data_as(_F64P),
+        cell_ds.size, pix_ds.size, int(shape[0]), int(shape[1]), int(subncol), int(cellsize),
+    )
+
+
+def ihu_relocate(cell_ds, cell_out, pix_ds, pix_upa, broken, shape, subncol, cellsize):
+    """IHU outlet relocation (``csrc/upscale_kernels.cpp::ihu_relocate``;
+    upstream pyflwdir ``upscale.py:499-877``): mutates ``cell_ds`` /
+    ``cell_out`` in place; ``broken`` comes sorted by ascending outlet
+    uparea. Returns the cells still broken (int64)."""
+    broken = _i64(broken)
+    args = _ihu_args(cell_ds, cell_out, pix_ds, pix_upa, shape, subncol, cellsize)
+    still = np.empty(max(broken.size, 1), dtype=np.int64)
+    k = _lib().ihu_relocate(*args, broken.ctypes.data_as(_I64P), broken.size,
+                            still.ctypes.data_as(_I64P))
+    return still[:k]
+
+
+def _strm_valid(strm, valid, nsub, nlow):
+    if strm.dtype != np.int32 or not strm.flags.c_contiguous or strm.size != nsub:
+        raise TypeError("strm must be a contiguous int32 array, one value a pixel")
+    valid = np.ascontiguousarray(valid, dtype=np.uint8)
+    if valid.size != nlow:
+        raise ValueError("valid must hold one value per lowres cell")
+    return strm.ctypes.data_as(_I32P), valid
+
+
+def ihu_opt_rivlen(cell_ds, cell_out, strm, valid, pix_ds, pix_upa, shorts, shape, subncol,
+                   cellsize, minlen, minupa):
+    """IHU short-reach optimisation (``csrc/upscale_kernels.cpp::
+    ihu_opt_rivlen``; upstream pyflwdir ``upscale.py:971-1019``): mutates
+    ``cell_ds`` / ``cell_out`` / ``strm`` in place."""
+    shorts = _i64(shorts)
+    args = _ihu_args(cell_ds, cell_out, pix_ds, pix_upa, shape, subncol, cellsize)
+    strm_p, valid = _strm_valid(strm, valid, pix_ds.size, cell_ds.size)
+    _lib().ihu_opt_rivlen(*args[:2], strm_p, valid.ctypes.data_as(_U8P), *args[2:],
+                          shorts.ctypes.data_as(_I64P), shorts.size, float(minlen),
+                          float(minupa))
+
+
+def ihu_min_error(cell_ds, cell_out, strm, valid, pix_ds, pix_upa, broken, shape, subncol,
+                  cellsize, minlen, minupa, pit_out_of_cell):
+    """IHU upstream-area error minimisation (``csrc/upscale_kernels.cpp::
+    ihu_min_error``; upstream pyflwdir ``upscale.py:1022-1152``): mutates
+    ``cell_ds`` / ``cell_out`` / ``strm`` in place; ``broken`` comes sorted
+    by descending outlet uparea."""
+    broken = _i64(broken)
+    args = _ihu_args(cell_ds, cell_out, pix_ds, pix_upa, shape, subncol, cellsize)
+    strm_p, valid = _strm_valid(strm, valid, pix_ds.size, cell_ds.size)
+    _lib().ihu_min_error(*args[:2], strm_p, valid.ctypes.data_as(_U8P), *args[2:],
+                         broken.ctypes.data_as(_I64P), broken.size, float(minlen),
+                         float(minupa), int(pit_out_of_cell))

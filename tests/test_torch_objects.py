@@ -216,22 +216,33 @@ def test_from_dataframe_bitwise():
 
 
 def test_public_names():
-    left_for_later = {"slope", "upscale", "subgrid", "rivers"}
+    """The port's public names are the JAX package's: ``__all__`` equal, and
+    every public method of the JAX ``Flwdir`` / ``FlwdirRaster`` present
+    (nothing left raising NotImplementedError on the objects)."""
+    assert pyflwdir_torch.__all__ == pyflwdir_tpu.__all__
     for name in pyflwdir_tpu.__all__:
-        if name in left_for_later:
-            continue
-        assert name in pyflwdir_torch.__all__, name
         assert hasattr(pyflwdir_torch, name), name
     assert pyflwdir_torch.__version__ == pyflwdir_tpu.__version__
+    for cls in ("Flwdir", "FlwdirRaster"):
+        want = {m for m in dir(getattr(pyflwdir_tpu, cls)) if not m.startswith("_")}
+        got = {m for m in dir(getattr(pyflwdir_torch, cls)) if not m.startswith("_")}
+        assert want <= got, (cls, sorted(want - got))
     methods = ["path", "snap", "add_pits", "repair_loops", "idxs_seq", "order_cells",
                "isvalid", "distnc", "downstream", "upstream_sum", "moving_average",
                "moving_median", "dump", "load", "_dict", "_invalidate", "__str__",
-               "__getitem__"]
+               "__getitem__", "dem_adjust", "classify_estuaries", "river_depth"]
     for m in methods:
         assert hasattr(pyflwdir_torch.Flwdir, m), m
     for m in methods + ["ncells", "xy", "bounds", "extent", "basin_bounds", "basin_outlets",
-                        "vectorize", "streams", "geofeatures"]:
+                        "vectorize", "streams", "geofeatures", "upscale", "upscale_error",
+                        "ucat_outlets", "ucat_area", "ucat_volume", "subgrid_rivlen",
+                        "subgrid_rivslp", "subgrid_rivavg", "subgrid_rivmed", "dem_dig_d4",
+                        "floodplains"]:
         assert hasattr(pyflwdir_torch.FlwdirRaster, m), m
+    import inspect
+
+    for mod in (pyflwdir_torch.raster, pyflwdir_torch.flwdir):
+        assert "NotImplementedError" not in inspect.getsource(mod), mod.__name__
 
 
 def test_entry_points_default_to_the_card(d8_small, tmp_path):

@@ -160,8 +160,9 @@ def test_vectorize_streams_bitwise(rasters):
     for kw in (dict(), dict(min_sto=2), dict(strord=strord), dict(max_len=5),
                dict(mask=t.upstream_area() >= 10)):
         assert t.streams(**kw) == j.streams(**kw)
-    with pytest.raises(NotImplementedError):
-        t.streams(idxs_out=t.idxs_pit)
+    for direction in ("up", "down"):
+        got = t.streams(idxs_out=t.idxs_pit, direction=direction)
+        assert got == j.streams(idxs_out=j.idxs_pit, direction=direction)
 
 
 @pytest.mark.parametrize("writer", ["torch", "jax"])

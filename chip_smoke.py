@@ -162,7 +162,25 @@ Run from the repository root:  python3 chip_smoke.py [--json PATH]
    cards, world sizes 2 and 4 as they allow, one spawned rank per card:
    rank 0 builds and saves the plan, the others load it memory-mapped, and
    every rank holds both sharded sweeps against the unsharded ones.
-11. Prints a JSON line of the kernels, the card, then
+11. Halo phase, after the sharded one, on the same one-rank group: the
+   halo runtime (parallel.tiled_*) on the 6000x6000 grid as one block.
+   Kernel phase: F1 on the framed buffer (6002 rows of 6016 columns:
+   the block, a fixed +inf border, rows padded to 16-byte lines), down and
+   up, against its plain version. Then each function timed
+   (host clock, synchronised) with the counters zeroed: tiled_accumulate
+   "coarse" and "iterate" on unit weights bitwise the tile plan's
+   upstream_area() cast to float32, on seeded float32 weights within
+   rtol 2^-24 + 2 n eps64 (and the tile plan's own atol) of the float64
+   tile plan, two calls the same bits; tiled_rank and tiled_basins
+   bitwise graph.rank and basins(); tiled_stream_distance in cells bitwise
+   stream_distance(), in metres within (rounds + 1) 2^-24 of the float64
+   sweep of the same steps; tiled_hand within 2^-23 max|elev| of hand();
+   tiled_strahler bitwise stream_order(); tiled_fill bitwise the host flood
+   cast to float32, F1 launched twice a round and no plain sweep run; the
+   coarse accumulation's device time. With more cards, world sizes 2 and 4
+   also run the halo functions, every rank's result bitwise the one-rank
+   result (float32 results within the stated rules).
+12. Prints a JSON line of the kernels, the card, then
    {"ok": true, "device": ...}.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
@@ -1256,13 +1274,79 @@ def _sharded_rank(rank, world, port, work_dir, device_type):
                          ("accumulate_down_sharded",
                           lambda: tp.accumulate_down_sharded(ones, mesh))):
             out[name + "_ms"] = _time_ms(fn, reps=10, warmup=2)
+    del tp
+    if os.path.exists(os.path.join(work_dir, "halo.npz")):
+        out["halo"] = _halo_rank(mesh, work_dir, sync)
     with open(os.path.join(work_dir, f"rank{rank}.json"), "w") as fh:
         json.dump(out, fh)
     dist.barrier()
     dist.destroy_process_group()
 
 
-def multi_card_path(d8, n_cards, device_type="cuda"):
+def _halo_rank(mesh, work_dir, sync):
+    """The halo functions of the halo phase on this rank's mesh, on the
+    inputs in ``halo.npz``: each one timed (host clock, synchronised), the
+    launches read, and a digest of its result; rank 0 also writes the
+    results to ``halo_rank0.npz``."""
+    import hashlib
+
+    from pyflwdir_torch import kernels
+    from pyflwdir_torch.parallel import tiled
+
+    inp = np.load(os.path.join(work_dir, "halo.npz"))
+    d8 = inp["d8"]
+    wts = np.random.RandomState(HALO_SEED).rand(*d8.shape).astype(np.float32)
+    calls = _halo_calls(d8, inp["z"], inp["elev"], inp["drain"], wts, inp["idxs_pit"],
+                        TILE_LATLON, mesh)
+    out, res = {}, {}
+    for name, fn in calls.items():
+        kernels.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        res[name] = fn()
+        sync()
+        out[name] = dict(s=time.perf_counter() - t0, rounds=dict(tiled.last_rounds),
+                         launches={k: v for k, v in kernels.launches.items() if v},
+                         digest=hashlib.sha1(np.ascontiguousarray(res[name])).hexdigest())
+    if mesh.rank == 0:
+        np.savez(os.path.join(work_dir, "halo_rank0.npz"), **res)
+    return out
+
+
+def _check_halo_ranks(ranks, world, work_dir, halo):
+    """The halo functions on ``world`` ranks: every rank the same result
+    (digests); integer results, the unit sums, HAND and the fill bitwise the
+    one-rank results ``halo["ref"]``; the float32 weights' sums within twice
+    the one-rank rule (two float32 roundings of float64 sums), the metric
+    distances within the JAX tests' rtol 1e-5."""
+    ref = halo["ref"]
+    got = dict(np.load(os.path.join(work_dir, "halo_rank0.npz")))
+    names = list(ref)
+    _check(all(r["halo"][k]["digest"] == ranks[0]["halo"][k]["digest"]
+               for r in ranks for k in names),
+           f"on {world} ranks, every rank returned the same halo results")
+    floats = ("tiled_accumulate_weights", "tiled_stream_distance_m")
+    _check(all(np.array_equal(got[k], ref[k]) for k in names if k not in floats),
+           f"on {world} ranks, the integer halo results, the unit sums, tiled_hand and "
+           "tiled_fill bitwise equal to the one-rank results")
+    a, b = got["tiled_accumulate_weights"], ref["tiled_accumulate_weights"]
+    _check(bool(np.all(np.abs(a - b) <= 2 * halo["acc_rtol"] * np.abs(b))),
+           f"on {world} ranks, tiled_accumulate(weights) within 2 x {halo['acc_rtol']:.3e} of "
+           "the one-rank result")
+    a, b = got["tiled_stream_distance_m"], ref["tiled_stream_distance_m"]
+    _check(np.allclose(a, b, rtol=1e-5), f"on {world} ranks, the metric distances within rtol "
+           "1e-5 of the one-rank result")
+    f1 = ranks[0]["halo"]["tiled_fill"]
+    _check(f1["launches"].get("fill_sweep", 0) == 2 * f1["rounds"]["fill"] > 0,
+           f"on {world} ranks, tiled_fill launched F1 twice a round")
+    for r in ranks:
+        print(f"  rank {r['rank']} halo: " + ", ".join(
+            f"{k} {v['s']:.3f} s" for k, v in r["halo"].items())
+              + f"; fill rounds {r['halo']['tiled_fill']['rounds']['fill']}, iterate rounds "
+              f"{r['halo']['tiled_accumulate_iterate']['rounds']['accumulate']}")
+
+
+def multi_card_path(d8, n_cards, device_type="cuda", halo=None):
     """Where the machine has more than one card: the sharded sweeps at world
     sizes 2 and 4, as the cards allow, one spawned rank per card over NCCL
     (gloo where ``device_type`` is "cpu"), each holding its results bitwise
@@ -1279,6 +1363,9 @@ def multi_card_path(d8, n_cards, device_type="cuda"):
                                     dir=os.path.dirname(os.path.abspath(__file__)))
         try:
             np.save(os.path.join(work_dir, "d8.npy"), d8)
+            if halo is not None:
+                np.savez(os.path.join(work_dir, "halo.npz"), d8=d8,
+                         **{k: halo[k] for k in ("z", "elev", "drain", "idxs_pit")})
             with socket.socket() as sock:
                 sock.bind(("localhost", 0))
                 port = sock.getsockname()[1]
@@ -1303,6 +1390,8 @@ def multi_card_path(d8, n_cards, device_type="cuda"):
             for r in range(world):
                 with open(os.path.join(work_dir, f"rank{r}.json")) as fh:
                     ranks.append(json.load(fh))
+            if halo is not None:
+                _check_halo_ranks(ranks, world, work_dir, halo)
         finally:
             shutil.rmtree(work_dir, ignore_errors=True)
         for res in ranks:
@@ -1314,6 +1403,413 @@ def multi_card_path(d8, n_cards, device_type="cuda"):
                "launched once a downward call")
         out[world] = ranks
     return out
+
+
+HALO_SEED = SEED + 10  # the halo phase's float32 weights
+
+
+def _halo_rules(n_cells):
+    """The halo phase's float32 rules: ``(acc_rtol, dist_rtol)``. A float
+    accumulation is a float64 sum of non-negative terms (any order within
+    n eps64 of the value) rounded to float32 once, against the tile plan's
+    float64 sum: 2^-24 + 2 n eps64. A metric distance is a float32 path sum
+    by doubling (a tree of at most ``_n_rounds(n)`` levels of float32
+    additions of non-negative steps) against the float64 sum of the same
+    float32 steps: (rounds + 1) 2^-24."""
+    from pyflwdir_torch.ops.graph import _n_rounds
+
+    return 2.0 ** -24 + 2 * n_cells * _EPS, (_n_rounds(n_cells) + 1) * 2.0 ** -24
+
+
+def _halo_calls(d8, z, elev, drain, wts, idxs_pit, transform, mesh):
+    """The halo functions of the halo phase on ``mesh``, by name."""
+    from pyflwdir_torch import parallel
+
+    return {
+        "tiled_accumulate_coarse": lambda: parallel.tiled_accumulate(
+            d8, np.ones(d8.shape, np.float32), mesh),
+        "tiled_accumulate_iterate": lambda: parallel.tiled_accumulate(
+            d8, np.ones(d8.shape, np.float32), mesh, method="iterate"),
+        "tiled_accumulate_weights": lambda: parallel.tiled_accumulate(d8, wts, mesh),
+        "tiled_rank": lambda: parallel.tiled_rank(d8, mesh),
+        "tiled_basins": lambda: parallel.tiled_basins(d8, idxs_pit, mesh),
+        "tiled_stream_distance_cells": lambda: parallel.tiled_stream_distance(
+            d8, mesh, real_length=False),
+        "tiled_stream_distance_m": lambda: parallel.tiled_stream_distance(
+            d8, mesh, latlon=True, transform=transform),
+        "tiled_hand": lambda: parallel.tiled_hand(d8, elev, drain, mesh),
+        "tiled_strahler": lambda: parallel.tiled_strahler(d8, mesh),
+        "tiled_fill": lambda: parallel.tiled_fill(z, mesh, nodata=-9999.0),
+    }
+
+
+def halo_path(fl, tp, z, elev, d8, upa, refs, dev):
+    """The halo runtime (``parallel.tiled_*``) on the 6000x6000 grid, on
+    this process's one-rank NCCL group: one block of 6000 x 6000 cells.
+    ``tp`` is the grid's tile plan, ``z`` its DEM, ``elev`` the host flood,
+    ``upa`` the upstream area in cells and ``refs`` the downward path's
+    maps: ``stream_distance()``, ``basins()``, ``hand()`` with its drains,
+    and the native sweep of the metric steps. Each call timed (host clock,
+    synchronised) with the launch counters zeroed before it and read after;
+    F1 held against its plain version on the framed buffer first. Returns
+    the F1 rows (launches those of ``tiled_fill``), the timings, and, where
+    the machine has more cards, the results and inputs the multi-card ranks
+    are held to (else None)."""
+    import torch.distributed as dist
+
+    from pyflwdir_torch import kernels, parallel
+    from pyflwdir_torch.ops.tile_plan import TilePlan
+
+    cuda = device_type == "cuda"
+    os.environ["LOCAL_RANK"] = str(rank)
+    parallel.init_distributed(f"localhost:{port}", world, rank, device=None if cuda else "cpu",
+                              timeout=datetime.timedelta(seconds=300))
+    mesh = parallel.make_mesh(device=None if cuda else "cpu")
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    plan_dir = os.path.join(work_dir, "plan")
+    t0 = time.perf_counter()
+    if rank == 0:
+        tp, pshape = parallel.build_sharded_plan(np.load(os.path.join(work_dir, "d8.npy")), mesh)
+        tp.save(plan_dir, down=True)
+    dist.barrier()
+    if rank > 0:
+        tp = TilePlan.load(plan_dir, mmap=True, device=mesh.device)
+    t_plan = time.perf_counter() - t0
+    rng = np.random.RandomState(SEED + 9)
+    n = tp.shape[0] * tp.shape[1]
+    out = dict(rank=rank, world=world, device=str(mesh.device), plan_s=t_plan, NT=tp.NT,
+               slab=tp.NT // world, ok=True)
+    for dtype, x in ((torch.int32, torch.as_tensor(rng.randint(0, 3, n).astype(np.int32))),
+                     (torch.float64, torch.as_tensor(rng.rand(n)))):
+        x = x.to(mesh.device)
+        kernels.reset_launches()
+        up, down = tp.accumulate_sharded(x, mesh), tp.accumulate_down_sharded(x, mesh)
+        sync()
+        out[f"launches.{_DT[dtype]}"] = dict(kernels.launches)
+        out[f"ok.{_DT[dtype]}"] = bool(torch.equal(up, tp.accumulate(x))
+                                       and torch.equal(down, tp.accumulate_down(x)))
+        out["ok"] &= out[f"ok.{_DT[dtype]}"] and kernels.launches["tile_down_lite"] == 1
+    if cuda:
+        ones = torch.ones(n, dtype=torch.int32, device=mesh.device)
+        for name, fn in (("accumulate_sharded", lambda: tp.accumulate_sharded(ones, mesh)),
+                         ("accumulate_down_sharded",
+                          lambda: tp.accumulate_down_sharded(ones, mesh))):
+            out[name + "_ms"] = _time_ms(fn, reps=10, warmup=2)
+    del tp
+    if os.path.exists(os.path.join(work_dir, "halo.npz")):
+        out["halo"] = _halo_rank(mesh, work_dir, sync)
+    with open(os.path.join(work_dir, f"rank{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _halo_rank(mesh, work_dir, sync):
+    """The halo functions of the halo phase on this rank's mesh, on the
+    inputs in ``halo.npz``: each one timed (host clock, synchronised), the
+    launches read, and a digest of its result; rank 0 also writes the
+    results to ``halo_rank0.npz``."""
+    import hashlib
+
+    from pyflwdir_torch import kernels
+    from pyflwdir_torch.parallel import tiled
+
+    inp = np.load(os.path.join(work_dir, "halo.npz"))
+    d8 = inp["d8"]
+    wts = np.random.RandomState(HALO_SEED).rand(*d8.shape).astype(np.float32)
+    calls = _halo_calls(d8, inp["z"], inp["elev"], inp["drain"], wts, inp["idxs_pit"],
+                        TILE_LATLON, mesh)
+    out, res = {}, {}
+    for name, fn in calls.items():
+        kernels.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        res[name] = fn()
+        sync()
+        out[name] = dict(s=time.perf_counter() - t0, rounds=dict(tiled.last_rounds),
+                         launches={k: v for k, v in kernels.launches.items() if v},
+                         digest=hashlib.sha1(np.ascontiguousarray(res[name])).hexdigest())
+    if mesh.rank == 0:
+        np.savez(os.path.join(work_dir, "halo_rank0.npz"), **res)
+    return out
+
+
+def _check_halo_ranks(ranks, world, work_dir, halo):
+    """The halo functions on ``world`` ranks: every rank the same result
+    (digests); integer results, the unit sums, HAND and the fill bitwise the
+    one-rank results ``halo["ref"]``; the float32 weights' sums within twice
+    the one-rank rule (two float32 roundings of float64 sums), the metric
+    distances within the JAX tests' rtol 1e-5."""
+    ref = halo["ref"]
+    got = dict(np.load(os.path.join(work_dir, "halo_rank0.npz")))
+    names = list(ref)
+    _check(all(r["halo"][k]["digest"] == ranks[0]["halo"][k]["digest"]
+               for r in ranks for k in names),
+           f"on {world} ranks, every rank returned the same halo results")
+    floats = ("tiled_accumulate_weights", "tiled_stream_distance_m")
+    _check(all(np.array_equal(got[k], ref[k]) for k in names if k not in floats),
+           f"on {world} ranks, the integer halo results, the unit sums, tiled_hand and "
+           "tiled_fill bitwise equal to the one-rank results")
+    a, b = got["tiled_accumulate_weights"], ref["tiled_accumulate_weights"]
+    _check(bool(np.all(np.abs(a - b) <= 2 * halo["acc_rtol"] * np.abs(b))),
+           f"on {world} ranks, tiled_accumulate(weights) within 2 x {halo['acc_rtol']:.3e} of "
+           "the one-rank result")
+    a, b = got["tiled_stream_distance_m"], ref["tiled_stream_distance_m"]
+    _check(np.allclose(a, b, rtol=1e-5), f"on {world} ranks, the metric distances within rtol "
+           "1e-5 of the one-rank result")
+    f1 = ranks[0]["halo"]["tiled_fill"]
+    _check(f1["launches"].get("fill_sweep", 0) == 2 * f1["rounds"]["fill"] > 0,
+           f"on {world} ranks, tiled_fill launched F1 twice a round")
+    for r in ranks:
+        print(f"  rank {r['rank']} halo: " + ", ".join(
+            f"{k} {v['s']:.3f} s" for k, v in r["halo"].items())
+              + f"; fill rounds {r['halo']['tiled_fill']['rounds']['fill']}, iterate rounds "
+              f"{r['halo']['tiled_accumulate_iterate']['rounds']['accumulate']}")
+
+
+def multi_card_path(d8, n_cards, device_type="cuda", halo=None):
+    """Where the machine has more than one card: the sharded sweeps at world
+    sizes 2 and 4, as the cards allow, one spawned rank per card over NCCL
+    (gloo where ``device_type`` is "cpu"), each holding its results bitwise
+    against the unsharded sweeps on its own card. Returns what each rank
+    wrote."""
+    import multiprocessing
+    import socket
+
+    worlds = [w for w in (2, 4) if w <= n_cards]
+    out = {}
+    for world in worlds:
+        print(f"sharded path on {world} cards (spawned ranks):")
+        work_dir = tempfile.mkdtemp(prefix="_plan_tmp",
+                                    dir=os.path.dirname(os.path.abspath(__file__)))
+        try:
+            np.save(os.path.join(work_dir, "d8.npy"), d8)
+            if halo is not None:
+                np.savez(os.path.join(work_dir, "halo.npz"), d8=d8,
+                         **{k: halo[k] for k in ("z", "elev", "drain", "idxs_pit")})
+            with socket.socket() as sock:
+                sock.bind(("localhost", 0))
+                port = sock.getsockname()[1]
+            ctx = multiprocessing.get_context("spawn")
+            procs = [ctx.Process(target=_sharded_rank,
+                                 args=(r, world, port, work_dir, device_type))
+                     for r in range(world)]
+            t0 = time.perf_counter()
+            for p in procs:
+                p.start()
+            for p in procs:
+                p.join(max(1.0, 600 - (time.perf_counter() - t0)))
+            alive = [r for r, p in enumerate(procs) if p.is_alive()]
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+            _check(not alive and all(p.exitcode == 0 for p in procs),
+                   f"{world} ranks ran to their end ({[p.exitcode for p in procs]}), in "
+                   f"{time.perf_counter() - t0:.1f} s")
+            ranks = []
+            for r in range(world):
+                with open(os.path.join(work_dir, f"rank{r}.json")) as fh:
+                    ranks.append(json.load(fh))
+            if halo is not None:
+                _check_halo_ranks(ranks, world, work_dir, halo)
+        finally:
+            shutil.rmtree(work_dir, ignore_errors=True)
+        for res in ranks:
+            print(f"  rank {res['rank']} on {res['device']}: plan {res['plan_s']:.2f} s, "
+                  + ", ".join(f"{k} {v:.4f} ms" for k, v in res.items() if k.endswith("_ms")))
+        _check(all(res["ok"] for res in ranks),
+               f"on {world} ranks, accumulate_sharded and accumulate_down_sharded (int32, "
+               "float64) bitwise equal to the unsharded sweeps on every rank, T4 lite "
+               "launched once a downward call")
+        out[world] = ranks
+    return out
+
+
+HALO_SEED = SEED + 10  # the halo phase's float32 weights
+
+
+def _halo_rules(n_cells):
+    """The halo phase's float32 rules: ``(acc_rtol, dist_rtol)``. A float
+    accumulation is a float64 sum of non-negative terms (any order within
+    n eps64 of the value) rounded to float32 once, against the tile plan's
+    float64 sum: 2^-24 + 2 n eps64. A metric distance is a float32 path sum
+    by doubling (a tree of at most ``_n_rounds(n)`` levels of float32
+    additions of non-negative steps) against the float64 sum of the same
+    float32 steps: (rounds + 1) 2^-24."""
+    from pyflwdir_torch.ops.graph import _n_rounds
+
+    return 2.0 ** -24 + 2 * n_cells * _EPS, (_n_rounds(n_cells) + 1) * 2.0 ** -24
+
+
+def _halo_calls(d8, z, elev, drain, wts, idxs_pit, transform, mesh):
+    """The halo functions of the halo phase on ``mesh``, by name."""
+    from pyflwdir_torch import parallel
+
+    return {
+        "tiled_accumulate_coarse": lambda: parallel.tiled_accumulate(
+            d8, np.ones(d8.shape, np.float32), mesh),
+        "tiled_accumulate_iterate": lambda: parallel.tiled_accumulate(
+            d8, np.ones(d8.shape, np.float32), mesh, method="iterate"),
+        "tiled_accumulate_weights": lambda: parallel.tiled_accumulate(d8, wts, mesh),
+        "tiled_rank": lambda: parallel.tiled_rank(d8, mesh),
+        "tiled_basins": lambda: parallel.tiled_basins(d8, idxs_pit, mesh),
+        "tiled_stream_distance_cells": lambda: parallel.tiled_stream_distance(
+            d8, mesh, real_length=False),
+        "tiled_stream_distance_m": lambda: parallel.tiled_stream_distance(
+            d8, mesh, latlon=True, transform=transform),
+        "tiled_hand": lambda: parallel.tiled_hand(d8, elev, drain, mesh),
+        "tiled_strahler": lambda: parallel.tiled_strahler(d8, mesh),
+        "tiled_fill": lambda: parallel.tiled_fill(z, mesh, nodata=-9999.0),
+    }
+
+
+def halo_path(fl, tp, z, elev, d8, upa, refs, dev):
+    """The halo runtime (``parallel.tiled_*``) on the 6000x6000 grid, on
+    this process's one-rank NCCL group: one block of 6000 x 6000 cells.
+    ``tp`` is the grid's tile plan, ``z`` its DEM, ``elev`` the host flood,
+    ``upa`` the upstream area in cells and ``refs`` the downward path's
+    maps: ``stream_distance()``, ``basins()``,
+    ``hand()`` with its drains, and the native sweep of the metric steps. Each call timed (host clock, synchronised) with the
+    launch counters zeroed before it and read after; F1 held against its
+    plain version on the framed buffer first. Returns the F1 rows (launches
+    those of ``tiled_fill``), the timings, and the results where the machine
+    has more cards (the multi-card ranks are held to them), else None."""
+    import torch.distributed as dist
+
+    from pyflwdir_torch import kernels, parallel
+    from pyflwdir_torch.ops import fill as tfill
+    from pyflwdir_torch.parallel import tiled
+
+    print(" halo path (one rank):")
+    t_path = time.perf_counter()
+    mesh = parallel.make_mesh()
+    _check(mesh.size == 1 and dist.get_backend(mesh.group) == "nccl",
+           f"a mesh of the one rank of the NCCL group: {mesh}")
+    H, W = TILE_SHAPE
+    mask = fl.mask.reshape(TILE_SHAPE)
+    n_valid = int(mask.sum())
+
+    print(" kernel phase, F1 on the framed block:")
+    dem_t, seeds, bad = tfill.fill_setup(z, nodata=-9999.0, device=dev)
+    # the first round's frame as tiled_fill lays it out: +inf and fixed
+    # around the block, rows padded to a multiple of 16 columns
+    pads = (1, -(-(W + 2) // 16) * 16 - W - 1, 1, 1)
+    pad = torch.nn.functional.pad
+    rows = fill_kernel_phase(pad(dem_t, pads, value=float("inf")), pad(seeds, pads, value=False),
+                             pad(bad, pads, value=True), True, 0, ".halo")
+    del dem_t, seeds, bad
+
+    print(" main path, halo:")
+    wts = np.random.RandomState(HALO_SEED).rand(H, W).astype(np.float32)
+    drain = refs["drain"]
+    calls = _halo_calls(d8, z, elev, drain, wts, fl.idxs_pit, fl.transform, mesh)
+    plain_calls = []
+    plain = kernels.fill_sweep_plain
+
+    def counted_plain(*args):
+        plain_calls.append(args[0].device.type)
+        return plain(*args)
+
+    times, counts, rounds, res = {}, {}, {}, {}
+    kernels.fill_sweep_plain = counted_plain
+    try:
+        for name, fn in calls.items():
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[name] = fn()
+            torch.cuda.synchronize()
+            times[name] = time.perf_counter() - t0
+            counts[name] = {k: v for k, v in kernels.launches.items() if v}
+            rounds[name] = dict(tiled.last_rounds)
+            print(f"  {name}: {times[name]:.3f} s; launches {counts[name]}")
+        again = parallel.tiled_accumulate(d8, wts, mesh)
+    finally:
+        kernels.fill_sweep_plain = plain
+
+    t0 = time.perf_counter()
+    acc_rtol, dist_rtol = _halo_rules(n_valid)
+    want = upa.astype(np.float32)
+    for name in ("tiled_accumulate_coarse", "tiled_accumulate_iterate"):
+        got = res[name]
+        _check(got.dtype == np.float32 and got.shape == TILE_SHAPE
+               and np.array_equal(got[mask], want[mask]),
+               f"{name} on unit weights bitwise the tile plan's int32 upstream_area() cast to "
+               "float32 on the valid cells")
+    _check(rounds["tiled_accumulate_iterate"]["accumulate"] == 0,
+           "one rank: no halo round in flight for iterate")
+    ref = tp.accumulate(torch.as_tensor(wts.ravel().astype(np.float64), device=dev))
+    ref = ref.cpu().numpy().reshape(TILE_SHAPE)[mask]
+    got = res["tiled_accumulate_weights"][mask]
+    # the tile plan's float64 sums are differences of prefix sums: off by up
+    # to 2 L eps total, L its longest chain of additions (tile_path)
+    length = 128 * 128 + 2 * _scan_len(tp.coarse.n_pad) + tp.E_pad
+    atol = 2 * length * _EPS * float(wts[mask].sum(dtype=np.float64))
+    excess = float((np.abs(got - ref) - acc_rtol * np.abs(ref)).max() / atol)
+    _check(bool(np.all(np.abs(got - ref) <= acc_rtol * np.abs(ref) + atol)),
+           f"tiled_accumulate(float32 weights) within rtol 2^-24 + 2 n eps64 = {acc_rtol:.3e}, "
+           f"atol 2 L eps total = {atol:.3e} (L {length}) of the float64 tile plan accumulate "
+           f"(max excess over the rtol {excess:.2e} of atol)")
+    _check(np.array_equal(again, res["tiled_accumulate_weights"]),
+           "two coarse calls on the weights give the same bits")
+    _check(np.array_equal(res["tiled_rank"].ravel(), fl.rank.ravel()),
+           "tiled_rank bitwise equal to graph.rank")
+    _check(np.array_equal(res["tiled_basins"].ravel(), refs["basins"].ravel().astype(np.int64)),
+           f"tiled_basins bitwise equal to basins() ({fl.idxs_pit.size} pits, ids 1..n)")
+    _check(np.array_equal(res["tiled_stream_distance_cells"], refs["stream_distance"]),
+           "tiled_stream_distance(real_length=False) bitwise equal to stream_distance()")
+    want = refs["stream_distance_m_sweep"]  # float64 sums of the float32 steps
+    got = res["tiled_stream_distance_m"].ravel()
+    m = fl.mask
+    err = float((np.abs(got[m] - want[m]) / np.maximum(want[m], 1e-300)).max())
+    _check(got.dtype == np.float32 and bool(np.all(got[~m] == -9999.0))
+           and bool(np.all(np.abs(got[m] - want[m]) <= dist_rtol * want[m])),
+           f"tiled_stream_distance (m) within rtol (rounds + 1) 2^-24 = {dist_rtol:.3e} of the "
+           f"float64 sweep of the same float32 steps (max rel err {err:.3e}), -9999 outside")
+    hnd, got = refs["hand"], res["tiled_hand"]
+    atol = 2.0 ** -23 * float(np.abs(elev[mask]).max())
+    err = float(np.abs(got[mask] - hnd[mask]).max())
+    _check(got.dtype == np.float64 and bool(np.all(got[~mask] == -9999.0))
+           and err <= atol,
+           f"tiled_hand within atol 2^-23 max|elev| = {atol:.3e} of hand() ({int(drain.sum())} "
+           f"drains above {DRAIN_CELLS} cells; max |err| {err:.3e})")
+    strord = fl.stream_order()
+    levels = rounds["tiled_strahler"]["strahler"]
+    _check(np.array_equal(res["tiled_strahler"], strord),
+           f"tiled_strahler bitwise equal to stream_order() ({levels} levels, orders "
+           f"1-{int(strord.max())})")
+    fill_rounds = rounds["tiled_fill"]["fill"]
+    got = res["tiled_fill"]
+    valid = z != -9999.0
+    _check(np.array_equal(got[valid].astype(np.float32), elev[valid].astype(np.float32))
+           and bool(np.all(got[~valid] == -9999.0)),
+           f"tiled_fill bitwise equal to the host priority flood cast to float32 ({fill_rounds} "
+           "rounds), nodata outside")
+    f1 = counts["tiled_fill"].get("fill_sweep", 0)
+    _check(f1 == 2 * fill_rounds > 0 and not plain_calls,
+           f"tiled_fill launched F1 {f1} times (twice a round) and no plain fill sweep ran "
+           f"({plain_calls})")
+    _check(all(not c for k, c in counts.items() if k != "tiled_fill"),
+           "the other halo functions launched no hand-written kernel (plain PyTorch, as their "
+           "JAX source is plain XLA)")
+    print(f"  checks {time.perf_counter() - t0:.2f} s")
+
+    unit = np.ones(TILE_SHAPE, np.float32)
+    dev_ms = _device_ms(lambda: parallel.tiled_accumulate(d8, unit, mesh), reps=1, warm=0,
+                        traces=1)
+    print(f"  tiled_accumulate (coarse): {times['tiled_accumulate_coarse']:.3f} s wall, "
+          f"device busy {dev_ms} ms of a call")
+    t_path = time.perf_counter() - t_path
+    print(f"  halo path {t_path:.1f} s")
+    out = _rows(rows, {"fill_sweep": f1}, f"halo {H}x{W} tiled_fill, 1 rank", "float32")
+    keep = None
+    if torch.cuda.device_count() > 1:  # what the multi-card ranks are held to
+        keep = dict(ref=res, z=z, elev=elev, drain=drain, idxs_pit=fl.idxs_pit,
+                    acc_rtol=acc_rtol)
+    return out, dict(times_s=times, launches=counts, fill_rounds=fill_rounds,
+                     strahler_levels=levels, accumulate_device_ms=dev_ms, path_s=t_path,
+                     acc_rtol=acc_rtol, dist_rtol=dist_rtol), keep
 
 
 def _rows(rows, counts, path, dtype):
@@ -1610,19 +2106,21 @@ def tile_path(dev):
     out += _rows(rows[torch.float64], counts_f64, "tile 6000x6000", "float64")
     order_rows, order = order_path(fl, tp, seq, rows[torch.int32], dev)
     out += order_rows
-    down_rows, down, hnd = tile_down_path(fl, tp, elev, upa, seq, dev)
+    down_rows, down, refs = tile_down_path(fl, tp, elev, upa, seq, dev)
     surface_rows, surface = surface_path(fl, tp, d8, upa, dev)
-    upscale = upscale_path(fl, z, elev, upa, hnd, seq, dev)
-    del hnd
+    upscale = upscale_path(fl, z, elev, upa, refs["hand"], seq, dev)
     banded_rows, banded = banded_path(
         fl, tp, upa, seq, dict(tile_plan_s=t_plan, down_indices_s=down["down_indices_s"]), dev)
     sharded_rows, sharded = sharded_path(fl, d8, seq, dev)
+    halo_rows, halo, halo_res = halo_path(fl, tp, z, elev, d8, upa, refs, dev)
+    del refs
     big_rows, big = big_path(fl, upa, seq, dict(ms=acc_ms, device_ms=acc_dev_ms), dev)
     cut_rows, cut = cut_path(fl, elev, upa, dev)
-    rows = out + down_rows + surface_rows + banded_rows + sharded_rows + big_rows + cut_rows
-    return rows, (z, elev, d8), dict(
+    rows = (out + down_rows + surface_rows + banded_rows + sharded_rows + halo_rows + big_rows
+            + cut_rows)
+    return rows, (z, elev, d8, halo_res), dict(
         order=order, down=down, surface=surface, upscale=upscale, banded=banded, sharded=sharded,
-        big=big, cut=cut,
+        halo=halo, big=big, cut=cut,
         accumulate_ms=acc_ms, accumulate_device_ms=acc_dev_ms, upstream_area_ms=up_ms,
         main_path_int32_s=t_int, main_path_float64_s=t_f64, fill_s=t_fill, parse_s=t_parse,
         tile_plan_s=t_plan, tile_plan_steps_s=tp.build_seconds, NT=tp.NT, R_pad=tp.R_pad,
@@ -2621,7 +3119,7 @@ def tile_down_path(fl, tp, elev, upa, seq, dev):
     w32 = np.asarray(geodesy.distance_grid(ids, shape, latlon=True, transform=fl.transform),
                      np.float32).ravel()
     w32 = np.where(moving, w32, 0).astype(np.float32)
-    want = runtime.downward_sweep(ids, seq, w32)
+    want = sweep_m = runtime.downward_sweep(ids, seq, w32)
     # float64 sums of float32 steps, rounded to float32 at the end (6e-8);
     # the sums run over two tile scans and two coarse scans in another order
     length = 2 * (128 * 128 + 2 * _scan_len(n_c))
@@ -2666,7 +3164,8 @@ def tile_down_path(fl, tp, elev, upa, seq, dev):
                      stream_distance_ms=sd_ms, main_path_int32_s=t_int,
                      main_path_float64_s=t_f64, down_indices_s=t_down,
                      down_indices_steps_s=tp.down_build_seconds,
-                     cut_plan_s=builds.seconds, coarse_n_down=n_c), hnd
+                     cut_plan_s=builds.seconds, coarse_n_down=n_c), dict(
+        hand=hnd, stream_distance=dist, basins=bas, drain=drain, stream_distance_m_sweep=sweep_m)
 
 
 def _check_hand(fl, hnd, elev, drain, drain_cells, cut=None):
@@ -3293,7 +3792,7 @@ def main(json_path=None):
     _start_group()
     try:
         rhine_rows, rhine = rhine_path(dev)
-        tile_rows, (z, elev, d8), tile = tile_path(dev)
+        tile_rows, (z, elev, d8, halo), tile = tile_path(dev)
         dem_rows, dem = dem_path(z, elev, tile["fill_s"], dev)
         del z, elev
         routed_rows, routed = routed_path(dev)
@@ -3302,7 +3801,8 @@ def main(json_path=None):
     cards = {}
     if n_cards > 1:
         torch.cuda.empty_cache()
-        cards = multi_card_path(d8, n_cards)
+        cards = multi_card_path(d8, n_cards, halo=halo)
+    del halo
 
     out = rhine_rows + tile_rows + dem_rows + routed_rows
     if json_path:
@@ -3312,7 +3812,8 @@ def main(json_path=None):
                            multi_card=cards, ptxas=regs, stream_lookup_us=streams,
                            kernels=out), f, indent=1)
     for name, times in (("rhine", rhine["surface"]), ("tile", tile["surface"]["times_s"]),
-                        ("tile upscale phase", tile["upscale"]["times_s"])):
+                        ("tile upscale phase", tile["upscale"]["times_s"]),
+                        ("tile halo phase, 1 rank", tile["halo"]["times_s"])):
         print(f"surface times, {name} (host clock, synchronised; {smi}): "
               + ", ".join(f"{k} {v:.4f} s" for k, v in times.items()))
     print(f"card: {smi}")

@@ -76,18 +76,14 @@ def d8_codes(idxs_ds, shape):
     return torch.where(valid, code, torch.full_like(code, int(d8c._mv))).reshape(shape)
 
 
-def _strahler_grids(codes, tp, mask):
-    """The level loop's grids on the plan's device, cached on the plan and
-    keyed by the identity of ``codes`` and ``mask`` (the cache holds both, so
-    their ids cannot be taken by other arrays): ``member`` (the valid cells,
-    within ``mask``) and ``tgt`` (int32), the cell each D8 step lands on
+def _d8_targets(codes, mask=None, device=None):
+    """``(member, tgt)`` of a (H, W) D8 raster (numpy or a tensor) on
+    ``device`` (the tensor's where None), both flat: ``member``, the valid
+    cells (within ``mask``); ``tgt`` (int32), the cell each D8 step lands on
     inside the grid, ``n`` for pits, missing cells and steps off the
     grid."""
-    cached = getattr(tp, "_strahler_grids", None)
-    if cached is not None and cached[0] is codes and cached[1] is mask:
-        return cached[2], cached[3]
-    dev = tp.device
-    nrow, ncol = tp.shape
+    dev = codes.device if device is None else device
+    nrow, ncol = codes.shape
     n = nrow * ncol
     c = torch.as_tensor(codes, device=dev).reshape(-1).long()
     dr = torch.as_tensor(d8c._DR_LUT, device=dev)[c].long()
@@ -100,20 +96,38 @@ def _strahler_grids(codes, tp, mask):
     col = ar % ncol + dc
     inside = (r >= 0) & (r < nrow) & (col >= 0) & (col < ncol) & ((dr != 0) | (dc != 0))
     tgt = torch.where(inside, r * ncol + col, torch.full_like(ar, n)).to(torch.int32)
+    return member, tgt
+
+
+def _strahler_grids(codes, tp, mask):
+    """The level loop's grids (:func:`_d8_targets`) on the plan's device,
+    cached on the plan and keyed by the identity of ``codes`` and ``mask``
+    (the cache holds both, so their ids cannot be taken by other arrays)."""
+    cached = getattr(tp, "_strahler_grids", None)
+    if cached is not None and cached[0] is codes and cached[1] is mask:
+        return cached[2], cached[3]
+    member, tgt = _d8_targets(codes, mask, tp.device)
     tp._strahler_grids = (codes, mask, member, tgt)
     return member, tgt
 
 
-def _generators(member, tgt):
-    """A level's confluence cells: the members that two or more members
-    drain into (``tgt``, from :func:`_strahler_grids`). The count scatters
-    the members' targets only: the members thin out level by level, so
-    this costs a fraction of a scatter over every cell after the first
-    level (``tools/bench_strahler_count.py`` times both)."""
+def _child_counts(member, tgt):
+    """The ``member`` cells whose D8 step lands on each cell inside the grid
+    (int32; ``tgt`` from :func:`_d8_targets`): one ``index_add_`` of the
+    members' targets, the count the JAX package's eight shifted adds make."""
     src = tgt[member]
     cnt = torch.zeros(member.numel() + 1, dtype=torch.int32, device=member.device)
     cnt.index_add_(0, src, torch.ones(src.numel(), dtype=torch.int32, device=member.device))
-    return (cnt[:-1] >= 2) & member
+    return cnt[:-1]
+
+
+def _generators(member, tgt):
+    """A level's confluence cells: the members that two or more members
+    drain into. The count scatters the members' targets only: the members
+    thin out level by level, so this costs a fraction of a scatter over
+    every cell after the first level (``tools/bench_strahler_count.py``
+    times both)."""
+    return (_child_counts(member, tgt) >= 2) & member
 
 
 def strahler_tile_plan(codes, tp, arrs=None, mask=None, max_order=32):

@@ -16,9 +16,67 @@ import torch
 from .. import kernels
 from .._backend import resolve_device
 
-__all__ = ["RouterPlan", "LaneGather", "lane_gather"]
+__all__ = ["RouterPlan", "LaneGather", "lane_gather", "bipartite_color"]
 
 _S = 128  # lanes per row of the (G*128, 128) layout
+
+
+def _bipartite_color_py(u, v, nL, nR, deg):
+    """Euler-split colouring in Python (the JAX package's fallback): the
+    reference the native :func:`bipartite_color` is held to."""
+    E = u.size
+    levels = int(deg).bit_length() - 1
+    grp = np.zeros(E, dtype=np.int64)
+    for lev in range(levels):
+        ngrp = 1 << lev
+        nkey = (nL + nR) * ngrp
+        key_u = u * ngrp + grp
+        key_v = (nL + v) * ngrp + grp
+        cnt = np.zeros(nkey + 1, dtype=np.int64)
+        np.add.at(cnt, key_u + 1, 1)
+        np.add.at(cnt, key_v + 1, 1)
+        np.cumsum(cnt, out=cnt)
+        cur = cnt[:-1].copy()
+        inc = np.empty(2 * E, dtype=np.int64)
+        for e in range(E):  # stable fill
+            inc[cur[key_u[e]]] = e
+            cur[key_u[e]] += 1
+            inc[cur[key_v[e]]] = e
+            cur[key_v[e]] += 1
+        cur = cnt[:-1].copy()
+        used = np.zeros(E, dtype=bool)
+        for e0 in range(E):
+            if used[e0]:
+                continue
+            g = grp[e0]
+            w = u[e0]  # vertex id in [0, nL+nR): right side offset by nL
+            while True:
+                key = w * ngrp + g
+                c = cur[key]
+                while c < cnt[key + 1] and used[inc[c]]:
+                    c += 1
+                cur[key] = c
+                if c >= cnt[key + 1]:
+                    break
+                e = inc[c]
+                used[e] = True
+                if w < nL:
+                    grp[e] = grp[e] * 2
+                    w = nL + v[e]
+                else:
+                    grp[e] = grp[e] * 2 + 1
+                    w = u[e]
+    return grp.astype(np.int32)
+
+
+def bipartite_color(u, v, nL, nR, deg):
+    """Colour a ``deg``-regular bipartite multigraph with ``deg`` colours
+    (``deg`` a power of two): int32 colours in ``[0, deg)``, by the shared
+    native library (:func:`pyflwdir_torch.runtime.bipartite_color`), which
+    the port builds at first use."""
+    from .. import runtime
+
+    return runtime.bipartite_color(u, v, nL, nR, deg)
 
 
 def _chain_np(v, G, i1, iS1, iG, iS2, i3):

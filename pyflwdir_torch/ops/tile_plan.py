@@ -99,7 +99,7 @@ _COARSE_ROUTER_MIN = 200_000
 # up to this many padded coarse slots the single-chunk router does
 _COARSE_SMALL_MAX = 1_870_000
 
-_LATER = "queued for a later slice of the PyTorch port"
+_LATER = "queued for a later slice of the PyTorch port (ROADMAP Queue 1 item 2)"
 
 
 def _r128(x):

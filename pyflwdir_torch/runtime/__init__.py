@@ -1,7 +1,8 @@
 """ctypes binding of the shared native host library ``csrc/libpyflwdir_host.so``.
 
 Binds only what the port uses so far: the priority-flood depression fill,
-the DFS preorder, the LUT flow-direction parser, the sequential
+the DFS preorder, the LUT flow-direction parser, the bipartite edge
+colouring and the TPU router tables of the JAX plan build, the sequential
 accumulation sweeps upward and downward (the oracles the device paths are
 held against), the tile plan's per-tile DFS, bijection padding and
 downward sort phase, the Strahler and classic stream-order sweeps, the
@@ -31,6 +32,9 @@ __all__ = [
     "tile_plan_phase1",
     "tile_pad_bijection",
     "tile_down_phase",
+    "tile_fwd_tables",
+    "tile_inv_rows",
+    "bipartite_color",
     "downward_sweep",
     "strahler_order",
     "classic_order",
@@ -106,6 +110,17 @@ def _lib():
     lib.tp_down_phase.argtypes = [
         _I8P, _I8P, _I8P, _I32P, _I64P, _I32P, _I32P, ctypes.c_int64,
         ctypes.c_int64, _I32P, _I32P, _I32P, _I8P, _I8P,
+    ]
+    lib.tp_fwd_tables.restype = None
+    lib.tp_fwd_tables.argtypes = [
+        _I32P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        _I8P, _I8P, _I8P, _I8P, ctypes.c_void_p,
+    ]
+    lib.tp_inv_rows.restype = None
+    lib.tp_inv_rows.argtypes = [_I8P, ctypes.c_int64, ctypes.c_int64, _I8P]
+    lib.bipartite_color.restype = None
+    lib.bipartite_color.argtypes = [
+        _I64P, _I64P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32, _I32P,
     ]
     lib.downward_sweep.restype = None
     lib.downward_sweep.argtypes = [_I64P, _I64P, ctypes.c_int64, _F64P, _F64P]
@@ -367,6 +382,55 @@ def tile_pad_bijection(tk, dk, sk, NT, T):
         sigma.ctypes.data_as(_I32P),
     )
     return sigma
+
+
+def tile_fwd_tables(sig, Y, G):
+    """The JAX package's stacked 5-stage router tables of the per-tile
+    permutations ``sig`` (NT, Y * 128) int32, ``Y = 128 G`` rows of ``G``
+    groups of 128 x 128, with each tile's Hall colourings
+    (``csrc/tile_plan_build.cpp::tp_fwd_tables``): ``(i1, is1, is2, i3,
+    ig)``, int8, ``ig`` None where ``G`` is 1."""
+    sig = np.ascontiguousarray(sig, dtype=np.int32)
+    NT = sig.shape[0]
+    if G < 1 or Y != 128 * G or sig.ndim != 2 or sig.shape[1] != Y * 128:
+        raise ValueError(f"tile_fwd_tables: sig {sig.shape} is not (NT, Y * 128) with "
+                         f"Y = 128 G (Y {Y}, G {G})")
+    i1, is1, is2, i3 = (np.empty((NT, Y, 128), np.int8) for _ in range(4))
+    ig = np.empty((NT, 128 * 128, G), np.int8) if G > 1 else None
+    _lib().tp_fwd_tables(
+        sig.ctypes.data_as(_I32P), NT, int(Y), int(G),
+        i1.ctypes.data_as(_I8P), is1.ctypes.data_as(_I8P),
+        is2.ctypes.data_as(_I8P), i3.ctypes.data_as(_I8P),
+        ig.ctypes.data_as(_I8P) if ig is not None else None,
+    )
+    return i1, is1, is2, i3, ig
+
+
+def tile_inv_rows(t):
+    """Row-wise inverse of stacked int8 permutation tables (..., S)
+    (``csrc/tile_plan_build.cpp::tp_inv_rows``)."""
+    t = np.ascontiguousarray(t, dtype=np.int8)
+    out = np.empty_like(t)
+    s = t.shape[-1]
+    _lib().tp_inv_rows(t.ctypes.data_as(_I8P), t.size // s, s, out.ctypes.data_as(_I8P))
+    return out
+
+
+def bipartite_color(u, v, nL, nR, deg):
+    """Colours (int32, in ``[0, deg)``) of the edges ``(u[e], v[e])`` of a
+    ``deg``-regular bipartite multigraph, ``deg`` a power of two, by Euler
+    splits (``csrc/host_kernels.cpp::bipartite_color``)."""
+    u = np.ascontiguousarray(u, dtype=np.int64)
+    v = np.ascontiguousarray(v, dtype=np.int64)
+    deg = int(deg)
+    if (u.size != v.size or deg < 1 or deg & (deg - 1)
+            or (u.size and (u.min() < 0 or u.max() >= nL or v.min() < 0 or v.max() >= nR))):
+        raise ValueError("bipartite_color: u, v of one length with ids below nL, nR, and "
+                         "deg a power of two")
+    out = np.empty(u.size, dtype=np.int32)
+    _lib().bipartite_color(u.ctypes.data_as(_I64P), v.ctypes.data_as(_I64P), u.size,
+                           int(nL), int(nR), int(deg), out.ctypes.data_as(_I32P))
+    return out
 
 
 def tile_down_phase(near_sel, idx_near, sel_next, sig, cnt_far, far_slot, far_end, NT, T):

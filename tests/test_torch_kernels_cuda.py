@@ -932,3 +932,98 @@ def test_object_surface_on_the_card(dev):
     assert np.array_equal(gpu.idxs_ds, cpu.idxs_ds)
     for name in ("upstream_area", "basins", "stream_order"):
         assert np.array_equal(getattr(gpu, name)(), getattr(fresh, name)()), name
+
+
+def _framed_inputs(th, tw, dev, seed=0):
+    """One sweep's inputs of a ``tiled_fill`` round on a (th + 2, tw + 2)
+    frame: the block's DEM (nodata +inf and fixed, seeds fixed) and an
+    upper bound; the border rows and columns fixed and holding a neighbour's
+    surface (finite values and +inf) in both the frame and the DEM."""
+    rng = np.random.RandomState(seed * 7_919 + th * 10_007 + tw)
+    H, W = th + 2, tw + 2
+    d = (rng.rand(H, W) * 10).astype(np.float32)
+    bad = rng.rand(H, W) < 0.05
+    seed_ = rng.rand(H, W) < 0.05
+    d[bad] = np.inf
+    w = np.where(rng.rand(H, W) < 0.3, np.inf, d + 3 * rng.rand(H, W)).astype(np.float32)
+    fixed = bad | seed_
+    w[fixed] = d[fixed]
+    border = np.ones((H, W), bool)
+    border[1:-1, 1:-1] = False
+    surface = np.where(rng.rand(H, W) < 0.2, np.inf, rng.rand(H, W) * 12).astype(np.float32)
+    w[border] = d[border] = surface[border]
+    fixed |= border
+    return (torch.as_tensor(w, device=dev), torch.as_tensor(d, device=dev),
+            torch.as_tensor(fixed.astype(np.uint8), device=dev))
+
+
+@pytest.mark.parametrize("down", [True, False])
+@pytest.mark.parametrize("conn8", [True, False])
+@pytest.mark.parametrize("th,tw", [(1, 1), (1, 2), (3, 3), (5, 31), (4, 1023), (6, 1534),
+                                   (3, 4094), (4, 6000), (200, 130)])
+def test_fill_sweep_framed(dev, th, tw, conn8, down):
+    """F1 on the framed buffers of ``tiled_fill`` (widths 3 to 6,002: its
+    layouts of 256 and 512 threads, rows not 16-byte aligned), bitwise
+    against its plain version, the border kept; and on the frame as
+    ``tiled_fill`` lays it out, rows padded with fixed +inf columns to a
+    multiple of 16: the same values in the frame's columns."""
+    w, d, fixed = _framed_inputs(th, tw, dev)
+    kernels.reset_launches()
+    got = kernels.fill_sweep(w, d, fixed, conn8, down)
+    assert kernels.launches["fill_sweep"] == 1
+    want = kernels.fill_sweep_plain(w, d, fixed, conn8, down)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got[0], w[0]) and torch.equal(got[:, -1], w[:, -1])
+    extra = -(-(tw + 2) // 16) * 16 - tw - 2
+    pad = torch.nn.functional.pad
+    wa, da = (pad(t, (0, extra), value=float("inf")) for t in (w, d))
+    fa = pad(fixed, (0, extra), value=1)
+    aligned = kernels.fill_sweep(wa, da, fa, conn8, down)
+    torch.cuda.synchronize()
+    assert torch.equal(aligned[:, : tw + 2], got)
+    assert torch.equal(aligned, kernels.fill_sweep_plain(wa, da, fa, conn8, down))
+
+
+def test_halo_functions_on_one_card(dev):
+    """The ``tiled_*`` functions on a one-rank mesh of this process (no
+    group) on the card against the port's single-device functions: integer
+    results and the fill bitwise, unit sums bitwise, F1 launched by the
+    fill and no plain sweep run on the card."""
+    from pyflwdir_torch import dem, parallel, streams
+    from pyflwdir_torch.codecs import d8 as d8c
+    from pyflwdir_torch.ops import fill as tfill
+    from pyflwdir_torch.ops import graph
+    from pyflwdir_torch.ops import order as tord
+
+    rng = np.random.RandomState(3)
+    z = rng.rand(300, 400) + np.add.outer(np.linspace(2, 0, 300), np.linspace(2, 0, 400))
+    z[100:120, 150:180] -= 1.5
+    z[5:8, 9:11] = -9999.0
+    filled, d8 = dem.fill_depressions(z, nodata=-9999.0)
+    mesh = parallel.make_mesh()
+    assert mesh.device.type == "cuda"
+    ids, pits, _ = d8c.from_array(d8, dtype=np.int64)
+    ids_t = torch.as_tensor(ids, device=dev)
+    valid = (ids >= 0).reshape(d8.shape)
+    unit = graph.accumulate(ids_t, torch.ones(ids.size, dtype=torch.int32, device=dev))
+    for method in ("coarse", "iterate"):
+        got = parallel.tiled_accumulate(d8, np.ones(d8.shape), mesh, method=method)
+        assert np.array_equal(got[valid], unit.cpu().numpy().reshape(d8.shape)[valid]
+                              .astype(np.float32))
+    assert np.array_equal(parallel.tiled_rank(d8, mesh).ravel(), graph.rank(ids_t).cpu().numpy())
+    from pyflwdir_torch import basins
+
+    assert np.array_equal(parallel.tiled_basins(d8, pits, mesh).ravel(),
+                          basins.basins(ids_t, pits).ravel())
+    want = streams.stream_distance(ids_t, d8.shape, real_length=False).cpu().numpy()
+    got = parallel.tiled_stream_distance(d8, mesh, real_length=False)
+    assert np.array_equal(got[valid], want.reshape(d8.shape)[valid])
+    sto = tord.strahler_order(ids_t).cpu().numpy().reshape(d8.shape)
+    assert np.array_equal(parallel.tiled_strahler(d8, mesh)[valid], sto[valid])
+    kernels.reset_launches()
+    got = parallel.tiled_fill(z, mesh, nodata=-9999.0)
+    assert kernels.launches["fill_sweep"] == 2 * parallel.tiled.last_rounds["fill"] > 0
+    want = tfill.fill_depressions_dev(z, nodata=-9999.0, device=dev).cpu().numpy()
+    assert np.array_equal(got.astype(np.float32), want)
+    assert np.allclose(got, filled)

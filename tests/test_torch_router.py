@@ -95,3 +95,42 @@ def test_cpu_tensors_take_the_plain_version():
     kernels.reset_launches()
     trouter.RouterPlan(np.arange(_S * _S), device="cpu").apply(torch.zeros(_S, _S))
     assert kernels.launches["permute_gather"] == 0
+
+
+@pytest.mark.parametrize("n,deg", [(7, 1), (50, 2), (64, 4), (33, 8)])
+def test_bipartite_color(n, deg):
+    """``bipartite_color`` (the shared native library) equals the JAX
+    package's and its Python version on a random deg-regular bipartite
+    multigraph, and colours it properly: each vertex meets each colour
+    once."""
+    rng = np.random.RandomState(n + deg)
+    u = np.concatenate([np.arange(n)] * deg)
+    v = np.concatenate([rng.permutation(n) for _ in range(deg)])
+    got = trouter.bipartite_color(u, v, n, n, deg)
+    assert got.dtype == np.int32
+    assert np.array_equal(got, jrouter.bipartite_color(u, v, n, n, deg))
+    assert np.array_equal(got, trouter._bipartite_color_py(u, v, n, n, deg))
+    for side in (u, v):
+        assert np.array_equal(np.sort(side * deg + got), np.arange(n * deg))
+
+
+def test_router_tables_match_the_jax_runtime():
+    """``runtime.tile_fwd_tables`` / ``tile_inv_rows`` bound by the port
+    equal the JAX package's bindings of the same native functions."""
+    from pyflwdir_torch import runtime
+    from pyflwdir_tpu import runtime as jruntime
+
+    rng = np.random.RandomState(3)
+    for G in (1, 2):  # per-tile permutations of G * 128 rows of 128 lanes
+        Y = G * _S
+        sig = np.stack([rng.permutation(Y * _S) for _ in range(3)]).astype(np.int32)
+        got, want = runtime.tile_fwd_tables(sig, Y, G), jruntime.tile_fwd_tables(sig, Y, G)
+        assert (got[4] is None) == (want[4] is None) == (G == 1)
+        for g, w in zip(got[:4] + got[4:] * (G > 1), want[:4] + want[4:] * (G > 1)):
+            assert g.dtype == np.int8 and np.array_equal(g, w)
+    with pytest.raises(ValueError):  # 32 rows: not a whole number of 128 x 128 groups
+        runtime.tile_fwd_tables(sig[:, : 32 * _S], 32, 1)
+    t = np.stack([rng.permutation(_S) for _ in range(20)]).astype(np.int8)
+    assert np.array_equal(runtime.tile_inv_rows(t), jruntime.tile_inv_rows(t))
+    assert np.array_equal(np.take_along_axis(t, runtime.tile_inv_rows(t).astype(np.int64), 1),
+                          np.broadcast_to(np.arange(_S), t.shape))

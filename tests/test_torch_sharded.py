@@ -237,18 +237,26 @@ def test_one_process_without_a_group(sharded):
 
 
 def test_entry_points_take_the_card(sharded):
-    """Without a GPU, a mesh on the default device raises; the halo runtime
-    and taller tiles raise NotImplementedError."""
+    """Without a GPU, a mesh on the default device raises; on the CPU mesh
+    the halo runtime runs (the JAX default ``method="coarse"`` and
+    ``"iterate"`` give the plan's unit sums, ``tiled_rank`` the graph's
+    rank), and only taller tiles raise NotImplementedError."""
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is the card")
     with pytest.raises(RuntimeError):
         parallel.make_mesh()
     mesh = parallel.make_mesh(device="cpu")
     codes = sharded["codes"]
+    ids = sharded["ids"]["entries"]
+    valid = (ids >= 0).reshape(codes.shape)
+    want = sharded["plans"]["entries"].accumulate(
+        torch.as_tensor(valid.ravel().astype(np.int32))).numpy().reshape(codes.shape)
     for method in ("coarse", "iterate"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            parallel.tiled_accumulate(codes, np.ones(codes.shape), mesh, method=method)
+        got = parallel.tiled_accumulate(codes, np.ones(codes.shape), mesh, method=method)
+        assert np.array_equal(got[valid], want[valid].astype(np.float32))
     with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
         parallel.build_sharded_plan(codes, mesh, tile_rows=256)
-    with pytest.raises(NotImplementedError):
-        parallel.tiled_rank(codes, mesh)
+    from pyflwdir_torch.ops import graph as tgraph
+
+    assert np.array_equal(parallel.tiled_rank(codes, mesh).ravel(),
+                          tgraph.rank(torch.as_tensor(ids)).numpy())

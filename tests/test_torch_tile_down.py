@@ -515,8 +515,13 @@ def test_raster_below_the_threshold_takes_the_big_plan_for_every_dtype(d8_raster
 
 def test_the_port_imports_no_jax():
     root = pathlib.Path(pyflwdir_torch.__file__).resolve().parent
-    files = sorted(root.rglob("*.py")) + [root.parent / "chip_smoke.py"]
+    tests = root.parent / "tests"
+    files = sorted(root.rglob("*.py")) + [root.parent / "chip_smoke.py",
+                                          tests / "torch_sharded_worker.py",
+                                          tests / "torch_halo_worker.py"]
     assert len(files) > 15
+    for new in ("ops/stencil.py", "entry.py", "parallel/tiled.py", "parallel/distributed.py"):
+        assert root / new in files, new
     pat = re.compile(r"^\s*(import|from)\s+(jax|pyflwdir_tpu)\b", re.M)
     for f in files:
         assert not pat.search(f.read_text()), f

@@ -28,8 +28,9 @@ entry values and of the result stack, these also before the sharded plan's
 tables reach the card (``.first.wall``).
 
 Prints the card, the registers and spills ``ptxas`` gave each tile kernel of
-each DIR, one JSON line per run, then each DIR's median over its runs.
-Needs one CUDA device.
+each DIR, one JSON line per run, then each DIR's median over its runs and
+whether every DIR's kernels gave the same bits (a SHA-256 of each wrapper's
+outputs on both data types, ``digest``). Needs one CUDA device.
 """
 
 import argparse
@@ -127,6 +128,16 @@ def _sharded_walls(d8, out):
         dist.destroy_process_group()
 
 
+def _digest(res):
+    """SHA-256 of a wrapper's output tensors, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in res if isinstance(res, tuple) else (res,):
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def run_one(root, d8_path, reps):
     """One run in this process, on the port of checkout ``root``."""
     root = os.path.abspath(root)
@@ -141,7 +152,7 @@ def run_one(root, d8_path, reps):
         raise RuntimeError(f"imported {pyflwdir_torch.__file__}, not the port in {root}")
     kernels.load()
     out = dict(root=root, ptxas={k: list(v) for k, v in kernels.ptxas_report("tile_kernels")
-                                 .items()})
+                                 .items()}, digest={})
     d8 = np.load(d8_path)
     fl = pyflwdir_torch.from_array(d8)
     tp = fl._tile_plan()
@@ -178,6 +189,7 @@ def run_one(root, d8_path, reps):
             "tile_down_lite.range": lambda: kernels.tile_down_lite(*l_args, tile0=0),
         }
         for k, fn in calls.items():
+            out["digest"][f"{k}.{name}"] = _digest(fn())
             out[f"{k}.{name}_ms"] = _mean_ms(fn, reps)
     _sharded_walls(d8, out)
     return out
@@ -235,11 +247,14 @@ def main():
     finally:
         shutil.rmtree(work, ignore_errors=True)
     summary = {}
+    digests = [r.pop("digest", None) for r in runs]
     for d in dict.fromkeys(os.path.abspath(d) for d in args.dirs):
         mine = [r for r in runs if r["root"] == d]
         summary[d] = {k: statistics.median(r[k] for r in mine) for k in mine[0] if k != "root"}
         summary[d]["runs"] = len(mine)
-    print(json.dumps({"card": smi, "median": summary}))
+    same = None if None in digests else all(g == digests[0] for g in digests)
+    print(f"the same bits from every run and DIR: {same}")
+    print(json.dumps({"card": smi, "median": summary, "same_bits": same}))
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:

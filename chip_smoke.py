@@ -6,7 +6,8 @@ Run from the repository root:  python3 chip_smoke.py [--json PATH]
 1. Prints the card (nvidia-smi name and power limit) and builds the CUDA
    kernels (one nvcc per ``pyflwdir_torch/csrc/*.cu``, sm_90a, all started
    together) and the native host library from the sources; prints the
-   registers and spills ptxas gave the H0, H1, H3, F1 and T1-T4 kernels,
+   registers and spills ptxas gave the H0, H1, H3, F1 and T1-T4 kernels
+   (T1-T4 at each tile height),
    and the host time of one read of the current stream, as a Stream object
    and raw.
 2. Rhine path: a 997x682 grid (the Rhine raster's shape) from a seeded DEM,
@@ -162,7 +163,25 @@ Run from the repository root:  python3 chip_smoke.py [--json PATH]
    cards, world sizes 2 and 4 as they allow, one spawned rank per card:
    rank 0 builds and saves the plan, the others load it memory-mapped, and
    every rank holds both sharded sweeps against the unsharded ones.
-11. Halo phase, after the sharded one, on the same one-rank group: the
+11. Tall-tile phase, after the sharded one, on the same grid and group:
+   tile plans of 256, 384 and 512 rows (24 x 47, 16 x 47 and 12 x 47
+   tiles), kernels T1-T4 as thread-block clusters of 2, 3 and 4 CTAs a
+   tile. For each height: the build, the down indices and the upload
+   timed by step; with the counters zeroed before each call and read
+   after, int32 accumulate and accumulate_down bitwise the 128-row plan's
+   and the native sweeps, float64 within the rule (L at T = 128 Y slots)
+   and twice with the same bits, the cluster kernels launched and no
+   128-row one; both timed. At 256 and 512 rows: a kernel phase (T1 with
+   and without c, T2 fused and full, T3 raw and routed, T4 fin, and the
+   tile-range forms of T1, T2, T3 routed and T4 lite on ranges that start
+   and end in the middle of a tile row), and on the main path the banded
+   sweep (2 tile rows a band) and the one-rank sharded sweeps, bitwise the
+   unsharded ones. At 512 rows the sharded plan comes from
+   build_sharded_plan(tile_rows=512); the plan is saved, loaded into a new
+   FlwdirRaster (no build step may run) whose upstream_area(),
+   stream_distance() and stream_order() are bitwise the 128-row results;
+   and the closed tiles of the routed path (7) run T3 routed alone.
+12. Halo phase, after the tall-tile one, on the same one-rank group: the
    halo runtime (parallel.tiled_*) on the 6000x6000 grid as one block.
    Kernel phase: F1 on the framed buffer (6002 rows of 6016 columns:
    the block, a fixed +inf border, rows padded to 16-byte lines), down and
@@ -180,7 +199,7 @@ Run from the repository root:  python3 chip_smoke.py [--json PATH]
    coarse accumulation's device time. With more cards, world sizes 2 and 4
    also run the halo functions, every rank's result bitwise the one-rank
    result (float32 results within the stated rules).
-12. Prints a JSON line of the kernels, the card, then
+13. Prints a JSON line of the kernels, the card, then
    {"ok": true, "device": ...}.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
@@ -315,6 +334,12 @@ ROUTED_SHAPE = (2048, 2048)  # just above 2^21 cells; every tile closed
 DRAIN_CELLS = 100_000
 BIG_DRAIN_CELLS = 30_000
 BAND_TILE_ROWS = 8  # 47 tile rows in 6 bands
+# the tall-tile phase: tile heights, those with a kernel phase, its
+# repetitions a timing, and the band height of its banded sweeps
+TALL_ROWS = (256, 384, 512)
+TALL_KERNEL_ROWS = (256, 512)
+TALL_REPS = 10
+TALL_BAND_TILE_ROWS = 2
 _DT = {torch.int32: "int32", torch.float64: "float64"}
 
 
@@ -378,6 +403,15 @@ def _bound_ms(n_bytes, n_ops, dtype):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / OPS_PER_S[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _index_bytes(T, tab=None):
+    """The least whole bytes of an index into a tile of ``T`` slots or
+    cells, one value more where the table ``tab`` holds -1: what a bound
+    counts, whatever type the card's tables have (2 bytes up to T = 65,536,
+    3 at 65,536 with -1)."""
+    n_values = T + int(tab is not None and bool((tab < 0).any()))
+    return -(-(n_values - 1).bit_length() // 8)
 
 
 def _demo_dem(shape, seed):
@@ -542,10 +576,11 @@ def kernel_phase(plan, dev):
     }
 
 
-def tile_kernel_phase(tp, dtype, dev, tag=""):
-    """T1, T2 and the coarse level's H0-H3 in ``dtype`` against their plain
-    versions on the shapes of the tile plan ``tp``, with the inputs its
-    upward sweep gives them; ``tag`` goes into the rows' names."""
+def tile_kernel_phase(tp, dtype, dev, tag="", coarse=True):
+    """T1, T2 and (where ``coarse``) the coarse level's H1-H3 in ``dtype``
+    against their plain versions on the shapes of the tile plan ``tp`` (of
+    any tile height), with the inputs its upward sweep gives them; ``tag``
+    goes into the rows' names."""
     from pyflwdir_torch import kernels
 
     rng = np.random.RandomState(SEED)
@@ -559,13 +594,16 @@ def tile_kernel_phase(tp, dtype, dev, tag=""):
     s = x.element_size()
     t = tp.idx_t
     NT, T, E = tp.NT, t["rin"].shape[1], tp.E_pad
+    ix, ir = _index_bytes(T), _index_bytes(T, t["rout"])
     n_roots, n_ent = tp._coarse_meta["m"], tp._coarse_meta["D"]
     sfx = f"{tag}.{_DT[dtype]}"
-    # bounds count the least bytes each function needs, not the port's
-    # int32 layout: slots and lanes of a tile fit 2-byte indices (T =
-    # 16,384 < 2^15), a near end 1 byte (its offset from the slot, < 128,
-    # or none), and far ends and entries only where a slot has one
-    tile_x = kernels._tiles(x.abs(), tp.shape).sum(1)
+    reps = _reps(tp)
+    # bounds count the least bytes each function needs, not the card
+    # tables' types: a slot or cell of a tile takes _index_bytes (ix; ir
+    # for rout, which holds -1), a near end 1 byte (its offset from the
+    # slot, < 128, or none), and far ends and entries only where a slot
+    # has one
+    tile_x = kernels._tiles(x.abs(), tp.shape, T).sum(1)
 
     exits, c = kernels.tile_pass_a(x, t["rin"], t["ex_end"], tp.shape)
     rows = {"tile_pass_a" + sfx: _measure(
@@ -575,8 +613,8 @@ def tile_kernel_phase(tp, dtype, dev, tag=""):
         None,
         # x per cell and rin per slot read, c per slot written; per real
         # local root its end read and its exit written
-        s * n + 2 * NT * T + s * NT * T + (2 + s) * n_roots, NT * T + n_roots,
-        dtype, (T, float(tile_x.max())), reps=20)}
+        s * n + ix * NT * T + s * NT * T + (ix + s) * n_roots, NT * T + n_roots,
+        dtype, (T, float(tile_x.max())), **reps)}
 
     # the coarse level on pass A's exits
     co = tp.coarse._t
@@ -590,22 +628,24 @@ def tile_kernel_phase(tp, dtype, dev, tag=""):
     xpad[: xe.numel()] = xe
     n_read = int((src_in_np < xe.numel()).sum())
     csfx = ".coarse" + sfx
-    rows["accel_in_scan" + csfx] = _measure(
-        "accel_in_scan" + csfx,
-        lambda: kernels.accel_in_scan(xe, co["src_in"]),
-        lambda: kernels.accel_in_scan_plain(xe, co["src_in"]),
-        lambda: torch.cumsum(xpad[co["src_in"]], 0),
-        4 * n_pad + s * n_read + s * n_pad, n_pad, dtype, (2 * _scan_len(n_pad, dtype), total))
-    rows["accel_near_out" + csfx] = _measure(
-        "accel_near_out" + csfx,
-        lambda: kernels.accel_near_out(cc, co["end"]),
-        lambda: kernels.accel_near_out_plain(cc, co["end"]),
-        None, _h2_bytes(n_pad, _far_slots(co), s), n_pad, dtype)
-    rows["accel_far_merge" + csfx] = _measure(
-        "accel_far_merge" + csfx,
-        lambda: kernels.accel_far_merge(outp, None, co["src_res"]),
-        lambda: kernels.accel_far_merge_plain(outp, None, co["src_res"]),
-        None, _h3_bytes(n_out, n_off, s, False), 0, dtype)
+    if coarse:
+        rows["accel_in_scan" + csfx] = _measure(
+            "accel_in_scan" + csfx,
+            lambda: kernels.accel_in_scan(xe, co["src_in"]),
+            lambda: kernels.accel_in_scan_plain(xe, co["src_in"]),
+            lambda: torch.cumsum(xpad[co["src_in"]], 0),
+            4 * n_pad + s * n_read + s * n_pad, n_pad, dtype,
+            (2 * _scan_len(n_pad, dtype), total))
+        rows["accel_near_out" + csfx] = _measure(
+            "accel_near_out" + csfx,
+            lambda: kernels.accel_near_out(cc, co["end"]),
+            lambda: kernels.accel_near_out_plain(cc, co["end"]),
+            None, _h2_bytes(n_pad, _far_slots(co), s), n_pad, dtype)
+        rows["accel_far_merge" + csfx] = _measure(
+            "accel_far_merge" + csfx,
+            lambda: kernels.accel_far_merge(outp, None, co["src_res"]),
+            lambda: kernels.accel_far_merge_plain(outp, None, co["src_res"]),
+            None, _h3_bytes(n_out, n_off, s, False), 0, dtype)
 
     entv = tp.entry_grid(kernels.accel_far_merge(outp, None, co["src_res"]))
     n_off = int((kernels._untile(t["rout"], tp.shape) < 0).sum())
@@ -620,9 +660,17 @@ def tile_kernel_phase(tp, dtype, dev, tag=""):
         # c and near_end per slot, each entry's value and slot, each far
         # slot and its end, rout per cell, x per off-tree cell read; out
         # written once
-        s * NT * T + NT * T + (s + 2) * n_ent + 4 * n_tfar + 2 * n + s * n_off + s * n,
-        2 * NT * T + n_ent + n_tfar, dtype, (E + 3, scale), reps=20)
+        s * NT * T + NT * T + (s + ix) * n_ent + 2 * ix * n_tfar + ir * n + s * n_off + s * n,
+        2 * NT * T + n_ent + n_tfar, dtype, (E + 3, scale), **reps)
     return rows
+
+
+def _reps(tp):
+    """``_measure``'s repetitions for the kernels of plan ``tp``: fewer on
+    the tall tiles' plans, whose phase times every kernel at two heights."""
+    if tp.G == 1:
+        return dict(reps=20)
+    return dict(reps=TALL_REPS, dev_reps=TALL_REPS, plain_once=True)
 
 
 def _down_data(n, dtype, dev):
@@ -644,15 +692,17 @@ def tile_down_a_rows(tp, dtype, dev, modes, tag=""):
     s = x.element_size()
     t, d = tp.idx_t, tp.down_idx_t
     NT, T = tp.NT, t["rin"].shape[1]
+    ix, ir = _index_bytes(T), _index_bytes(T, t["rout"])
     n_ent = int((d["ent_slot"] >= 0).sum())
     n_last, n_prev = int((d["g_last"] >= 0).sum()), int((d["g_prev"] >= 0).sum())
     # the kernel's prefix and suffix scans each sum a tile in another order
-    sums = (2 * T, float(kernels._tiles(x.abs(), tp.shape).sum(1).max()))
+    sums = (2 * T, float(kernels._tiles(x.abs(), tp.shape, T).sum(1).max()))
     d1 = (x, t["rin"], d["es"], d["g_last"], d["g_prev"], d["n_tree"], d["ent_slot"])
-    # least bytes (2-byte tile indices): x per cell, rin and es per slot,
-    # the run boundaries only at the ends that have them, n_tree per tile
-    # and each entry's slot read; each entry's value written
-    common = s * n + 4 * NT * T + 2 * (n_last + n_prev) + 2 * NT + (2 + s) * n_ent
+    # least bytes (tile indices of _index_bytes): x per cell, rin and es per
+    # slot, the run boundaries only at the ends that have them, n_tree per
+    # tile and each entry's slot read; each entry's value written
+    common = (s * n + 2 * ix * NT * T + ix * (n_last + n_prev) + _index_bytes(T + 1) * NT
+              + (ix + s) * n_ent)
     n_ops = 3 * NT * T + n_prev  # two scans, the next slot's value, the run differences
     rows, raw = {}, None
     for mode in modes:
@@ -660,20 +710,20 @@ def tile_down_a_rows(tp, dtype, dev, modes, tag=""):
         args = (*d1, t["rout"] if routed else None, tp.shape, routed)
         name = f"tile_down_a.{mode}{tag}.{_DT[dtype]}"
         # z per slot written, or rout per cell read and the raster written
-        n_bytes = common + ((2 + s) * n if routed else s * NT * T)
+        n_bytes = common + ((ir + s) * n if routed else s * NT * T)
         rows[name] = _measure(name, lambda: kernels.tile_down_a(*args),
                               lambda: kernels.tile_down_a_plain(*args), None,
-                              n_bytes, n_ops, dtype, sums, reps=20)
+                              n_bytes, n_ops, dtype, sums, **_reps(tp))
         if not routed:
             raw = kernels.tile_down_a(*args)
     return rows, x, raw
 
 
-def tile_down_kernel_phase(tp, dtype, dev, tag="", modes=("raw", "routed")):
+def tile_down_kernel_phase(tp, dtype, dev, tag="", modes=("raw", "routed"), coarse=True):
     """T3 (in ``modes``, raw among them), the coarse level's downward H1 and
-    H0 calls and T4 in ``dtype`` against their plain versions on the shapes
-    of the tile plan ``tp``, each with the inputs the downward sweep gives
-    it; ``tag`` goes into the rows' names."""
+    H0 calls (where ``coarse``) and T4 in ``dtype`` against their plain
+    versions on the shapes of the tile plan ``tp``, each with the inputs the
+    downward sweep gives it; ``tag`` goes into the rows' names."""
     from pyflwdir_torch import kernels
 
     rows, x, (z1, pk) = tile_down_a_rows(tp, dtype, dev, modes, tag)
@@ -696,6 +746,8 @@ def tile_down_kernel_phase(tp, dtype, dev, tag="", modes=("raw", "routed")):
     A = kernels.permute_gather(zrev, cd["fin"]).reshape(NT, tp.R_pad)
 
     def scan_row(name, v, idx):
+        if not coarse:
+            return
         n_read = int((idx < v.numel()).sum())
         total = float(v.abs().double().sum())
         rows[name] = _measure(
@@ -706,6 +758,8 @@ def tile_down_kernel_phase(tp, dtype, dev, tag="", modes=("raw", "routed")):
             (2 * _scan_len(n_c), total))
 
     def gather_row(name, v, idx):
+        if not coarse:
+            return
         n_read = int((idx >= 0).sum())
         rows[name] = _measure(
             name, lambda: kernels.permute_gather(v, idx),
@@ -721,24 +775,25 @@ def tile_down_kernel_phase(tp, dtype, dev, tag="", modes=("raw", "routed")):
 
     n_off = int((kernels._untile(t["rout"], tp.shape) < 0).sum())
     n_roots = tp._coarse_meta["m"]
+    it, ir = _index_bytes(tp.R_pad, d["tree_of"]), _index_bytes(T, t["rout"])
     args = (x, z1, A, d["tree_of"], t["rout"], tp.shape)
     rows["tile_down_fin" + sfx] = _measure(
         "tile_down_fin" + sfx,
         lambda: kernels.tile_down_fin(*args),
         lambda: kernels.tile_down_fin_plain(*args),
         None,
-        # z1 and its tree index per slot, A per real root, rout per cell and
-        # x per off-tree cell read; out written once
-        (s + 2) * NT * T + s * n_roots + 2 * n + s * n_off + s * n,
-        int(d["n_tree"].sum()), dtype, reps=20)
+        # z1 and its tree index (of R_pad, or -1) per slot, A per real
+        # root, rout per cell and x per off-tree cell read; out written once
+        (s + it) * NT * T + s * n_roots + ir * n + s * n_off + s * n,
+        int(d["n_tree"].sum()), dtype, **_reps(tp))
     return rows
 
 
-def banded_kernel_phase(tp, dtype, dev):
+def banded_kernel_phase(tp, dtype, dev, tag=""):
     """T1 in exits-only mode and T2 in full mode (the banded sweep's unfused
     passes) in ``dtype`` against their plain versions on the whole grid of
     the tile plan ``tp``, with its own tables and the entries its coarse
-    level gives."""
+    level gives; ``tag`` goes into the rows' names."""
     from pyflwdir_torch import kernels
 
     rng = np.random.RandomState(SEED)
@@ -751,19 +806,20 @@ def banded_kernel_phase(tp, dtype, dev):
     s = x.element_size()
     t = tp.idx_t
     NT, T, E = tp.NT, t["rin"].shape[1], tp.E_pad
+    ix, ir = _index_bytes(T), _index_bytes(T, t["rout"])
     n_roots, n_ent = tp._coarse_meta["m"], tp._coarse_meta["D"]
-    sfx = f".{_DT[dtype]}"
-    tile_x = kernels._tiles(x.abs(), tp.shape).sum(1)
+    sfx = f"{tag}.{_DT[dtype]}"
+    tile_x = kernels._tiles(x.abs(), tp.shape, T).sum(1)
     a_args = (x, t["rin"], t["ex_end"], tp.shape)
     rows = {"tile_pass_a_exits" + sfx: _measure(
         "tile_pass_a_exits" + sfx,
         lambda: kernels.tile_pass_a(*a_args, emit_c=False),
         lambda: kernels.tile_pass_a_plain(*a_args, emit_c=False),
         None,
-        # x per cell and rin per slot read (2-byte tile indices); per real
-        # local root its end read and its exit written
-        s * n + 2 * NT * T + (2 + s) * n_roots, NT * T + n_roots,
-        dtype, (T, float(tile_x.max())), reps=20)}
+        # x per cell and rin per slot read (tile indices of _index_bytes);
+        # per real local root its end read and its exit written
+        s * n + ix * NT * T + (ix + s) * n_roots, NT * T + n_roots,
+        dtype, (T, float(tile_x.max())), **_reps(tp))}
     exits = kernels.tile_pass_a(*a_args, emit_c=False)
     entv = tp.entry_grid(tp.coarse.accumulate(exits.reshape(-1)))
     n_off = int((kernels._untile(t["rout"], tp.shape) < 0).sum())
@@ -778,8 +834,8 @@ def banded_kernel_phase(tp, dtype, dev):
         # x per cell (for the prefix sums and the passthrough), rin per slot,
         # near_end (1 byte) per slot, each entry's value and slot, each far
         # slot and its end, rout per cell read; out written once
-        s * n + 2 * NT * T + NT * T + (s + 2) * n_ent + 4 * n_tfar + 2 * n + s * n,
-        3 * NT * T + n_ent + n_tfar, dtype, (T + E + 3, scale), reps=20)
+        s * n + ix * NT * T + NT * T + (s + ix) * n_ent + 2 * ix * n_tfar + ir * n + s * n,
+        3 * NT * T + n_ent + n_tfar, dtype, (T + E + 3, scale), **_reps(tp))
     return rows
 
 
@@ -977,13 +1033,14 @@ def banded_path(fl, tp, upa, seq, built_s, dev):
                        **built_s)
 
 
-def sharded_kernel_phase(tp, dtype, dev):
+def sharded_kernel_phase(tp, dtype, dev, tag="", ranges=SHARD_RANGES):
     """T4 in lite mode against fin mode on the same data; T1, T2, T3
-    (routed) and T4 lite on the tile ranges ``SHARD_RANGES``, each bitwise
+    (routed) and T4 lite on the tile ranges ``ranges``, each bitwise
     against the same slice of its whole-grid call; then the four at the
     sharded path's shapes (one rank: its slab is every tile, a tile range
     from tile 0, results as a tile stack) against their plain versions,
-    timed. ``tp`` is the sharded plan, its down indices built."""
+    timed. ``tp`` is the sharded plan (or any plan: on one rank), its down
+    indices built; ``tag`` goes into the rows' names."""
     from pyflwdir_torch import kernels
 
     H, W = shape = tp.shape
@@ -991,14 +1048,15 @@ def sharded_kernel_phase(tp, dtype, dev):
     x = _down_data(n, dtype, dev)
     s = x.element_size()
     t, d = tp.idx_t, tp.down_idx_t
-    NT, T, E, ntx = tp.NT, 128 * 128, tp.E_pad, tp.grid[1]
-    sfx = f".shard.{_DT[dtype]}"
+    NT, T, E, ntx = tp.NT, t["rin"].shape[1], tp.E_pad, tp.grid[1]
+    ix, ir = _index_bytes(T), _index_bytes(T, t["rout"])
+    sfx = f".shard{tag}.{_DT[dtype]}"
     up = (t["ent_idx"], t["near_end"], t["far_end"], t["rout"])
     d1 = (t["rin"], d["es"], d["g_last"], d["g_prev"], d["n_tree"], d["ent_slot"])
 
     exits, c = kernels.tile_pass_a(x, t["rin"], t["ex_end"], shape)
     entv = tp.entry_grid(tp.coarse.accumulate(exits.reshape(-1)))
-    out_t = kernels._tiles(kernels.tile_pass_c(x, c, entv, *up, shape), shape)
+    out_t = kernels._tiles(kernels.tile_pass_c(x, c, entv, *up, shape), shape, T)
     z1, pk = kernels.tile_down_a(x, *d1, None, shape, False)
     abar, _ = kernels.tile_down_a(x, *d1, t["rout"], shape, True)
     A = tp.coarse.accumulate_down(pk.reshape(-1)).reshape(NT, tp.R_pad)
@@ -1007,9 +1065,9 @@ def sharded_kernel_phase(tp, dtype, dev):
     torch.cuda.synchronize()
     _check(torch.equal(lite, fin), f"T4 lite on the routed pass D1 bitwise equal to T4 fin on "
                                    f"the raw one ({_DT[dtype]}, whole grid)")
-    abar_t, lite_t = kernels._tiles(abar, shape), kernels._tiles(lite, shape)
+    abar_t, lite_t = kernels._tiles(abar, shape, T), kernels._tiles(lite, shape, T)
     del z1, fin, abar, lite
-    for lo, hi in SHARD_RANGES:
+    for lo, hi in ranges:
         r = slice(lo, hi)
         ex_r, c_r = kernels.tile_pass_a(x, t["rin"][r], t["ex_end"][r], shape, tile0=lo)
         out_r = kernels.tile_pass_c(x, c_r, entv[r], *(v[r] for v in up), shape, tile0=lo)
@@ -1025,17 +1083,18 @@ def sharded_kernel_phase(tp, dtype, dev):
                f"equal to the whole-grid calls' slices ({_DT[dtype]})")
     del out_t, lite_t, ex_r, c_r, out_r, ab_r, pk_r, li_r
 
-    # bounds: the least bytes (2-byte tile indices, 1-byte near offsets),
+    # bounds: the least bytes (tile indices of _index_bytes, 1-byte near offsets),
     # as the whole-grid rows count them; the results are a tile stack
     n_roots, n_ent = tp._coarse_meta["m"], tp._coarse_meta["D"]
-    tile_x = kernels._tiles(x.abs(), shape).sum(1)
+    tile_x = kernels._tiles(x.abs(), shape, T).sum(1)
+    reps = _reps(tp)
     rows = {}
     a_args = (x, t["rin"], t["ex_end"], shape)
     rows["tile_pass_a" + sfx] = _measure(
         "tile_pass_a" + sfx, lambda: kernels.tile_pass_a(*a_args, tile0=0),
         lambda: kernels.tile_pass_a_plain(*a_args, tile0=0), None,
-        s * n + 2 * NT * T + s * NT * T + (2 + s) * n_roots, NT * T + n_roots, dtype,
-        (T, float(tile_x.max())), reps=20)
+        s * n + ix * NT * T + s * NT * T + (ix + s) * n_roots, NT * T + n_roots, dtype,
+        (T, float(tile_x.max())), **reps)
     n_off = int((t["rout"] < 0).sum())
     n_tfar = int((t["far_end"] >= 0).sum())
     scale = float((tile_x + entv.abs().sum(1)).max())
@@ -1043,24 +1102,26 @@ def sharded_kernel_phase(tp, dtype, dev):
     rows["tile_pass_c" + sfx] = _measure(
         "tile_pass_c" + sfx, lambda: kernels.tile_pass_c(*c_args, tile0=0),
         lambda: kernels.tile_pass_c_plain(*c_args, tile0=0), None,
-        s * NT * T + NT * T + (s + 2) * n_ent + 4 * n_tfar + 2 * NT * T + s * n_off
-        + s * NT * T, 2 * NT * T + n_ent + n_tfar, dtype, (E + 3, scale), reps=20)
+        s * NT * T + NT * T + (s + ix) * n_ent + 2 * ix * n_tfar + ir * NT * T + s * n_off
+        + s * NT * T, 2 * NT * T + n_ent + n_tfar, dtype, (E + 3, scale), **reps)
     n_last, n_prev = int((d["g_last"] >= 0).sum()), int((d["g_prev"] >= 0).sum())
     n_pk = int((d["ent_slot"] >= 0).sum())
     d_args = (x, *d1, t["rout"], shape, True)
     rows["tile_down_a" + sfx] = _measure(
         "tile_down_a" + sfx, lambda: kernels.tile_down_a(*d_args, tile0=0),
         lambda: kernels.tile_down_a_plain(*d_args, tile0=0), None,
-        s * n + 4 * NT * T + 2 * (n_last + n_prev) + 2 * NT + (2 + s) * n_pk + (2 + s) * NT * T,
-        3 * NT * T + n_prev, dtype, (2 * T, float(tile_x.max())), reps=20)
+        s * n + 2 * ix * NT * T + ix * (n_last + n_prev) + _index_bytes(T + 1) * NT
+        + (ix + s) * n_pk + (ir + s) * NT * T, 3 * NT * T + n_prev, dtype,
+        (2 * T, float(tile_x.max())), **reps)
     n_tree = int(d["n_tree"].sum())
     l_args = (abar_t, A, d["tree_of"], t["rout"], shape)
     rows["tile_down_lite" + sfx] = _measure(
         "tile_down_lite" + sfx, lambda: kernels.tile_down_lite(*l_args, tile0=0),
         lambda: kernels.tile_down_lite_plain(*l_args, tile0=0), None,
         # abar read and out written per cell, rout per cell and tree_of per
-        # tree slot (2 bytes each), A per real root; one add per tree cell
-        2 * s * NT * T + 2 * NT * T + 2 * n_tree + s * n_roots, n_tree, dtype, reps=20)
+        # tree slot (its tree, of R_pad), A per real root; one add per tree cell
+        2 * s * NT * T + ir * NT * T + _index_bytes(tp.R_pad) * n_tree + s * n_roots, n_tree,
+        dtype, **reps)
     return rows
 
 
@@ -1227,6 +1288,333 @@ def sharded_path(fl, d8, seq, dev):
                        tiled_accumulate_s=t_ta, path_s=t_path, NT=tp.NT, pshape=list(pshape))
 
 
+def _tall_ranges(tp):
+    """Two tile ranges of the plan's grid that start and end in the middle of
+    a tile row, the second ending the grid."""
+    ntx, nt = tp.grid[1], tp.NT
+    mid = (tp.grid[0] // 2) * ntx + ntx // 2
+    return ((ntx // 3, mid), (mid, nt))
+
+
+def tall_path(fl, tp, d8, upa, seq, refs, dev):
+    """Tile plans of 256, 384 and 512 rows on the 6000x6000 grid (kernels
+    T1-T4 as thread-block clusters of 2, 3 and 4 CTAs a tile). For each
+    height: the build by step; int32 ``accumulate`` and ``accumulate_down``
+    bitwise the 128-row plan ``tp``'s and the native sweeps'; float64 by the
+    rule with the chain length at T = 128 Y, two calls the same bits; the
+    launch counters zeroed before each call and read after: the cluster
+    kernels ran, no 128-row one. At 256 and 512 rows a kernel phase (every
+    mode and the tile-range forms against their plain versions), the banded
+    and the one-rank sharded sweeps on the main path; at 512 rows a saved
+    plan, its ``load_plans`` into a new raster and that raster's
+    ``upstream_area()``, ``stream_distance()`` and ``stream_order()``
+    bitwise the 128-row results, ``build_sharded_plan(tile_rows=512)`` and
+    the closed tiles of the routed path at 512 rows. Returns the kernel rows
+    and timings."""
+    import torch.distributed as dist
+
+    import pyflwdir_torch
+    from pyflwdir_torch import kernels, parallel, runtime
+    from pyflwdir_torch.ops.tile_plan import build_tile_plan
+
+    print(" tall tiles (T1-T4 as thread-block clusters):")
+    t_path = time.perf_counter()
+    H, W = fl.shape
+    n = H * W
+    mask, ids = fl.mask, fl.idxs_ds
+    rng = np.random.RandomState(SEED + 12)
+    fdata = rng.rand(n)
+    ones = torch.ones(n, dtype=torch.int32, device=dev)
+    fx = torch.as_tensor(fdata, device=dev)
+    want_up = {torch.int32: tp.accumulate(ones), torch.float64: None}
+    want_dn = {torch.int32: tp.accumulate_down(ones), torch.float64: None}
+    sweep_dn = runtime.downward_sweep(ids, seq, np.ones(n))
+    f_up = runtime.accuflux_sweep(ids, seq, fdata)
+    f_dn = runtime.downward_sweep(ids, seq, fdata)
+    mesh = parallel.make_mesh()
+    _check(mesh.size == 1 and dist.get_backend(mesh.group) == "nccl",
+           f"a mesh of the one rank of the NCCL group: {mesh}")
+    tile_names = kernels._TILE_COUNTS
+    krows, out = [], {}
+    for Y in TALL_ROWS:
+        G = Y // 128
+        g = f"_g{G}"
+        print(f" tall tiles, {Y} rows (clusters of {G} CTAs):")
+        t0 = time.perf_counter()
+        ty = build_tile_plan(ids, fl.shape, tile_rows=Y, device=dev)
+        t_build = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ty._ensure_down()
+        t_down = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        up_t, down_t = ty.idx_t, ty.down_idx_t
+        torch.cuda.synchronize()
+        t_upload = time.perf_counter() - t0
+        steps = ", ".join(f"{k} {v:.2f}" for k, v in ty.build_seconds.items())
+        dsteps = ", ".join(f"{k} {v:.2f}" for k, v in ty.down_build_seconds.items())
+        T = Y * 128
+        card_bytes = sum(v.numel() * v.element_size() for v in (*up_t.values(), *down_t.values()))
+        print(f"  build {t_build:.2f} s ({steps}); down indices {t_down:.2f} s ({dsteps}); "
+              f"upload {t_upload:.2f} s, {card_bytes} bytes on the card; NT {ty.NT}, grid "
+              f"{ty.grid}, R_pad {ty.R_pad}, E_pad {ty.E_pad}, far_mode {ty.far_mode}, coarse "
+              f"{type(ty.coarse).__name__}, {ty._coarse_meta['m']} roots + "
+              f"{ty._coarse_meta['D']} entry nodes")
+        _check(ty.Y == Y and ty.G == G and ty.grid == (-(-H // Y), -(-W // 128))
+               and up_t["rin"].shape == (ty.NT, T)
+               and up_t["rin"].dtype == kernels.tile_table_dtype(Y) and ty.has_entries,
+               f"a plan of {Y}-row tiles: grid {ty.grid}, NT {ty.NT}, {up_t['rin'].dtype} "
+               "tables of T = 128 Y slots, entry cells")
+
+        rows = {torch.int32: {}, torch.float64: {}}
+        kernel_phase = Y in TALL_KERNEL_ROWS
+        tag = f".y{Y}"
+        if kernel_phase:
+            for dtype in (torch.int32, torch.float64):
+                print(f"  kernel phase ({_DT[dtype]}):")
+                r = rows[dtype]
+                r.update(tile_kernel_phase(ty, dtype, dev, tag, coarse=False))
+                r.update(tile_down_kernel_phase(ty, dtype, dev, tag, coarse=False))
+                r.update(banded_kernel_phase(ty, dtype, dev, tag))
+                r.update(sharded_kernel_phase(ty, dtype, dev, tag, _tall_ranges(ty)))
+
+        print("  main path:")
+        sh = ty
+        if Y == 512:
+            t0 = time.perf_counter()
+            sh, pshape = parallel.build_sharded_plan(d8, mesh, tile_rows=Y)
+            sh._ensure_down()
+            t_sh = time.perf_counter() - t0
+            print(f"  build_sharded_plan(tile_rows={Y}) and its down indices {t_sh:.2f} s; "
+                  f"shape {pshape}, NT {sh.NT}")
+            _check(tuple(pshape) == (-(-H // Y) * Y, -(-W // 128) * 128) and sh.Y == Y,
+                   f"build_sharded_plan padded the grid to {pshape} at {Y} rows")
+            out.setdefault("sharded_build_s", t_sh)
+        nb = -(-ty.grid[0] // TALL_BAND_TILE_ROWS)
+        calls = {}
+        for dtype, x in ((torch.int32, ones), (torch.float64, fx)):
+            dt = _DT[dtype]
+            calls[f"accumulate {dt}"] = (lambda x=x: ty.accumulate(x),
+                                         {"tile_pass_a" + g: 1, "tile_pass_c" + g: 1})
+            calls[f"accumulate_down {dt}"] = (lambda x=x: ty.accumulate_down(x),
+                                              {"tile_down_a" + g: 1, "tile_down_fin" + g: 1})
+            if kernel_phase:
+                host = x.cpu().numpy().reshape(H, W) if dtype == torch.float64 else None
+                calls[f"accumulate_banded {dt}"] = (
+                    lambda host=host: ty.accumulate_banded(host, TALL_BAND_TILE_ROWS),
+                    {"tile_pass_a_exits" + g: nb, "tile_pass_c_full" + g: nb})
+                xs = x
+                if sh is not ty:
+                    xs = torch.zeros(sh.shape, dtype=x.dtype, device=dev)
+                    xs[:H, :W] = x.reshape(H, W)
+                    xs = xs.reshape(-1)
+                calls[f"sharded {dt}"] = (
+                    lambda xs=xs: (sh.accumulate_sharded(xs, mesh, overlap_chunks=1),
+                                   sh.accumulate_down_sharded(xs, mesh)),
+                    {"tile_pass_a" + g: 1, "tile_pass_c" + g: 1, "tile_down_a" + g: 1,
+                     "tile_down_lite" + g: 1})
+        res, counts = {}, {torch.int32: {}, torch.float64: {}}
+        for name, (fn, want) in calls.items():
+            kernels.reset_launches()
+            res[name] = fn()
+            torch.cuda.synchronize()
+            c = dict(kernels.launches)
+            dtype = torch.int32 if "int32" in name else torch.float64
+            for k, v in c.items():
+                counts[dtype][k] = counts[dtype].get(k, 0) + v
+            _check(all(c[k] == want.get(k, 0) for k in c if k.startswith("tile_"))
+                   and not any(c[k] for k in tile_names),
+                   f"{name} ({Y} rows) launched the {G}-CTA cluster kernels "
+                   f"{sorted(want)} and no 128-row tile kernel: "
+                   f"{({k: v for k, v in c.items() if v})}")
+
+        t0 = time.perf_counter()
+        up_i, dn_i = res["accumulate int32"], res["accumulate_down int32"]
+        _check(torch.equal(up_i, want_up[torch.int32])
+               and np.array_equal(up_i.cpu().numpy().reshape(H, W)[mask.reshape(H, W)],
+                                  upa[mask.reshape(H, W)]),
+               f"int32 accumulate ({Y} rows) bitwise the 128-row plan's and the native sweep's")
+        _check(torch.equal(dn_i, want_dn[torch.int32])
+               and np.array_equal(dn_i.cpu().numpy()[mask], sweep_dn[mask].astype(np.int32)),
+               f"int32 accumulate_down ({Y} rows) bitwise the 128-row plan's and the native "
+               "downward sweep's")
+        # a value sums a tile's prefix (T = 128 Y slots), the coarse level's
+        # prefix and its tile's entry scan (E_pad), in another order
+        n_pad = getattr(ty.coarse, "n_pad", ty.NT * ty.R_pad)
+        length = T + 2 * _scan_len(n_pad) + ty.E_pad
+        up_f, dn_f = res["accumulate float64"], res["accumulate_down float64"]
+        _close(up_f.cpu().numpy()[mask], f_up[mask], length, float(fdata[mask].sum()),
+               f"float64 accumulate ({Y} rows) of the native sweep")
+        n_c = ty.coarse._down_t["es_in"].numel() if hasattr(ty.coarse, "_down_t") else n_pad
+        _close(dn_f.cpu().numpy()[mask], f_dn[mask], 2 * (T + 2 * _scan_len(n_c)),
+               float(fdata[mask].sum()), f"float64 accumulate_down ({Y} rows) of the native "
+               "downward sweep")
+        _check(torch.equal(ty.accumulate(fx), up_f) and torch.equal(ty.accumulate_down(fx), dn_f),
+               f"two float64 calls ({Y} rows) give the same bits")
+        if kernel_phase:
+            for dtype, dt in ((torch.int32, "int32"), (torch.float64, "float64")):
+                b = res[f"accumulate_banded {dt}"]
+                mono = res[f"accumulate {dt}"].cpu().numpy().reshape(H, W)
+                _check(np.array_equal(b, mono.astype(b.dtype)),
+                       f"accumulate_banded ({dt}, {Y} rows, {nb} bands) bitwise accumulate")
+                su, sd = res[f"sharded {dt}"]
+                xs = ones if dt == "int32" else fx
+                if sh is not ty:
+                    xs = torch.zeros(sh.shape, dtype=xs.dtype, device=dev)
+                    xs[:H, :W] = (ones if dt == "int32" else fx).reshape(H, W)
+                    xs = xs.reshape(-1)
+                _check(torch.equal(su, sh.accumulate(xs))
+                       and torch.equal(sd, sh.accumulate_down(xs)),
+                       f"one-rank accumulate_sharded / accumulate_down_sharded ({dt}, {Y} "
+                       "rows) bitwise the same plan's unsharded sweeps")
+                if sh is not ty and dt == "int32":
+                    crop = [r.reshape(sh.shape)[:H, :W].reshape(-1) for r in (su, sd)]
+                    _check(torch.equal(crop[0], up_i) and torch.equal(crop[1], dn_i),
+                           f"... and, on the grid, the {Y}-row plan's int32 results")
+        print(f"  checks {time.perf_counter() - t0:.2f} s")
+
+        times = {}
+        for name, fn in (("accumulate_int32", lambda: ty.accumulate(ones)),
+                         ("accumulate_down_int32", lambda: ty.accumulate_down(ones)),
+                         ("accumulate_float64", lambda: ty.accumulate(fx)),
+                         ("accumulate_down_float64", lambda: ty.accumulate_down(fx))):
+            times[name + "_ms"] = _time_ms(fn, reps=20, warmup=3)
+            times[name + "_device_ms"] = _device_ms(fn)
+        print(f"  wall (CUDA events) / device, ms: " + ", ".join(
+            f"{k[:-3]} {times[k]:.4f} / {times[k[:-3] + '_device_ms']}"
+            for k in times if not k.endswith("_device_ms")))
+
+        rrows = {}
+        if Y == 512:
+            out["saved_plan"] = _tall_saved(fl, ty, upa, refs, dev)
+            del sh
+            rrows, out["closed_tiles"] = _tall_closed(Y, dev)
+        # each path's rows read the launches of that path's own run: the
+        # closed tiles are a grid and a call of their own
+        rh, rw = ROUTED_SHAPE
+        for dtype in (torch.int32, torch.float64):
+            r = _rows(rows[dtype], counts[dtype], f"tile {H}x{W}, {Y}-row tiles", _DT[dtype], G)
+            if dtype in rrows:
+                r += _rows(rrows[dtype]["rows"], rrows[dtype]["counts"],
+                           f"closed tiles {rh}x{rw}, {Y}-row tiles", _DT[dtype], G)
+            _check(all(row["launches"] > 0 for row in r),
+                   f"every kernel of the {Y}-row phase ({_DT[dtype]}) launched on its main path")
+            krows += r
+        out[f"y{Y}"] = dict(build_s=t_build, build_steps_s=ty.build_seconds,
+                            down_indices_s=t_down, down_steps_s=ty.down_build_seconds,
+                            upload_s=t_upload, card_table_bytes=card_bytes, NT=ty.NT,
+                            R_pad=ty.R_pad, E_pad=ty.E_pad, far_mode=ty.far_mode,
+                            coarse=type(ty.coarse).__name__, **times)
+        del ty, res, up_t, down_t
+        torch.cuda.empty_cache()
+    t_path = time.perf_counter() - t_path
+    out["path_s"] = t_path
+    print(f"  tall-tile phase {t_path:.1f} s")
+    return krows, out
+
+
+def _tall_saved(fl, ty, upa, refs, dev):
+    """Save the tall plan ``ty`` (the port's format), load it into a new
+    raster object with ``load_plans`` (no build step may run) and hold its
+    ``upstream_area()``, ``stream_distance()`` and ``stream_order()``
+    bitwise to the 128-row plan's results."""
+    import pyflwdir_torch
+    from pyflwdir_torch import kernels
+
+    g = f"_g{ty.G}"
+    plan_dir = tempfile.mkdtemp(prefix="_plan_tmp", dir=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        t0 = time.perf_counter()
+        meta = ty.save(plan_dir, down=True)
+        t_save = time.perf_counter() - t0
+        with _Rebuilds() as rb:
+            fl2 = pyflwdir_torch.FlwdirRaster(fl.idxs_ds, fl.shape, "d8", fl.idxs_pit,
+                                              transform=fl.transform, latlon=fl.latlon,
+                                              device=fl.device)
+            t0 = time.perf_counter()
+            tp2 = fl2.load_plans(plan_dir)
+            t_load = time.perf_counter() - t0
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            upa2 = fl2.upstream_area()
+            t_first = time.perf_counter() - t0
+            c_up = dict(kernels.launches)
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            dist2 = fl2.stream_distance()
+            t_dist = time.perf_counter() - t0
+            c_dn = dict(kernels.launches)
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            strord2 = fl2.stream_order()
+            t_ord = time.perf_counter() - t0
+            c_ord = dict(kernels.launches)
+    finally:
+        shutil.rmtree(plan_dir, ignore_errors=True)
+    print(f"  saved plan ({ty.Y} rows): save {t_save:.3f} s, load_plans {t_load:.3f} s, first "
+          f"upstream_area() {t_first:.3f} s, stream_distance() {t_dist:.3f} s, stream_order() "
+          f"{t_ord:.3f} s")
+    _check(meta["tile_rows"] == ty.Y and tp2.Y == ty.Y and not rb.calls,
+           f"the saved plan keeps tile_rows {ty.Y}; load_plans and the calls after it ran no "
+           f"build step ({rb.calls})")
+    _check(c_up["tile_pass_a" + g] == c_up["tile_pass_c" + g] == 1
+           and c_dn["tile_down_a" + g] == 1 and c_ord["tile_pass_a" + g] >= 1
+           and not any(c[k] for c in (c_up, c_dn, c_ord) for k in kernels._TILE_COUNTS),
+           f"the loaded raster's calls ran the {ty.G}-CTA cluster kernels")
+    _check(np.array_equal(upa2, upa) and np.array_equal(dist2, refs["stream_distance"])
+           and np.array_equal(strord2, fl.stream_order()),
+           f"upstream_area(), stream_distance() and stream_order() of the loaded {ty.Y}-row "
+           "plan bitwise the 128-row plan's")
+    return dict(save_s=t_save, load_s=t_load, first_upstream_area_s=t_first,
+                stream_distance_s=t_dist, stream_order_s=t_ord)
+
+
+def _tall_closed(Y, dev):
+    """T3 routed alone on the routed path's closed tiles at ``Y`` rows (a
+    tile closed at 128 rows is closed at 128 G): bitwise the 128-row plan's
+    ``accumulate_down``; its kernel rows in int32 and float64 with the
+    launches of one downward call each."""
+    from pyflwdir_torch import kernels
+    from pyflwdir_torch.codecs import d8 as d8c
+    from pyflwdir_torch.ops.tile_plan import build_tile_plan
+
+    d8 = np.ones(ROUTED_SHAPE, np.uint8)
+    d8[:, 127::128] = 4
+    d8[127::128, 127::128] = 0
+    d8[:40, 0] = 247
+    ids = d8c.from_array(d8)[0]
+    n = ids.size
+    tp128 = build_tile_plan(ids, ROUTED_SHAPE, device=dev)
+    ty = build_tile_plan(ids, ROUTED_SHAPE, tile_rows=Y, device=dev)
+    ty._ensure_down()
+    _check(not ty.has_entries and ty.E_pad == 0,
+           f"the closed tiles at {Y} rows: no entry cells")
+    out, info = {}, {}
+    for dtype in (torch.int32, torch.float64):
+        x = _down_data(n, dtype, dev)
+        kernels.reset_launches()
+        got = ty.accumulate_down(x)
+        torch.cuda.synchronize()
+        counts = dict(kernels.launches)
+        g = f"tile_down_a_g{Y // 128}"
+        _check(all(counts[k] == (k == g) for k in counts),
+               f"accumulate_down ({_DT[dtype]}, closed tiles, {Y} rows) launched T3 once, "
+               f"routed, and no other kernel: {({k: v for k, v in counts.items() if v})}")
+        want = tp128.accumulate_down(x)
+        if dtype == torch.int32:
+            _check(torch.equal(got, want), f"... bitwise the 128-row plan's ({_DT[dtype]})")
+        else:
+            total = float(x.abs().sum())
+            _close(got.cpu().numpy(), want.cpu().numpy(), 4 * Y * 128, total,
+                   f"... the 128-row plan's ({_DT[dtype]})")
+        rows, _, _ = tile_down_a_rows(ty, dtype, dev, ("routed",), f".noentry.y{Y}")
+        ms = _time_ms(lambda: ty.accumulate_down(x), reps=20, warmup=3)
+        info[_DT[dtype] + "_ms"] = ms
+        out[dtype] = dict(rows=rows, counts=counts)
+    print(f"  closed tiles {ROUTED_SHAPE} at {Y} rows: accumulate_down (T3 routed alone) "
+          f"int32 {info['int32_ms']:.4f} ms, float64 {info['float64_ms']:.4f} ms")
+    return out, info
+
+
 def _sharded_rank(rank, world, port, work_dir, device_type):
     """One spawned rank of :func:`multi_card_path`: joins the group, loads
     the plan rank 0 built and saved (memory-mapped), runs both sharded
@@ -1234,227 +1622,6 @@ def _sharded_rank(rank, world, port, work_dir, device_type):
     device, times them, and writes ``rank<r>.json`` into ``work_dir``."""
     import datetime
 
-    import torch.distributed as dist
-
-    from pyflwdir_torch import kernels, parallel
-    from pyflwdir_torch.ops.tile_plan import TilePlan
-
-    cuda = device_type == "cuda"
-    os.environ["LOCAL_RANK"] = str(rank)
-    parallel.init_distributed(f"localhost:{port}", world, rank, device=None if cuda else "cpu",
-                              timeout=datetime.timedelta(seconds=300))
-    mesh = parallel.make_mesh(device=None if cuda else "cpu")
-    sync = torch.cuda.synchronize if cuda else (lambda: None)
-    plan_dir = os.path.join(work_dir, "plan")
-    t0 = time.perf_counter()
-    if rank == 0:
-        tp, pshape = parallel.build_sharded_plan(np.load(os.path.join(work_dir, "d8.npy")), mesh)
-        tp.save(plan_dir, down=True)
-    dist.barrier()
-    if rank > 0:
-        tp = TilePlan.load(plan_dir, mmap=True, device=mesh.device)
-    t_plan = time.perf_counter() - t0
-    rng = np.random.RandomState(SEED + 9)
-    n = tp.shape[0] * tp.shape[1]
-    out = dict(rank=rank, world=world, device=str(mesh.device), plan_s=t_plan, NT=tp.NT,
-               slab=tp.NT // world, ok=True)
-    for dtype, x in ((torch.int32, torch.as_tensor(rng.randint(0, 3, n).astype(np.int32))),
-                     (torch.float64, torch.as_tensor(rng.rand(n)))):
-        x = x.to(mesh.device)
-        kernels.reset_launches()
-        up, down = tp.accumulate_sharded(x, mesh), tp.accumulate_down_sharded(x, mesh)
-        sync()
-        out[f"launches.{_DT[dtype]}"] = dict(kernels.launches)
-        out[f"ok.{_DT[dtype]}"] = bool(torch.equal(up, tp.accumulate(x))
-                                       and torch.equal(down, tp.accumulate_down(x)))
-        out["ok"] &= out[f"ok.{_DT[dtype]}"] and kernels.launches["tile_down_lite"] == 1
-    if cuda:
-        ones = torch.ones(n, dtype=torch.int32, device=mesh.device)
-        for name, fn in (("accumulate_sharded", lambda: tp.accumulate_sharded(ones, mesh)),
-                         ("accumulate_down_sharded",
-                          lambda: tp.accumulate_down_sharded(ones, mesh))):
-            out[name + "_ms"] = _time_ms(fn, reps=10, warmup=2)
-    del tp
-    if os.path.exists(os.path.join(work_dir, "halo.npz")):
-        out["halo"] = _halo_rank(mesh, work_dir, sync)
-    with open(os.path.join(work_dir, f"rank{rank}.json"), "w") as fh:
-        json.dump(out, fh)
-    dist.barrier()
-    dist.destroy_process_group()
-
-
-def _halo_rank(mesh, work_dir, sync):
-    """The halo functions of the halo phase on this rank's mesh, on the
-    inputs in ``halo.npz``: each one timed (host clock, synchronised), the
-    launches read, and a digest of its result; rank 0 also writes the
-    results to ``halo_rank0.npz``."""
-    import hashlib
-
-    from pyflwdir_torch import kernels
-    from pyflwdir_torch.parallel import tiled
-
-    inp = np.load(os.path.join(work_dir, "halo.npz"))
-    d8 = inp["d8"]
-    wts = np.random.RandomState(HALO_SEED).rand(*d8.shape).astype(np.float32)
-    calls = _halo_calls(d8, inp["z"], inp["elev"], inp["drain"], wts, inp["idxs_pit"],
-                        TILE_LATLON, mesh)
-    out, res = {}, {}
-    for name, fn in calls.items():
-        kernels.reset_launches()
-        sync()
-        t0 = time.perf_counter()
-        res[name] = fn()
-        sync()
-        out[name] = dict(s=time.perf_counter() - t0, rounds=dict(tiled.last_rounds),
-                         launches={k: v for k, v in kernels.launches.items() if v},
-                         digest=hashlib.sha1(np.ascontiguousarray(res[name])).hexdigest())
-    if mesh.rank == 0:
-        np.savez(os.path.join(work_dir, "halo_rank0.npz"), **res)
-    return out
-
-
-def _check_halo_ranks(ranks, world, work_dir, halo):
-    """The halo functions on ``world`` ranks: every rank the same result
-    (digests); integer results, the unit sums, HAND and the fill bitwise the
-    one-rank results ``halo["ref"]``; the float32 weights' sums within twice
-    the one-rank rule (two float32 roundings of float64 sums), the metric
-    distances within the JAX tests' rtol 1e-5."""
-    ref = halo["ref"]
-    got = dict(np.load(os.path.join(work_dir, "halo_rank0.npz")))
-    names = list(ref)
-    _check(all(r["halo"][k]["digest"] == ranks[0]["halo"][k]["digest"]
-               for r in ranks for k in names),
-           f"on {world} ranks, every rank returned the same halo results")
-    floats = ("tiled_accumulate_weights", "tiled_stream_distance_m")
-    _check(all(np.array_equal(got[k], ref[k]) for k in names if k not in floats),
-           f"on {world} ranks, the integer halo results, the unit sums, tiled_hand and "
-           "tiled_fill bitwise equal to the one-rank results")
-    a, b = got["tiled_accumulate_weights"], ref["tiled_accumulate_weights"]
-    _check(bool(np.all(np.abs(a - b) <= 2 * halo["acc_rtol"] * np.abs(b))),
-           f"on {world} ranks, tiled_accumulate(weights) within 2 x {halo['acc_rtol']:.3e} of "
-           "the one-rank result")
-    a, b = got["tiled_stream_distance_m"], ref["tiled_stream_distance_m"]
-    _check(np.allclose(a, b, rtol=1e-5), f"on {world} ranks, the metric distances within rtol "
-           "1e-5 of the one-rank result")
-    f1 = ranks[0]["halo"]["tiled_fill"]
-    _check(f1["launches"].get("fill_sweep", 0) == 2 * f1["rounds"]["fill"] > 0,
-           f"on {world} ranks, tiled_fill launched F1 twice a round")
-    for r in ranks:
-        print(f"  rank {r['rank']} halo: " + ", ".join(
-            f"{k} {v['s']:.3f} s" for k, v in r["halo"].items())
-              + f"; fill rounds {r['halo']['tiled_fill']['rounds']['fill']}, iterate rounds "
-              f"{r['halo']['tiled_accumulate_iterate']['rounds']['accumulate']}")
-
-
-def multi_card_path(d8, n_cards, device_type="cuda", halo=None):
-    """Where the machine has more than one card: the sharded sweeps at world
-    sizes 2 and 4, as the cards allow, one spawned rank per card over NCCL
-    (gloo where ``device_type`` is "cpu"), each holding its results bitwise
-    against the unsharded sweeps on its own card. Returns what each rank
-    wrote."""
-    import multiprocessing
-    import socket
-
-    worlds = [w for w in (2, 4) if w <= n_cards]
-    out = {}
-    for world in worlds:
-        print(f"sharded path on {world} cards (spawned ranks):")
-        work_dir = tempfile.mkdtemp(prefix="_plan_tmp",
-                                    dir=os.path.dirname(os.path.abspath(__file__)))
-        try:
-            np.save(os.path.join(work_dir, "d8.npy"), d8)
-            if halo is not None:
-                np.savez(os.path.join(work_dir, "halo.npz"), d8=d8,
-                         **{k: halo[k] for k in ("z", "elev", "drain", "idxs_pit")})
-            with socket.socket() as sock:
-                sock.bind(("localhost", 0))
-                port = sock.getsockname()[1]
-            ctx = multiprocessing.get_context("spawn")
-            procs = [ctx.Process(target=_sharded_rank,
-                                 args=(r, world, port, work_dir, device_type))
-                     for r in range(world)]
-            t0 = time.perf_counter()
-            for p in procs:
-                p.start()
-            for p in procs:
-                p.join(max(1.0, 600 - (time.perf_counter() - t0)))
-            alive = [r for r, p in enumerate(procs) if p.is_alive()]
-            for p in procs:
-                if p.is_alive():
-                    p.kill()
-                    p.join()
-            _check(not alive and all(p.exitcode == 0 for p in procs),
-                   f"{world} ranks ran to their end ({[p.exitcode for p in procs]}), in "
-                   f"{time.perf_counter() - t0:.1f} s")
-            ranks = []
-            for r in range(world):
-                with open(os.path.join(work_dir, f"rank{r}.json")) as fh:
-                    ranks.append(json.load(fh))
-            if halo is not None:
-                _check_halo_ranks(ranks, world, work_dir, halo)
-        finally:
-            shutil.rmtree(work_dir, ignore_errors=True)
-        for res in ranks:
-            print(f"  rank {res['rank']} on {res['device']}: plan {res['plan_s']:.2f} s, "
-                  + ", ".join(f"{k} {v:.4f} ms" for k, v in res.items() if k.endswith("_ms")))
-        _check(all(res["ok"] for res in ranks),
-               f"on {world} ranks, accumulate_sharded and accumulate_down_sharded (int32, "
-               "float64) bitwise equal to the unsharded sweeps on every rank, T4 lite "
-               "launched once a downward call")
-        out[world] = ranks
-    return out
-
-
-HALO_SEED = SEED + 10  # the halo phase's float32 weights
-
-
-def _halo_rules(n_cells):
-    """The halo phase's float32 rules: ``(acc_rtol, dist_rtol)``. A float
-    accumulation is a float64 sum of non-negative terms (any order within
-    n eps64 of the value) rounded to float32 once, against the tile plan's
-    float64 sum: 2^-24 + 2 n eps64. A metric distance is a float32 path sum
-    by doubling (a tree of at most ``_n_rounds(n)`` levels of float32
-    additions of non-negative steps) against the float64 sum of the same
-    float32 steps: (rounds + 1) 2^-24."""
-    from pyflwdir_torch.ops.graph import _n_rounds
-
-    return 2.0 ** -24 + 2 * n_cells * _EPS, (_n_rounds(n_cells) + 1) * 2.0 ** -24
-
-
-def _halo_calls(d8, z, elev, drain, wts, idxs_pit, transform, mesh):
-    """The halo functions of the halo phase on ``mesh``, by name."""
-    from pyflwdir_torch import parallel
-
-    return {
-        "tiled_accumulate_coarse": lambda: parallel.tiled_accumulate(
-            d8, np.ones(d8.shape, np.float32), mesh),
-        "tiled_accumulate_iterate": lambda: parallel.tiled_accumulate(
-            d8, np.ones(d8.shape, np.float32), mesh, method="iterate"),
-        "tiled_accumulate_weights": lambda: parallel.tiled_accumulate(d8, wts, mesh),
-        "tiled_rank": lambda: parallel.tiled_rank(d8, mesh),
-        "tiled_basins": lambda: parallel.tiled_basins(d8, idxs_pit, mesh),
-        "tiled_stream_distance_cells": lambda: parallel.tiled_stream_distance(
-            d8, mesh, real_length=False),
-        "tiled_stream_distance_m": lambda: parallel.tiled_stream_distance(
-            d8, mesh, latlon=True, transform=transform),
-        "tiled_hand": lambda: parallel.tiled_hand(d8, elev, drain, mesh),
-        "tiled_strahler": lambda: parallel.tiled_strahler(d8, mesh),
-        "tiled_fill": lambda: parallel.tiled_fill(z, mesh, nodata=-9999.0),
-    }
-
-
-def halo_path(fl, tp, z, elev, d8, upa, refs, dev):
-    """The halo runtime (``parallel.tiled_*``) on the 6000x6000 grid, on
-    this process's one-rank NCCL group: one block of 6000 x 6000 cells.
-    ``tp`` is the grid's tile plan, ``z`` its DEM, ``elev`` the host flood,
-    ``upa`` the upstream area in cells and ``refs`` the downward path's
-    maps: ``stream_distance()``, ``basins()``, ``hand()`` with its drains,
-    and the native sweep of the metric steps. Each call timed (host clock,
-    synchronised) with the launch counters zeroed before it and read after;
-    F1 held against its plain version on the framed buffer first. Returns
-    the F1 rows (launches those of ``tiled_fill``), the timings, and, where
-    the machine has more cards, the results and inputs the multi-card ranks
-    are held to (else None)."""
     import torch.distributed as dist
 
     from pyflwdir_torch import kernels, parallel
@@ -1812,7 +1979,10 @@ def halo_path(fl, tp, z, elev, d8, upa, refs, dev):
                      acc_rtol=acc_rtol, dist_rtol=dist_rtol), keep
 
 
-def _rows(rows, counts, path, dtype):
+def _rows(rows, counts, path, dtype, G=1):
+    """The kernels line's rows of ``rows``, their launches read from the
+    main path's ``counts``: a tile kernel's cluster launches (``_g<G>``)
+    for the rows of a plan of 128 G-row tiles."""
     out = []
     for key, row in rows.items():
         kern = key.split(".")[0]
@@ -1833,7 +2003,7 @@ def _rows(rows, counts, path, dtype):
             if isinstance(replaces, dict):
                 replaces = replaces[key.split(".")[1]]
             src = _TILE_SRC
-        launches = counts[kern]
+        launches = counts[kern if G == 1 or kern in _KERNELS else f"{kern}_g{G}"]
         if ".coarse_down" in key:  # this call's share of the wrapper's count
             launches //= _COARSE_DOWN_CALLS[kern]
         out.append(dict(name=key, tag=tag, route="cuda", source=src, replaces=replaces,
@@ -2112,15 +2282,16 @@ def tile_path(dev):
     banded_rows, banded = banded_path(
         fl, tp, upa, seq, dict(tile_plan_s=t_plan, down_indices_s=down["down_indices_s"]), dev)
     sharded_rows, sharded = sharded_path(fl, d8, seq, dev)
+    tall_rows, tall = tall_path(fl, tp, d8, upa, seq, refs, dev)
     halo_rows, halo, halo_res = halo_path(fl, tp, z, elev, d8, upa, refs, dev)
     del refs
     big_rows, big = big_path(fl, upa, seq, dict(ms=acc_ms, device_ms=acc_dev_ms), dev)
     cut_rows, cut = cut_path(fl, elev, upa, dev)
-    rows = (out + down_rows + surface_rows + banded_rows + sharded_rows + halo_rows + big_rows
-            + cut_rows)
+    rows = (out + down_rows + surface_rows + banded_rows + sharded_rows + tall_rows + halo_rows
+            + big_rows + cut_rows)
     return rows, (z, elev, d8, halo_res), dict(
         order=order, down=down, surface=surface, upscale=upscale, banded=banded, sharded=sharded,
-        halo=halo, big=big, cut=cut,
+        tall=tall, halo=halo, big=big, cut=cut,
         accumulate_ms=acc_ms, accumulate_device_ms=acc_dev_ms, upstream_area_ms=up_ms,
         main_path_int32_s=t_int, main_path_float64_s=t_f64, fill_s=t_fill, parse_s=t_parse,
         tile_plan_s=t_plan, tile_plan_steps_s=tp.build_seconds, NT=tp.NT, R_pad=tp.R_pad,
@@ -3721,21 +3892,23 @@ def routed_path(dev):
 
 
 def ptxas_lines():
-    """Registers and spills of the H0, H1, H3, F1 and T1-T4 kernels, as
+    """Registers and spills of the H0, H1, H3, F1 and T1-T4 kernels (T1-T4
+    of each tile height: ``.g2`` to ``.g4`` for the cluster kernels), as
     ``nvcc -Xptxas -v`` reported them when the libraries were built."""
     import re
 
     from pyflwdir_torch import kernels
 
     out = {}
-    for stem in ("accel_kernels", "fill_kernels", "tile_kernels"):
+    for stem in ("accel_kernels", "fill_kernels", *kernels._TILE_LIB.values()):
+        sfx = stem[len("tile_kernels_"):] if stem.startswith("tile_kernels_") else ""
         for sym, (nreg, st, ld) in kernels.ptxas_report(stem).items():
             m = re.search(r"(permute_gather_kernel|in_scan_kernel|permute_merge_kernel|"
                           r"fill_sweep_wide_kernel|fill_sweep_kernel|"
                           r"tile_pass_a_kernel|tile_pass_c_kernel|tile_down_a_kernel|"
                           r"tile_down_fin_kernel)(I(?:L[a-z]\d+E|[a-z])+E)?", sym)
             if m:
-                name = m.group(1) + (m.group(2) or "")
+                name = m.group(1) + (m.group(2) or "") + (f".{sfx}" if sfx else "")
                 out[name] = dict(registers=nreg, spill_stores=st, spill_loads=ld)
                 print(f"ptxas: {name}: {nreg} registers, {st} B spill stores, {ld} B spill loads")
     return out
@@ -3770,6 +3943,7 @@ def main(json_path=None):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     card = torch.cuda.get_device_name(0)
     print(f"card: {smi}")
@@ -3816,6 +3990,7 @@ def main(json_path=None):
                         ("tile halo phase, 1 rank", tile["halo"]["times_s"])):
         print(f"surface times, {name} (host clock, synchronised; {smi}): "
               + ", ".join(f"{k} {v:.4f} s" for k, v in times.items()))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the kernels' build included")
     print(f"card: {smi}")
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,

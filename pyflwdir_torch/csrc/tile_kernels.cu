@@ -3,18 +3,22 @@
 //
 // Built by pyflwdir_torch/kernels.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
-// into a plain-C shared library loaded with ctypes. Every entry takes an
-// element-type code (1 int32, 2 int64, 3 float64), device pointers and a
-// cudaStream_t (PyTorch's current stream), launches, and returns
-// cudaGetLastError(); nothing here allocates or synchronises.
+// into a plain-C shared library loaded with ctypes, once for each tile
+// height 128 G (G = 1 to 4): this file for G = 1, and tile_kernels_g2.cu,
+// _g3.cu and _g4.cu, which define PF_TILE_G and include it, a library each
+// with the same entry points. Every entry takes an element-type code (1
+// int32, 2 int64, 3 float64), device pointers and a cudaStream_t
+// (PyTorch's current stream), launches, and returns cudaGetLastError();
+// nothing here allocates or synchronises.
 //
-// The raster is cut into 128 x 128 tiles (T = 16,384 cells). Each tile's
-// flow forest has a DFS preorder of its own; every subtree is a preorder
-// interval, so a subtree sum is a difference of two prefix sums. The JAX
-// package moves values between raster and preorder layout with 5-stage
-// lane-gather routers (ops/tile_plan.py); here the plan composes each
-// chain into one index per slot, relative to its tile, below 16,384 or -1,
-// so int16 on the card (int32 on the host; n_tree int32):
+// The raster is cut into tiles of 128 G rows by 128 columns (T = 16,384 G
+// cells). Each tile's flow forest has a DFS preorder of its own; every
+// subtree is a preorder interval, so a subtree sum is a difference of two
+// prefix sums. The JAX package moves values between raster and preorder
+// layout with 5-stage (6 where G > 1) lane-gather routers
+// (ops/tile_plan.py); here the plan composes each chain into one index per
+// slot, relative to its tile, below T or -1, so int16 on the card where
+// every value fits (G <= 2), int32 above (int32 on the host; n_tree int32):
 //   rin[s]      raster cell (tile-local) of preorder slot s
 //   ex_end[j]   preorder end of local root j (exits)
 //   ent_idx[s]  packed rank of the last entry at a slot <= s, or -1
@@ -32,31 +36,66 @@
 //   tree_of[s]  local tree (exit index) of slot s, or -1 off the tree
 //
 // A call runs on the tiles tile0 .. tile0 + NT - 1 of the raster's tile grid
-// (ntx tiles a row): block b takes tile tile0 + b, whose rows of the tables
-// are the call's row b. x is always the (H, W) raster. The raster-side
-// outputs (and T4's abar in lite mode) are the raster itself in a call on
-// the whole grid (tile0 0, stack 0), or a tile stack, block b's 16,384
-// cells at b * 16,384 in tile raster layout, in a call on a tile range
-// (stack 1): the sharded sweep's layout, which ranges that start or end in
-// the middle of a tile row gather cleanly. Cells past H or W read 0, and in
-// a stack they are written (as 0 where they pass x through).
+// (ntx tiles a row): tile b of the call is tile tile0 + b of the grid,
+// whose rows of the tables are the call's row b. x is always the (H, W)
+// raster. The raster-side outputs (and T4's abar in lite mode) are the
+// raster itself in a call on the whole grid (tile0 0, stack 0), or a tile
+// stack, tile b's T cells at b * T in tile raster layout, in a call on a
+// tile range (stack 1): the sharded sweep's layout, which ranges that start
+// or end in the middle of a tile row gather cleanly. Cells past H or W read
+// 0, and in a stack they are written (as 0 where they pass x through).
 //
-// One CTA of 1024 threads per tile keeps the whole tile in shared memory
-// (64 KB of int32, 128 KB of int64/float64 a tile-sized buffer; T3 holds up
-// to 224 KB), above the 48 KB default, so the launch opts in with
-// cudaFuncSetAttribute. All four kernels move a
-// few bytes per cell and do one or two adds on them: they are bound by
-// device-memory bytes (3.35 TB/s on an H100 SXM), T3 by the latency of its
-// dependent loads as well.
+// A tile is G CTAs of 1024 threads, each with a 16,384-slot chunk of it in
+// shared memory (64 KB of int32, 128 KB of int64/float64 a chunk-sized
+// buffer; T3 holds up to 224 KB), above the 48 KB default, so the launch
+// opts in with cudaFuncSetAttribute. At G = 1 that is one CTA a tile,
+// launched plainly. Above, the G CTAs of a tile are one thread-block
+// cluster (cudaLaunchKernelEx with a cluster dimension of (G, 1, 1), grid
+// NT * G), and CTA r = cluster.block_rank() of tile b owns
+//   - the preorder slots [16,384 r, 16,384 (r + 1)) of the tile, the
+//     columns [16,384 r, ...) of its rows of the preorder-layout tables;
+//   - the raster rows [128 r, 128 (r + 1)) of the tile, the same columns of
+//     its rows of the tile-raster-layout tables (rout) and of a stack;
+//   - a share of the tile's exits and entries (index j: r = (j / 1024) % G).
+// Slot or cell i of the tile lies in CTA i >> 14 at i & 16383: a gather to
+// any slot or cell reads the owner's shared memory through distributed
+// shared memory (cluster.map_shared_rank). Each CTA scans its chunk as one
+// CTA does a tile, then adds the chunk totals of the lower ranks in rank
+// order (the higher ranks, for T3's suffix sum), read from their shared
+// memory after a cluster barrier: every sum keeps one order, so two calls
+// give the same bits. A phase that peers read ends with cluster.sync()
+// before its buffer is reused, and a CTA leaves only after a last
+// cluster.sync(). The first launch of each kernel (and, for T2, of a larger
+// size) asks cudaOccupancyMaxActiveClusters whether a cluster fits (T3 in 8-byte
+// values needs G SMs of one GPC with 224 KB free each); a launch that
+// cannot run returns an error, and the wrapper raises.
+//
+// All four kernels move a few bytes per cell and do one or two adds on
+// them: they are bound by device-memory bytes (3.35 TB/s on an H100 SXM),
+// T3 by the latency of its dependent loads as well (and, in a cluster, of
+// the remote shared-memory reads among them).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+#include <type_traits>
+
+#ifndef PF_TILE_G
+#define PF_TILE_G 1
+#endif
+
 namespace {
 
+namespace cg = cooperative_groups;
+
+constexpr int kG = PF_TILE_G;  // CTAs a tile: tiles of 128 kG rows
+static_assert(kG >= 1 && kG <= 4, "tiles are 128 to 512 rows high");
 constexpr int kLanes = 128;
-constexpr int kTileRows = 128;
-constexpr int kSlots = kTileRows * kLanes;  // 16,384
+constexpr int kTileRows = 128;              // rows of one CTA's chunk of a tile
+constexpr int kSlots = kTileRows * kLanes;  // 16,384 slots (cells) a CTA
+constexpr int kChunkBits = 14;              // log2(kSlots)
 constexpr int kTileThreads = 1024;
 constexpr int kWarps = kTileThreads / 32;
 constexpr int kPerThread = kSlots / kTileThreads;  // 16
@@ -140,12 +179,87 @@ struct alignas(2 * sizeof(T)) Two {
   T x, y;
 };
 
+// the index tables: int16 where every slot of the tile fits, else int32
+using Idx = std::conditional_t<(kG <= 2), int16_t, int32_t>;
+// the table entries of slots 2j and 2j + 1, read as one word
+using Word = std::conditional_t<(kG <= 2), uint32_t, Two<int32_t>>;
+
+__device__ __forceinline__ const Word* words(const Idx* t) {
+  return reinterpret_cast<const Word*>(t);
+}
 // the two int16 table entries of slots 2j (low half) and 2j + 1 in one word
 __device__ __forceinline__ int lo16(uint32_t w) {
   return static_cast<int16_t>(w & 0xffffu);
 }
 __device__ __forceinline__ int hi16(uint32_t w) {
   return static_cast<int16_t>(w >> 16);
+}
+__device__ __forceinline__ int lo16(Two<int32_t> w) { return w.x; }
+__device__ __forceinline__ int hi16(Two<int32_t> w) { return w.y; }
+__device__ __forceinline__ uint32_t word_down(uint32_t w, int off) {
+  return __shfl_down_sync(0xffffffffu, w, off);
+}
+__device__ __forceinline__ Two<int32_t> word_down(Two<int32_t> w, int off) {
+  return Two<int32_t>{__shfl_down_sync(0xffffffffu, w.x, off),
+                      __shfl_down_sync(0xffffffffu, w.y, off)};
+}
+
+// this CTA's rank in its tile's cluster
+__device__ __forceinline__ int tile_rank() {
+  if constexpr (kG == 1) {
+    return 0;
+  } else {
+    return static_cast<int>(cg::this_cluster().block_rank());
+  }
+}
+
+// a barrier of every thread of the tile, with its shared-memory writes
+// visible to all of them
+__device__ __forceinline__ void tile_sync() {
+  if constexpr (kG == 1) {
+    __syncthreads();
+  } else {
+    cg::this_cluster().sync();
+  }
+}
+
+// element i (a slot or cell of the tile, below kG * kSlots) of a buffer of
+// which each CTA of the tile holds its kSlots chunk: the owner's shared
+// memory, remote where the owner is another CTA of the cluster
+template <typename T>
+__device__ __forceinline__ T& tile_elem(T* buf, int i) {
+  if constexpr (kG == 1) {
+    return buf[i];
+  } else {
+    return *cg::this_cluster().map_shared_rank(buf + (i & (kSlots - 1)),
+                                               i >> kChunkBits);
+  }
+}
+
+// the sum, in rank order, of *v of the tile's CTAs q0 .. q1 - 1
+template <typename T>
+__device__ __forceinline__ T ranks_sum(T* v, int q0, int q1) {
+  T s = T(0);
+  for (int q = q0; q < q1; ++q) s += *cg::this_cluster().map_shared_rank(v, q);
+  return s;
+}
+
+// where a CTA's work lies: its tile t of the call, the tile's first raster
+// row y0, its own first row r0 and column c0, and the offset tb of its chunk
+// in the tables' (and a stack's) rows
+struct TilePos {
+  int rank;
+  int64_t t, y0, r0, c0, tb;
+};
+__device__ __forceinline__ TilePos tile_pos(int64_t ntx, int64_t tile0) {
+  TilePos p;
+  p.rank = tile_rank();
+  p.t = blockIdx.x / kG;
+  p.y0 = ((tile0 + p.t) / ntx) * (kTileRows * kG);
+  p.r0 = p.y0 + p.rank * kTileRows;
+  p.c0 = ((tile0 + p.t) % ntx) * kLanes;
+  p.tb = (p.t * kG + p.rank) * kSlots;
+  return p;
 }
 
 // where raster cell l of the tile at (r0, c0) goes in the call's raster-side
@@ -168,20 +282,53 @@ __device__ __forceinline__ T cell_x(const T* __restrict__ x, int64_t g, int64_t 
   return x[g];
 }
 
-// set the kernel's dynamic shared memory, launch NT blocks of kTileThreads
-// on the stream, return the launch error
-template <typename... P, typename... A>
-int launch_tiles(void (*kernel)(P...), int64_t NT, int smem, void* stream,
-                 A... args) {
+// set the kernel's dynamic shared memory, launch NT tiles of kG CTAs of
+// kTileThreads on the stream (a cluster of kG CTAs a tile where kG > 1),
+// return the launch error. A cluster must be resident on the card:
+// cudaOccupancyMaxActiveClusters at the kernel's first launch at more
+// shared memory than any before (only T2's grows, with E); the most that
+// fit is remembered per kernel.
+template <auto kernel, typename... A>
+int launch_tiles(int64_t NT, int smem, void* stream, A... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (NT > 0) {
-    kernel<<<static_cast<unsigned>(NT), kTileThreads, smem,
-             static_cast<cudaStream_t>(stream)>>>(args...);
+    if constexpr (kG == 1) {
+      kernel<<<static_cast<unsigned>(NT), kTileThreads, smem,
+               static_cast<cudaStream_t>(stream)>>>(args...);
+    } else {
+      static std::atomic<int> fits{0};
+      cudaLaunchAttribute attr[1];
+      attr[0].id = cudaLaunchAttributeClusterDimension;
+      attr[0].val.clusterDim.x = kG;
+      attr[0].val.clusterDim.y = 1;
+      attr[0].val.clusterDim.z = 1;
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3(static_cast<unsigned>(NT * kG), 1, 1);
+      cfg.blockDim = dim3(kTileThreads, 1, 1);
+      cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+      cfg.stream = static_cast<cudaStream_t>(stream);
+      cfg.attrs = attr;
+      cfg.numAttrs = 1;
+      if (smem > fits.load()) {
+        int clusters = 0;
+        err = cudaOccupancyMaxActiveClusters(
+            &clusters, reinterpret_cast<const void*>(kernel), &cfg);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        if (clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+        fits.store(smem);
+      }
+      err = cudaLaunchKernelEx(&cfg, kernel, args...);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// a kernel as a type, for launch_tiles' per-kernel state
+template <auto F>
+using Kern = std::integral_constant<decltype(F), F>;
 
 template <typename T>
 struct Tag {
@@ -223,8 +370,9 @@ __device__ void block_scan_inplace(T* a, int n, T* warp_tot) {
   __syncthreads();
 }
 
-// Inclusive prefix sum, in preorder, of the tile's values over its 16,384
-// slots, by the whole block: warp w owns slots [512 w, 512 w + 512), 32 at a
+// Inclusive prefix sum, in preorder, of the values of a CTA's 16,384 slots
+// (the whole tile at G = 1), by the whole block: warp w owns slots
+// [512 w, 512 w + 512) of the chunk, 32 at a
 // time with a shuffle scan and a running carry; one warp scans the 32 warp
 // totals. load(k) gives the value at slot tile_scan_slot(k) of the caller's
 // thread; it is called once for each k, in order. On return v[k] holds the
@@ -258,13 +406,28 @@ __device__ __forceinline__ void tile_prefix_scan(Load load, T (&v)[kPerThread],
 }
 
 // The raster cell of slot tile_scan_slot(k) of the caller's thread, from a
-// tile's int16 rin row, for tile_prefix_scan's load(k), which it calls once
-// for each k in order: a lane reads one 32-bit word for chunks k and k + 1
-// (k even), and lane l's cell of chunk k sits in lane l / 2's word, of chunk
-// k + 1 in lane 16 + l / 2's: half the loads of an entry a lane.
-class ScanCells {
+// CTA's chunk of a tile's rin row, for tile_prefix_scan's load(k), which it
+// calls once for each k in order. From int16 tables a lane reads one 32-bit
+// word for chunks k and k + 1 (k even), and lane l's cell of chunk k sits in
+// lane l / 2's word, of chunk k + 1 in lane 16 + l / 2's: half the loads of
+// an entry a lane. From int32 tables, one entry a lane.
+template <typename I>
+class ScanCellsOf;
+
+template <>
+class ScanCellsOf<int32_t> {
  public:
-  __device__ explicit ScanCells(const int16_t* rin_t)
+  __device__ explicit ScanCellsOf(const int32_t* rin_t) : rin_(rin_t) {}
+  __device__ __forceinline__ int operator()(int k) { return rin_[tile_scan_slot(k)]; }
+
+ private:
+  const int32_t* rin_;
+};
+
+template <>
+class ScanCellsOf<int16_t> {
+ public:
+  __device__ explicit ScanCellsOf(const int16_t* rin_t)
       : rin2_(reinterpret_cast<const uint32_t*>(rin_t)),
         w0_((threadIdx.x >> 5) * (kWarpSlots / 2) + (threadIdx.x & 31)) {}
   __device__ __forceinline__ int operator()(int k) {
@@ -279,6 +442,8 @@ class ScanCells {
   int w0_;
   uint32_t w_ = 0;
 };
+
+using ScanCells = ScanCellsOf<Idx>;
 
 // ---------------------------------------------------------------------------
 // T1 tile_pass_a: per tile t,
@@ -301,42 +466,52 @@ class ScanCells {
 // 4-byte one in float64 exits-only mode (PERF.md §6). The
 // prefix sums are written to c and, over the dead raster tile, to shared
 // memory, from which the exit differences are read. Summation order differs
-// from the JAX package's (integers exact, float64 within rounding).
+// from the JAX package's (integers exact, float64 within rounding). In a
+// cluster (128 G-row tiles) each CTA stages its 128 rows, gathers its chunk
+// of slots from the owners' staged rows and adds the lower ranks' chunk
+// totals; an exit end reads the owner's sums.
 // ---------------------------------------------------------------------------
 template <typename T, bool kEmitC>
 __global__ void __launch_bounds__(kTileThreads)
     tile_pass_a_kernel(const T* __restrict__ x, int64_t H, int64_t W,
                        int64_t ntx, int64_t tile0,
-                       const int16_t* __restrict__ rin,
-                       const int16_t* __restrict__ ex_end, int R,
+                       const Idx* __restrict__ rin,
+                       const Idx* __restrict__ ex_end, int R,
                        T* __restrict__ c, T* __restrict__ exits) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* xs = reinterpret_cast<T*>(smem_raw);
   __shared__ T warp_tot[kWarps];
-  const int64_t t = blockIdx.x;
-  const int64_t r0 = ((tile0 + t) / ntx) * kTileRows;
-  const int64_t c0 = ((tile0 + t) % ntx) * kLanes;
-  stage_tile(x, H, W, r0, c0, xs);
-  __syncthreads();
+  const TilePos tp = tile_pos(ntx, tile0);
+  stage_tile(x, H, W, tp.r0, tp.c0, xs);
+  tile_sync();  // the whole tile is staged
 
   T v[kPerThread];
-  ScanCells cell(rin + t * kSlots);
-  tile_prefix_scan([&](int k) { return xs[cell(k)]; }, v, warp_tot);
-  T* c_t = c + t * kSlots;
+  ScanCells cell(rin + tp.tb);
+  tile_prefix_scan([&](int k) { return tile_elem(xs, cell(k)); }, v, warp_tot);
+  if constexpr (kG > 1) {
+    // every gather from the staged tile is done; each CTA's chunk total is
+    // its warp_tot[kWarps - 1]: add those of the lower ranks
+    tile_sync();
+    const T off = ranks_sum(&warp_tot[kWarps - 1], 0, tp.rank);
+#pragma unroll
+    for (int k = 0; k < kPerThread; ++k) v[k] += off;
+  }
+  T* c_t = c + tp.tb;
 #pragma unroll
   for (int k = 0; k < kPerThread; ++k) {
     const int q = tile_scan_slot(k);
     if (kEmitC) c_t[q] = v[k];
     xs[q] = v[k];
   }
-  __syncthreads();
+  tile_sync();
 
-  const int16_t* ee = ex_end + t * R;
-  T* ex_t = exits + t * R;
-  for (int j = threadIdx.x; j < R; j += kTileThreads) {
-    const T hi = xs[ee[j]];
-    ex_t[j] = j > 0 ? hi - xs[ee[j - 1]] : hi;
+  const Idx* ee = ex_end + tp.t * R;
+  T* ex_t = exits + tp.t * R;
+  for (int j = tp.rank * kTileThreads + threadIdx.x; j < R; j += kG * kTileThreads) {
+    const T hi = tile_elem(xs, ee[j]);
+    ex_t[j] = j > 0 ? hi - tile_elem(xs, ee[j - 1]) : hi;
   }
+  if constexpr (kG > 1) tile_sync();  // peers may still read this CTA's sums
 }
 
 // ---------------------------------------------------------------------------
@@ -374,46 +549,60 @@ __global__ void __launch_bounds__(kTileThreads)
 // The off-tree passthrough reads x from device memory. With 4-byte values two blocks fit
 // an SM's shared memory (66.5 KB each at E = 256): the launch bound holds
 // the kernel to 32 registers a thread so that they fit its registers too
-// (full mode too: two blocks an SM timed faster than one).
+// (full mode too: two blocks an SM timed faster than one). In a cluster
+// every CTA scans all the tile's entries; c' of a slot, its interval ends,
+// the slot before the chunk and each routed cell's slot are read from the
+// owner's chunk of c' or outp.
 // ---------------------------------------------------------------------------
 template <typename T, bool kFull, bool kStack>
 __global__ void __launch_bounds__(kTileThreads, sizeof(T) == 4 ? 2 : 1)
     tile_pass_c_kernel(const T* __restrict__ x, int64_t H, int64_t W,
                        int64_t ntx, int64_t tile0, const T* __restrict__ c,
-                       const int16_t* __restrict__ rin,
+                       const Idx* __restrict__ rin,
                        const T* __restrict__ entv, int E,
-                       const int16_t* __restrict__ ent_idx,
-                       const int16_t* __restrict__ near_end,
-                       const int16_t* __restrict__ far_end,
-                       const int16_t* __restrict__ rout,
+                       const Idx* __restrict__ ent_idx,
+                       const Idx* __restrict__ near_end,
+                       const Idx* __restrict__ far_end,
+                       const Idx* __restrict__ rout,
                        T* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* cs = reinterpret_cast<T*>(smem_raw);
   Two<T>* cs2 = reinterpret_cast<Two<T>*>(smem_raw);
   T* pcs = cs + kSlots;
   __shared__ T warp_tot[kWarps];
-  const int64_t t = blockIdx.x;
-  const int64_t r0 = ((tile0 + t) / ntx) * kTileRows;
-  const int64_t c0 = ((tile0 + t) % ntx) * kLanes;
-  const int64_t tb = t * kSlots;
+  const TilePos tp = tile_pos(ntx, tile0);
+  const int64_t tb = tp.tb;
   const int lane = threadIdx.x & 31;
   constexpr bool kStage = kFull && sizeof(T) == 4;  // full mode stages x
 
-  if (E > 0) {
-    const T* ev = entv + t * E;
+  if (E > 0) {  // every CTA of the tile scans all the tile's entries
+    const T* ev = entv + tp.t * E;
     for (int i = threadIdx.x; i < E; i += kTileThreads) pcs[i] = ev[i];
   }
-  if constexpr (kStage) stage_tile(x, H, W, r0, c0, cs);
-  if (E > 0 || kStage) __syncthreads();
+  if constexpr (kStage) stage_tile(x, H, W, tp.r0, tp.c0, cs);
+  if constexpr (kStage && kG > 1) {
+    tile_sync();  // the whole tile is staged
+  } else {
+    if (E > 0 || kStage) __syncthreads();
+  }
   if (E > 0) block_scan_inplace(pcs, E, warp_tot);
   if constexpr (kFull) {
     T v[kPerThread];
     ScanCells cell(rin + tb);
     if constexpr (kStage) {
-      tile_prefix_scan([&](int k) { return cs[cell(k)]; }, v, warp_tot);
+      tile_prefix_scan([&](int k) { return tile_elem(cs, cell(k)); }, v, warp_tot);
     } else {
-      tile_prefix_scan([&](int k) { return tile_cell(x, H, W, r0, c0, cell(k)); },
-                       v, warp_tot);
+      tile_prefix_scan(
+          [&](int k) { return tile_cell(x, H, W, tp.y0, tp.c0, cell(k)); }, v,
+          warp_tot);
+    }
+    if constexpr (kG > 1) {
+      // every gather from the staged tile is done; add the lower ranks'
+      // chunk totals
+      tile_sync();
+      const T off = ranks_sum(&warp_tot[kWarps - 1], 0, tp.rank);
+#pragma unroll
+      for (int k = 0; k < kPerThread; ++k) v[k] += off;
     }
 #pragma unroll
     for (int k = 0; k < kPerThread; ++k) {
@@ -423,64 +612,66 @@ __global__ void __launch_bounds__(kTileThreads, sizeof(T) == 4 ? 2 : 1)
     }
   } else {
     const Two<T>* c2 = reinterpret_cast<const Two<T>*>(c + tb);
-    const uint32_t* ei2 = reinterpret_cast<const uint32_t*>(ent_idx + tb);
+    const Word* ei2 = words(ent_idx + tb);
 #pragma unroll
     for (int k = 0; k < kPerThread / 2; ++k) {
       const int j = threadIdx.x + k * kTileThreads;  // slots 2j, 2j + 1
       Two<T> v = c2[j];
-      const uint32_t w = ei2[j];
+      const Word w = ei2[j];
       const int e0 = lo16(w), e1 = hi16(w);
       if (e0 >= 0) v.x += pcs[e0];
       if (e1 >= 0) v.y += pcs[e1];
       cs2[j] = v;
     }
   }
-  __syncthreads();
+  tile_sync();  // c' is whole in every CTA of the tile
 
-  const uint32_t* ne2 = reinterpret_cast<const uint32_t*>(near_end + tb);
-  const uint32_t* fe2 = reinterpret_cast<const uint32_t*>(far_end + tb);
+  const Word* ne2 = words(near_end + tb);
+  const Word* fe2 = words(far_end + tb);
   Two<T> o[kPerThread / 2];
 #pragma unroll
   for (int k = 0; k < kPerThread / 2; ++k) {
     const int j = threadIdx.x + k * kTileThreads;  // slots 2j, 2j + 1
+    const int jg = tp.rank * (kSlots / 2) + j;     // the pair in the tile
     const Two<T> cc = cs2[j];
     const T up = shfl_up(cc.y, 1);  // c'[2j - 1] of the lane before
-    const T prev = lane > 0 ? up : (j > 0 ? cs[2 * j - 1] : T(0));
-    const uint32_t wn = ne2[j], wf = fe2[j];
+    const T prev = lane > 0 ? up : (jg > 0 ? tile_elem(cs, 2 * jg - 1) : T(0));
+    const Word wn = ne2[j], wf = fe2[j];
     const int n0 = lo16(wn), n1 = hi16(wn), f0 = lo16(wf), f1 = hi16(wf);
-    T a = (n0 >= 0 ? cs[n0] : T(0)) - prev;
-    if (f0 >= 0) a += cs[f0];
-    T b = (n1 >= 0 ? cs[n1] : T(0)) - cc.x;
-    if (f1 >= 0) b += cs[f1];
+    T a = (n0 >= 0 ? tile_elem(cs, n0) : T(0)) - prev;
+    if (f0 >= 0) a += tile_elem(cs, f0);
+    T b = (n1 >= 0 ? tile_elem(cs, n1) : T(0)) - cc.x;
+    if (f1 >= 0) b += tile_elem(cs, f1);
     o[k] = Two<T>{a, b};
   }
-  __syncthreads();  // every read of c' is done: overwrite it with outp
+  tile_sync();  // every read of c' is done: overwrite it with outp
 #pragma unroll
   for (int k = 0; k < kPerThread / 2; ++k) cs2[threadIdx.x + k * kTileThreads] = o[k];
-  __syncthreads();
+  tile_sync();
 
-  const uint32_t* ro2 = reinterpret_cast<const uint32_t*>(rout + tb);
+  const Word* ro2 = words(rout + tb);
 #pragma unroll
   for (int k = 0; k < kPerThread / 2; ++k) {
     const int j = threadIdx.x + k * kTileThreads;
-    const uint32_t w = ro2[j];
+    const Word w = ro2[j];
     const int q0 = lo16(w), q1 = hi16(w);
     const int l = 2 * j;  // cells l and l + 1: one row, adjacent columns
     if constexpr (kStack) {
       Two<T> v;
-      v.x = q0 >= 0 ? cs[q0] : tile_cell(x, H, W, r0, c0, l);
-      v.y = q1 >= 0 ? cs[q1] : tile_cell(x, H, W, r0, c0, l + 1);
+      v.x = q0 >= 0 ? tile_elem(cs, q0) : tile_cell(x, H, W, tp.r0, tp.c0, l);
+      v.y = q1 >= 0 ? tile_elem(cs, q1) : tile_cell(x, H, W, tp.r0, tp.c0, l + 1);
       reinterpret_cast<Two<T>*>(out + tb)[j] = v;
     } else {
-      const int64_t r = r0 + (l >> 7);
-      const int64_t col = c0 + (l & (kLanes - 1));
+      const int64_t r = tp.r0 + (l >> 7);
+      const int64_t col = tp.c0 + (l & (kLanes - 1));
       if (r < H && col < W) {
         const int64_t g = r * W + col;
-        out[g] = q0 >= 0 ? cs[q0] : x[g];
-        if (col + 1 < W) out[g + 1] = q1 >= 0 ? cs[q1] : x[g + 1];
+        out[g] = q0 >= 0 ? tile_elem(cs, q0) : x[g];
+        if (col + 1 < W) out[g + 1] = q1 >= 0 ? tile_elem(cs, q1) : x[g + 1];
       }
     }
   }
+  if constexpr (kG > 1) tile_sync();  // peers may still read this CTA's outp
 }
 
 // ---------------------------------------------------------------------------
@@ -525,19 +716,22 @@ __global__ void __launch_bounds__(kTileThreads, sizeof(T) == 4 ? 2 : 1)
 // 50 registers, and it ran slower (PERF.md §6). Every sum has a fixed
 // order: results are identical from run to run; integers equal the plain
 // version bitwise, float64 within rounding (the scans add in another
-// order).
+// order). In a cluster the staged rows, cs and z are read from their
+// owners (the cells of the tile's slots, the sorted run bounds, the next
+// chunk's first u, the entry slots and the routed cells), the prefix scan
+// adds the lower ranks' totals and the suffix scan the higher ranks'.
 // ---------------------------------------------------------------------------
 template <typename T, bool kRouted, bool kStack>
 __global__ void __launch_bounds__(kTileThreads, 1)
     tile_down_a_kernel(const T* __restrict__ x, int64_t H, int64_t W,
                        int64_t ntx, int64_t tile0,
-                       const int16_t* __restrict__ rin,
-                       const int16_t* __restrict__ es,
-                       const int16_t* __restrict__ g_last,
-                       const int16_t* __restrict__ g_prev,
+                       const Idx* __restrict__ rin,
+                       const Idx* __restrict__ es,
+                       const Idx* __restrict__ g_last,
+                       const Idx* __restrict__ g_prev,
                        const int32_t* __restrict__ n_tree,
-                       const int16_t* __restrict__ ent_slot, int E,
-                       const int16_t* __restrict__ rout, T* __restrict__ z,
+                       const Idx* __restrict__ ent_slot, int E,
+                       const Idx* __restrict__ rout, T* __restrict__ z,
                        T* __restrict__ pk) {
   constexpr bool kKeep = sizeof(T) == 4;  // the staged tile stays beside cs
   constexpr int kPairs = kPerThread / 2;
@@ -551,33 +745,32 @@ __global__ void __launch_bounds__(kTileThreads, 1)
   Two<T>* us2 = reinterpret_cast<Two<T>*>(xs + kSlots);  // the stashed u values
   __shared__ T warp_tot[kWarps];
   __shared__ T warp_suf[kWarps];
-  const int64_t t = blockIdx.x;
-  const int64_t r0 = ((tile0 + t) / ntx) * kTileRows;
-  const int64_t c0 = ((tile0 + t) % ntx) * kLanes;
-  const int64_t tb = t * kSlots;
-  const int nt = n_tree[t];
+  const TilePos tp = tile_pos(ntx, tile0);
+  const int64_t tb = tp.tb;
+  const int nt = n_tree[tp.t];
+  const int s0 = tp.rank * kSlots;  // the chunk's first slot in the tile
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int p0 = warp * (kWarpSlots / 2) + lane;  // the pair of chunk k: p0 + 32 k
   const int u0 = warp * kStash * 32 + lane;       // its stash pair of chunk k: u0 + 32 k
-  const uint32_t* es2 = reinterpret_cast<const uint32_t*>(es + tb);
-  const uint32_t* gl2 = reinterpret_cast<const uint32_t*>(g_last + tb);
-  const uint32_t* gp2 = reinterpret_cast<const uint32_t*>(g_prev + tb);
-  const uint32_t* rin2 = reinterpret_cast<const uint32_t*>(rin + tb);
+  const Word* es2 = words(es + tb);
+  const Word* gl2 = words(g_last + tb);
+  const Word* gp2 = words(g_prev + tb);
+  const Word* rin2 = words(rin + tb);
 
-  stage_tile(x, H, W, r0, c0, xs);
-  __syncthreads();
+  stage_tile(x, H, W, tp.r0, tp.c0, xs);
+  tile_sync();  // the whole tile is staged
 
   // u at slots 2p + 1 and 2p + 2 (0 past the tree), from the staged tile;
   // the cell of slot 2p + 2 is the next pair's first: the next lane's, or
-  // read by lane 31
+  // read by lane 31 (in the next CTA's chunk after the last pair)
   auto u_next = [&](int k, T& u1, T& u2) {
     const int p = p0 + 32 * k;
-    const uint32_t w = rin2[p];
-    uint32_t nx = __shfl_down_sync(0xffffffffu, w, 1);
-    if (lane == 31) nx = 2 * p + 2 < nt ? rin2[p + 1] : 0u;
-    u1 = 2 * p + 1 < nt ? xs[hi16(w)] : T(0);
-    u2 = 2 * p + 2 < nt ? xs[lo16(nx)] : T(0);
+    const Word w = rin2[p];
+    Word nx = word_down(w, 1);
+    if (lane == 31) nx = s0 + 2 * p + 2 < nt ? rin2[p + 1] : Word{};
+    u1 = s0 + 2 * p + 1 < nt ? tile_elem(xs, hi16(w)) : T(0);
+    u2 = s0 + 2 * p + 2 < nt ? tile_elem(xs, lo16(nx)) : T(0);
   };
   T un1[kPairs - kStash], un2[kPairs - kStash];
   if constexpr (!kKeep) {
@@ -600,9 +793,9 @@ __global__ void __launch_bounds__(kTileThreads, 1)
 #pragma unroll
   for (int k = 0; k < kPairs; ++k) {
     const int p = p0 + 32 * k;
-    const uint32_t w = es2[p];
-    const T a0 = 2 * p < nt ? xs[lo16(w)] : T(0);
-    const T a1 = 2 * p + 1 < nt ? xs[hi16(w)] : T(0);
+    const Word w = es2[p];
+    const T a0 = s0 + 2 * p < nt ? tile_elem(xs, lo16(w)) : T(0);
+    const T a1 = s0 + 2 * p + 1 < nt ? tile_elem(xs, hi16(w)) : T(0);
     const T b = a0 + a1;
     const T B = warp_inclusive_scan(b, lane);
     const T ex = shfl_up(B, 1);
@@ -616,26 +809,32 @@ __global__ void __launch_bounds__(kTileThreads, 1)
   if (warp == 0) warp_tot[lane] = warp_inclusive_scan(warp_tot[lane], lane);
   __syncthreads();
   {
-    const T off = warp > 0 ? warp_tot[warp - 1] : T(0);
+    T off = warp > 0 ? warp_tot[warp - 1] : T(0);
+    if constexpr (kG > 1) {
+      // every CTA's reads of the staged tile for the sorted values are done
+      // (in 8-byte values cs overwrites it); add the lower ranks' totals
+      tile_sync();
+      off += ranks_sum(&warp_tot[kWarps - 1], 0, tp.rank);
+    }
 #pragma unroll
     for (int k = 0; k < kPairs; ++k) cs2[p0 + 32 * k] = Two<T>{v0[k] + off, v1[k] + off};
   }
-  __syncthreads();
+  tile_sync();  // cs is whole in every CTA of the tile
 
   // per-end group sums minus the next slot's value
 #pragma unroll
   for (int k = 0; k < kPairs; ++k) {
     const int p = p0 + 32 * k;
-    const uint32_t wl = gl2[p], wp = gp2[p];
+    const Word wl = gl2[p], wp = gp2[p];
     const int l0 = lo16(wl), l1 = hi16(wl), q0 = lo16(wp), q1 = hi16(wp);
     T g0 = T(0), g1 = T(0);
     if (l0 >= 0) {
-      g0 = cs[l0];
-      if (q0 >= 0) g0 -= cs[q0];
+      g0 = tile_elem(cs, l0);
+      if (q0 >= 0) g0 -= tile_elem(cs, q0);
     }
     if (l1 >= 0) {
-      g1 = cs[l1];
-      if (q1 >= 0) g1 -= cs[q1];
+      g1 = tile_elem(cs, l1);
+      if (q1 >= 0) g1 -= tile_elem(cs, q1);
     }
     T u1, u2;
     if constexpr (kKeep) {
@@ -669,7 +868,13 @@ __global__ void __launch_bounds__(kTileThreads, 1)
   if (warp == 0) warp_suf[lane] = warp_inclusive_suffix_scan(warp_suf[lane], lane);
   __syncthreads();
   {
-    const T off = warp + 1 < kWarps ? warp_suf[warp + 1] : T(0);
+    T off = warp + 1 < kWarps ? warp_suf[warp + 1] : T(0);
+    if constexpr (kG > 1) {
+      // every CTA's reads of cs are done (z overwrites it); add the higher
+      // ranks' totals
+      tile_sync();
+      off += ranks_sum(&warp_suf[0], tp.rank + 1, kG);
+    }
     Two<T>* z2 = reinterpret_cast<Two<T>*>(z + tb);
 #pragma unroll
     for (int k = 0; k < kPairs; ++k) {
@@ -678,49 +883,50 @@ __global__ void __launch_bounds__(kTileThreads, 1)
       if (!kRouted) z2[p0 + 32 * k] = zz;
     }
   }
-  __syncthreads();
+  tile_sync();
 
-  const int16_t* en = ent_slot + t * E;
-  T* pk_t = pk + t * E;
-  for (int e = threadIdx.x; e < E; e += kTileThreads) {
+  const Idx* en = ent_slot + tp.t * E;
+  T* pk_t = pk + tp.t * E;
+  for (int e = tp.rank * kTileThreads + threadIdx.x; e < E; e += kG * kTileThreads) {
     const int sl = en[e];
-    pk_t[e] = sl >= 0 ? cs[sl] : T(0);
+    pk_t[e] = sl >= 0 ? tile_elem(cs, sl) : T(0);
   }
   if constexpr (kRouted) {
     // raster cells 2j and 2j + 1 (one row, adjacent columns), one rout word
-    const uint32_t* ro2 = reinterpret_cast<const uint32_t*>(rout + tb);
+    const Word* ro2 = words(rout + tb);
 #pragma unroll
     for (int k = 0; k < kPairs; ++k) {
       const int j = threadIdx.x + k * kTileThreads;
-      const uint32_t w = ro2[j];
+      const Word w = ro2[j];
       const int qa = lo16(w), qb = hi16(w);
       const int l = 2 * j;
       if constexpr (kStack) {
         Two<T> v;
         if constexpr (kKeep) {
-          v.x = qa >= 0 ? cs[qa] : xs[l];
-          v.y = qb >= 0 ? cs[qb] : xs[l + 1];
+          v.x = qa >= 0 ? tile_elem(cs, qa) : xs[l];
+          v.y = qb >= 0 ? tile_elem(cs, qb) : xs[l + 1];
         } else {
-          v.x = qa >= 0 ? cs[qa] : tile_cell(x, H, W, r0, c0, l);
-          v.y = qb >= 0 ? cs[qb] : tile_cell(x, H, W, r0, c0, l + 1);
+          v.x = qa >= 0 ? tile_elem(cs, qa) : tile_cell(x, H, W, tp.r0, tp.c0, l);
+          v.y = qb >= 0 ? tile_elem(cs, qb) : tile_cell(x, H, W, tp.r0, tp.c0, l + 1);
         }
         reinterpret_cast<Two<T>*>(z + tb)[j] = v;
       } else {
-        const int64_t r = r0 + (l >> 7);
-        const int64_t col = c0 + (l & (kLanes - 1));
+        const int64_t r = tp.r0 + (l >> 7);
+        const int64_t col = tp.c0 + (l & (kLanes - 1));
         if (r < H && col < W) {
           const int64_t g = r * W + col;
           if constexpr (kKeep) {
-            z[g] = qa >= 0 ? cs[qa] : xs[l];
-            if (col + 1 < W) z[g + 1] = qb >= 0 ? cs[qb] : xs[l + 1];
+            z[g] = qa >= 0 ? tile_elem(cs, qa) : xs[l];
+            if (col + 1 < W) z[g + 1] = qb >= 0 ? tile_elem(cs, qb) : xs[l + 1];
           } else {
-            z[g] = qa >= 0 ? cs[qa] : x[g];
-            if (col + 1 < W) z[g + 1] = qb >= 0 ? cs[qb] : x[g + 1];
+            z[g] = qa >= 0 ? tile_elem(cs, qa) : x[g];
+            if (col + 1 < W) z[g + 1] = qb >= 0 ? tile_elem(cs, qb) : x[g + 1];
           }
         }
       }
     }
   }
+  if constexpr (kG > 1) tile_sync();  // peers may still read this CTA's z
 }
 
 // ---------------------------------------------------------------------------
@@ -739,7 +945,9 @@ __global__ void __launch_bounds__(kTileThreads, 1)
 // tree, A once per root: 2 * sizeof(T) + 4 bytes per slot.
 // Design: one block per tile; z1 + A[tree] is built in shared memory from
 // coalesced reads (A's row of the tile stays in L1), and the raster tile is
-// written row-coalesced through rout.
+// written row-coalesced through rout. In a cluster each CTA builds its
+// chunk and reads a routed cell's value from the slot's owner (lite mode:
+// its tree index).
 //
 // Lite mode (kLite): the input is pass D1's routed result abar (T3 routed:
 // z1 in raster order, x passed through off the tree), laid out as out, and
@@ -761,28 +969,26 @@ __global__ void __launch_bounds__(kTileThreads)
     tile_down_fin_kernel(const T* __restrict__ x, int64_t H, int64_t W,
                          int64_t ntx, int64_t tile0, const T* __restrict__ z1,
                          const T* __restrict__ A, int R,
-                         const int16_t* __restrict__ tree_of,
-                         const int16_t* __restrict__ rout,
+                         const Idx* __restrict__ tree_of,
+                         const Idx* __restrict__ rout,
                          T* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int64_t t = blockIdx.x;
-  const int64_t r0 = ((tile0 + t) / ntx) * kTileRows;
-  const int64_t c0 = ((tile0 + t) % ntx) * kLanes;
-  const int64_t tb = t * kSlots;
-  const T* A_t = A + t * R;
+  const TilePos tp = tile_pos(ntx, tile0);
+  const int64_t tb = tp.tb;
+  const T* A_t = A + tp.t * R;
   if constexpr (kLite) {
-    int16_t* trs = reinterpret_cast<int16_t*>(smem_raw);
+    Idx* trs = reinterpret_cast<Idx*>(smem_raw);
     for (int s = threadIdx.x; s < kSlots; s += kTileThreads) {
       trs[s] = tree_of[tb + s];
     }
-    __syncthreads();
+    tile_sync();
     for (int l = threadIdx.x; l < kSlots; l += kTileThreads) {
-      const int64_t g = out_pos<kStack>(tb, H, W, r0, c0, l);
+      const int64_t g = out_pos<kStack>(tb, H, W, tp.r0, tp.c0, l);
       if (g >= 0) {
         T v = z1[g];
         const int q = rout[tb + l];
         if (q >= 0) {
-          const int tr = trs[q];
+          const int tr = tile_elem(trs, q);
           if (tr >= 0) v += A_t[tr];
         }
         out[g] = v;
@@ -796,15 +1002,16 @@ __global__ void __launch_bounds__(kTileThreads)
       if (tr >= 0) v += A_t[tr];
       zs[s] = v;
     }
-    __syncthreads();
+    tile_sync();
     for (int l = threadIdx.x; l < kSlots; l += kTileThreads) {
-      const int64_t g = out_pos<kStack>(tb, H, W, r0, c0, l);
+      const int64_t g = out_pos<kStack>(tb, H, W, tp.r0, tp.c0, l);
       if (g >= 0) {
         const int q = rout[tb + l];
-        out[g] = q >= 0 ? zs[q] : cell_x<kStack>(x, g, H, W, r0, c0, l);
+        out[g] = q >= 0 ? tile_elem(zs, q) : cell_x<kStack>(x, g, H, W, tp.r0, tp.c0, l);
       }
     }
   }
+  if constexpr (kG > 1) tile_sync();  // peers may still read this CTA's chunk
 }
 
 }  // namespace
@@ -823,66 +1030,76 @@ int pf_tile_max_smem() {
 }
 
 // Every entry runs on the tiles tile0 .. tile0 + NT - 1 of the raster's
-// grid; stack != 0: the raster-side outputs (and abar) are tile stacks.
+// grid of 128 kG x 128 tiles, its tables of Idx (NT, 16,384 kG); stack != 0:
+// the raster-side outputs (and abar) are tile stacks.
 
 // c == nullptr: exits only (no c written)
 int pf_tile_pass_a(int dt, const void* x, int64_t H, int64_t W, int64_t NT,
-                   int64_t ntx, int64_t tile0, const int16_t* rin,
-                   const int16_t* ex_end, int64_t R, void* c, void* exits,
+                   int64_t ntx, int64_t tile0, const Idx* rin,
+                   const Idx* ex_end, int64_t R, void* c, void* exits,
                    void* stream) {
   return by_dtype(dt, [&](auto tag) {
     using T = typename decltype(tag)::type;
-    auto kernel = c != nullptr ? tile_pass_a_kernel<T, true>
-                               : tile_pass_a_kernel<T, false>;
-    return launch_tiles(kernel, NT, kSlots * static_cast<int>(sizeof(T)),
-                        stream, static_cast<const T*>(x), H, W, ntx, tile0,
-                        rin, ex_end, static_cast<int>(R), static_cast<T*>(c),
-                        static_cast<T*>(exits));
+    auto launch = [&](auto k) {
+      return launch_tiles<decltype(k)::value>(
+          NT, kSlots * static_cast<int>(sizeof(T)), stream,
+          static_cast<const T*>(x), H, W, ntx, tile0, rin, ex_end,
+          static_cast<int>(R), static_cast<T*>(c), static_cast<T*>(exits));
+    };
+    return c != nullptr ? launch(Kern<tile_pass_a_kernel<T, true>>{})
+                        : launch(Kern<tile_pass_a_kernel<T, false>>{});
   });
 }
 
 // c == nullptr: full mode, the prefix sums rebuilt from x through rin
 int pf_tile_pass_c(int dt, const void* x, int64_t H, int64_t W, int64_t NT,
                    int64_t ntx, int64_t tile0, int stack, const void* c,
-                   const int16_t* rin, const void* entv, int64_t E,
-                   const int16_t* ent_idx, const int16_t* near_end,
-                   const int16_t* far_end, const int16_t* rout, void* out,
+                   const Idx* rin, const void* entv, int64_t E,
+                   const Idx* ent_idx, const Idx* near_end,
+                   const Idx* far_end, const Idx* rout, void* out,
                    void* stream) {
   return by_dtype(dt, [&](auto tag) {
     using T = typename decltype(tag)::type;
-    auto kernel = c != nullptr ? (stack ? tile_pass_c_kernel<T, false, true>
-                                        : tile_pass_c_kernel<T, false, false>)
-                               : (stack ? tile_pass_c_kernel<T, true, true>
-                                        : tile_pass_c_kernel<T, true, false>);
     const int smem = (kSlots + static_cast<int>(E)) * static_cast<int>(sizeof(T));
-    return launch_tiles(kernel, NT, smem, stream, static_cast<const T*>(x), H,
-                        W, ntx, tile0, static_cast<const T*>(c), rin,
-                        static_cast<const T*>(entv), static_cast<int>(E),
-                        ent_idx, near_end, far_end, rout, static_cast<T*>(out));
+    auto launch = [&](auto k) {
+      return launch_tiles<decltype(k)::value>(
+          NT, smem, stream, static_cast<const T*>(x), H, W, ntx, tile0,
+          static_cast<const T*>(c), rin, static_cast<const T*>(entv),
+          static_cast<int>(E), ent_idx, near_end, far_end, rout,
+          static_cast<T*>(out));
+    };
+    if (c != nullptr) {
+      return stack ? launch(Kern<tile_pass_c_kernel<T, false, true>>{})
+                   : launch(Kern<tile_pass_c_kernel<T, false, false>>{});
+    }
+    return stack ? launch(Kern<tile_pass_c_kernel<T, true, true>>{})
+                 : launch(Kern<tile_pass_c_kernel<T, true, false>>{});
   });
 }
 
 // routed != 0: z is the raster-side result (the raster or a tile stack);
-// else the (NT, 16384) preorder z
+// else the (NT, T) preorder z
 int pf_tile_down_a(int dt, int routed, const void* x, int64_t H, int64_t W,
                    int64_t NT, int64_t ntx, int64_t tile0, int stack,
-                   const int16_t* rin, const int16_t* es,
-                   const int16_t* g_last, const int16_t* g_prev,
-                   const int32_t* n_tree, const int16_t* ent_slot, int64_t E,
-                   const int16_t* rout, void* z, void* pk, void* stream) {
+                   const Idx* rin, const Idx* es,
+                   const Idx* g_last, const Idx* g_prev,
+                   const int32_t* n_tree, const Idx* ent_slot, int64_t E,
+                   const Idx* rout, void* z, void* pk, void* stream) {
   return by_dtype(dt, [&](auto tag) {
     using T = typename decltype(tag)::type;
-    auto kernel = routed ? (stack ? tile_down_a_kernel<T, true, true>
-                                  : tile_down_a_kernel<T, true, false>)
-                         : tile_down_a_kernel<T, false, false>;
     // the staged tile and cs, or in 8-byte values one buffer for both and
     // the stashed u values
     const int smem = static_cast<int>(sizeof(T)) *
                      (kSlots + (sizeof(T) == 4 ? kSlots : 2 * kDownStash * kTileThreads));
-    return launch_tiles(kernel, NT, smem, stream, static_cast<const T*>(x), H,
-                        W, ntx, tile0, rin, es, g_last, g_prev, n_tree, ent_slot,
-                        static_cast<int>(E), rout, static_cast<T*>(z),
-                        static_cast<T*>(pk));
+    auto launch = [&](auto k) {
+      return launch_tiles<decltype(k)::value>(
+          NT, smem, stream, static_cast<const T*>(x), H, W, ntx, tile0, rin,
+          es, g_last, g_prev, n_tree, ent_slot, static_cast<int>(E), rout,
+          static_cast<T*>(z), static_cast<T*>(pk));
+    };
+    if (!routed) return launch(Kern<tile_down_a_kernel<T, false, false>>{});
+    return stack ? launch(Kern<tile_down_a_kernel<T, true, true>>{})
+                 : launch(Kern<tile_down_a_kernel<T, true, false>>{});
   });
 }
 
@@ -890,20 +1107,24 @@ int pf_tile_down_a(int dt, int routed, const void* x, int64_t H, int64_t W,
 int pf_tile_down_fin(int dt, int lite, const void* x, int64_t H, int64_t W,
                      int64_t NT, int64_t ntx, int64_t tile0, int stack,
                      const void* z1, const void* A, int64_t R,
-                     const int16_t* tree_of, const int16_t* rout, void* out,
+                     const Idx* tree_of, const Idx* rout, void* out,
                      void* stream) {
   return by_dtype(dt, [&](auto tag) {
     using T = typename decltype(tag)::type;
-    auto kernel = lite ? (stack ? tile_down_fin_kernel<T, true, true>
-                                : tile_down_fin_kernel<T, true, false>)
-                       : (stack ? tile_down_fin_kernel<T, false, true>
-                                : tile_down_fin_kernel<T, false, false>);
     const int smem =
-        kSlots * static_cast<int>(lite ? sizeof(int16_t) : sizeof(T));
-    return launch_tiles(kernel, NT, smem, stream, static_cast<const T*>(x), H,
-                        W, ntx, tile0, static_cast<const T*>(z1),
-                        static_cast<const T*>(A), static_cast<int>(R), tree_of,
-                        rout, static_cast<T*>(out));
+        kSlots * static_cast<int>(lite ? sizeof(Idx) : sizeof(T));
+    auto launch = [&](auto k) {
+      return launch_tiles<decltype(k)::value>(
+          NT, smem, stream, static_cast<const T*>(x), H, W, ntx, tile0,
+          static_cast<const T*>(z1), static_cast<const T*>(A),
+          static_cast<int>(R), tree_of, rout, static_cast<T*>(out));
+    };
+    if (lite) {
+      return stack ? launch(Kern<tile_down_fin_kernel<T, true, true>>{})
+                   : launch(Kern<tile_down_fin_kernel<T, true, false>>{});
+    }
+    return stack ? launch(Kern<tile_down_fin_kernel<T, false, true>>{})
+                 : launch(Kern<tile_down_fin_kernel<T, false, false>>{});
   });
 }
 

@@ -36,8 +36,12 @@ of fewer than 2^31 elements (the plans go up to 2^28 slots):
   ``tree_mask`` select of ``_CoarseRouterSmall`` and ``BigAccelPlan``:
   preorder back to the outputs, off-tree outputs passing ``x`` through or 0
 
-and in ``csrc/tile_kernels.cu`` for int32, int64 and float64, on 128 x 128
-tiles:
+and in ``csrc/tile_kernels.cu`` for int32, int64 and float64, on tiles of
+``Y = 128 G`` rows by 128 columns (``G`` 1 to 4, ``T = 16,384 G`` cells):
+one 1024-thread block a tile at ``G = 1``, one thread-block cluster of
+``G`` blocks a tile above that (the same source built once a height:
+``csrc/tile_kernels_g2.cu`` to ``_g4.cu`` include it, a library each, all
+built at once):
 
 * ``tile_pass_a`` (T1) — ``ops/tile_plan.py`` ``TilePlan._pass_a_fused``
   and, on a tile range, ``_pass_a_tiles_fused``; with ``emit_c=False``
@@ -54,14 +58,17 @@ tiles:
   in lite mode (``tile_down_lite``, counted apart) ``TilePlan._pass_down_lite``
   and, on a tile range, ``_pass_down_lite_tiles``
 
-The tile kernels read the plan's per-tile tables as int16 on the card (a
+The tile height comes from the tables' width ``T``. The tile kernels read
+the plan's per-tile tables as int16 on the card where every value of that
+height fits (``G`` <= 2) and as int32 above (:func:`tile_table_dtype`; a
 wrapper raises TypeError on any other index dtype; ``n_tree`` is int32);
-the plain versions take int16 or int32. Each tile kernel runs on the whole
-grid or, given ``tile0``, on the tiles ``tile0 .. tile0 + NT - 1``
-(row-major over the grid; NT the tables' rows), a range that may start and
-end in the middle of a tile row: ``x`` is the raster either way, and the
-raster-side results come as a tile stack (NT, 16384), tile raster layout,
-zero past the raster's edge.
+the plain versions take either. Each tile kernel runs on the whole grid
+or, given ``tile0``, on the tiles ``tile0 .. tile0 + NT - 1`` (row-major
+over the grid; NT the tables' rows), a range that may start and end in the
+middle of a tile row: ``x`` is the raster either way, and the raster-side
+results come as a tile stack (NT, T), tile raster layout, zero past the
+raster's edge. A cluster launch counts under its kernel's name with
+``_g<G>`` appended (``tile_pass_a_g4``), so a run shows which ran.
 
 and in ``csrc/fill_kernels.cu`` for float32 rasters with a uint8 mask:
 
@@ -104,6 +111,7 @@ __all__ = [
     "tile_down_fin_plain",
     "tile_down_lite",
     "tile_down_lite_plain",
+    "tile_table_dtype",
     "fill_sweep",
     "fill_sweep_plain",
 ]
@@ -116,27 +124,29 @@ _NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-#: kernel launches per wrapper, counted where the wrapper launches its kernel
+_TILE_COUNTS = ("tile_pass_a", "tile_pass_a_exits", "tile_pass_c", "tile_pass_c_full",
+                "tile_down_a", "tile_down_fin", "tile_down_lite")
+_GS = (1, 2, 3, 4)  # tile heights 128 G the tile kernels take
+
+#: kernel launches per wrapper, counted where the wrapper launches its kernel;
+#: a tile kernel's cluster launches (G > 1) under ``<name>_g<G>``
 launches = {
     "permute_gather": 0,
     "accel_in_scan": 0,
     "accel_near_out": 0,
     "accel_far_merge": 0,
-    "tile_pass_a": 0,
-    "tile_pass_a_exits": 0,
-    "tile_pass_c": 0,
-    "tile_pass_c_full": 0,
-    "tile_down_a": 0,
-    "tile_down_fin": 0,
-    "tile_down_lite": 0,
+    **{name + ("" if G == 1 else f"_g{G}"): 0 for name in _TILE_COUNTS for G in _GS},
     "fill_sweep": 0,
 }
 
 #: element-type codes of the kernels' entry points
 _DTYPE_CODE = {torch.float32: 0, torch.int32: 1, torch.int64: 2, torch.float64: 3}
 _TILE_DTYPES = (torch.int32, torch.int64, torch.float64)
-_TILE = 128  # rows and lanes of a tile on the card
-_TAB = torch.int16  # the tile kernels' index tables
+_TILE = 128  # lanes (columns) of a tile, and rows of one block's chunk of it
+_CHUNK = _TILE * _TILE  # slots (and cells) one block of a tile kernel holds
+#: the library of each tile height's kernels
+_TILE_LIB = {1: "tile_kernels", 2: "tile_kernels_g2", 3: "tile_kernels_g3",
+             4: "tile_kernels_g4"}
 
 _LIBS = {}  # source stem -> loaded library, once
 _H0 = None  # pf_permute_gather, bound at its first launch
@@ -186,12 +196,18 @@ def _bind(lib):
 
 def _targets():
     """``{source stem: (source, library path)}``, the path tagged by the
-    source's and the flags' hash."""
+    hash of the flags, the source and the sources it includes from beside it
+    (``#include "..."``: ``tile_kernels_g2.cu`` is ``tile_kernels.cu`` for
+    another tile height)."""
     flags = " ".join(_NVCC_FLAGS).encode()
     targets = {}
     for src in sorted(glob.glob(os.path.join(_SRC_DIR, "*.cu"))):
         with open(src, "rb") as f:
-            tag = hashlib.sha256(f.read() + flags).hexdigest()[:12]
+            text = f.read()
+        for inc in re.findall(rb'#include "([^"]+)"', text):
+            with open(os.path.join(_SRC_DIR, inc.decode()), "rb") as f:
+                text += f.read()
+        tag = hashlib.sha256(text + flags).hexdigest()[:12]
         stem = os.path.splitext(os.path.basename(src))[0]
         targets[stem] = (src, os.path.join(_BUILD_DIR, f"lib{stem}_{tag}.so"))
     return targets
@@ -468,31 +484,39 @@ def accel_far_merge(outp, x, src_res):
 
 
 # ---------------------------------------------------------------------------
-# tiles of a raster: (H*W,) <-> (NT, 128*128), zero padded past H and W; a
-# call on tiles tile0 .. tile0 + NT - 1 (tile0 not None) returns its
-# raster-side results as such a stack of its tiles
+# tiles of a raster: (H*W,) <-> (NT, T), T = Y * 128 cells of a Y x 128 tile,
+# zero padded past H and W; a call on tiles tile0 .. tile0 + NT - 1 (tile0
+# not None) returns its raster-side results as such a stack of its tiles
 # ---------------------------------------------------------------------------
-def _tiles(x, shape):
+def tile_table_dtype(rows):
+    """The index dtype the tile kernels read for tiles of ``rows`` rows:
+    int16 where every slot of the tile fits (up to 256 rows: below 32,768),
+    else int32."""
+    return torch.int16 if int(rows) * _TILE <= 1 << 15 else torch.int32
+
+
+def _tiles(x, shape, T=_CHUNK):
     H, W = shape
-    S = _TILE
-    Hp, Wp = -(-H // S) * S, -(-W // S) * S
+    S, Y = _TILE, T // _TILE
+    Hp, Wp = -(-H // Y) * Y, -(-W // S) * S
     xg = torch.zeros((Hp, Wp), dtype=x.dtype, device=x.device)
     xg[:H, :W] = x.reshape(H, W)
-    return xg.reshape(Hp // S, S, Wp // S, S).permute(0, 2, 1, 3).reshape(-1, S * S)
+    return xg.reshape(Hp // Y, Y, Wp // S, S).permute(0, 2, 1, 3).reshape(-1, T)
 
 
 def _untile(xt, shape):
     H, W = shape
-    S = _TILE
-    Hp, Wp = -(-H // S) * S, -(-W // S) * S
-    xg = xt.reshape(Hp // S, Wp // S, S, S).permute(0, 2, 1, 3).reshape(Hp, Wp)
+    S, Y = _TILE, xt.shape[1] // _TILE
+    Hp, Wp = -(-H // Y) * Y, -(-W // S) * S
+    xg = xt.reshape(Hp // Y, Wp // S, Y, S).permute(0, 2, 1, 3).reshape(Hp, Wp)
     return xg[:H, :W].reshape(-1)
 
 
-def _xtiles(x, shape, tile0, nt):
-    """The tiles of the raster ``x`` a call runs on."""
-    xt = _tiles(x, shape)
-    return xt if tile0 is None else xt[tile0: tile0 + nt]
+def _xtiles(x, shape, tile0, tab):
+    """The tiles of the raster ``x`` a call on the tables ``tab`` (NT, T)
+    runs on."""
+    xt = _tiles(x, shape, tab.shape[1])
+    return xt if tile0 is None else xt[tile0: tile0 + tab.shape[0]]
 
 
 def _raster_out(outt, shape, tile0):
@@ -501,22 +525,42 @@ def _raster_out(outt, shape, tile0):
 
 
 def _tile_args(shape, rin, x, tile0=None):
-    """``(H, W, NT, ntx, tile0, stack)`` of a call whose tables ``rin`` (or
-    any (NT, 16384) table) cover the whole 128 x 128 tile grid of an H x W
-    raster, or, given ``tile0``, the tiles ``tile0 .. tile0 + NT - 1`` of
-    it; ``x``, where given, must be the raster."""
+    """``(H, W, NT, ntx, tile0, stack, G)`` of a call whose tables ``rin``
+    (or any (NT, T) table) cover the whole grid of ``128 G x 128`` tiles of
+    an H x W raster (``T = 16,384 G``, G 1 to 4), or, given ``tile0``, the
+    tiles ``tile0 .. tile0 + NT - 1`` of it; ``x``, where given, must be the
+    raster."""
     H, W = (int(v) for v in shape)
     NT, T = rin.shape
+    G = T // _CHUNK
+    if T % _CHUNK or G not in _GS:
+        raise ValueError(f"tile tables {tuple(rin.shape)}: a row must hold 16,384 G slots, "
+                         "G 1 to 4 (tiles of 128 to 512 rows)")
+    Y = G * _TILE
     ntx = -(-W // _TILE)
-    n_all = -(-H // _TILE) * ntx
+    n_all = -(-H // Y) * ntx
     fits = NT == n_all if tile0 is None else 0 <= int(tile0) <= n_all - NT
-    if T != _TILE * _TILE or not fits:
+    if not fits:
         where = "" if tile0 is None else f" from tile {tile0}"
-        raise ValueError(f"tile tables {tuple(rin.shape)}{where} do not fit the 128 x 128 "
+        raise ValueError(f"tile tables {tuple(rin.shape)}{where} do not fit the {Y} x 128 "
                          f"tiles of a {H} x {W} raster ({n_all} tiles)")
     if x is not None and (x.numel() != H * W or x.dim() != 1):
         raise ValueError(f"x must be 1-D with {H * W} cells")
-    return H, W, NT, ntx, 0 if tile0 is None else int(tile0), int(tile0 is not None)
+    return H, W, NT, ntx, 0 if tile0 is None else int(tile0), int(tile0 is not None), G
+
+
+def _tile_lib(G):
+    return load()[_TILE_LIB[G]]
+
+
+def _count(name, G):
+    launches[name if G == 1 else f"{name}_g{G}"] += 1
+
+
+def _pairs_aligned(name, t):
+    """The kernels read these tables two slots at a time."""
+    if t.data_ptr() % (2 * t.element_size()):
+        raise ValueError(f"{name} must start on a {2 * t.element_size()}-byte boundary")
 
 
 # ---------------------------------------------------------------------------
@@ -524,7 +568,7 @@ def _tile_args(shape, rin, x, tile0=None):
 # ---------------------------------------------------------------------------
 def _tile_prefix_plain(x, rin, shape, tile0=None):
     """The tile prefix sums in preorder, ``cumsum(x[cell(rin)])`` per tile."""
-    v = torch.gather(_xtiles(x, shape, tile0, rin.shape[0]), 1, rin.long())
+    v = torch.gather(_xtiles(x, shape, tile0, rin), 1, rin.long())
     return torch.cumsum(v, 1, dtype=x.dtype)
 
 
@@ -538,38 +582,36 @@ def tile_pass_a_plain(x, rin, ex_end, shape, emit_c=True, tile0=None):
 
 def tile_pass_a(x, rin, ex_end, shape, emit_c=True, tile0=None):
     """Pass A of the tile plan: ``x`` (H*W,) raster values, int32, int64 or
-    float64; ``rin`` (NT, 16384) int16, the raster cell (within its 128 x
-    128 tile, row-major) of each preorder slot; ``ex_end`` (NT, R) int16, the
-    preorder end of each local root. Cells past H or W read 0. Returns
-    ``(exits (NT, R), c (NT, 16384))``: the local-root subtree sums and the
-    tile prefix sums, in ``x``'s dtype; with ``emit_c=False`` the exits
-    alone (the unfused pass A: no c written or allocated). A band of whole
-    tile rows is a raster of its own: its rows, and the tables' rows of its
-    tiles. With ``tile0`` the tables cover the tiles ``tile0 ..
-    tile0 + NT - 1`` of the raster's grid (a shard of the sharded sweep)."""
+    float64; ``rin`` (NT, T) the raster cell (within its ``T / 128`` x 128
+    tile, row-major) of each preorder slot, in :func:`tile_table_dtype`;
+    ``ex_end`` (NT, R) likewise, the preorder end of each local root. Cells
+    past H or W read 0. Returns ``(exits (NT, R), c (NT, T))``: the
+    local-root subtree sums and the tile prefix sums, in ``x``'s dtype; with
+    ``emit_c=False`` the exits alone (the unfused pass A: no c written or
+    allocated). A band of whole tile rows is a raster of its own: its rows,
+    and the tables' rows of its tiles. With ``tile0`` the tables cover the
+    tiles ``tile0 .. tile0 + NT - 1`` of the raster's grid (a shard of the
+    sharded sweep)."""
     if x.device.type == "cpu":
         return tile_pass_a_plain(x, rin, ex_end, shape, emit_c, tile0)
     dev = x.device
     dt = _code("x", x, _TILE_DTYPES)
     _check("x", x, x.dtype, dev)
-    _check("rin", rin, _TAB, dev)
-    _check("ex_end", ex_end, _TAB, dev)
-    H, W, NT, ntx, t0, _ = _tile_args(shape, rin, x, tile0)
-    if rin.data_ptr() % 4:  # read two entries a word
-        raise ValueError("rin must start on a 4-byte boundary")
+    H, W, NT, ntx, t0, _, G = _tile_args(shape, rin, x, tile0)
+    tab = tile_table_dtype(G * _TILE)
+    _check("rin", rin, tab, dev)
+    _check("ex_end", ex_end, tab, dev)
+    _pairs_aligned("rin", rin)
     if ex_end.dim() != 2 or ex_end.shape[0] != NT or not 0 < ex_end.shape[1] <= rin.shape[1]:
-        raise ValueError("ex_end must be (NT, R) with 0 < R <= 16384")
+        raise ValueError(f"ex_end must be (NT, R) with 0 < R <= {rin.shape[1]}")
     R = ex_end.shape[1]
     c = torch.empty(rin.shape, dtype=x.dtype, device=dev) if emit_c else None
     exits = torch.empty((NT, R), dtype=x.dtype, device=dev)
-    _launch(load()["tile_kernels"].pf_tile_pass_a, dt, x.data_ptr(), H, W, NT, ntx, t0,
+    _launch(_tile_lib(G).pf_tile_pass_a, dt, x.data_ptr(), H, W, NT, ntx, t0,
             rin.data_ptr(), ex_end.data_ptr(), R, c.data_ptr() if emit_c else None,
             exits.data_ptr())
-    if emit_c:
-        launches["tile_pass_a"] += 1
-        return exits, c
-    launches["tile_pass_a_exits"] += 1
-    return exits
+    _count("tile_pass_a" if emit_c else "tile_pass_a_exits", G)
+    return (exits, c) if emit_c else exits
 
 
 # ---------------------------------------------------------------------------
@@ -591,7 +633,7 @@ def tile_pass_c_plain(x, c, entv, ent_idx, near_end, far_end, rout, shape, rin=N
     outp = outp + torch.where(fe >= 0, torch.gather(c, 1, fe.clamp(min=0)), zero)
     r = rout.long()
     outt = torch.where(r >= 0, torch.gather(outp, 1, r.clamp(min=0)),
-                       _xtiles(x, shape, tile0, rout.shape[0]))
+                       _xtiles(x, shape, tile0, rout))
     return _raster_out(outt, shape, tile0)
 
 
@@ -601,15 +643,15 @@ def tile_pass_c(x, c, entv, ent_idx, near_end, far_end, rout, shape, rin=None,
     ``c=None`` (full mode, the unfused pass C), rebuilding it from ``x``
     through ``rin`` as pass A does, with the same bits.
 
-    ``x`` (H*W,) raster values; ``c`` (NT, 16384) tile prefix sums; ``entv``
+    ``x`` (H*W,) raster values; ``c`` (NT, T) tile prefix sums; ``entv``
     (NT, E) entry inflows per tile from the coarse level (E may be 0);
-    ``ent_idx``, ``near_end``, ``far_end`` (NT, 16384) int16 in preorder
-    layout, ``rout`` (NT, 16384) int16 in tile raster layout and, in full
-    mode, ``rin`` as :func:`tile_pass_a` takes it (see
+    ``ent_idx``, ``near_end``, ``far_end`` (NT, T) in preorder layout,
+    ``rout`` (NT, T) in tile raster layout and, in full mode, ``rin`` as
+    :func:`tile_pass_a` takes it, all in :func:`tile_table_dtype` (see
     ``csrc/tile_kernels.cu``). Returns (H*W,) accumulated values in
     ``x``'s dtype: tree cells get their subtree sum plus their inflow, cells
     off the tree pass ``x`` through; with ``tile0`` (the tables cover tiles
-    ``tile0 .. tile0 + NT - 1``) the (NT, 16384) stack of those tiles."""
+    ``tile0 .. tile0 + NT - 1``) the (NT, T) stack of those tiles."""
     if x.device.type == "cpu":
         return tile_pass_c_plain(x, c, entv, ent_idx, near_end, far_end, rout, shape, rin,
                                  tile0)
@@ -618,26 +660,26 @@ def tile_pass_c(x, c, entv, ent_idx, near_end, far_end, rout, shape, rin=None,
     full = c is None
     if full and rin is None:
         raise ValueError("tile_pass_c: full mode (c=None) needs rin")
-    pre = ("rin", rin, _TAB) if full else ("c", c, x.dtype)
+    H, W, NT, ntx, t0, stack, G = _tile_args(shape, rout, x, tile0)
+    tab = tile_table_dtype(G * _TILE)
+    pre = ("rin", rin, tab) if full else ("c", c, x.dtype)
     for name, t, dtype in (("x", x, x.dtype), pre, ("entv", entv, x.dtype),
-                           ("ent_idx", ent_idx, _TAB), ("near_end", near_end, _TAB),
-                           ("far_end", far_end, _TAB), ("rout", rout, _TAB)):
+                           ("ent_idx", ent_idx, tab), ("near_end", near_end, tab),
+                           ("far_end", far_end, tab), ("rout", rout, tab)):
         _check(name, t, dtype, dev)
-    H, W, NT, ntx, t0, stack = _tile_args(shape, rout, x, tile0)
     for name, t in (pre[:2], ("ent_idx", ent_idx), ("near_end", near_end),
                     ("far_end", far_end)):
         if t.shape != rout.shape:
             raise ValueError(f"{name} must be {tuple(rout.shape)}")
-    # the kernel reads these two slots at a time
     for name, t in (("ent_idx", ent_idx), ("near_end", near_end), ("far_end", far_end),
                     ("rout", rout), ("rin", rin) if full else ("c", c)):
-        if t.data_ptr() % (2 * t.element_size()):
-            raise ValueError(f"{name} must start on a {2 * t.element_size()}-byte boundary")
+        _pairs_aligned(name, t)
     E = entv.shape[1]
     if entv.dim() != 2 or entv.shape[0] != NT:
         raise ValueError("entv must be (NT, E)")
-    lib = load()["tile_kernels"]
-    if (rout.shape[1] + E) * x.element_size() > lib.pf_tile_max_smem():
+    lib = _tile_lib(G)
+    # each block of a tile holds a 16,384-slot chunk and every entry
+    if (_CHUNK + E) * x.element_size() > lib.pf_tile_max_smem():
         raise ValueError(f"{E} entries per tile in {x.dtype} exceed the shared "
                          "memory of one block")
     out = torch.empty(rout.shape if stack else x.shape, dtype=x.dtype, device=dev)
@@ -645,7 +687,7 @@ def tile_pass_c(x, c, entv, ent_idx, near_end, far_end, rout, shape, rin=None,
             None if full else c.data_ptr(), rin.data_ptr() if full else None,
             entv.data_ptr(), E, ent_idx.data_ptr(), near_end.data_ptr(),
             far_end.data_ptr(), rout.data_ptr(), out.data_ptr())
-    launches["tile_pass_c_full" if full else "tile_pass_c"] += 1
+    _count("tile_pass_c_full" if full else "tile_pass_c", G)
     return out
 
 
@@ -662,7 +704,7 @@ def _gather0(a, idx):
 def tile_down_a_plain(x, rin, es, g_last, g_prev, n_tree, ent_slot, rout, shape,
                       routed, tile0=None):
     """Plain version of :func:`tile_down_a`."""
-    xt = _xtiles(x, shape, tile0, rin.shape[0])
+    xt = _xtiles(x, shape, tile0, rin)
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
     on = torch.arange(rin.shape[1], device=x.device)[None, :] < n_tree[:, None]
     u = torch.where(on, torch.gather(xt, 1, rin.long()), zero)
@@ -683,34 +725,34 @@ def tile_down_a(x, rin, es, g_last, g_prev, n_tree, ent_slot, rout, shape, route
     path from each tree cell to the root of its tree within the tile.
 
     ``x`` (H*W,) raster values, int32, int64 or float64; ``rin``, ``es``,
-    ``g_last``, ``g_prev`` (NT, 16384) int16 and ``n_tree`` (NT,) int32 (see
-    ``csrc/tile_kernels.cu``); ``ent_slot`` (NT, E) int16, the preorder slot
-    of each packed entry cell, -1 for padding (E may be 0). Cells past H or
-    W read 0. Returns ``(z, pk)``: ``pk`` (NT, E) the path sums at the entry
-    cells; ``z`` the path sums, in preorder layout (NT, 16384) or, where
-    ``routed``, in raster order (H*W,) through ``rout`` ((NT, 16384) int16 in
-    tile raster layout) with cells off the tree passing ``x`` through.
-    ``rout`` may be None unless ``routed``. With ``tile0`` the tables cover
-    the tiles ``tile0 .. tile0 + NT - 1``, and routed ``z`` is their (NT,
-    16384) stack."""
+    ``g_last``, ``g_prev`` (NT, T) in :func:`tile_table_dtype` and
+    ``n_tree`` (NT,) int32 (see ``csrc/tile_kernels.cu``); ``ent_slot``
+    (NT, E), the preorder slot of each packed entry cell, -1 for padding (E
+    may be 0). Cells past H or W read 0. Returns ``(z, pk)``: ``pk`` (NT, E)
+    the path sums at the entry cells; ``z`` the path sums, in preorder
+    layout (NT, T) or, where ``routed``, in raster order (H*W,) through
+    ``rout`` ((NT, T) in tile raster layout) with cells off the tree passing
+    ``x`` through. ``rout`` may be None unless ``routed``. With ``tile0``
+    the tables cover the tiles ``tile0 .. tile0 + NT - 1``, and routed ``z``
+    is their (NT, T) stack."""
     if x.device.type == "cpu":
         return tile_down_a_plain(x, rin, es, g_last, g_prev, n_tree, ent_slot, rout,
                                  shape, routed, tile0)
     dev = x.device
     dt = _code("x", x, _TILE_DTYPES)
     _check("x", x, x.dtype, dev)
+    H, W, NT, ntx, t0, stack, G = _tile_args(shape, rin, x, tile0)
+    tab = tile_table_dtype(G * _TILE)
     tabs = [("rin", rin), ("es", es), ("g_last", g_last), ("g_prev", g_prev)]
     if routed:
         tabs.append(("rout", rout))
     for name, t in (*tabs, ("ent_slot", ent_slot)):
-        _check(name, t, _TAB, dev)
+        _check(name, t, tab, dev)
     _check("n_tree", n_tree, torch.int32, dev)
-    H, W, NT, ntx, t0, stack = _tile_args(shape, rin, x, tile0)
     for name, t in tabs:
         if t.shape != rin.shape:
             raise ValueError(f"{name} must be {tuple(rin.shape)}")
-        if t.data_ptr() % 4:  # the kernel reads these two slots at a time
-            raise ValueError(f"{name} must start on a 4-byte boundary")
+        _pairs_aligned(name, t)
     if n_tree.shape != (NT,):
         raise ValueError("n_tree must be (NT,)")
     if ent_slot.dim() != 2 or ent_slot.shape[0] != NT:
@@ -718,11 +760,11 @@ def tile_down_a(x, rin, es, g_last, g_prev, n_tree, ent_slot, rout, shape, route
     E = ent_slot.shape[1]
     z = torch.empty(x.shape if routed and not stack else rin.shape, dtype=x.dtype, device=dev)
     pk = torch.empty((NT, E), dtype=x.dtype, device=dev)
-    _launch(load()["tile_kernels"].pf_tile_down_a, dt, int(bool(routed)), x.data_ptr(),
+    _launch(_tile_lib(G).pf_tile_down_a, dt, int(bool(routed)), x.data_ptr(),
             H, W, NT, ntx, t0, stack, rin.data_ptr(), es.data_ptr(), g_last.data_ptr(),
             g_prev.data_ptr(), n_tree.data_ptr(), ent_slot.data_ptr(), E,
             rout.data_ptr() if routed else None, z.data_ptr(), pk.data_ptr())
-    launches["tile_down_a"] += 1
+    _count("tile_down_a", G)
     return z, pk
 
 
@@ -732,21 +774,21 @@ def tile_down_a(x, rin, es, g_last, g_prev, n_tree, ent_slot, rout, shape, route
 def tile_down_fin_plain(x, z1, A, tree_of, rout, shape, tile0=None):
     """Plain version of :func:`tile_down_fin`."""
     z = z1 + _gather0(A, tree_of)
-    xt = _xtiles(x, shape, tile0, rout.shape[0])
+    xt = _xtiles(x, shape, tile0, rout)
     return _raster_out(torch.where(rout >= 0, _gather0(z, rout), xt), shape, tile0)
 
 
 def tile_down_fin(x, z1, A, tree_of, rout, shape, tile0=None):
     """Pass D2 of the tile plan's downward sweep, finishing a raw pass D1.
 
-    ``x`` (H*W,) raster values; ``z1`` (NT, 16384) pass D1's path sums in
+    ``x`` (H*W,) raster values; ``z1`` (NT, T) pass D1's path sums in
     preorder layout; ``A`` (NT, R) the coarse level's path sum below each
-    local root; ``tree_of`` (NT, 16384) int16, the local root index of each
-    preorder slot, -1 off the tree; ``rout`` (NT, 16384) int16 in tile raster
-    layout. Returns (H*W,) in ``x``'s dtype: tree cells get
-    ``z1 + A[tree]``, cells off the tree pass ``x`` through; with ``tile0``
-    (the tables cover tiles ``tile0 .. tile0 + NT - 1``) the (NT, 16384)
-    stack of those tiles."""
+    local root; ``tree_of`` (NT, T), the local root index of each preorder
+    slot, -1 off the tree, and ``rout`` (NT, T) in tile raster layout, both
+    in :func:`tile_table_dtype`. Returns (H*W,) in ``x``'s dtype: tree
+    cells get ``z1 + A[tree]``, cells off the tree pass ``x`` through; with
+    ``tile0`` (the tables cover tiles ``tile0 .. tile0 + NT - 1``) the (NT,
+    T) stack of those tiles."""
     if x.device.type == "cpu":
         return tile_down_fin_plain(x, z1, A, tree_of, rout, shape, tile0)
     return _tile_down_d2(x, z1, A, tree_of, rout, shape, tile0, lite=False)
@@ -754,7 +796,7 @@ def tile_down_fin(x, z1, A, tree_of, rout, shape, tile0=None):
 
 def tile_down_lite_plain(abar, A, tree_of, rout, shape, tile0=None):
     """Plain version of :func:`tile_down_lite`."""
-    at = _tiles(abar, shape) if tile0 is None else abar
+    at = _tiles(abar, shape, rout.shape[1]) if tile0 is None else abar
     r = rout.long()
     tr = torch.gather(tree_of, 1, r.clamp(min=0)).long()
     on = (r >= 0) & (tr >= 0)
@@ -767,7 +809,7 @@ def tile_down_lite(abar, A, tree_of, rout, shape, tile0=None):
     tree's coarse continuation to the routed pass D1.
 
     ``abar`` pass D1's routed result (:func:`tile_down_a` with ``routed``):
-    the (H*W,) raster or, with ``tile0``, the (NT, 16384) stack of the tiles
+    the (H*W,) raster or, with ``tile0``, the (NT, T) stack of the tiles
     ``tile0 .. tile0 + NT - 1``; ``A``, ``tree_of`` and ``rout`` as
     :func:`tile_down_fin` takes them. Returns ``abar``'s layout and dtype:
     ``abar + A[tree_of[rout]]`` on tree cells, ``abar`` elsewhere. Routing
@@ -783,13 +825,14 @@ def _tile_down_d2(x, z1, A, tree_of, rout, shape, tile0, lite):
     the routed one, ``x`` unused)."""
     dev = z1.device
     dt = _code("z1", z1, _TILE_DTYPES)
-    checks = [("z1", z1, z1.dtype), ("A", A, z1.dtype), ("tree_of", tree_of, _TAB),
-              ("rout", rout, _TAB)]
+    H, W, NT, ntx, t0, stack, G = _tile_args(shape, rout, x, tile0)
+    tab = tile_table_dtype(G * _TILE)
+    checks = [("z1", z1, z1.dtype), ("A", A, z1.dtype), ("tree_of", tree_of, tab),
+              ("rout", rout, tab)]
     if not lite:
         checks.append(("x", x, z1.dtype))
     for name, t, dtype in checks:
         _check(name, t, dtype, dev)
-    H, W, NT, ntx, t0, stack = _tile_args(shape, rout, x, tile0)
     z1_shape = (H * W,) if lite and not stack else rout.shape
     if z1.shape != z1_shape or tree_of.shape != rout.shape:
         raise ValueError(f"{'abar' if lite else 'z1'} must be {tuple(z1_shape)}, "
@@ -797,10 +840,10 @@ def _tile_down_d2(x, z1, A, tree_of, rout, shape, tile0, lite):
     if A.dim() != 2 or A.shape[0] != NT or A.shape[1] < 1:
         raise ValueError("A must be (NT, R) with R > 0")
     out = torch.empty(rout.shape if stack else (H * W,), dtype=z1.dtype, device=dev)
-    _launch(load()["tile_kernels"].pf_tile_down_fin, dt, int(lite),
+    _launch(_tile_lib(G).pf_tile_down_fin, dt, int(lite),
             None if lite else x.data_ptr(), H, W, NT, ntx, t0, stack, z1.data_ptr(),
             A.data_ptr(), A.shape[1], tree_of.data_ptr(), rout.data_ptr(), out.data_ptr())
-    launches["tile_down_lite" if lite else "tile_down_fin"] += 1
+    _count("tile_down_lite" if lite else "tile_down_fin", G)
     return out
 
 

@@ -4,7 +4,8 @@ A saved plan is a directory: a ``plan.json`` manifest beside one ``.npy``
 file per array. Two formats load:
 
 * **the JAX package's** (``pyflwdir_tpu/ops/plan_io.py``: ``"format"`` 1,
-  ``"kind"`` ``"tile_plan"``): the stage tables under ``tabs/``, the coarse
+  ``"kind"`` ``"tile_plan"``), of any tile height: the stage tables (with
+  the group stage ``*_ig`` of tiles taller than 128 rows) under ``tabs/``, the coarse
   DFS plan, slot maps and router stages under ``coarse/``, and the downward
   tables under ``down/``, ``cd/`` and ``coarse_down/``. They are read with
   numpy and replayed into the port's indices by
@@ -15,6 +16,7 @@ file per array. Two formats load:
   and ``down_idx/``, the coarse DFS plan and slot maps under ``coarse/`` and
   the coarse level's composed down indices under ``coarse_down/``. A plan the
   port builds has no stage tables, so this is the one format it writes.
+  Its manifest keeps the tile height (``"tile_rows"``).
 
 Loading runs no phase 1, no sort phase and no tile-plan build; the port's
 format rebuilds only the coarse level's indices from its DFS plan. With
@@ -159,10 +161,11 @@ def _load_jax(path, meta, mmap, device):
 
 def load_tile_plan(path, mmap=True, device=None):
     """Load a saved tile plan, of the port's format or the JAX package's
-    (``PLAN_FORMAT`` 1), onto ``device`` (None: the card). A directory that
-    holds neither raises ValueError; a JAX plan of tiles other than 128 rows
-    high raises NotImplementedError; one saved without its downward tables
-    loads, and its ``accumulate_down`` raises RuntimeError."""
+    (``PLAN_FORMAT`` 1), onto ``device`` (None: the card), at the tile height
+    it was saved with (``tile_rows`` 128, 256, 384 or 512; another raises
+    ValueError). A directory that holds neither format raises ValueError;
+    a plan saved without its downward tables loads, and its
+    ``accumulate_down`` raises RuntimeError."""
     with open(os.path.join(path, "plan.json")) as f:
         meta = json.load(f)
     load = {KIND: _load_port, _JAX_KIND: _load_jax}.get(meta.get("kind"))

@@ -1,6 +1,8 @@
 """Hierarchical tile plan: flow accumulation of rasters above 2^21 cells.
 
-The raster is cut into 128 x 128 tiles. The flow graph inside a
+The raster is cut into tiles of ``Y`` rows by 128 columns, ``Y`` 128
+(the default), 256, 384 or 512 as the JAX package takes it (``tile_rows``;
+``G = Y / 128``, ``T = 128 Y`` cells a tile). The flow graph inside a
 tile is a forest whose roots are pits and tile-exit cells; each tile gets a
 DFS preorder of its own, so every local subtree is a preorder interval and
 its sum a difference of two prefix sums. One accumulation is three steps,
@@ -29,14 +31,12 @@ only how the TPU routers deliver the far ends). :meth:`TilePlan.from_stage_table
 builds the same indices from a JAX plan's tables by replaying the chains on
 ``arange``.
 
-Tiles are 128 rows high, the one height the CUDA kernels take; a JAX plan of
-another height is not loaded.
-
 The per-tile indices stay on the host (numpy int32, or memory-mapped where
 the plan was loaded from disk, ``ops/plan_io.py``) until the first
-monolithic call uploads them (``idx_t``) as int16 (:func:`int16_table`:
-every value lies below 16,384, or is -1), which halves the bytes the kernels
-read and the plan's size on the device. :meth:`TilePlan.accumulate_banded`
+monolithic call uploads them (``idx_t``) as the kernels' index type
+(:func:`tile_table`): int16 up to 256 rows, where every value lies below
+32,768 or is -1, which halves the bytes the kernels read and the plan's
+size on the device, int32 above. :meth:`TilePlan.accumulate_banded`
 never does: it runs the unfused passes band by band, with only one band's
 slices of the indices on the device::
 
@@ -91,7 +91,7 @@ from .accel import acc_dtype
 from .accel_big import BigAccelPlan, CoarseDown, RouterAccel
 from .plan import DfsPlan, accumulate_planned, build_plan
 
-__all__ = ["TilePlan", "build_tile_plan", "int16_table"]
+__all__ = ["TilePlan", "build_tile_plan", "tile_table"]
 
 _S = 128
 # below this many coarse slots plain gathers solve the coarse level
@@ -99,7 +99,14 @@ _COARSE_ROUTER_MIN = 200_000
 # up to this many padded coarse slots the single-chunk router does
 _COARSE_SMALL_MAX = 1_870_000
 
-_LATER = "queued for a later slice of the PyTorch port (ROADMAP Queue 1 item 2)"
+
+
+def _tile_rows(tile_rows):
+    """The tile height, checked as the JAX build checks it."""
+    th = int(tile_rows)
+    if th <= 0 or th % _S or th > 512:
+        raise ValueError("tile_rows must be a multiple of 128, <= 512")
+    return th
 
 
 def _r128(x):
@@ -147,22 +154,31 @@ def _far_end_packed(sig_exp, sig_far, far_sel, rlo, rhi, bhi, bidx):
     return np.where(ok, fe, -1).astype(np.int32)
 
 
-def _stacked_chain(tabs, p, NT):
+def _stacked_chain(tabs, p, NT, Y):
     """Replay the JAX package's per-tile 5-stage chain of router family
-    ``p`` (``ops/tile_plan.py`` ``_local_chain``; one 128-row group, so no
-    group stage) on ``arange``: the (NT, T) source index of each destination
-    slot."""
-    S = _S
+    ``p`` (``ops/tile_plan.py`` ``_local_chain``: the row stage, a transpose
+    of each 128-row group, the column stage, the group stage ``{p}_ig``
+    across the ``G = Y / 128`` groups where G > 1, the second column stage,
+    a transpose back and the last row stage) on ``arange``: the (NT, Y * 128)
+    source index of each destination slot."""
+    S, G = _S, Y // _S
 
     def ta(a, idx):
-        return np.take_along_axis(a, np.asarray(idx, np.int64), axis=-1)
+        return np.take_along_axis(a, np.asarray(idx, np.int64).reshape(a.shape), axis=-1)
 
-    v = np.broadcast_to(np.arange(S * S, dtype=np.int64), (NT, S * S)).reshape(NT, S, S)
-    v = ta(v, tabs[f"{p}_i1"]).transpose(0, 2, 1)
+    def group_t(v):  # (NT, Y, S): transpose each 128 x 128 group
+        return v.reshape(NT, G, S, S).transpose(0, 1, 3, 2).reshape(NT, Y, S)
+
+    v = np.broadcast_to(np.arange(Y * S, dtype=np.int64), (NT, Y * S)).reshape(NT, Y, S)
+    v = group_t(ta(v, tabs[f"{p}_i1"]))
     v = ta(v, tabs[f"{p}_is1"])
-    v = ta(v, tabs[f"{p}_is2"]).transpose(0, 2, 1)
+    if G > 1:  # (NT, G, S, S) -> (NT, S * S, G): lane c2 * 128 + c, group g
+        v = v.reshape(NT, G, S, S).transpose(0, 3, 2, 1).reshape(NT, S * S, G)
+        v = ta(v, tabs[f"{p}_ig"])
+        v = v.reshape(NT, S, S, G).transpose(0, 3, 2, 1).reshape(NT, Y, S)
+    v = group_t(ta(v, tabs[f"{p}_is2"]))
     v = ta(v, tabs[f"{p}_i3"])
-    return v.reshape(NT, S * S).astype(np.int32)
+    return v.reshape(NT, Y * S).astype(np.int32)
 
 
 def _compose_down(es, dea, deb, de_sel, de_b0, re_sel, n_tree, ent_slot):
@@ -193,25 +209,31 @@ def _upload(a, device):
     return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
 
-def int16_table(a, device=None):
-    """A per-tile index table (host int32, numpy or a memory map, or a slice
-    of one) as the int16 tensor the kernels T1-T4 read, on ``device``. Every
-    such table holds a tile-local slot, cell, entry rank or tree index below
-    16,384, or -1; the values are kept as they are. Raises ValueError where a
-    value falls outside int16. The range check and the cast run on
+def tile_table(a, rows=_S, device=None):
+    """A per-tile index table of a plan of ``rows``-row tiles (host int32,
+    numpy or a memory map, or a slice of one) as the tensor the kernels
+    T1-T4 read, on ``device``: int16 up to 256 rows, int32 above
+    (:func:`pyflwdir_torch.kernels.tile_table_dtype`). Every such table
+    holds a tile-local slot, cell, entry rank or tree index below ``128 *
+    rows``, or -1; the values are kept as they are. Raises ValueError where a
+    value falls outside that dtype. The range check and the cast run on
     ``device``: on the card they cost the host nothing beyond the copy."""
+    dtype = kernels.tile_table_dtype(rows)
     t = _upload(a, device)
     if t.numel():
         lo, hi = (int(v) for v in torch.aminmax(t))
-        if lo < -(1 << 15) or hi >= 1 << 15:
-            raise ValueError(f"tile table values {lo}..{hi} fall outside int16")
-    return t.to(torch.int16)
+        info = torch.iinfo(dtype)
+        if lo < info.min or hi > info.max:
+            raise ValueError(f"tile table values {lo}..{hi} fall outside "
+                             f"{str(dtype).replace('torch.', '')}")
+    return t.to(dtype)
 
 
-def _upload_table(key, a, device):
-    """Table ``key`` of a plan on ``device``: int16, but ``n_tree`` (one count
-    per tile, up to 16,384) int32."""
-    return _upload(a, device) if key == "n_tree" else int16_table(a, device)
+def _upload_table(key, a, rows, device):
+    """Table ``key`` of a plan of ``rows``-row tiles on ``device``: the
+    kernels' index type (:func:`tile_table`), but ``n_tree`` (one count per
+    tile) int32."""
+    return _upload(a, device) if key == "n_tree" else tile_table(a, rows, device)
 
 
 class _BandSink:
@@ -338,22 +360,21 @@ class TilePlan:
     """Per-graph hierarchical accumulation plan over raster tiles.
 
     Attributes (the JAX plan's decisions): ``shape``, ``pshape`` (padded),
-    ``Y`` (tile rows, 128), ``grid``, ``NT``, ``far_mode`` (None, "router" or
+    ``Y`` (tile rows: 128, 256, 384 or 512), ``G`` (``Y / 128``), ``grid``,
+    ``NT``, ``far_mode`` (None, "router" or
     "packed"), ``b``, ``R_pad``, ``E_pad``, ``F_rows``, ``has_far``,
     ``has_entries``, ``coarse``; ``idx``, the composed per-tile indices
     (numpy int32); ``build_seconds``, the host build's steps; after the
     first downward call ``down_idx`` and ``down_build_seconds`` likewise.
     """
 
-    Y = _S
-
-    def __init__(self, idxs_ds_np, shape, device=None):
+    def __init__(self, idxs_ds_np, shape, tile_rows=128, device=None):
         secs = {}
         t0 = time.perf_counter()
-        self._geometry(shape, device)
+        self._geometry(shape, device, tile_rows)
         H, W = self.shape
         Hp, Wp = self.pshape
-        T, NT = _S * _S, self.NT
+        T, NT = self.Y * _S, self.NT
 
         ids0 = np.asarray(idxs_ds_np, dtype=np.int64).ravel()
         n0 = ids0.size
@@ -371,7 +392,7 @@ class TilePlan:
             ids_p = ids0
 
         # ---- phase 1: per-tile forest DFS + local tables (native) -------
-        ph = runtime.tile_plan_phase1(ids_p, Hp, Wp, _S)
+        ph = runtime.tile_plan_phase1(ids_p, Hp, Wp, self.Y)
         slot = ph["slot"]
         root_node = ph["root_node"]
         cnt_r, cnt_far = ph["cnt_r"], ph["cnt_far"]
@@ -490,21 +511,21 @@ class TilePlan:
         self._finish(idx, secs)
 
     # -- shared by both constructors -------------------------------------
-    def _geometry(self, shape, device):
+    def _geometry(self, shape, device, tile_rows):
         H, W = map(int, shape)
         self.device = resolve_device(device)
         self.shape = (H, W)
-        self.grid = (-(-H // _S), -(-W // _S))
-        self.pshape = (self.grid[0] * _S, self.grid[1] * _S)
+        self.Y = _tile_rows(tile_rows)
+        self.G = self.Y // _S
+        self.grid = (-(-H // self.Y), -(-W // _S))
+        self.pshape = (self.grid[0] * self.Y, self.grid[1] * _S)
         self.NT = self.grid[0] * self.grid[1]
 
-    def _config(self, cfg):
-        """The plan's decisions from a saved or a JAX plan's ``cfg``."""
-        if int(cfg["tile_rows"]) != _S:
-            raise NotImplementedError(
-                f"tile plans of {cfg['tile_rows']} rows: the port's tiles are 128 rows "
-                f"high; loading other heights is {_LATER}"
-            )
+    def _config(self, cfg, device):
+        """The geometry (``shape``, ``tile_rows``: a multiple of 128 up to
+        512, else ValueError) and the decisions of a saved or a JAX plan's
+        ``cfg``, with the plan on ``device``."""
+        self._geometry(cfg["shape"], device, cfg["tile_rows"])
         self.far_mode = cfg["far_mode"]
         self.b = int(cfg["b"])
         self.R_pad = int(cfg["R_pad"])
@@ -548,20 +569,22 @@ class TilePlan:
 
     @property
     def idx_t(self):
-        """The per-tile indices on the plan's device, int16, uploaded at the
-        first call that needs them all (``upload_seconds``)."""
+        """The per-tile indices on the plan's device, in the kernels' index
+        type (:func:`tile_table`), uploaded at the first call that needs
+        them all (``upload_seconds``)."""
         if self._idx_t is None:
             t0 = time.perf_counter()
-            self._idx_t = {k: _upload_table(k, v, self.device) for k, v in self.idx.items()}
+            self._idx_t = {k: _upload_table(k, v, self.Y, self.device)
+                           for k, v in self.idx.items()}
             self.upload_seconds = time.perf_counter() - t0
         return self._idx_t
 
     @property
     def down_idx_t(self):
-        """The downward sweep's indices on the plan's device, int16 but
-        ``n_tree`` (int32), after :meth:`_ensure_down`."""
+        """The downward sweep's indices on the plan's device, typed as
+        :attr:`idx_t` but ``n_tree`` (int32), after :meth:`_ensure_down`."""
         if self._down_idx_t is None:
-            self._down_idx_t = {k: _upload_table(k, v, self.device)
+            self._down_idx_t = {k: _upload_table(k, v, self.Y, self.device)
                                 for k, v in self.down_idx.items()}
         return self._down_idx_t
 
@@ -575,7 +598,7 @@ class TilePlan:
             raise RuntimeError("the plan was loaded without its downward tables")
         secs = {}
         src = self._down_src
-        NT, T = self.NT, _S * _S
+        NT, T = self.NT, self.Y * _S
         t0 = time.perf_counter()
         if "phase" in src:  # native build: sort each tile's slots by end
             es, dea, deb, de_sel, de_b0 = runtime.tile_down_phase(*src["phase"], NT, T)
@@ -588,7 +611,7 @@ class TilePlan:
             def flat(name):
                 return np.asarray(tabs[name]).reshape(NT, T)
 
-            es, dea, deb = (_stacked_chain(tabs, p, NT) for p in ("es", "dea", "deb"))
+            es, dea, deb = (_stacked_chain(tabs, p, NT, self.Y) for p in ("es", "dea", "deb"))
             de_sel, de_b0, re_sel = flat("de_sel"), flat("de_b0"), flat("re_sel")
             cd, routers = src["cd"], src["routers"]
             n_tree = src["n_tree"]
@@ -599,7 +622,7 @@ class TilePlan:
                 real = np.zeros(NT * self.E_pad, dtype=bool)
                 osl = np.asarray(self._coarse_meta["out_slot"])
                 real[osl[osl >= 0]] = True
-                enti = _stacked_chain(tabs, "enti", NT)[:, : self.E_pad]
+                enti = _stacked_chain(tabs, "enti", NT, self.Y)[:, : self.E_pad]
                 ent_slot = np.where(real.reshape(NT, self.E_pad), enti, -1)
         secs["sort phase"] = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -620,7 +643,7 @@ class TilePlan:
         for k in keys:
             if k not in cache:
                 src = self.idx if k in self.idx else self.down_idx
-                cache[k] = _upload_table(k, src[k][lo:hi], self.device)
+                cache[k] = _upload_table(k, src[k][lo:hi], self.Y, self.device)
         return {k: cache[k] for k in keys}
 
     def _shard(self, data, mesh):
@@ -648,7 +671,7 @@ class TilePlan:
         Wp = self.pshape[1]
         ntx = self.grid[1]
         cells = np.asarray(cells, dtype=np.int64)
-        return (cells // Wp // _S) * ntx + (cells % Wp) // _S
+        return (cells // Wp // self.Y) * ntx + (cells % Wp) // _S
 
     # -- a JAX plan's tables ----------------------------------------------
     @classmethod
@@ -666,26 +689,25 @@ class TilePlan:
         :meth:`accumulate_down`: ``tabs`` (its ``_down["tabs"]``), ``cd`` (its
         ``_down["cd"]``) and, for a router coarse level, ``routers`` (its
         ``coarse.down_router_tables()``); without it ``accumulate_down``
-        raises. Plans of tiles other than 128 rows high raise
-        NotImplementedError."""
+        raises. ``tile_rows`` other than 128, 256, 384 or 512 raise
+        ValueError."""
         self = cls.__new__(cls)
         secs = {}
         t0 = time.perf_counter()
-        self._geometry(cfg["shape"], device)
-        self._config(cfg)
-        NT, T = self.NT, _S * _S
+        self._config(cfg, device)
+        NT, T, Y = self.NT, self.Y * _S, self.Y
 
         def flat(name):
             return np.asarray(tabs[name]).reshape(NT, T)
 
-        idx = {"rin": _stacked_chain(tabs, "rin", NT)}
+        idx = {"rin": _stacked_chain(tabs, "rin", NT, Y)}
         idx["rout"] = np.where(flat("tree_mask") != 0,
-                               _stacked_chain(tabs, "rout", NT), -1).astype(np.int32)
+                               _stacked_chain(tabs, "rout", NT, Y), -1).astype(np.int32)
         idx["near_end"] = _near_end(flat("near_sel"), flat("idx_near"), flat("sel_next"))
         idx["far_end"] = np.full((NT, T), -1, np.int32)
         if self.far_mode is not None:
-            sig_exp = _stacked_chain(tabs, "fexp", NT)
-            sig_far = _stacked_chain(tabs, "ffar", NT)
+            sig_exp = _stacked_chain(tabs, "fexp", NT, Y)
+            sig_far = _stacked_chain(tabs, "ffar", NT, Y)
             if self.far_mode == "router":
                 idx["far_end"] = _far_end_router(sig_exp, sig_far, flat("far_sel"), self.b)
             else:
@@ -694,7 +716,7 @@ class TilePlan:
                     np.asarray(tabs["far_rlo"])[:, :, 0], np.asarray(tabs["far_rhi"])[:, :, 0],
                     tabs["far_bhi"], tabs["far_bidx"],
                 )
-        idx["ex_end"] = np.ascontiguousarray(_stacked_chain(tabs, "ex", NT)[:, : self.R_pad])
+        idx["ex_end"] = np.ascontiguousarray(_stacked_chain(tabs, "ex", NT, Y)[:, : self.R_pad])
         idx["ent_idx"] = np.full((NT, T), -1, np.int32)
         if self.has_entries:
             ent = flat("ent_row").astype(np.int32) * _S + flat("ent_lane").astype(np.int32)
@@ -737,8 +759,7 @@ class TilePlan:
         searched."""
         self = cls.__new__(cls)
         t0 = time.perf_counter()
-        self._geometry(cfg["shape"], device)
-        self._config(cfg)
+        self._config(cfg, device)
         self._coarse_meta = coarse_meta
         self.coarse = self._coarse_level(DfsPlan(*coarse_dfs, device=self.device), coarse_kind)
         self._down_src = None
@@ -908,16 +929,16 @@ class TilePlan:
         if data2d is not None and tuple(data2d.shape) != (H, W):
             raise ValueError(f"data2d must be of shape {(H, W)}")
         bands = [(ty0, min(ty0 + btr, nty)) for ty0 in range(0, nty, btr)]
-        dtype, acc = self._banded_dtypes(data2d, btr * _S)
+        dtype, acc = self._banded_dtypes(data2d, btr * self.Y)
         dev = self.device
 
         def band(ty0, ty1, keys):
-            r0, r1 = ty0 * _S, min(ty1 * _S, H)
+            r0, r1 = ty0 * self.Y, min(ty1 * self.Y, H)
             if data2d is None:
                 x = torch.ones((r1 - r0) * W, dtype=acc, device=dev)
             else:
                 x = _upload(data2d[r0:r1], dev).reshape(-1).to(acc)
-            t = {k: int16_table(self.idx[k][ty0 * ntx: ty1 * ntx], dev) for k in keys}
+            t = {k: tile_table(self.idx[k][ty0 * ntx: ty1 * ntx], self.Y, dev) for k in keys}
             return r0, (r1 - r0, W), x, t
 
         # each band's tensors are dropped before the next band's upload
@@ -949,11 +970,12 @@ class TilePlan:
         return entv[:n].reshape(self.NT, self.E_pad)
 
 
-def build_tile_plan(idxs_ds_np, shape, device=None) -> TilePlan:
-    """Build a :class:`TilePlan` for a raster graph on ``device``.
+def build_tile_plan(idxs_ds_np, shape, tile_rows=128, device=None) -> TilePlan:
+    """Build a :class:`TilePlan` of ``tile_rows``-row tiles (128, 256, 384 or
+    512) for a raster graph on ``device``.
 
-    Raises ValueError where the JAX package's build raises (a coarse graph
-    past ``BigAccelPlan``'s 2^28 slots, entry rows past its int8 row table);
-    the methods of :class:`pyflwdir_torch.raster.FlwdirRaster` pass the error
-    on."""
-    return TilePlan(idxs_ds_np, shape, device=device)
+    Raises ValueError where the JAX package's build raises (another
+    ``tile_rows``, a coarse graph past ``BigAccelPlan``'s 2^28 slots, entry
+    rows past its int8 row table); the methods of
+    :class:`pyflwdir_torch.raster.FlwdirRaster` pass the error on."""
+    return TilePlan(idxs_ds_np, shape, tile_rows=tile_rows, device=device)

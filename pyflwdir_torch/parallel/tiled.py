@@ -263,24 +263,23 @@ def pad_to_tiles(arr: np.ndarray, mesh: Mesh, fill):
 
 
 def build_sharded_plan(codes: np.ndarray, mesh: Mesh, tile_rows: int = 128):
-    """Build a :class:`~pyflwdir_torch.ops.tile_plan.TilePlan` on the rank's
-    device whose tile grid splits evenly over ``mesh``: the D8 ``codes``
-    padded with nodata to whole tile-row slabs per rank (rows to a multiple
-    of ``tile_rows * size``, columns to 128), as the JAX package pads them,
-    so the two build the same graph. Returns ``(plan, pshape)``, ``pshape``
-    the padded shape the plan runs on."""
+    """Build a :class:`~pyflwdir_torch.ops.tile_plan.TilePlan` of
+    ``tile_rows``-row tiles (128, 256, 384 or 512; another raises ValueError)
+    on the rank's device whose tile grid splits evenly over ``mesh``: the D8
+    ``codes`` padded with nodata to whole tile-row slabs per rank (rows to a
+    multiple of ``tile_rows * size``, columns to 128), as the JAX package pads
+    them, so the two build the same graph. Returns ``(plan, pshape)``,
+    ``pshape`` the padded shape the plan runs on."""
     from ..codecs import d8 as d8c
-    from ..ops.tile_plan import build_tile_plan
+    from ..ops.tile_plan import _tile_rows, build_tile_plan
 
-    if tile_rows != 128:
-        raise NotImplementedError(
-            f"tile plans of {tile_rows} rows: the port's tiles are 128 rows high; taller "
-            "tiles are queued for a later slice (ROADMAP Queue 1 item 2)")
+    tile_rows = _tile_rows(tile_rows)
     pr = (-codes.shape[0]) % (tile_rows * mesh.size)
     pc = (-codes.shape[1]) % 128
     codes_p = np.pad(np.asarray(codes), ((0, pr), (0, pc)), constant_values=247)
     idxs_ds = d8c.from_array(codes_p)[0]
-    return build_tile_plan(idxs_ds, codes_p.shape, device=mesh.device), codes_p.shape
+    return (build_tile_plan(idxs_ds, codes_p.shape, tile_rows=tile_rows, device=mesh.device),
+            codes_p.shape)
 
 
 # ---------------------------------------------------------------------------

@@ -1027,3 +1027,192 @@ def test_halo_functions_on_one_card(dev):
     want = tfill.fill_depressions_dev(z, nodata=-9999.0, device=dev).cpu().numpy()
     assert np.array_equal(got.astype(np.float32), want)
     assert np.allclose(got, filled)
+
+
+# ---------------------------------------------------------------------------
+# tiles of 256, 384 and 512 rows: T1-T4 as thread-block clusters of G CTAs
+# ---------------------------------------------------------------------------
+_TALL_SHAPE = (700, 400)  # 3 x 4, 2 x 4 and 2 x 4 tiles, ragged in both directions
+
+
+@pytest.fixture(scope="module", params=[256, 384, 512])
+def tall_plans(request):
+    """A 700 x 400 plan of ``tile_rows`` 256, 384 or 512 on the card (its
+    tables int16 at 256 rows, int32 above) and on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    Y = request.param
+    ids = _demo_ids(_TALL_SHAPE, seed=17, missing=True)
+    gpu = ttp.build_tile_plan(ids, _TALL_SHAPE, tile_rows=Y, device="cuda")
+    cpu = ttp.build_tile_plan(ids, _TALL_SHAPE, tile_rows=Y, device="cpu")
+    gpu._ensure_down()
+    assert gpu.has_entries and gpu.has_far
+    return ids, gpu, cpu
+
+
+def _g(name, gpu):
+    return f"{name}_g{gpu.G}"
+
+
+def _only(**want):
+    """Every launch count is ``want``'s (0 where not named)."""
+    assert all(kernels.launches[k] == want.get(k, 0) for k in kernels.launches), \
+        {k: v for k, v in kernels.launches.items() if v}
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.float64])
+def test_tall_tile_pass_a_and_c(tall_plans, dtype):
+    """T1 (fused and exits only) and T2 (fused and full) against their plain
+    versions; the cluster kernels counted apart; the fused pair and the
+    unfused pair give the same bits."""
+    ids, gpu, _ = tall_plans
+    t = gpu.idx_t
+    assert t["rin"].dtype == kernels.tile_table_dtype(gpu.Y)
+    rng = np.random.RandomState(31)
+    x = _data(rng, ids.size, dtype).to("cuda")
+    entv = _data(rng, gpu.NT * gpu.E_pad, dtype).to("cuda").reshape(gpu.NT, gpu.E_pad)
+    total = float(x.double().sum()) + float(entv.double().sum())
+    kernels.reset_launches()
+    exits, c = kernels.tile_pass_a(x, t["rin"], t["ex_end"], gpu.shape)
+    ex_only = kernels.tile_pass_a(x, t["rin"], t["ex_end"], gpu.shape, emit_c=False)
+    _only(**{_g("tile_pass_a", gpu): 1, _g("tile_pass_a_exits", gpu): 1})
+    ex_p, c_p = kernels.tile_pass_a_plain(x, t["rin"], t["ex_end"], gpu.shape)
+    _assert_match(c, c_p, total)
+    _assert_match(exits, ex_p, total)
+    assert torch.equal(exits, ex_only)
+    up = (entv, t["ent_idx"], t["near_end"], t["far_end"], t["rout"], gpu.shape)
+    kernels.reset_launches()
+    got = kernels.tile_pass_c(x, c, *up)
+    full = kernels.tile_pass_c(x, None, *up, rin=t["rin"])
+    _only(**{_g("tile_pass_c", gpu): 1, _g("tile_pass_c_full", gpu): 1})
+    _assert_match(got, kernels.tile_pass_c_plain(x, c, *up), total)
+    assert torch.equal(got, full)
+
+
+@pytest.mark.parametrize("routed", [False, True])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.float64])
+def test_tall_tile_down(tall_plans, dtype, routed):
+    """T3 (raw and routed) and T4 (fin and lite) against their plain
+    versions; lite bitwise fin on the raw pass D1."""
+    ids, gpu, _ = tall_plans
+    t, d = gpu.idx_t, gpu.down_idx_t
+    rng = np.random.RandomState(32)
+    x = _data(rng, ids.size, dtype).to("cuda")
+    A = _data(rng, gpu.NT * gpu.R_pad, dtype).to("cuda").reshape(gpu.NT, gpu.R_pad)
+    d1 = (x, t["rin"], d["es"], d["g_last"], d["g_prev"], d["n_tree"], d["ent_slot"])
+    args = (*d1, t["rout"] if routed else None, gpu.shape, routed)
+    kernels.reset_launches()
+    z, pk = kernels.tile_down_a(*args)
+    _only(**{_g("tile_down_a", gpu): 1})
+    z_p, pk_p = kernels.tile_down_a_plain(*args)
+    total = float(x.double().sum())
+    _assert_match(z, z_p, total)
+    _assert_match(pk, pk_p, total)
+    z2, pk2 = kernels.tile_down_a(*args)
+    assert torch.equal(z, z2) and torch.equal(pk, pk2)
+    if routed:
+        lite_args = (z, A, d["tree_of"], t["rout"], gpu.shape)
+        kernels.reset_launches()
+        got = kernels.tile_down_lite(*lite_args)
+        _only(**{_g("tile_down_lite", gpu): 1})
+        assert torch.equal(got, kernels.tile_down_lite_plain(*lite_args))
+        z1, _ = kernels.tile_down_a(*d1, None, gpu.shape, False)
+        assert torch.equal(got, kernels.tile_down_fin(x, z1, A, d["tree_of"], t["rout"],
+                                                      gpu.shape))
+    else:
+        fin_args = (x, z, A, d["tree_of"], t["rout"], gpu.shape)
+        kernels.reset_launches()
+        got = kernels.tile_down_fin(*fin_args)
+        _only(**{_g("tile_down_fin", gpu): 1})
+        assert torch.equal(got, kernels.tile_down_fin_plain(*fin_args))
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.float64])
+def test_tall_tile_ranges(tall_plans, dtype):
+    """The tile-range forms of T1, T2, T3 (routed) and T4 (lite and fin) on
+    ranges that start and end in the middle of a tile row: bitwise the same
+    tiles of the whole-grid call, and their plain versions."""
+    ids, gpu, _ = tall_plans
+    t, d = gpu.idx_t, gpu.down_idx_t
+    shape = gpu.shape
+    rng = np.random.RandomState(33)
+    x = _data(rng, ids.size, dtype).to("cuda")
+    entv = _data(rng, gpu.NT * gpu.E_pad, dtype).to("cuda").reshape(gpu.NT, gpu.E_pad)
+    A = _data(rng, gpu.NT * gpu.R_pad, dtype).to("cuda").reshape(gpu.NT, gpu.R_pad)
+    total = float(x.double().sum()) + float(entv.double().sum())
+    T = gpu.Y * 128
+    exits, c = kernels.tile_pass_a(x, t["rin"], t["ex_end"], shape)
+    up = (t["ent_idx"], t["near_end"], t["far_end"], t["rout"])
+    out = kernels._tiles(kernels.tile_pass_c(x, c, entv, *up, shape), shape, T)
+    d1 = (t["rin"], d["es"], d["g_last"], d["g_prev"], d["n_tree"], d["ent_slot"])
+    z1, _ = kernels.tile_down_a(x, *d1, None, shape, False)
+    abar, pk = kernels.tile_down_a(x, *d1, t["rout"], shape, True)
+    lite = kernels.tile_down_lite(abar, A, d["tree_of"], t["rout"], shape)
+    abar, lite = kernels._tiles(abar, shape, T), kernels._tiles(lite, shape, T)
+    for lo, hi in ((1, gpu.NT - 2), (gpu.grid[1] + 1, gpu.NT)):
+        s = slice(lo, hi)
+        kernels.reset_launches()
+        ex_r, c_r = kernels.tile_pass_a(x, t["rin"][s], t["ex_end"][s], shape, tile0=lo)
+        assert torch.equal(ex_r, exits[s]) and torch.equal(c_r, c[s])
+        got = kernels.tile_pass_c(x, c_r, entv[s], *(v[s] for v in up), shape, tile0=lo)
+        assert got.shape == (hi - lo, T) and torch.equal(got, out[s])
+        _assert_match(got, kernels.tile_pass_c_plain(x, c_r, entv[s], *(v[s] for v in up),
+                                                     shape, tile0=lo), total)
+        ab_r, pk_r = kernels.tile_down_a(x, *(v[s] for v in d1), t["rout"][s], shape, True,
+                                         tile0=lo)
+        assert torch.equal(ab_r, abar[s]) and torch.equal(pk_r, pk[s])
+        lite_args = (ab_r, A[s], d["tree_of"][s], t["rout"][s], shape)
+        got = kernels.tile_down_lite(*lite_args, tile0=lo)
+        _only(**{_g(k, gpu): 1 for k in ("tile_pass_a", "tile_pass_c", "tile_down_a",
+                                          "tile_down_lite")})
+        assert torch.equal(got, lite[s])
+        assert torch.equal(got, kernels.tile_down_lite_plain(*lite_args, tile0=lo))
+        assert torch.equal(got, kernels.tile_down_fin(x, z1[s], A[s], d["tree_of"][s],
+                                                      t["rout"][s], shape, tile0=lo))
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float64])
+def test_tall_plan_matches_cpu(tall_plans, dtype):
+    """``accumulate``, ``accumulate_down`` and the banded sweep of the tall
+    plan on the card against the CPU plan: the cluster kernels ran and no
+    128-row one; two float64 calls give the same bits."""
+    ids, gpu, cpu = tall_plans
+    x = _data(np.random.RandomState(34), ids.size, dtype)
+    xd = x.to("cuda")
+    total = float(x.double().sum())
+    kernels.reset_launches()
+    got = gpu.accumulate(xd)
+    assert kernels.launches[_g("tile_pass_a", gpu)] == kernels.launches[
+        _g("tile_pass_c", gpu)] == 1
+    assert not any(kernels.launches[k] for k in kernels._TILE_COUNTS)
+    assert torch.equal(got, gpu.accumulate(xd))
+    _assert_match(got.cpu(), cpu.accumulate(x), total)
+    kernels.reset_launches()
+    down = gpu.accumulate_down(xd)
+    assert kernels.launches[_g("tile_down_a", gpu)] == 1
+    assert not any(kernels.launches[k] for k in kernels._TILE_COUNTS)
+    assert torch.equal(down, gpu.accumulate_down(xd))
+    _assert_match(down.cpu(), cpu.accumulate_down(x), total)
+    fresh = ttp.build_tile_plan(ids, _TALL_SHAPE, tile_rows=gpu.Y, device="cuda")
+    x2 = x.numpy().reshape(_TALL_SHAPE)
+    kernels.reset_launches()
+    band = fresh.accumulate_banded(x2, band_tile_rows=1)
+    assert kernels.launches[_g("tile_pass_a_exits", gpu)] == gpu.grid[0]
+    assert kernels.launches[_g("tile_pass_c_full", gpu)] == gpu.grid[0]
+    assert not any(kernels.launches[k] for k in kernels._TILE_COUNTS)
+    assert np.array_equal(band.ravel(), got.cpu().numpy())
+
+
+def test_tall_wrappers_take_their_table_type_only(tall_plans):
+    """At 256 rows the cluster kernels take int16 tables, above int32; a
+    table of the other type raises TypeError, and 128-row tables of int32
+    still do."""
+    ids, gpu, _ = tall_plans
+    t = gpu.idx_t
+    x = torch.ones(ids.size, dtype=torch.int32, device="cuda")
+    other = torch.int32 if gpu.Y == 256 else torch.int16
+    with pytest.raises(TypeError):
+        kernels.tile_pass_a(x, t["rin"].to(other), t["ex_end"], gpu.shape)
+    with pytest.raises(ValueError):  # a row of 3 * 16,384 + 1 slots is no tile height
+        kernels.tile_pass_a(x, torch.zeros((gpu.NT, 3 * 16384 + 2), dtype=torch.int32,
+                                           device="cuda"), t["ex_end"], gpu.shape)

@@ -139,10 +139,22 @@ def test_not_a_plan_directory_raises(tmp_path):
 
 
 def test_jax_plan_of_256_rows_raises(tmp_path):
+    """A JAX plan of 256-row tiles loads (it raised before the port took
+    tall tiles): the height kept, the JAX plan's accumulation bitwise;
+    saved without its downward tables, ``accumulate_down`` raises."""
+    import jax
+    import jax.numpy as jnp
+
     from pyflwdir_torch.codecs import d8 as td8
 
     d8 = _demo_d8((300, 200), 3)
     ids = td8.from_array(d8, dtype=np.int64)[0]
-    jtpm.build_tile_plan(ids, d8.shape, tile_rows=256).save(tmp_path / "p", down=False)
-    with pytest.raises(NotImplementedError, match="128 rows"):
-        ttp.TilePlan.load(tmp_path / "p", device="cpu")
+    jtp = jtpm.build_tile_plan(ids, d8.shape, tile_rows=256)
+    jtp.save(tmp_path / "p", down=False)
+    tp = ttp.TilePlan.load(tmp_path / "p", device="cpu")
+    assert (tp.Y, tp.G, tp.grid) == (256, 2, jtp.grid)
+    ones = np.ones(ids.size, np.int32)
+    want = np.asarray(jax.jit(jtp.accumulate)(jnp.asarray(ones), jtp.arrays()))
+    assert np.array_equal(tp.accumulate(torch.as_tensor(ones)).numpy(), want)
+    with pytest.raises(RuntimeError, match="downward"):
+        tp.accumulate_down(torch.as_tensor(ones))

@@ -14,10 +14,14 @@ single-device ones; every dtype is bitwise equal to the port's unsharded
 sweep, on every rank; float64 stays within rtol 1e-12 plus 2 * L * eps *
 total of the JAX sweep (L the additions on the longest chain summed in
 another order: a tile's 16,384 slots and the coarse level's, twice).
+Plans of 256-row tiles, built on the grid and by ``build_sharded_plan``,
+run sharded on every world too: bitwise their unsharded sweeps, integers
+bitwise the JAX plan of 256-row tiles.
 """
 
 import multiprocessing
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -115,6 +119,20 @@ def sharded(tmp_path_factory):
                 x = torch.as_tensor(data[dt])
                 port[f"up.{g}.{dt}"] = tp.accumulate(x).numpy()
                 port[f"down.{g}.{dt}"] = tp.accumulate_down(x).numpy()
+        # the 256-row plans as each world builds them (the padded one keyed by
+        # its world size), unsharded, and the JAX plan of 256-row tiles
+        tall = {}
+        for w in WORLDS:
+            mesh_w = SimpleNamespace(size=w, device=torch.device("cpu"))
+            for kind, tp in worker.tall_plans(inputs, mesh_w).items():
+                for dt in worker.DTYPES:
+                    x = torch.as_tensor(worker.tall_data(data[dt], codes.shape, tp.shape))
+                    tall[f"{w}.{kind}.up.{dt}"] = tp.accumulate(x).numpy()
+                    tall[f"{w}.{kind}.down.{dt}"] = tp.accumulate_down(x).numpy()
+        jtall = jtpm.build_tile_plan(ids["entries"], codes.shape, tile_rows=256)
+        wj = jnp.asarray(data["int64"])
+        tall["jax.up"] = np.asarray(jax.jit(jtall.accumulate)(wj, jtall.arrays()))
+        tall["jax.down"] = np.asarray(jax.jit(jtall.accumulate_down)(wj, jtall.down_arrays()))
         jtp = jtpm.build_tile_plan(ids["entries"], codes.shape)
         mesh2 = jmake_mesh(2)
         wj, fj = jnp.asarray(data["int64"]), jnp.asarray(data["float64"])
@@ -136,7 +154,7 @@ def sharded(tmp_path_factory):
              for w, d in zip(WORLDS, out_dirs)}
     seq = runtime.dfs_preorder(ids["closed"])[0]
     return dict(ranks=ranks, port=port, jax=jax_ref, plans=plans, data=data, ids=ids,
-                codes=codes, closed_seq=seq)
+                codes=codes, closed_seq=seq, tall=tall)
 
 
 def _close64(got, want, tp, total, what):
@@ -182,6 +200,30 @@ def test_accumulate_sharded(sharded, world, grid, dt, chunks):
 @pytest.mark.parametrize("world", WORLDS)
 def test_accumulate_down_sharded(sharded, world, grid, dt):
     _check_result(sharded, world, f"down.{grid}.{dt}", f"down.{grid}.{dt}", "down", grid, dt)
+
+
+@pytest.mark.parametrize("dt", worker.DTYPES)
+@pytest.mark.parametrize("direction", ["up", "down"])
+@pytest.mark.parametrize("kind", ["direct", "padded"])
+@pytest.mark.parametrize("world", WORLDS)
+def test_tall_tiles_sharded(sharded, world, kind, direction, dt):
+    """Plans of 256-row tiles (``build_tile_plan(tile_rows=256)`` and
+    ``parallel.build_sharded_plan(tile_rows=256)``): the sharded sweeps on
+    every rank bitwise the same plan's unsharded sweep (4 ranks cut the
+    grid's plan mid tile row); integers on the grid bitwise the JAX plan of
+    256-row tiles (its sums in int64)."""
+    ranks = sharded["ranks"][world]
+    key = f"tall.{kind}.{direction}.{dt}"
+    got = ranks[0][key]
+    for r in range(1, world):
+        assert np.array_equal(ranks[r][key], got), f"rank {r} differs from rank 0"
+    want = sharded["tall"][f"{world}.{kind}.{direction}.{dt}"]
+    assert got.dtype == want.dtype == np.dtype(dt) and np.array_equal(got, want)
+    if dt != "float64":
+        H, W = sharded["codes"].shape
+        assert W % 128 == 0  # the padded plan pads rows only
+        assert np.array_equal(got.reshape(-1, W)[:H].ravel().astype(np.int64),
+                              sharded["tall"][f"jax.{direction}"])
 
 
 @pytest.mark.parametrize("world", WORLDS)
@@ -240,7 +282,9 @@ def test_entry_points_take_the_card(sharded):
     """Without a GPU, a mesh on the default device raises; on the CPU mesh
     the halo runtime runs (the JAX default ``method="coarse"`` and
     ``"iterate"`` give the plan's unit sums, ``tiled_rank`` the graph's
-    rank), and only taller tiles raise NotImplementedError."""
+    rank), and ``build_sharded_plan`` takes the JAX tile heights: at 256 rows
+    the JAX package's padding and plan, another height the JAX
+    ValueError."""
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is the card")
     with pytest.raises(RuntimeError):
@@ -254,8 +298,18 @@ def test_entry_points_take_the_card(sharded):
     for method in ("coarse", "iterate"):
         got = parallel.tiled_accumulate(codes, np.ones(codes.shape), mesh, method=method)
         assert np.array_equal(got[valid], want[valid].astype(np.float32))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        parallel.build_sharded_plan(codes, mesh, tile_rows=256)
+    from pyflwdir_tpu.parallel import build_sharded_plan as jbuild
+
+    tp, pshape = parallel.build_sharded_plan(codes, mesh, tile_rows=256)
+    jtp, jpshape = jbuild(codes, jmake_mesh(1), tile_rows=256)
+    assert tuple(pshape) == tuple(jpshape) == (512, 512) and tp.Y == jtp.Y == 256
+    for f in ("grid", "NT", "R_pad", "E_pad", "far_mode", "b"):
+        assert getattr(tp, f) == getattr(jtp, f), f
+    ones = np.ones(pshape[0] * pshape[1], np.int32)
+    want = np.asarray(jax.jit(jtp.accumulate)(jnp.asarray(ones), jtp.arrays()))
+    assert np.array_equal(tp.accumulate_sharded(torch.as_tensor(ones), mesh).numpy(), want)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        parallel.build_sharded_plan(codes, mesh, tile_rows=200)
     from pyflwdir_torch.ops import graph as tgraph
 
     assert np.array_equal(parallel.tiled_rank(codes, mesh).ravel(),

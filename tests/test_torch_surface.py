@@ -1,8 +1,8 @@
 """The port's public surface, module by module: for every module of
 ``pyflwdir_tpu`` that has a file in ``pyflwdir_torch``, the port module's
 public top-level names include the JAX module's (its ``__all__``, else the
-public functions and classes it defines). Only plans of tiles taller than
-128 rows still raise NotImplementedError, naming ROADMAP Queue 1 item 2."""
+public functions and classes it defines). Nothing in the port raises
+NotImplementedError: plans of every JAX tile height build and load."""
 
 import importlib
 import inspect
@@ -65,22 +65,36 @@ def test_public_names_include_the_jax_module(name):
 
 
 def test_only_tall_tiles_raise_not_implemented():
-    """Two sites raise NotImplementedError in the port, both for tiles other
-    than 128 rows high, both naming ROADMAP Queue 1 item 2."""
+    """No site of the port raises NotImplementedError (the last two, for
+    tiles taller than 128 rows, are gone): ``build_sharded_plan`` and a
+    plan's configuration take 128 to 512 rows, as the JAX package's do, and
+    raise its ValueError for another height."""
     from pyflwdir_torch import parallel
     from pyflwdir_torch.ops.tile_plan import TilePlan
+    from pyflwdir_tpu.ops.tile_plan import TilePlan as JTilePlan
 
     sites = []
     for f in sorted(_PORT_ROOT.rglob("*.py")):
         sites += [(f.name, m.start()) for m in re.finditer(r"raise NotImplementedError",
                                                           f.read_text())]
-    assert [s[0] for s in sites] == ["tile_plan.py", "tiled.py"], sites
+    assert sites == [], sites
     mesh = parallel.make_mesh(device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        parallel.build_sharded_plan(np.zeros((8, 8), np.uint8), mesh, tile_rows=256)
-    tp = TilePlan.__new__(TilePlan)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        tp._config({"tile_rows": 512})
+    codes = np.zeros((8, 8), np.uint8)
+    tp, pshape = parallel.build_sharded_plan(codes, mesh, tile_rows=256)
+    assert tuple(pshape) == (256, 128) and tp.Y == 256 and tp.NT == 1
+    cfg = dict(shape=(600, 300), far_mode=None, b=1, R_pad=128, E_pad=0, F_rows=0,
+               has_far=False, has_entries=False)
+    for rows in (128, 256, 384, 512):
+        tp = TilePlan.__new__(TilePlan)
+        tp._config(dict(cfg, tile_rows=rows), "cpu")
+        assert (tp.Y, tp.G, tp.grid) == (rows, rows // 128, (-(-600 // rows), 3))
+    for rows in (64, 200, 640):
+        tp = TilePlan.__new__(TilePlan)
+        with pytest.raises(ValueError, match="multiple of 128") as err:
+            tp._config(dict(cfg, tile_rows=rows), "cpu")
+        with pytest.raises(ValueError) as jerr:
+            JTilePlan(np.full(600 * 300, -1), (600, 300), tile_rows=rows)
+        assert str(err.value) == str(jerr.value)
 
 
 def test_parallel_runs_every_jax_function():

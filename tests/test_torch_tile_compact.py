@@ -1,6 +1,7 @@
 """The tile plan's per-tile tables as int16 on the device: the host tables
-(int32, and the plan files) stay as they are; ``ops.tile_plan.int16_table``
-casts each where it reaches the device and raises outside int16, for the
+(int32, and the plan files) stay as they are; ``ops.tile_plan.tile_table``
+casts each of a 128-row plan where it reaches the device and raises outside
+int16, for the
 port's build and for a JAX plan replayed (``TilePlan.from_stage_tables``)
 alike. The sweeps on ``device="cpu"`` (the kernels' plain versions) run on
 those int16 tables: integers bitwise equal to the JAX package, float64
@@ -85,7 +86,7 @@ def test_every_table_round_trips_through_int16(grid, which):
             assert dev[k].dtype == want, k
             assert np.array_equal(dev[k].numpy().astype(np.int32), v), k
             if k != "n_tree":
-                t16 = ttp.int16_table(v)
+                t16 = ttp.tile_table(v)
                 assert t16.dtype == torch.int16 and t16.shape == v.shape, k
                 assert np.array_equal(t16.numpy().astype(np.int32), v), k
     # the slabs of the sharded sweeps and the band slices are int16 too
@@ -97,12 +98,12 @@ def test_every_table_round_trips_through_int16(grid, which):
 @pytest.mark.parametrize("bad", [1 << 15, -(1 << 15) - 1, 1 << 20])
 def test_int16_table_raises_outside_int16(bad):
     a = np.arange(-1, 300, dtype=np.int32).reshape(7, 43)
-    assert torch.equal(ttp.int16_table(a), torch.as_tensor(a).to(torch.int16))
+    assert torch.equal(ttp.tile_table(a), torch.as_tensor(a).to(torch.int16))
     edge = np.array([-(1 << 15), (1 << 15) - 1], np.int32)
-    assert ttp.int16_table(edge).tolist() == edge.tolist()
+    assert ttp.tile_table(edge).tolist() == edge.tolist()
     a[3, 5] = bad
     with pytest.raises(ValueError, match="outside int16"):
-        ttp.int16_table(a)
+        ttp.tile_table(a)
 
 
 @pytest.mark.parametrize("which", ["port", "jax"])

@@ -345,8 +345,16 @@ def test_coarse_beyond_the_small_router_raises(monkeypatch):
 
 @pytest.mark.parametrize("tile_rows", [256])
 def test_jax_plans_of_other_tile_heights_do_not_load(tile_rows):
+    """JAX plans of tiles taller than 128 rows load: the replay keeps the
+    height, equals the port's own build of it and accumulates as the JAX
+    plan does (every height is held in ``tests/test_torch_tile_tall.py``)."""
     d8 = _demo_d8((300, 200), 3)
     ids = td8.from_array(d8, dtype=np.int64)[0]
     jtp = jtpm.build_tile_plan(ids, d8.shape, tile_rows=tile_rows)
-    with pytest.raises(NotImplementedError, match="128 rows"):
-        _replay(jtp)
+    rtp = _replay(jtp)
+    tp = ttp.build_tile_plan(ids, d8.shape, tile_rows=tile_rows, device="cpu")
+    assert rtp.Y == tp.Y == jtp.Y == tile_rows and rtp.grid == tp.grid == jtp.grid
+    for k in tp.idx:
+        assert np.array_equal(rtp.idx[k], tp.idx[k]), k
+    ones = np.ones(ids.size, np.int32)
+    assert np.array_equal(rtp.accumulate(torch.as_tensor(ones)).numpy(), _jax_up(jtp, ones))

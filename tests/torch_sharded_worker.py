@@ -19,6 +19,25 @@ DTYPES = ("int32", "int64", "float64")
 CHUNKS = (1, 2, 3)
 
 
+def tall_plans(inp, mesh):
+    """The plans of 256-row tiles of the "entries" grid: built on the grid
+    ("direct") and by ``parallel.build_sharded_plan`` for ``mesh``
+    ("padded"; only its size and device are read)."""
+    from pyflwdir_torch import parallel
+    from pyflwdir_torch.ops.tile_plan import build_tile_plan
+
+    shape = tuple(inp["entries.shape"])
+    return {"direct": build_tile_plan(inp["entries.ids"], shape, tile_rows=256, device="cpu"),
+            "padded": parallel.build_sharded_plan(inp["entries.codes"], mesh, tile_rows=256)[0]}
+
+
+def tall_data(x, shape, pshape):
+    """The grid's data ``x`` zero padded to the plan's shape."""
+    out = np.zeros(tuple(pshape), x.dtype)
+    out[: shape[0], : shape[1]] = x.reshape(tuple(shape))
+    return out.ravel()
+
+
 def run(rank, world, rdv, out_dir):
     torch.set_num_threads(1)
     import torch.distributed as dist
@@ -47,6 +66,14 @@ def run(rank, world, rdv, out_dir):
             res[f"down.{grid}.{dt}"] = tp.accumulate_down_sharded(x, mesh).numpy()
     res["plan"] = parallel.tiled_accumulate(inp["entries.codes"], inp["data.float32"], mesh,
                                             method="plan")
+    # tiles of 256 rows (thread-block clusters of two CTAs on the card): a
+    # plan of the grid (NT 8: on 4 ranks a slab is half a tile row) and the
+    # sharded plan, padded to whole tile-row slabs
+    for kind, tp in tall_plans(inp, mesh).items():
+        for dt in DTYPES:
+            x = torch.as_tensor(tall_data(inp[f"data.{dt}"], inp["entries.shape"], tp.shape))
+            res[f"tall.{kind}.up.{dt}"] = tp.accumulate_sharded(x, mesh).numpy()
+            res[f"tall.{kind}.down.{dt}"] = tp.accumulate_down_sharded(x, mesh).numpy()
     # a plan of 2 x 3 tiles does not split over 4 ranks
     odd = build_tile_plan(inp["odd.ids"], tuple(inp["odd.shape"]), device="cpu")
     try:

@@ -2,7 +2,8 @@
 on one NVIDIA GPU, for one or more checkouts of the repository, alternating
 in one call.
 
-    python3 bench_torch_tiles.py DIR [DIR ...] [--rounds N] [--json PATH]
+    python3 bench_torch_tiles.py DIR [DIR ...] [--rounds N] [--rows 128,512]
+                                 [--no-sharded] [--json PATH]
 
 Each DIR is the root of a checkout that holds ``pyflwdir_torch``. The DIRs
 run in the order given, ``--rounds`` times; to compare two commits give them
@@ -25,7 +26,16 @@ single calls, each between two CUDA events, so host time counts) of
 ``accumulate_sharded``, ``accumulate``, ``accumulate_down_sharded`` and
 ``accumulate_down``, and of the NCCL ``all_gather`` of the exits, of the
 entry values and of the result stack, these also before the sharded plan's
-tables reach the card (``.first.wall``).
+tables reach the card (``.first.wall``; ``--no-sharded`` leaves these out).
+
+``--rows`` names the tile heights (128 the default plan; 256, 384 and 512
+run T1-T4 as thread-block clusters of 2-4 CTAs). Each taller height builds
+its own plan of the grid (``build_tile_plan(tile_rows=)``) and times the
+same wrappers under keys prefixed ``y<rows>.``; it also reports, from the
+plan's host tables, the share of each kernel gather whose source lies in the
+chunk of the CTA that reads it (``y<rows>.own.<table>``: the tile's 128-row
+chunk of slots or cells that CTA r of the cluster holds), the rest read from
+a peer's shared memory.
 
 Prints the card, the registers and spills ``ptxas`` gave each tile kernel of
 each DIR, one JSON line per run, then each DIR's median over its runs and
@@ -138,27 +148,43 @@ def _digest(res):
     return h.hexdigest()[:16]
 
 
-def run_one(root, d8_path, reps):
-    """One run in this process, on the port of checkout ``root``."""
-    root = os.path.abspath(root)
-    sys.path.insert(0, root)
+_CHUNK = 128 * 128  # slots (cells) one CTA of a tile holds
+
+
+def _own_shares(tp):
+    """Share of each cluster gather whose source lies in the reading CTA's
+    own chunk, from the plan's host tables (entries -1 left out): T1-T3 read
+    the staged raster at ``rin`` (T1, T2 full, T3's next-slot u) and ``es``
+    (T3), T2 its prefix sums at ``near_end`` / ``far_end`` and its outputs at
+    ``rout``, T3 its sorted sums at ``g_last`` / ``g_prev``, its path sums at
+    ``rout`` (routed) and ``ent_slot``, T1 its sums at ``ex_end``. A slot
+    table's reader is the slot's chunk; ``ent_slot`` and ``ex_end`` entry j
+    is read by CTA (j / 1024) mod G."""
+    import numpy as np
+
+    G = tp.G
+    out = {}
+    for name in ("rin", "es", "g_last", "g_prev", "near_end", "far_end", "rout", "ent_slot",
+                 "ex_end"):
+        src = tp.idx if name in tp.idx else tp.down_idx
+        tab = np.asarray(src[name])
+        reader = np.arange(tab.shape[1])
+        reader = (reader // 1024) % G if name in ("ent_slot", "ex_end") else reader // _CHUNK
+        on = tab >= 0
+        hits = ((tab // _CHUNK) == reader[None, :]) & on
+        out[name] = float(hits.sum() / max(int(on.sum()), 1))
+    return out
+
+
+def _time_kernels(tp, shape, n, reps, out, prefix):
+    """Time each wrapper on the plan ``tp``'s tables, int32 and float64, into
+    ``out`` under ``prefix``."""
     import numpy as np
     import torch
 
-    import pyflwdir_torch
     from pyflwdir_torch import kernels
 
-    if not os.path.abspath(pyflwdir_torch.__file__).startswith(root + os.sep):
-        raise RuntimeError(f"imported {pyflwdir_torch.__file__}, not the port in {root}")
-    kernels.load()
-    out = dict(root=root, ptxas={k: list(v) for k, v in kernels.ptxas_report("tile_kernels")
-                                 .items()}, digest={})
-    d8 = np.load(d8_path)
-    fl = pyflwdir_torch.from_array(d8)
-    tp = fl._tile_plan()
-    tp._ensure_down()
     t, d = tp.idx_t, tp.down_idx_t
-    shape, n = tp.shape, fl.size
     rng = np.random.RandomState(SEED)
     for name, x in (("int32", torch.as_tensor(rng.randint(0, 3, n).astype(np.int32))),
                     ("float64", torch.as_tensor(rng.rand(n)))):
@@ -189,9 +215,43 @@ def run_one(root, d8_path, reps):
             "tile_down_lite.range": lambda: kernels.tile_down_lite(*l_args, tile0=0),
         }
         for k, fn in calls.items():
-            out["digest"][f"{k}.{name}"] = _digest(fn())
-            out[f"{k}.{name}_ms"] = _mean_ms(fn, reps)
-    _sharded_walls(d8, out)
+            out["digest"][f"{prefix}{k}.{name}"] = _digest(fn())
+            out[f"{prefix}{k}.{name}_ms"] = _mean_ms(fn, reps)
+
+
+def run_one(root, d8_path, reps, rows=(128,), sharded=True):
+    """One run in this process, on the port of checkout ``root``."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+
+    import pyflwdir_torch
+    from pyflwdir_torch import kernels
+
+    if not os.path.abspath(pyflwdir_torch.__file__).startswith(root + os.sep):
+        raise RuntimeError(f"imported {pyflwdir_torch.__file__}, not the port in {root}")
+    from pyflwdir_torch.ops.tile_plan import build_tile_plan
+
+    kernels.load()
+    libs = {Y: kernels._TILE_LIB[Y // 128] for Y in rows}
+    out = dict(root=root, ptxas={f"{lib}:{k}": list(v) for lib in sorted(set(libs.values()))
+                                 for k, v in kernels.ptxas_report(lib).items()}, digest={})
+    d8 = np.load(d8_path)
+    fl = pyflwdir_torch.from_array(d8)
+    for Y in rows:
+        if Y == 128:
+            tp, prefix = fl._tile_plan(), ""
+        else:
+            tp, prefix = build_tile_plan(fl.idxs_ds, fl.shape, tile_rows=Y), f"y{Y}."
+        tp._ensure_down()
+        if Y != 128:
+            out.update({f"{prefix}own.{k}": v for k, v in _own_shares(tp).items()})
+        _time_kernels(tp, tp.shape, fl.size, reps, out, prefix)
+        del tp
+        torch.cuda.empty_cache()
+    if sharded:
+        _sharded_walls(d8, out)
     return out
 
 
@@ -200,11 +260,19 @@ def main():
     ap.add_argument("dirs", nargs="+", help="checkout roots, run in this order")
     ap.add_argument("--rounds", type=int, default=1, help="times to run the list")
     ap.add_argument("--reps", type=int, default=50, help="timed calls per kernel and run")
+    ap.add_argument("--rows", default="128",
+                    help="tile heights, comma-separated (128, 256, 384, 512)")
+    ap.add_argument("--no-sharded", action="store_true",
+                    help="leave out the one-rank sharded walls")
     ap.add_argument("--json", help="also write the runs to this file")
     ap.add_argument("--one", help=argparse.SUPPRESS)  # the D8 file of one run
     args = ap.parse_args()
+    rows = tuple(int(r) for r in args.rows.split(","))
+    if any(r not in (128, 256, 384, 512) for r in rows):
+        ap.error(f"--rows: tile heights are 128, 256, 384 or 512, not {args.rows}")
     if args.one:
-        print(json.dumps(run_one(args.dirs[0], args.one, args.reps)))
+        print(json.dumps(run_one(args.dirs[0], args.one, args.reps, rows,
+                                 sharded=not args.no_sharded)))
         return 0
 
     import numpy as np
@@ -229,7 +297,8 @@ def main():
             for d in map(os.path.abspath, args.dirs):
                 res = subprocess.run(
                     [sys.executable, os.path.abspath(__file__), "--one", d8_path, "--reps",
-                     str(args.reps), d],
+                     str(args.reps), "--rows", args.rows,
+                     *(["--no-sharded"] if args.no_sharded else []), d],
                     capture_output=True, text=True, timeout=900, cwd=d,
                 )
                 if res.returncode != 0:
@@ -244,6 +313,8 @@ def main():
                               f"{ld} B spill loads")
                 runs.append(run)
                 print(json.dumps(run))
+                if args.json:  # each run as it ends: a later failure keeps it
+                    _write(args.json, dict(card=smi, runs=runs, ptxas=ptxas))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     summary = {}
@@ -256,10 +327,14 @@ def main():
     print(f"the same bits from every run and DIR: {same}")
     print(json.dumps({"card": smi, "median": summary, "same_bits": same}))
     if args.json:
-        os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
-        with open(args.json, "w") as f:
-            json.dump(dict(card=smi, runs=runs, median=summary, ptxas=ptxas), f, indent=1)
+        _write(args.json, dict(card=smi, runs=runs, median=summary, ptxas=ptxas))
     return 0
+
+
+def _write(path, obj):
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(obj, f, indent=1)
 
 
 if __name__ == "__main__":

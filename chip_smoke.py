@@ -337,8 +337,7 @@ BAND_TILE_ROWS = 8  # 47 tile rows in 6 bands
 # the tall-tile phase: tile heights, those with a kernel phase, its
 # repetitions a timing, and the band height of its banded sweeps
 TALL_ROWS = (256, 384, 512)
-TALL_KERNEL_ROWS = (256, 512)
-TALL_REPS = 10
+TALL_REPS = 6
 TALL_BAND_TILE_ROWS = 2
 _DT = {torch.int32: "int32", torch.float64: "float64"}
 
@@ -474,12 +473,13 @@ def _far_slots(t):
 
 
 def _measure(name, kern, plain, lib, n_bytes, n_ops, dtype, sums=None, reps=50,
-             plain_once=False, dev_reps=20):
+             plain_once=False, dev_reps=20, traces=2):
     """Hold one kernel against its plain version, then time it, its plain
     version and the library call. Bitwise, unless ``sums`` is ``(L,
     total)`` and the data float64: the kernel then sums L terms up to
     ``total`` in another order (:func:`_close`). ``plain_once``: the plain
-    version's time is that of the one call compared (CUDA events)."""
+    version's time is that of the one call compared (CUDA events);
+    ``traces``: the profiler traces of :func:`_device_ms`."""
     got = kern()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -506,7 +506,7 @@ def _measure(name, kern, plain, lib, n_bytes, n_ops, dtype, sums=None, reps=50,
         turns = [_time_ms(f, reps=reps, warmup=min(5, reps)) for f in (lib, kern, kern, lib)]
         ms, lib_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
     plain_ms = start.elapsed_time(end) if plain_once else _time_ms(plain, reps=reps)
-    dev_ms = _device_ms(kern, reps=dev_reps, warm=min(5, dev_reps))
+    dev_ms = _device_ms(kern, reps=dev_reps, warm=min(5, dev_reps), traces=traces)
     dev_src = "profiler"
     if dev_ms is None:  # an empty trace: back-to-back launches between two events
         dev_ms, dev_src = _events_ms(kern, 20), "cuda events over 20 launches"
@@ -667,10 +667,11 @@ def tile_kernel_phase(tp, dtype, dev, tag="", coarse=True):
 
 def _reps(tp):
     """``_measure``'s repetitions for the kernels of plan ``tp``: fewer on
-    the tall tiles' plans, whose phase times every kernel at two heights."""
+    the tall tiles' plans (one profiler trace), whose phase times every
+    kernel at three heights."""
     if tp.G == 1:
         return dict(reps=20)
-    return dict(reps=TALL_REPS, dev_reps=TALL_REPS, plain_once=True)
+    return dict(reps=TALL_REPS, dev_reps=TALL_REPS, plain_once=True, traces=1)
 
 
 def _down_data(n, dtype, dev):
@@ -1303,9 +1304,9 @@ def tall_path(fl, tp, d8, upa, seq, refs, dev):
     bitwise the 128-row plan ``tp``'s and the native sweeps'; float64 by the
     rule with the chain length at T = 128 Y, two calls the same bits; the
     launch counters zeroed before each call and read after: the cluster
-    kernels ran, no 128-row one. At 256 and 512 rows a kernel phase (every
-    mode and the tile-range forms against their plain versions), the banded
-    and the one-rank sharded sweeps on the main path; at 512 rows a saved
+    kernels ran, no 128-row one. At each height a kernel phase (every mode
+    and the tile-range forms against their plain versions), the banded and
+    the one-rank sharded sweeps on the main path; at 512 rows a saved
     plan, its ``load_plans`` into a new raster and that raster's
     ``upstream_area()``, ``stream_distance()`` and ``stream_order()``
     bitwise the 128-row results, ``build_sharded_plan(tile_rows=512)`` and
@@ -1366,16 +1367,14 @@ def tall_path(fl, tp, d8, upa, seq, refs, dev):
                "tables of T = 128 Y slots, entry cells")
 
         rows = {torch.int32: {}, torch.float64: {}}
-        kernel_phase = Y in TALL_KERNEL_ROWS
         tag = f".y{Y}"
-        if kernel_phase:
-            for dtype in (torch.int32, torch.float64):
-                print(f"  kernel phase ({_DT[dtype]}):")
-                r = rows[dtype]
-                r.update(tile_kernel_phase(ty, dtype, dev, tag, coarse=False))
-                r.update(tile_down_kernel_phase(ty, dtype, dev, tag, coarse=False))
-                r.update(banded_kernel_phase(ty, dtype, dev, tag))
-                r.update(sharded_kernel_phase(ty, dtype, dev, tag, _tall_ranges(ty)))
+        for dtype in (torch.int32, torch.float64):
+            print(f"  kernel phase ({_DT[dtype]}):")
+            r = rows[dtype]
+            r.update(tile_kernel_phase(ty, dtype, dev, tag, coarse=False))
+            r.update(tile_down_kernel_phase(ty, dtype, dev, tag, coarse=False))
+            r.update(banded_kernel_phase(ty, dtype, dev, tag))
+            r.update(sharded_kernel_phase(ty, dtype, dev, tag, _tall_ranges(ty)))
 
         print("  main path:")
         sh = ty
@@ -1397,21 +1396,20 @@ def tall_path(fl, tp, d8, upa, seq, refs, dev):
                                          {"tile_pass_a" + g: 1, "tile_pass_c" + g: 1})
             calls[f"accumulate_down {dt}"] = (lambda x=x: ty.accumulate_down(x),
                                               {"tile_down_a" + g: 1, "tile_down_fin" + g: 1})
-            if kernel_phase:
-                host = x.cpu().numpy().reshape(H, W) if dtype == torch.float64 else None
-                calls[f"accumulate_banded {dt}"] = (
-                    lambda host=host: ty.accumulate_banded(host, TALL_BAND_TILE_ROWS),
-                    {"tile_pass_a_exits" + g: nb, "tile_pass_c_full" + g: nb})
-                xs = x
-                if sh is not ty:
-                    xs = torch.zeros(sh.shape, dtype=x.dtype, device=dev)
-                    xs[:H, :W] = x.reshape(H, W)
-                    xs = xs.reshape(-1)
-                calls[f"sharded {dt}"] = (
-                    lambda xs=xs: (sh.accumulate_sharded(xs, mesh, overlap_chunks=1),
-                                   sh.accumulate_down_sharded(xs, mesh)),
-                    {"tile_pass_a" + g: 1, "tile_pass_c" + g: 1, "tile_down_a" + g: 1,
-                     "tile_down_lite" + g: 1})
+            host = x.cpu().numpy().reshape(H, W) if dtype == torch.float64 else None
+            calls[f"accumulate_banded {dt}"] = (
+                lambda host=host: ty.accumulate_banded(host, TALL_BAND_TILE_ROWS),
+                {"tile_pass_a_exits" + g: nb, "tile_pass_c_full" + g: nb})
+            xs = x
+            if sh is not ty:
+                xs = torch.zeros(sh.shape, dtype=x.dtype, device=dev)
+                xs[:H, :W] = x.reshape(H, W)
+                xs = xs.reshape(-1)
+            calls[f"sharded {dt}"] = (
+                lambda xs=xs: (sh.accumulate_sharded(xs, mesh, overlap_chunks=1),
+                               sh.accumulate_down_sharded(xs, mesh)),
+                {"tile_pass_a" + g: 1, "tile_pass_c" + g: 1, "tile_down_a" + g: 1,
+                 "tile_down_lite" + g: 1})
         res, counts = {}, {torch.int32: {}, torch.float64: {}}
         for name, (fn, want) in calls.items():
             kernels.reset_launches()
@@ -1450,26 +1448,25 @@ def tall_path(fl, tp, d8, upa, seq, refs, dev):
                "downward sweep")
         _check(torch.equal(ty.accumulate(fx), up_f) and torch.equal(ty.accumulate_down(fx), dn_f),
                f"two float64 calls ({Y} rows) give the same bits")
-        if kernel_phase:
-            for dtype, dt in ((torch.int32, "int32"), (torch.float64, "float64")):
-                b = res[f"accumulate_banded {dt}"]
-                mono = res[f"accumulate {dt}"].cpu().numpy().reshape(H, W)
-                _check(np.array_equal(b, mono.astype(b.dtype)),
-                       f"accumulate_banded ({dt}, {Y} rows, {nb} bands) bitwise accumulate")
-                su, sd = res[f"sharded {dt}"]
-                xs = ones if dt == "int32" else fx
-                if sh is not ty:
-                    xs = torch.zeros(sh.shape, dtype=xs.dtype, device=dev)
-                    xs[:H, :W] = (ones if dt == "int32" else fx).reshape(H, W)
-                    xs = xs.reshape(-1)
-                _check(torch.equal(su, sh.accumulate(xs))
-                       and torch.equal(sd, sh.accumulate_down(xs)),
-                       f"one-rank accumulate_sharded / accumulate_down_sharded ({dt}, {Y} "
-                       "rows) bitwise the same plan's unsharded sweeps")
-                if sh is not ty and dt == "int32":
-                    crop = [r.reshape(sh.shape)[:H, :W].reshape(-1) for r in (su, sd)]
-                    _check(torch.equal(crop[0], up_i) and torch.equal(crop[1], dn_i),
-                           f"... and, on the grid, the {Y}-row plan's int32 results")
+        for dtype, dt in ((torch.int32, "int32"), (torch.float64, "float64")):
+            b = res[f"accumulate_banded {dt}"]
+            mono = res[f"accumulate {dt}"].cpu().numpy().reshape(H, W)
+            _check(np.array_equal(b, mono.astype(b.dtype)),
+                   f"accumulate_banded ({dt}, {Y} rows, {nb} bands) bitwise accumulate")
+            su, sd = res[f"sharded {dt}"]
+            xs = ones if dt == "int32" else fx
+            if sh is not ty:
+                xs = torch.zeros(sh.shape, dtype=xs.dtype, device=dev)
+                xs[:H, :W] = (ones if dt == "int32" else fx).reshape(H, W)
+                xs = xs.reshape(-1)
+            _check(torch.equal(su, sh.accumulate(xs))
+                   and torch.equal(sd, sh.accumulate_down(xs)),
+                   f"one-rank accumulate_sharded / accumulate_down_sharded ({dt}, {Y} "
+                   "rows) bitwise the same plan's unsharded sweeps")
+            if sh is not ty and dt == "int32":
+                crop = [r.reshape(sh.shape)[:H, :W].reshape(-1) for r in (su, sd)]
+                _check(torch.equal(crop[0], up_i) and torch.equal(crop[1], dn_i),
+                       f"... and, on the grid, the {Y}-row plan's int32 results")
         print(f"  checks {time.perf_counter() - t0:.2f} s")
 
         times = {}
@@ -1629,8 +1626,7 @@ def _sharded_rank(rank, world, port, work_dir, device_type):
 
     cuda = device_type == "cuda"
     os.environ["LOCAL_RANK"] = str(rank)
-    parallel.init_distributed(f"localhost:{port}", world, rank, device=None if cuda else "cpu",
-                              timeout=datetime.timedelta(seconds=300))
+    parallel.init_distributed(f"localhost:{port}", world, rank, device=None if cuda else "cpu")
     mesh = parallel.make_mesh(device=None if cuda else "cpu")
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     plan_dir = os.path.join(work_dir, "plan")

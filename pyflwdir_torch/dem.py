@@ -226,7 +226,7 @@ def _headwater_first_order(rank_np):
     return np.where(valid)[0][order]
 
 
-def adjust_elevation(idxs_ds, rank, elevtn):
+def adjust_elevation(idxs_ds_np, rank_np, elevtn_np):
     """Hydrologically adjusted elevation along the streamlines (upstream
     pyflwdir ``dem.py:147-225``): from each headwater down to the first
     cell already fixed, the profile repaired at the least dig, fill or
@@ -235,8 +235,8 @@ def adjust_elevation(idxs_ds, rank, elevtn):
     array out."""
     from .runtime import adjust_elevation as _native
 
-    order = _headwater_first_order(np.asarray(rank).ravel())
-    return _native(np.asarray(idxs_ds), order, np.asarray(elevtn))
+    order = _headwater_first_order(np.asarray(rank_np).ravel())
+    return _native(np.asarray(idxs_ds_np), order, np.asarray(elevtn_np))
 
 
 def _adjust_elevation_profile(elevtn):
@@ -260,19 +260,20 @@ def _local_d4(idx0, idx_ds, ncol):
     return np.asarray([vert, horz] if dr == dc else [horz, vert])
 
 
-def dig_4connectivity(idxs_ds, rank, elevtn, shape, mask=None, nodata=-9999, dz_min=1e-3):
+def dig_4connectivity(idxs_ds_np, rank_np, elv_flat, shape, mask=None, nodata=-9999,
+                      dz_min=1e-3):
     """Dig a D4-connected channel along every diagonal D8 link (upstream
     pyflwdir ``dem.py:405-439``), up- to downstream by decreasing rank, in
     the native sweep (``runtime.dig_d4``) on the host. Numpy arrays in, a
     float64 array out."""
     from .runtime import dig_d4 as _native
 
-    order = _headwater_first_order(np.asarray(rank).ravel())
+    order = _headwater_first_order(np.asarray(rank_np).ravel())
     return _native(
-        np.asarray(idxs_ds),
+        np.asarray(idxs_ds_np),
         order,
         shape,
-        np.asarray(elevtn),
+        np.asarray(elv_flat),
         mask=None if mask is None else np.asarray(mask),
         nodata=nodata,
         dz_min=dz_min,

@@ -329,9 +329,10 @@ class Flwdir:
             max_length=max_length,
         )
 
-    def snap(self, idxs=None, mask=None, max_length=None, direction="down"):
+    def snap(self, idxs=None, mask=None, max_length=None, direction="down", **kwargs):
         """The last cell of each :meth:`path` and its length: (int64 cells,
-        float32 step counts)."""
+        float32 step counts). Other keywords (``unit=``, ...) are taken and
+        ignored, as in the JAX package."""
         return snap_walk(
             idxs,
             self._nxt(direction),

@@ -96,11 +96,18 @@ class IntervalKernels:
                    for name, arr in (("src_in", self.src_in), ("end", end),
                                      ("src_res", src_res))}
 
-    def _sweep(self, x, passthrough):
+    def arrays(self):
+        """The kernels' device tables (``src_in``, ``end``, ``src_res``), for
+        the ``arrs`` argument of ``accumulate``, as the JAX package's plans
+        hand theirs to a jitted call."""
+        return self._t
+
+    def _sweep(self, x, passthrough, arrs=None):
         """``x`` (1-D; float32, int32, int64 or float64) to its subtree sums
         in the output layout; off-tree outputs pass ``x`` through (the two
-        layouts are then one) or give 0."""
-        t = self._t
+        layouts are then one) or give 0. ``arrs``: the tables of
+        :meth:`arrays` (None: the plan's own)."""
+        t = self._t if arrs is None else arrs
         c = kernels.accel_in_scan(x, t["src_in"])
         outp = kernels.accel_near_out(c, t["end"])
         return kernels.accel_far_merge(outp, x if passthrough else None, t["src_res"])
@@ -109,7 +116,7 @@ class IntervalKernels:
 class AccelPlan(IntervalKernels):
     """Per-graph plan for router accumulation (``ok`` False: does not fit)."""
 
-    def __init__(self, dfs: DfsPlan, device=None):
+    def __init__(self, dfs: DfsPlan, idxs_ds_np, device=None):
         self.device = resolve_device(device)
         pre = dfs.preorder_np
         pos = dfs.pos_np
@@ -207,7 +214,7 @@ def build_accel_plan(idxs_ds_np, dfs: DfsPlan = None, routers=None, device=None)
     if dfs is None:
         dfs = build_plan(idxs_ds_np, device=device)
     device = device if device is not None else dfs.device
-    plan = AccelPlan(dfs, device=device)
+    plan = AccelPlan(dfs, idxs_ds_np, device=device)
     if plan.ok:
         return plan
     from .accel_big import build_big_accel_plan

@@ -135,15 +135,18 @@ class CoarseDown:
     One form for every backend: each sum has a fixed order (no atomics).
     A subclass holds the coarse DFS plan as ``dfs``."""
 
-    def build_down(self, cd, routers=None):
-        """Build the down indices from the coarse-downward arrays ``cd``
-        (``pre``, ``pos`` of the coarse DFS plan, ``e2n``, the root node of
-        each exit slot or -1, and ``wmap``, the ``out_slot`` of each node; a
-        JAX plan's ``_down["cd"]``) and, for a router coarse level loaded from
-        a JAX plan, its ``down_router_tables()``, whose chains are replayed
-        instead of sorting here."""
+    def build_down(self, dfs, routers=None):
+        """Build the down indices from the coarse DFS plan ``dfs``, as the
+        JAX call does, with the plan's own slot maps; or from the
+        coarse-downward arrays (a mapping: ``pre``, ``pos`` of the coarse DFS
+        plan, ``e2n``, the root node of each exit slot or -1, and ``wmap``,
+        the ``out_slot`` of each node; a JAX plan's ``_down["cd"]``). For a
+        router coarse level loaded from a JAX plan, ``routers`` takes its
+        ``down_router_tables()``, whose chains are replayed instead of
+        sorting here."""
         if getattr(self, "down", None) is not None:
             return
+        cd = self._down_maps(dfs) if isinstance(dfs, DfsPlan) else dfs
         pre = np.asarray(cd["pre"], np.int64)
         pos = np.asarray(cd["pos"], np.int64)
         e2n = np.asarray(cd["e2n"], np.int64)
@@ -178,10 +181,16 @@ class CoarseDown:
         self._down_t = {name: torch.as_tensor(v, device=self.dfs.device)
                         for name, v in self.down.items()}
 
-    def accumulate_down(self, pkf):
+    def down_arrays(self):
+        """The downward sweep's device tables, for the ``arrs`` argument of
+        :meth:`accumulate_down` (after :meth:`build_down`)."""
+        return self._down_t
+
+    def accumulate_down(self, pkf, arrs=None):
         """``pkf`` ((n_out,) at ``out_slot`` layout; int32, int64 or float64)
-        to the path sums at ``in_slot`` layout, one per exit slot."""
-        t = self._down_t
+        to the path sums at ``in_slot`` layout, one per exit slot. ``arrs``:
+        the tables of :meth:`down_arrays` (None: the plan's own)."""
+        t = self._down_t if arrs is None else arrs
         pkf = pkf[: t["es_in"].numel()]  # padded entries past the last real one
         cs = kernels.accel_in_scan(pkf, t["es_in"])
         ge = kernels.permute_gather(cs, t["g_last"]) - kernels.permute_gather(cs, t["g_prev"])
@@ -215,6 +224,7 @@ class RouterAccel(IntervalKernels, CoarseDown):
             in_slot = np.asarray(in_slot, dtype=np.int64)
         if out_slot is not None:
             out_slot = np.asarray(out_slot, dtype=np.int64)
+        self._slots = in_slot, out_slot
         mask_in = n_in
         if n_in is None:
             n_in = n_cells if in_slot is None else int(in_slot.max() + 1 if in_slot.size else 1)
@@ -272,20 +282,32 @@ class RouterAccel(IntervalKernels, CoarseDown):
     def _n_down(self, k):
         return self.n_pad
 
-    def accumulate(self, data):
+    def _down_maps(self, dfs):
+        """The coarse-downward arrays of :meth:`build_down` from the coarse
+        DFS plan and the slot maps (slot mode): ``e2n`` over ``n_pad`` exit
+        slots."""
+        in_slot, out_slot = self._slots
+        if in_slot is None or out_slot is None:
+            raise ValueError("the downward sweep needs a plan in slot mode")
+        e2n = np.full(self.n_pad, -1, dtype=np.int64)
+        e2n[in_slot] = np.arange(in_slot.size)
+        return {"pre": dfs.preorder_np, "pos": dfs.pos_np, "e2n": e2n, "wmap": out_slot}
+
+    def accumulate(self, data, arrs=None):
         """Flow accumulation of ``data`` (a 1-D tensor on the plan's device)
         in three kernel launches. Default mode: ``data`` (n_cells,) of any
         dtype, summed in int32, int64 or float64 (:func:`acc_dtype`) and
         returned in its own; tree cells get their subtree sum, off-tree cells
         pass through. Slot mode: ``data`` at ``in_slot`` layout in int32,
         int64 or float64 (shorter than ``n_in``: the rest reads 0), the
-        result (n_out,) at ``out_slot`` layout, 0 at slots without a value."""
+        result (n_out,) at ``out_slot`` layout, 0 at slots without a value.
+        ``arrs``: the tables of :meth:`arrays` (None: the plan's own)."""
         if self.slot_mode:
-            return self._sweep(data.contiguous(), passthrough=False)
+            return self._sweep(data.contiguous(), passthrough=False, arrs=arrs)
         if data.numel() != self.n_cells:
             raise ValueError(f"data must hold {self.n_cells} values")
         x = data.reshape(-1).to(acc_dtype(data)).contiguous()
-        return self._sweep(x, passthrough=True).to(data.dtype)
+        return self._sweep(x, passthrough=True, arrs=arrs).to(data.dtype)
 
 
 class BigAccelPlan(RouterAccel):
@@ -300,7 +322,7 @@ class BigAccelPlan(RouterAccel):
     ``G1`` agree with it; the caller hands over its real input only, and a
     slot past that reads 0. ``idxs_ds_np`` is unused, as there."""
 
-    def __init__(self, dfs: DfsPlan, idxs_ds_np=None, routers=None, in_slot=None,
+    def __init__(self, dfs: DfsPlan, idxs_ds_np, routers=None, in_slot=None,
                  out_slot=None, device=None):
         self.device = dfs.device  # the indices live where the DFS plan does
         if device is not None and resolve_device(device).type != self.device.type:

@@ -380,11 +380,11 @@ def idxs_seq(idxs_ds, idxs_pit=None):
     return cells[perm].cpu().numpy()
 
 
-def upstream_matrix(idxs_ds):
+def upstream_matrix(idxs_ds_np):
     """(n, d) int64 matrix whose row ``i`` lists the cells draining into
     ``i`` in ascending order, padded with -1; d is the largest fan-in
     (host)."""
-    ids = np.asarray(idxs_ds, dtype=np.int64)
+    ids = np.asarray(idxs_ds_np, dtype=np.int64)
     n = ids.size
     ar = np.arange(n)
     is_child = (ids >= 0) & (ids != ar)

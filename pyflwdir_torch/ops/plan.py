@@ -32,9 +32,13 @@ class DfsPlan:
     pos_np : (n,) int64 — position of each cell in preorder, -1 off-tree
     size_np : (n,) int64 — subtree size (0 off-tree)
     preorder, pos, size : the same as tensors on ``device``
+
+    ``fast`` is taken and ignored: the JAX package skips its fast-kernel
+    tables with it; here the one table of :func:`accumulate_planned_fast`,
+    ``end``, is always built.
     """
 
-    def __init__(self, preorder, pos, size, device=None):
+    def __init__(self, preorder, pos, size, fast=True, device=None):
         self.device = resolve_device(device)
         self.preorder_np = np.asarray(preorder, dtype=np.int64)
         self.pos_np = np.asarray(pos, dtype=np.int64)
@@ -46,9 +50,15 @@ class DfsPlan:
         # preorder position of each slot's interval end, k + size[pre[k]] - 1
         self.end = torch.arange(self.n_tree, device=self.device) + self.size[self.preorder] - 1
 
+    def fast(self):
+        """The device table of :func:`accumulate_planned_fast`: each preorder
+        slot's interval end (the JAX package returns its fast-kernel tables)."""
+        return self.end
 
-def build_plan(idxs_ds_np, device=None) -> DfsPlan:
-    """Build the DFS plan for a graph with the native preorder builder."""
+
+def build_plan(idxs_ds_np, fast=True, device=None) -> DfsPlan:
+    """Build the DFS plan for a graph with the native preorder builder
+    (``fast`` ignored, as in :class:`DfsPlan`)."""
     from ..runtime import dfs_preorder
 
     return DfsPlan(*dfs_preorder(np.asarray(idxs_ds_np)), device=device)

@@ -128,6 +128,18 @@ class RouterPlan:
         sigma = _chain_np(ar, G, i1, iS1, iGp, iS2, i3)
         return cls(sigma.ravel(), device=device)
 
+    @staticmethod
+    def build(sigma, device=None) -> "RouterPlan":
+        """The plan of ``sigma``, as the JAX ``RouterPlan.build`` (which
+        colors it into stage tables; here the plan holds ``sigma``)."""
+        return RouterPlan(sigma, device=device)
+
+    def inverse(self) -> "RouterPlan":
+        """The plan of the inverse permutation."""
+        inv = np.empty_like(self.sigma_np)
+        inv[self.sigma_np] = np.arange(inv.size, dtype=inv.dtype)
+        return RouterPlan(inv, device=self.device)
+
     def apply(self, x2):
         """Permute ``x2`` ((G*128, 128) float32) — kernel H0 on the GPU."""
         return kernels.permute_gather(x2, self.sigma).reshape(x2.shape)
@@ -138,17 +150,21 @@ class RouterPlan:
 
 
 class LaneGather:
-    """``out[r, j] = x2[r, idx[r, j]]`` for a fixed (R, W) lane table, the
-    counterpart of the JAX ``_ta``: the flat gather index ``r*W + idx[r, j]``
-    is computed once here and every call launches H0."""
+    """``out[r, j] = x2[r, idx[r, j]]`` for a fixed (R, W) lane table and
+    source rows of ``width`` values (None: W; at least W), the counterpart
+    of the JAX ``_ta``: the flat gather index ``r*width + idx[r, j]`` is
+    computed once here and every call launches H0."""
 
-    def __init__(self, idx):
+    def __init__(self, idx, width=None):
         idx = torch.as_tensor(idx).long()
         R, W = idx.shape
-        if bool(((idx < 0) | (idx >= W)).any()):
+        width = W if width is None else int(width)
+        if width < W:
+            raise ValueError(f"source rows of {width} values are narrower than the index")
+        if bool(((idx < 0) | (idx >= width)).any()):
             raise ValueError("lane indices must lie in [0, width)")
-        self.shape = (R, W)
-        rows = torch.arange(R, dtype=torch.int64, device=idx.device)[:, None] * W
+        self.shape = (R, width)
+        rows = torch.arange(R, dtype=torch.int64, device=idx.device)[:, None] * width
         self.src = (rows + idx).to(torch.int32).contiguous()
 
     def __call__(self, x2):

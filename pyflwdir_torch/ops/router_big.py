@@ -30,9 +30,14 @@ __all__ = ["RouterPlanBig", "lane_gather_tiled", "router_sigma"]
 _S = 128
 _CHUNK = _S * _S * _S  # elements per g1 slice, the 5-stage router's capacity
 
-#: the JAX ``lane_gather_tiled`` (a Pallas grid over row blocks of a lane
-#: gather) is one H0 launch here: :class:`pyflwdir_torch.ops.router.LaneGather`
-lane_gather_tiled = LaneGather
+
+def lane_gather_tiled(x2, idx, block_rows=256):
+    """``out[r, j] = x2[r, idx[r, j]]``, source rows at least as wide as
+    ``idx``'s (row-pair gathers), the output in ``idx``'s shape and ``x2``'s
+    dtype: one H0 launch on the card (:class:`pyflwdir_torch.ops.router.LaneGather`),
+    where the JAX function runs a Pallas grid over row blocks of
+    ``block_rows``, unused here."""
+    return LaneGather(torch.as_tensor(idx, device=x2.device), x2.shape[1])(x2)
 
 
 def _chain7_np(v, G1, st):
@@ -103,6 +108,12 @@ class RouterPlanBig:
         """Compose a JAX 7-stage plan's int8 tables into one gather index."""
         tabs = {"G1": G1, "r": (i1, i2, i3, i4, i5, i6, i7)}
         return cls(router_sigma(tabs, "r"), device=device)
+
+    @staticmethod
+    def build(sigma, device=None) -> "RouterPlanBig":
+        """The plan of ``sigma``, as the JAX ``RouterPlanBig.build`` (which
+        colors it into stage tables; here the plan holds ``sigma``)."""
+        return RouterPlanBig(sigma, device=device)
 
     def inverse(self) -> "RouterPlanBig":
         """The plan of the inverse permutation."""

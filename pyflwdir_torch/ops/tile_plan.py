@@ -553,7 +553,7 @@ class TilePlan:
                                        n_in=self.n_exit_flat)
             if small.ok:
                 return small
-        big = BigAccelPlan(dfs_c, in_slot=meta["in_slot"], out_slot=meta["out_slot"])
+        big = BigAccelPlan(dfs_c, None, in_slot=meta["in_slot"], out_slot=meta["out_slot"])
         if not big.ok:
             raise ValueError("coarse graph exceeds router capacity")
         return big
@@ -734,7 +734,7 @@ class TilePlan:
                                              coarse_meta["out_slot"],
                                              n_in=self.n_exit_flat, routers=routers)
         else:
-            self.coarse = BigAccelPlan(dfs_c, routers=routers,
+            self.coarse = BigAccelPlan(dfs_c, None, routers=routers,
                                        in_slot=coarse_meta["in_slot"],
                                        out_slot=coarse_meta["out_slot"])
         secs["coarse plan"] = time.perf_counter() - t0
@@ -787,42 +787,58 @@ class TilePlan:
     # -- execution -----------------------------------------------------------
     _acc_dtype = staticmethod(acc_dtype)
 
-    def accumulate(self, data):
+    def arrays(self):
+        """The upward sweep's per-tile device tables (``rin``, ``ex_end``,
+        ``ent_idx``, ``near_end``, ``far_end``, ``rout``), for the ``arrs``
+        argument of :meth:`accumulate`, as the JAX plan hands its tables to
+        a jitted call."""
+        return self.idx_t
+
+    def down_arrays(self):
+        """The downward sweep's per-tile device tables (``rin`` and ``rout``
+        with the down indices), for the ``darrs`` argument of
+        :meth:`accumulate_down`; builds the down indices on first use."""
+        self._ensure_down()
+        t = self.idx_t
+        return {"rin": t["rin"], "rout": t["rout"], **self.down_idx_t}
+
+    def accumulate(self, data, arrs=None):
         """Flow accumulation of ``data`` ((H*W,) tensor in raster order on
         the plan's device): tree cells get their subtree sum, missing cells
-        pass through. Returned in ``data``'s dtype."""
+        pass through. Returned in ``data``'s dtype. ``arrs``: the tables of
+        :meth:`arrays` (None: the plan's own)."""
         H, W = self.shape
         if data.numel() != H * W:
             raise ValueError(f"data must hold {H * W} values")
         x = data.reshape(-1).to(self._acc_dtype(data)).contiguous()
-        t = self.idx_t
+        t = self.idx_t if arrs is None else arrs
         exits, c = kernels.tile_pass_a(x, t["rin"], t["ex_end"], self.shape)
         entv = self.entry_grid(self.coarse.accumulate(exits.reshape(-1)))
         out = kernels.tile_pass_c(x, c, entv, t["ent_idx"], t["near_end"],
                                   t["far_end"], t["rout"], self.shape)
         return out.to(data.dtype)
 
-    def accumulate_down(self, data):
+    def accumulate_down(self, data, darrs=None):
         """Inclusive downstream-path sum of ``data`` ((H*W,) tensor in raster
         order on the plan's device): ``a[i]`` sums ``data`` over ``i``, its
         downstream cell, ..., its pit; the transpose of :meth:`accumulate`.
         Missing cells pass through. Returned in ``data``'s dtype; integers
-        are exact, and every dtype gives the same bits from run to run."""
+        are exact, and every dtype gives the same bits from run to run.
+        ``darrs``: the tables of :meth:`down_arrays` (None: the plan's own)."""
         H, W = self.shape
         if data.numel() != H * W:
             raise ValueError(f"data must hold {H * W} values")
-        self._ensure_down()
+        d = self.down_arrays() if darrs is None else darrs
         x = data.reshape(-1).to(self._acc_dtype(data)).contiguous()
-        t, d = self.idx_t, self.down_idx_t
-        d1 = (t["rin"], d["es"], d["g_last"], d["g_prev"], d["n_tree"], d["ent_slot"])
+        d1 = (d["rin"], d["es"], d["g_last"], d["g_prev"], d["n_tree"], d["ent_slot"])
         if self.has_entries and self.coarse.dfs.n_tree > 0:
             # raw D1: routing and passthrough wait for D2
             z, pk = kernels.tile_down_a(x, *d1, None, self.shape, False)
             A = self.coarse.accumulate_down(pk.reshape(-1))
             out = kernels.tile_down_fin(x, z, A.reshape(self.NT, self.R_pad),
-                                        d["tree_of"], t["rout"], self.shape)
+                                        d["tree_of"], d["rout"], self.shape)
         else:
-            out, _ = kernels.tile_down_a(x, *d1, t["rout"], self.shape, True)
+            out, _ = kernels.tile_down_a(x, *d1, d["rout"], self.shape, True)
         return out.to(data.dtype)
 
     def accumulate_sharded(self, data, mesh, overlap_chunks=2):

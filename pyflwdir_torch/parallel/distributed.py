@@ -39,11 +39,12 @@ H100_NVLINK_GBPS = 450.0
 _UP_TABLES = ("rin", "ex_end", "ent_idx", "near_end", "far_end", "rout")
 
 #: how long a rank waits for the others at start-up and in a collective
+#: (read at each :func:`init_distributed`; a caller may set it first)
 DEFAULT_TIMEOUT = datetime.timedelta(seconds=300)
 
 
 def init_distributed(coordinator_address=None, num_processes=None, process_id=None,
-                     device=None, timeout=DEFAULT_TIMEOUT):
+                     device=None):
     """Start the default process group from the arguments or the
     environment; safe to call twice. Returns True where a group runs.
 
@@ -53,7 +54,8 @@ def init_distributed(coordinator_address=None, num_processes=None, process_id=No
     ``WORLD_SIZE`` and ``RANK``. Nothing happens for one process or none.
     ``device``: ``"cpu"`` joins the ranks with gloo; else NCCL, each rank on
     the card of its local rank (``LOCAL_RANK``, or the rank modulo the
-    cards), which it makes current; with no GPU that raises."""
+    cards), which it makes current; with no GPU that raises. The ranks wait
+    for each other up to :data:`DEFAULT_TIMEOUT`."""
     if dist.is_initialized():
         return True
     if coordinator_address is None and os.environ.get("MASTER_ADDR"):
@@ -73,7 +75,7 @@ def init_distributed(coordinator_address=None, num_processes=None, process_id=No
     init = coordinator_address if "://" in coordinator_address else f"tcp://{coordinator_address}"
     dist.init_process_group("gloo" if cpu else "nccl", init_method=init,
                             world_size=int(num_processes), rank=int(process_id),
-                            timeout=timeout)
+                            timeout=DEFAULT_TIMEOUT)
     return True
 
 
@@ -88,7 +90,7 @@ def global_mesh(device=None) -> Mesh:
     n_hosts = world // per_host
     hosts = n_hosts > 1 and n_hosts * per_host == world
     shape = (n_hosts, per_host) if hosts else _grid_shape(world)
-    return Mesh(dist.group.WORLD, rank, world, shape, _rank_device(device, rank))
+    return Mesh(dist.group.WORLD, rank, world, shape, device=_rank_device(device, rank))
 
 
 def scaling_model(tp, n_devices, hbm_gbps=H100_HBM_GBPS, ici_gbps=H100_NVLINK_GBPS,

@@ -248,7 +248,7 @@ def make_mesh(n_devices: int | None = None, device=None) -> Mesh | None:
         group = dist.group.WORLD if n == world else dist.new_group(list(range(n)))
     if rank >= n:
         return None
-    return Mesh(group, rank, n, _grid_shape(n), _rank_device(device, rank))
+    return Mesh(group, rank, n, _grid_shape(n), device=_rank_device(device, rank))
 
 
 def pad_to_tiles(arr: np.ndarray, mesh: Mesh, fill):

@@ -101,11 +101,12 @@ def region_bounds(regions, transform=IDENTITY, device=None):
     return lbs, bboxs, total_bbox
 
 
-def region_outlets(regions, idxs_ds, device=None):
+def region_outlets(regions, idxs_ds, rank_np=None, device=None):
     """The outlet cells of each positive label: the region's valid cells
     whose downstream cell is a pit or lies outside the region. Runs on
     ``idxs_ds``' device where it is a tensor, else on ``device`` (None: the
-    card). Returns (labels, int64 cells), a stable sort on the label."""
+    card). Returns (labels, int64 cells), a stable sort on the label.
+    ``rank_np`` is unused, as in the JAX package."""
     if not isinstance(idxs_ds, torch.Tensor):
         idxs_ds = torch.as_tensor(np.asarray(idxs_ds, dtype=np.int64),
                                   device=resolve_device(device))

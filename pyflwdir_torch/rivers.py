@@ -85,7 +85,7 @@ def _gvf_depth_gradient(h, w, q, nman, s0, eps, g=9.81):
     return (s0 - sf) / (1.0 - fr2)
 
 
-def rivdph_gvf(idxs_ds, rank, zs, rivdph, qbankfull, rivdst, rivwth, manning,
+def rivdph_gvf(idxs_ds_np, rank_np, zs, rivdph, qbankfull, rivdst, rivwth, manning,
                min_rivslp=1e-5, min_rivdph=1, eps=1e-1, n_iter=2, n_substeps=16):
     """Gradually-varied-flow river depth (host, experimental; upstream
     pyflwdir ``rivers.py:53-101``). Each node's depth is its downstream
@@ -95,8 +95,8 @@ def rivdph_gvf(idxs_ds, rank, zs, rivdph, qbankfull, rivdst, rivwth, manning,
     Updates with |dh/dx| > 1, a negative or a non-finite depth are
     rejected; ``n_iter`` passes, the bed levels updated between them.
     Numpy float64 throughout, as the JAX package."""
-    ranks = np.asarray(rank).ravel()
-    ds = np.asarray(idxs_ds).ravel()
+    ranks = np.asarray(rank_np).ravel()
+    ds = np.asarray(idxs_ds_np).ravel()
     q = np.asarray(qbankfull, dtype=np.float64)
     w = np.asarray(rivwth, dtype=np.float64)
     x = np.asarray(rivdst, dtype=np.float64)

@@ -125,7 +125,7 @@ def test_chain_graph_falls_outside_the_slice():
     n = 400
     ids = np.minimum(np.arange(n) + 1, n - 1)
     assert not jaccel.AccelPlan(jplan.build_plan(ids, fast=False), ids).ok
-    assert not taccel.AccelPlan(tplan.build_plan(ids, device="cpu"), device="cpu").ok
+    assert not taccel.AccelPlan(tplan.build_plan(ids, device="cpu"), ids, device="cpu").ok
     tp = taccel.build_accel_plan(ids, device="cpu")
     assert isinstance(tp, BigAccelPlan) and tp.ok and tp.n_pad == 1 << 21 and tp.has_far
     jp = jaccel.build_accel_plan(ids, jplan.build_plan(ids, fast=False))

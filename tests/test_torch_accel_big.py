@@ -74,7 +74,7 @@ def test_replayed_indices_equal_the_native_ones(plans):
         assert np.array_equal(getattr(tp, k), getattr(rp, k)), k
     # tables from before r_exp existed gather the distinct ends instead
     old = {k: v for k, v in jp.router_tables().items() if k != "r_exp"}
-    op = tbig.BigAccelPlan(dfs, routers=old)
+    op = tbig.BigAccelPlan(dfs, None, routers=old)
     assert np.array_equal(op.far_end, tp.far_end)
     # a far cell reads its own interval end; off-tree cells are marked
     far = tp.far_end >= 0
@@ -162,7 +162,7 @@ def test_accumulate_checks_the_size(plans):
     n = _CHUNK + 1
     chain = tplan.build_plan(np.minimum(np.arange(n) + 1, n - 1), device="cpu")
     with pytest.raises(ValueError, match="do not fit"):
-        tbig.BigAccelPlan(chain, routers=plans["jp"].router_tables())
+        tbig.BigAccelPlan(chain, None, routers=plans["jp"].router_tables())
 
 
 def test_down_sort_sigmas_equal_the_jax_ones(plans):

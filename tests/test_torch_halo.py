@@ -1,6 +1,7 @@
 """The halo runtime of the port against the JAX package's, on the CPU:
 ``pyflwdir_torch.parallel``'s ``tiled_*`` functions over 1, 2 and 4 gloo
-ranks (meshes (1, 1), (1, 2) and (2, 2)), spawned as processes
+ranks (meshes (1, 1), (1, 2) and (2, 2); 4 in ``test_torch_halo_4.py``),
+spawned as processes
 (``tests/torch_halo_worker.py``), against the JAX functions on
 ``pyflwdir_tpu.parallel.make_mesh(k)`` of the same shape on the virtual CPU
 mesh.
@@ -38,7 +39,6 @@ from pyflwdir_tpu import parallel as jparallel
 from pyflwdir_tpu.parallel import distributed as jdist
 from tests import torch_halo_worker as worker
 
-WORLDS = (1, 2, 4)
 JOIN_S = 240  # the most a spawned world may take; it is killed past that
 _EPS = np.finfo(np.float64).eps
 
@@ -140,21 +140,32 @@ def _jax_run(inp, k):
     return out
 
 
-@pytest.fixture(scope="module")
-def halo(tmp_path_factory, d8_small):
-    """The inputs, the spawned ranks' results and the JAX references."""
-    inp = _inputs(d8_small)
-    out_dirs = [str(tmp_path_factory.mktemp(f"halo{w}")) for w in WORLDS]
-    for d in out_dirs:
-        np.savez(os.path.join(d, "inputs.npz"), **inp)
-    procs = _spawn(WORLDS, out_dirs)
-    try:
-        jax_ref = {k: _jax_run(inp, k) for k in WORLDS}  # meanwhile
-    finally:
-        _join(procs)
-    ranks = {w: [dict(np.load(os.path.join(d, f"rank{r}.npz"))) for r in range(w)]
-             for w, d in zip(WORLDS, out_dirs)}
-    return dict(inp=inp, ranks=ranks, jax=jax_ref)
+def halo_fixtures(worlds):
+    """The module fixtures ``halo`` (the inputs, the spawned ranks' results
+    and the JAX references of the world sizes ``worlds``) and ``world`` (each
+    of them). World sizes 1 and 2 run here, 4 in ``test_torch_halo_4.py``:
+    parallel workers share them out."""
+
+    def halo(tmp_path_factory, d8_small):
+        inp = _inputs(d8_small)
+        out_dirs = [str(tmp_path_factory.mktemp(f"halo{w}")) for w in worlds]
+        for d in out_dirs:
+            np.savez(os.path.join(d, "inputs.npz"), **inp)
+        procs = _spawn(worlds, out_dirs)
+        try:
+            jax_ref = {k: _jax_run(inp, k) for k in worlds}  # meanwhile
+        finally:
+            _join(procs)
+        ranks = {w: [dict(np.load(os.path.join(d, f"rank{r}.npz"))) for r in range(w)]
+                 for w, d in zip(worlds, out_dirs)}
+        return dict(inp=inp, ranks=ranks, jax=jax_ref)
+
+    return (pytest.fixture(scope="module", name="halo")(halo),
+            pytest.fixture(scope="module", name="world", params=worlds)(
+                lambda request: request.param))
+
+
+halo, world = halo_fixtures((1, 2))
 
 
 CASES = sorted(worker.cases(parallel, collections.defaultdict(type(None))))
@@ -173,7 +184,6 @@ def _got(halo, world, case):
 
 
 @pytest.mark.parametrize("case", CASES)
-@pytest.mark.parametrize("world", WORLDS)
 def test_halo_matches_jax(halo, world, case):
     got, raised = _got(halo, world, case)
     jx = halo["jax"][world]
@@ -193,7 +203,6 @@ def test_halo_matches_jax(halo, world, case):
         assert np.array_equal(got, want)
 
 
-@pytest.mark.parametrize("world", WORLDS)
 def test_guards_fire_where_the_jax_ones_do(halo, world):
     """The serpentine needs many rounds across a column split: with
     ``max_rounds=2`` the guards raise on meshes that split it, as the JAX
@@ -207,7 +216,6 @@ def test_guards_fire_where_the_jax_ones_do(halo, world):
     assert np.array_equal(rank.ravel(), tgraph.rank(torch.as_tensor(ids)).numpy())
 
 
-@pytest.mark.parametrize("world", WORLDS)
 def test_exit_slot_overflow_raises(halo, world):
     """A block with more exit cells than slots raises on every rank (one rank
     has no exit cells)."""
@@ -219,7 +227,6 @@ def test_exit_slot_overflow_raises(halo, world):
 
 
 @pytest.mark.parametrize("data", worker.ACC_DATA)
-@pytest.mark.parametrize("world", WORLDS)
 def test_accumulate_rules(halo, world, data):
     """Coarse within a float32 ulp of iterate (bitwise on integer data), and
     both within the float32 rounding of the port's float64 accumulation."""
@@ -241,7 +248,6 @@ def test_accumulate_rules(halo, world, data):
         assert np.array_equal(coarse, want.astype(np.float32))
 
 
-@pytest.mark.parametrize("world", WORLDS)
 def test_fill_matches_host(halo, world):
     """The JAX test's rules: the fill within allclose of the host priority
     flood; the capped fills within atol 1e-6 of ``fill_depressions_dev``."""
@@ -257,7 +263,6 @@ def test_fill_matches_host(halo, world):
     assert int(halo["ranks"][world][0]["fill.depth.rounds"]) >= 1
 
 
-@pytest.mark.parametrize("world", WORLDS)
 def test_strahler_matches_native(halo, world):
     """Strahler order against the native sequential sweep, as the JAX test
     holds it; masked: inside the mask, 0 outside."""
@@ -276,7 +281,6 @@ def test_strahler_matches_native(halo, world):
     assert int(halo["ranks"][world][0]["rounds.strahler"]) >= int(got.max()) - 1
 
 
-@pytest.mark.parametrize("world", WORLDS)
 def test_mesh_layout(halo, world):
     shapes = {1: (1, 1), 2: (1, 2), 4: (2, 2)}
     for res in halo["ranks"][world]:

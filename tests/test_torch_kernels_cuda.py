@@ -1216,3 +1216,112 @@ def test_tall_wrappers_take_their_table_type_only(tall_plans):
     with pytest.raises(ValueError):  # a row of 3 * 16,384 + 1 slots is no tile height
         kernels.tile_pass_a(x, torch.zeros((gpu.NT, 3 * 16384 + 2), dtype=torch.int32,
                                            device="cuda"), t["ex_end"], gpu.shape)
+
+
+def _tall_edge_tables(Y, E, seed, dev):
+    """Synthetic tables of every tile kernel for the tiles of ``_EDGE_SHAPE``
+    at ``Y`` rows (T = 128 Y slots a tile; int16 at 256 rows, int32 above):
+    rin and es random permutations of a tile, so that about (G - 1) / G of
+    every gather reads a peer CTA's shared memory; the other slot tables -1
+    or a random slot, ent_idx -1 or an entry rank below E; n_tree 0 in the
+    first tile, T in the second (entry ranks below 2^15 in int16 tables)."""
+    H, W = _EDGE_SHAPE
+    T = Y * 128
+    ntx = -(-W // 128)
+    NT = -(-H // Y) * ntx
+    rng = np.random.RandomState(seed)
+
+    def perm():
+        return np.stack([rng.permutation(T) for _ in range(NT)])
+
+    def idx(hi, shape=(NT, T), p_neg=0.3):
+        a = rng.randint(0, max(hi, 1), shape)
+        return np.where((rng.rand(*shape) < p_neg) | (hi == 0), -1, a)
+
+    l = np.arange(T)
+    t = np.arange(NT)[:, None]
+    past = ((t // ntx) * Y + l // 128 >= H) | ((t % ntx) * 128 + l % 128 >= W)
+    tabs = dict(rin=perm(), es=perm(), rout=np.where(past, -1, idx(T)), near_end=idx(T),
+                far_end=idx(T, p_neg=0.8), ent_idx=idx(min(E, 1 << 15) if Y == 256 else E),
+                g_last=idx(T), g_prev=idx(T), ent_slot=idx(T, (NT, E), 0.2),
+                ex_end=idx(T, (NT, 128), 0),
+                tree_of=idx(300))
+    dt = kernels.tile_table_dtype(Y)
+    tabs = {k: torch.as_tensor(v, device=dev).to(dt) for k, v in tabs.items()}
+    n_tree = rng.randint(0, T + 1, NT)
+    n_tree[:2] = 0, T
+    tabs["n_tree"] = torch.as_tensor(n_tree.astype(np.int32), device=dev)
+    return tabs
+
+
+def _max_entries(Y, dtype):
+    """The most entries a tile of the cluster kernels' T2 takes (each CTA
+    scans all of them beside its 16,384-slot chunk)."""
+    esize = torch.empty((), dtype=dtype).element_size()
+    lib = kernels.load()[kernels._TILE_LIB[Y // 128]]
+    return lib.pf_tile_max_smem() // esize - 128 * 128
+
+
+@pytest.mark.parametrize("E", [0, 300, "max"])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.float64])
+@pytest.mark.parametrize("Y", [256, 384, 512])
+def test_tall_remote_gathers(dev, Y, dtype, E):
+    """Every T2 and T3 form of the cluster kernels on random tables, whose
+    gathers lie mostly in a peer CTA's chunk, with no entries, some, and the
+    most T2's shared memory takes (one more raises): bitwise the plain
+    versions (integer-valued data, exact in every order), whole grid and on
+    a tile range; T3 twice the same bits."""
+    E = _max_entries(Y, dtype) if E == "max" else E
+    t = _tall_edge_tables(Y, E, 41, dev)
+    H, W = shape = _EDGE_SHAPE
+    rng = np.random.RandomState(42)
+    NT, T = t["rin"].shape
+    x = _edge_data(rng, H * W, dtype, dev)
+    c = _edge_data(rng, NT * T, dtype, dev).reshape(NT, T)
+    entv = _edge_data(rng, NT * E, dtype, dev).reshape(NT, E)
+    up = (t["ent_idx"], t["near_end"], t["far_end"], t["rout"])
+    G = Y // 128
+    kernels.reset_launches()
+    fused = kernels.tile_pass_c(x, c, entv, *up, shape)
+    full = kernels.tile_pass_c(x, None, entv, *up, shape, rin=t["rin"])
+    assert kernels.launches[f"tile_pass_c_g{G}"] == kernels.launches[f"tile_pass_c_full_g{G}"] == 1
+    torch.cuda.synchronize()
+    assert torch.equal(fused, kernels.tile_pass_c_plain(x, c, entv, *up, shape))
+    assert torch.equal(full, kernels.tile_pass_c_plain(x, None, entv, *up, shape, rin=t["rin"]))
+    lo, hi = 1, NT - 1
+    s = slice(lo, hi)
+    got = kernels.tile_pass_c(x, c[s], entv[s], *(v[s] for v in up), shape, tile0=lo)
+    assert torch.equal(got, kernels._tiles(fused, shape, T)[s])
+    d1 = (x, t["rin"], t["es"], t["g_last"], t["g_prev"], t["n_tree"], t["ent_slot"])
+    for routed in (False, True):
+        args = (*d1, t["rout"] if routed else None, shape, routed)
+        got = kernels.tile_down_a(*args)
+        for g, w in zip(got, kernels.tile_down_a_plain(*args)):
+            assert torch.equal(g, w)
+        again = kernels.tile_down_a(*args)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+    args = (x, *(v[s] for v in d1[1:]), t["rout"][s], shape, True)
+    for g, w in zip(kernels.tile_down_a(*args, tile0=lo),
+                    kernels.tile_down_a_plain(*args, tile0=lo)):
+        assert torch.equal(g, w)
+    if E and E == _max_entries(Y, dtype):
+        entv = _edge_data(rng, NT * (E + 1), dtype, dev).reshape(NT, E + 1)
+        with pytest.raises(ValueError, match="shared"):
+            kernels.tile_pass_c(x, c, entv, *up, shape)
+
+
+@pytest.mark.parametrize("Y", [256, 384, 512])
+def test_tall_float64_down_same_bits(dev, Y):
+    """T3 raw and routed in float64 on random (non-integer) data and the
+    random tables: two calls give the same bits, within the rule of the
+    plain version."""
+    t = _tall_edge_tables(Y, 300, 43, dev)
+    H, W = shape = _EDGE_SHAPE
+    x = torch.as_tensor(np.random.RandomState(44).rand(H * W), device=dev)
+    d1 = (x, t["rin"], t["es"], t["g_last"], t["g_prev"], t["n_tree"], t["ent_slot"])
+    for routed in (False, True):
+        args = (*d1, t["rout"] if routed else None, shape, routed)
+        a, b = kernels.tile_down_a(*args), kernels.tile_down_a(*args)
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
+        for g, w in zip(a, kernels.tile_down_a_plain(*args)):
+            _assert_match(g, w, float(x.sum()), length=2 * Y * 128)

@@ -1,6 +1,7 @@
 """The port's banded sweep, ``TilePlan.accumulate_banded``, against the JAX
 package's, on the CPU (the kernels' plain versions; the JAX plan through its
-vmap path, ``_pass_a_tiles`` and ``_pass_c_tiles`` off the TPU).
+vmap path, ``_pass_a_tiles`` and ``_pass_c_tiles`` off the TPU, each band's
+pass compiled by ``jax.jit``).
 
 Integers bitwise equal to the JAX banded sweep and to the port's monolithic
 ``accumulate``, for one, two and all tile rows a band, with and without
@@ -25,7 +26,7 @@ from pyflwdir_torch.codecs import d8 as td8
 from pyflwdir_torch.ops import tile_plan as ttp
 from pyflwdir_tpu.ops import plan as jplan
 from pyflwdir_tpu.ops import tile_plan as jtpm
-from tests.test_torch_tile_plan import _demo_d8, _Thresholds
+from tests.test_torch_tile_plan import _demo_d8, _jit_banded, _Thresholds
 
 _EPS = np.finfo(np.float64).eps
 
@@ -37,8 +38,7 @@ _GRIDS = {
 }
 
 
-@pytest.fixture(scope="module", params=list(_GRIDS))
-def plans(request):
+def _plans(request):
     make, router_min, small_max, coarse_kind = _GRIDS[request.param]
     d8 = make()
     ids = td8.from_array(d8, dtype=np.int64)[0]
@@ -46,8 +46,19 @@ def plans(request):
         jtp = jtpm.build_tile_plan(ids, d8.shape)
         tp = ttp.build_tile_plan(ids, d8.shape, device="cpu")
     assert type(jtp.coarse).__name__ == type(tp.coarse).__name__ == coarse_kind
-    return dict(ids=ids, shape=d8.shape, jtp=jtp, tp=tp, jax_banded={},
+    return dict(ids=ids, shape=d8.shape, jtp=_jit_banded(jtp), tp=tp, jax_banded={},
                 thresholds=(router_min, small_max))
+
+
+def plans_fixture(grids):
+    """The module fixture ``plans`` over ``grids`` (names of ``_GRIDS``),
+    built once a module: the gather level here, the router coarse levels in
+    ``test_torch_tile_banded_router.py``, so that parallel workers share
+    them out."""
+    return pytest.fixture(scope="module", name="plans", params=list(grids))(_plans)
+
+
+plans = plans_fixture(("300x260",))
 
 
 def _data(kind, shape):

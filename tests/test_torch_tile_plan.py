@@ -36,6 +36,11 @@ from pyflwdir_tpu.ops import accel_big as jbig
 from pyflwdir_tpu.ops import plan as jplan
 from pyflwdir_tpu.ops import tile_plan as jtpm
 
+# the suite runs in several worker processes at once (pytest-xdist), each
+# collecting every module: torch's thread pool in each of them only
+# contends for the same cores
+torch.set_num_threads(1)
+
 _EPS = np.finfo(np.float64).eps
 
 
@@ -76,6 +81,31 @@ def _jax_up(jtp, x):
     return np.asarray(jax.jit(jtp.accumulate)(jnp.asarray(x), jtp.arrays()))
 
 
+def _jit_banded(jtp):
+    """Compile the JAX plan's banded sweep, ``accumulate_banded``, pass by
+    pass with ``jax.jit``: its per-band passes (``_pass_a_tiles``,
+    ``_pass_c_tiles``, one program for each ``cfg``) and its coarse level's
+    ``accumulate``. The same functions on the same arrays; called eagerly,
+    each of their operations compiles apart, ten times slower on the CPU."""
+    cache = {}
+
+    def jitted(name):
+        f = getattr(type(jtp), name)
+
+        def call(*args):
+            cfg = args[-1]
+            key = (name, tuple(sorted((k, repr(v)) for k, v in cfg.items())))
+            if key not in cache:
+                cache[key] = jax.jit(lambda *a: f(jtp, *a, cfg))
+            return cache[key](*args[:-1])
+        return call
+
+    jtp._pass_a_tiles = jitted("_pass_a_tiles")
+    jtp._pass_c_tiles = jitted("_pass_c_tiles")
+    jtp.coarse.accumulate = jax.jit(jtp.coarse.accumulate)
+    return jtp
+
+
 class _Thresholds:
     """Both packages' coarse backend thresholds, patched alike and restored."""
 
@@ -105,8 +135,7 @@ _GRIDS = {
 }
 
 
-@pytest.fixture(scope="module", params=list(_GRIDS))
-def plans(request):
+def _plans(request):
     make, router_min, small_max, coarse_kind, far_mode = _GRIDS[request.param]
     d8 = make()
     ids = td8.from_array(d8, dtype=np.int64)[0]
@@ -116,6 +145,17 @@ def plans(request):
     assert type(jtp.coarse).__name__ == type(tp.coarse).__name__ == coarse_kind
     assert jtp.far_mode == tp.far_mode == far_mode
     return dict(ids=ids, shape=d8.shape, jtp=jtp, tp=tp, rtp=_replay(jtp))
+
+
+def plans_fixture(grids):
+    """The module fixture ``plans`` over ``grids`` (names of ``_GRIDS``),
+    each built in both packages once a module: the gather-level grids here,
+    the router coarse levels in ``test_torch_tile_plan_router.py``, so that
+    parallel workers share them out."""
+    return pytest.fixture(scope="module", name="plans", params=list(grids))(_plans)
+
+
+plans = plans_fixture(("300x200", "serpentine"))
 
 
 def _jax_unfused(jtp, x):

@@ -2,9 +2,10 @@
 128 G rows, G 2 to 4) against the JAX package's, on the CPU (the kernels'
 plain versions).
 
-Grids, each at the three heights: a filled demo D8 of 600 x 300 with
-missing cells and entry cells (6 to 9 tiles, padding; the gather coarse
-level); a serpentine chain of 2 Y x 128 (the packed far mode); the demo
+Grids, each at the three heights (a module each: 256 rows here, 384 and
+512 in ``test_torch_tile_tall_384.py`` and ``_512.py``): a filled demo D8
+of 600 x 300 with missing cells and entry cells (6 to 9 tiles, padding;
+the gather coarse level); a serpentine chain of 2 Y x 128 (the packed far mode); the demo
 grid with ``_COARSE_ROUTER_MIN`` lowered in both packages (the single-chunk
 router coarse level). Held:
 
@@ -29,8 +30,8 @@ router coarse level). Held:
   ValueError.
 
 The JAX sweeps run under ``jax.jit`` with the plan's arrays as arguments
-(called eagerly, each operation compiles apart); each plan is built once a
-module.
+(called eagerly, each operation compiles apart), the banded one pass by
+pass; each plan is built once a module.
 """
 
 import numpy as np
@@ -48,7 +49,7 @@ from pyflwdir_torch.ops import plan as tplan
 from pyflwdir_torch.ops import plan_io
 from pyflwdir_torch.ops import tile_plan as ttp
 from pyflwdir_tpu.ops import tile_plan as jtpm
-from tests.test_torch_tile_plan import _demo_d8, _serpentine, _Thresholds
+from tests.test_torch_tile_plan import _demo_d8, _jit_banded, _serpentine, _Thresholds
 
 _EPS = np.finfo(np.float64).eps
 HEIGHTS = (256, 384, 512)
@@ -79,9 +80,7 @@ def _replay(jtp):
         routers=jtp.coarse.router_tables() if router else None, down=down, device="cpu")
 
 
-@pytest.fixture(scope="module", params=[(k, Y) for k in _KINDS for Y in HEIGHTS],
-                ids=[f"{k}-{Y}" for k in _KINDS for Y in HEIGHTS])
-def plans(request):
+def _plans(request):
     kind, Y = request.param
     make, router_min, coarse_kind, far_mode = _KINDS[kind]
     d8 = make(Y)
@@ -92,7 +91,21 @@ def plans(request):
     assert type(jtp.coarse).__name__ == type(tp.coarse).__name__ == coarse_kind
     assert jtp.far_mode == tp.far_mode == far_mode
     seq = runtime.dfs_preorder(ids)[0]  # downstream cells before upstream ones
-    return dict(kind=kind, Y=Y, d8=d8, ids=ids, jtp=jtp, tp=tp, rtp=_replay(jtp), seq=seq)
+    return dict(kind=kind, Y=Y, d8=d8, ids=ids, jtp=_jit_banded(jtp), tp=tp, rtp=_replay(jtp),
+                seq=seq)
+
+
+def plans_fixture(heights):
+    """The module fixture ``plans``: each kind's grid at each of ``heights``,
+    built in both packages once a module. Each tile height's plan tests run
+    in a module of their own (here 256 rows; ``test_torch_tile_tall_384.py``
+    and ``_512.py``), so that parallel workers share them out."""
+    return pytest.fixture(scope="module", name="plans",
+                          params=[(k, Y) for k in _KINDS for Y in heights],
+                          ids=[f"{k}-{Y}" for k in _KINDS for Y in heights])(_plans)
+
+
+plans = plans_fixture((256,))
 
 
 def _jax_up(jtp, x):

@@ -1617,8 +1617,6 @@ def _sharded_rank(rank, world, port, work_dir, device_type):
     the plan rank 0 built and saved (memory-mapped), runs both sharded
     sweeps in int32 and float64 against the unsharded ones on its own
     device, times them, and writes ``rank<r>.json`` into ``work_dir``."""
-    import datetime
-
     import torch.distributed as dist
 
     from pyflwdir_torch import kernels, parallel

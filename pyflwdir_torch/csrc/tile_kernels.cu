@@ -244,6 +244,22 @@ __device__ __forceinline__ T ranks_sum(T* v, int q0, int q1) {
   return s;
 }
 
+// copy the kSlots values at src in the shared memory of the tile's CTA q
+// (src names the place in this CTA's own layout) to dst in this CTA's, 16
+// bytes a load, every load of a thread issued before its stores
+template <typename T>
+__device__ __forceinline__ void copy_chunk_from(const T* src, int q, T* dst) {
+  constexpr int kVec = kSlots * static_cast<int>(sizeof(T)) / 16 / kTileThreads;
+  const int4* from = reinterpret_cast<const int4*>(
+      cg::this_cluster().map_shared_rank(const_cast<T*>(src), q));
+  int4* to = reinterpret_cast<int4*>(dst);
+  int4 v[kVec];
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) v[i] = from[threadIdx.x + i * kTileThreads];
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) to[threadIdx.x + i * kTileThreads] = v[i];
+}
+
 // where a CTA's work lies: its tile t of the call, the tile's first raster
 // row y0, its own first row r0 and column c0, and the offset tb of its chunk
 // in the tables' (and a stack's) rows
@@ -720,6 +736,15 @@ __global__ void __launch_bounds__(kTileThreads, sizeof(T) == 4 ? 2 : 1)
 // owners (the cells of the tile's slots, the sorted run bounds, the next
 // chunk's first u, the entry slots and the routed cells), the prefix scan
 // adds the lower ranks' totals and the suffix scan the higher ranks'.
+// Tiles of two CTAs in 4-byte values (kBulk) hold the whole tile in each
+// CTA instead: both stage all 256 rows of x (128 KB; the peer's rows come
+// from L2), so every x gather is local; each writes its chunk of cs over
+// its own rows, and after one cluster barrier copies the peer's chunk in,
+// 16 bytes a load, adding the lower chunk's total on read; z goes to a
+// third buffer, which peers read where a slot lies in its chunk (copying
+// the peer's z chunk in, as cs, was slower: PERF.md §6). Three cluster
+// barriers instead of six; integer sums are exact in any order, so the
+// bits are the same.
 // ---------------------------------------------------------------------------
 template <typename T, bool kRouted, bool kStack>
 __global__ void __launch_bounds__(kTileThreads, 1)
@@ -733,15 +758,17 @@ __global__ void __launch_bounds__(kTileThreads, 1)
                        const Idx* __restrict__ ent_slot, int E,
                        const Idx* __restrict__ rout, T* __restrict__ z,
                        T* __restrict__ pk) {
-  constexpr bool kKeep = sizeof(T) == 4;  // the staged tile stays beside cs
+  // two CTAs in 4-byte values: the whole tile in each CTA (xs: x, then cs;
+  // zb: this chunk's z)
+  constexpr bool kBulk = kG == 2 && sizeof(T) == 4;
+  constexpr bool kKeep = sizeof(T) == 4 && !kBulk;  // the staged tile stays beside cs
   constexpr int kPairs = kPerThread / 2;
   // 8-byte values: the u values of chunks k < kStash wait in shared memory
-  // beside cs, the others in registers
-  constexpr int kStash = kKeep ? 0 : kDownStash;
+  // beside cs, the others in registers (all of them in kBulk)
+  constexpr int kStash = sizeof(T) == 4 ? 0 : kDownStash;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* xs = reinterpret_cast<T*>(smem_raw);
-  T* cs = kKeep ? xs + kSlots : xs;
-  Two<T>* cs2 = reinterpret_cast<Two<T>*>(cs);
+  T* zb = xs + kG * kSlots;  // kBulk only
   Two<T>* us2 = reinterpret_cast<Two<T>*>(xs + kSlots);  // the stashed u values
   __shared__ T warp_tot[kWarps];
   __shared__ T warp_suf[kWarps];
@@ -757,9 +784,26 @@ __global__ void __launch_bounds__(kTileThreads, 1)
   const Word* gl2 = words(g_last + tb);
   const Word* gp2 = words(g_prev + tb);
   const Word* rin2 = words(rin + tb);
+  T* cs = kKeep ? xs + kSlots : (kBulk ? xs + s0 : xs);
+  Two<T>* cs2 = reinterpret_cast<Two<T>*>(cs);
+  // x at cell i of the tile
+  auto x_at = [&](int i) -> T {
+    if constexpr (kBulk) {
+      return xs[i];
+    } else {
+      return tile_elem(xs, i);
+    }
+  };
 
-  stage_tile(x, H, W, tp.r0, tp.c0, xs);
-  tile_sync();  // the whole tile is staged
+  if constexpr (kBulk) {
+    for (int l = threadIdx.x; l < kG * kSlots; l += kTileThreads) {
+      xs[l] = tile_cell(x, H, W, tp.y0, tp.c0, l);
+    }
+    __syncthreads();
+  } else {
+    stage_tile(x, H, W, tp.r0, tp.c0, xs);
+    tile_sync();  // the whole tile is staged
+  }
 
   // u at slots 2p + 1 and 2p + 2 (0 past the tree), from the staged tile;
   // the cell of slot 2p + 2 is the next pair's first: the next lane's, or
@@ -769,8 +813,8 @@ __global__ void __launch_bounds__(kTileThreads, 1)
     const Word w = rin2[p];
     Word nx = word_down(w, 1);
     if (lane == 31) nx = s0 + 2 * p + 2 < nt ? rin2[p + 1] : Word{};
-    u1 = s0 + 2 * p + 1 < nt ? tile_elem(xs, hi16(w)) : T(0);
-    u2 = s0 + 2 * p + 2 < nt ? tile_elem(xs, lo16(nx)) : T(0);
+    u1 = s0 + 2 * p + 1 < nt ? x_at(hi16(w)) : T(0);
+    u2 = s0 + 2 * p + 2 < nt ? x_at(lo16(nx)) : T(0);
   };
   T un1[kPairs - kStash], un2[kPairs - kStash];
   if constexpr (!kKeep) {
@@ -794,8 +838,8 @@ __global__ void __launch_bounds__(kTileThreads, 1)
   for (int k = 0; k < kPairs; ++k) {
     const int p = p0 + 32 * k;
     const Word w = es2[p];
-    const T a0 = s0 + 2 * p < nt ? tile_elem(xs, lo16(w)) : T(0);
-    const T a1 = s0 + 2 * p + 1 < nt ? tile_elem(xs, hi16(w)) : T(0);
+    const T a0 = s0 + 2 * p < nt ? x_at(lo16(w)) : T(0);
+    const T a1 = s0 + 2 * p + 1 < nt ? x_at(hi16(w)) : T(0);
     const T b = a0 + a1;
     const T B = warp_inclusive_scan(b, lane);
     const T ex = shfl_up(B, 1);
@@ -810,7 +854,7 @@ __global__ void __launch_bounds__(kTileThreads, 1)
   __syncthreads();
   {
     T off = warp > 0 ? warp_tot[warp - 1] : T(0);
-    if constexpr (kG > 1) {
+    if constexpr (kG > 1 && !kBulk) {
       // every CTA's reads of the staged tile for the sorted values are done
       // (in 8-byte values cs overwrites it); add the lower ranks' totals
       tile_sync();
@@ -820,6 +864,21 @@ __global__ void __launch_bounds__(kTileThreads, 1)
     for (int k = 0; k < kPairs; ++k) cs2[p0 + 32 * k] = Two<T>{v0[k] + off, v1[k] + off};
   }
   tile_sync();  // cs is whole in every CTA of the tile
+  // kBulk: the chunks of cs without the lower chunk's total, which the
+  // upper chunk's reads add
+  T cs_off1 = T(0);
+  if constexpr (kBulk) {
+    cs_off1 = *cg::this_cluster().map_shared_rank(&warp_tot[kWarps - 1], 0);
+    copy_chunk_from(xs + (1 - tp.rank) * kSlots, 1 - tp.rank, xs + (1 - tp.rank) * kSlots);
+    __syncthreads();
+  }
+  auto cs_at = [&](int i) -> T {
+    if constexpr (kBulk) {
+      return xs[i] + ((i >> kChunkBits) ? cs_off1 : T(0));
+    } else {
+      return tile_elem(cs, i);
+    }
+  };
 
   // per-end group sums minus the next slot's value
 #pragma unroll
@@ -829,12 +888,12 @@ __global__ void __launch_bounds__(kTileThreads, 1)
     const int l0 = lo16(wl), l1 = hi16(wl), q0 = lo16(wp), q1 = hi16(wp);
     T g0 = T(0), g1 = T(0);
     if (l0 >= 0) {
-      g0 = tile_elem(cs, l0);
-      if (q0 >= 0) g0 -= tile_elem(cs, q0);
+      g0 = cs_at(l0);
+      if (q0 >= 0) g0 -= cs_at(q0);
     }
     if (l1 >= 0) {
-      g1 = tile_elem(cs, l1);
-      if (q1 >= 0) g1 -= tile_elem(cs, q1);
+      g1 = cs_at(l1);
+      if (q1 >= 0) g1 -= cs_at(q1);
     }
     T u1, u2;
     if constexpr (kKeep) {
@@ -867,29 +926,56 @@ __global__ void __launch_bounds__(kTileThreads, 1)
   __syncthreads();  // and every read of cs is done
   if (warp == 0) warp_suf[lane] = warp_inclusive_suffix_scan(warp_suf[lane], lane);
   __syncthreads();
+  // kBulk: z of chunk 0 without chunk 1's suffix total, which its reads add
+  T z_off0 = T(0);
   {
     T off = warp + 1 < kWarps ? warp_suf[warp + 1] : T(0);
-    if constexpr (kG > 1) {
-      // every CTA's reads of cs are done (z overwrites it); add the higher
-      // ranks' totals
-      tile_sync();
-      off += ranks_sum(&warp_suf[0], tp.rank + 1, kG);
-    }
     Two<T>* z2 = reinterpret_cast<Two<T>*>(z + tb);
+    if constexpr (kBulk) {
+      Two<T>* zb2 = reinterpret_cast<Two<T>*>(zb);
 #pragma unroll
-    for (int k = 0; k < kPairs; ++k) {
-      const Two<T> zz{v0[k] + off, v1[k] + off};
-      cs2[p0 + 32 * k] = zz;
-      if (!kRouted) z2[p0 + 32 * k] = zz;
+      for (int k = 0; k < kPairs; ++k) zb2[p0 + 32 * k] = Two<T>{v0[k] + off, v1[k] + off};
+      tile_sync();  // every chunk of z and its suffix total is written
+      z_off0 = *cg::this_cluster().map_shared_rank(&warp_suf[0], 1);
+      if constexpr (!kRouted) {
+        if (tp.rank == 0) off += z_off0;
+#pragma unroll
+        for (int k = 0; k < kPairs; ++k) z2[p0 + 32 * k] = Two<T>{v0[k] + off, v1[k] + off};
+      }
+    } else {
+      if constexpr (kG > 1) {
+        // every CTA's reads of cs are done (z overwrites it); add the higher
+        // ranks' totals
+        tile_sync();
+        off += ranks_sum(&warp_suf[0], tp.rank + 1, kG);
+      }
+#pragma unroll
+      for (int k = 0; k < kPairs; ++k) {
+        const Two<T> zz{v0[k] + off, v1[k] + off};
+        cs2[p0 + 32 * k] = zz;
+        if (!kRouted) z2[p0 + 32 * k] = zz;
+      }
     }
   }
-  tile_sync();
+  if constexpr (!kBulk) tile_sync();
+  // z at slot i of the tile: in kBulk from the zb of the CTA whose chunk
+  // holds it
+  auto z_at = [&](int i) -> T {
+    if constexpr (kBulk) {
+      const int q = i >> kChunkBits;
+      const T* zq = q == tp.rank ? zb + (i & (kSlots - 1))
+                    : cg::this_cluster().map_shared_rank(zb + (i & (kSlots - 1)), q);
+      return *zq + (q == 0 ? z_off0 : T(0));
+    } else {
+      return tile_elem(cs, i);
+    }
+  };
 
   const Idx* en = ent_slot + tp.t * E;
   T* pk_t = pk + tp.t * E;
   for (int e = tp.rank * kTileThreads + threadIdx.x; e < E; e += kG * kTileThreads) {
     const int sl = en[e];
-    pk_t[e] = sl >= 0 ? tile_elem(cs, sl) : T(0);
+    pk_t[e] = sl >= 0 ? z_at(sl) : T(0);
   }
   if constexpr (kRouted) {
     // raster cells 2j and 2j + 1 (one row, adjacent columns), one rout word
@@ -903,11 +989,11 @@ __global__ void __launch_bounds__(kTileThreads, 1)
       if constexpr (kStack) {
         Two<T> v;
         if constexpr (kKeep) {
-          v.x = qa >= 0 ? tile_elem(cs, qa) : xs[l];
-          v.y = qb >= 0 ? tile_elem(cs, qb) : xs[l + 1];
+          v.x = qa >= 0 ? z_at(qa) : xs[l];
+          v.y = qb >= 0 ? z_at(qb) : xs[l + 1];
         } else {
-          v.x = qa >= 0 ? tile_elem(cs, qa) : tile_cell(x, H, W, tp.r0, tp.c0, l);
-          v.y = qb >= 0 ? tile_elem(cs, qb) : tile_cell(x, H, W, tp.r0, tp.c0, l + 1);
+          v.x = qa >= 0 ? z_at(qa) : tile_cell(x, H, W, tp.r0, tp.c0, l);
+          v.y = qb >= 0 ? z_at(qb) : tile_cell(x, H, W, tp.r0, tp.c0, l + 1);
         }
         reinterpret_cast<Two<T>*>(z + tb)[j] = v;
       } else {
@@ -916,11 +1002,11 @@ __global__ void __launch_bounds__(kTileThreads, 1)
         if (r < H && col < W) {
           const int64_t g = r * W + col;
           if constexpr (kKeep) {
-            z[g] = qa >= 0 ? tile_elem(cs, qa) : xs[l];
-            if (col + 1 < W) z[g + 1] = qb >= 0 ? tile_elem(cs, qb) : xs[l + 1];
+            z[g] = qa >= 0 ? z_at(qa) : xs[l];
+            if (col + 1 < W) z[g + 1] = qb >= 0 ? z_at(qb) : xs[l + 1];
           } else {
-            z[g] = qa >= 0 ? tile_elem(cs, qa) : x[g];
-            if (col + 1 < W) z[g + 1] = qb >= 0 ? tile_elem(cs, qb) : x[g + 1];
+            z[g] = qa >= 0 ? z_at(qa) : x[g];
+            if (col + 1 < W) z[g + 1] = qb >= 0 ? z_at(qb) : x[g + 1];
           }
         }
       }
@@ -1088,9 +1174,12 @@ int pf_tile_down_a(int dt, int routed, const void* x, int64_t H, int64_t W,
   return by_dtype(dt, [&](auto tag) {
     using T = typename decltype(tag)::type;
     // the staged tile and cs, or in 8-byte values one buffer for both and
-    // the stashed u values
-    const int smem = static_cast<int>(sizeof(T)) *
-                     (kSlots + (sizeof(T) == 4 ? kSlots : 2 * kDownStash * kTileThreads));
+    // the stashed u values; two CTAs in 4-byte values: the whole tile and z
+    const int smem =
+        static_cast<int>(sizeof(T)) *
+        (kG == 2 && sizeof(T) == 4
+             ? 3 * kSlots
+             : kSlots + (sizeof(T) == 4 ? kSlots : 2 * kDownStash * kTileThreads));
     auto launch = [&](auto k) {
       return launch_tiles<decltype(k)::value>(
           NT, smem, stream, static_cast<const T*>(x), H, W, ntx, tile0, rin,

@@ -143,8 +143,13 @@ class CoarseDown:
         the ``out_slot`` of each node; a JAX plan's ``_down["cd"]``). For a
         router coarse level loaded from a JAX plan, ``routers`` takes its
         ``down_router_tables()``, whose chains are replayed instead of
-        sorting here."""
+        sorting here, or the port's, which hold the composed indices."""
         if getattr(self, "down", None) is not None:
+            return
+        if routers is not None and "es_in" in routers:
+            if routers["es_in"].size != self._n_down(self.dfs.n_tree):
+                raise ValueError("down router tables do not fit the coarse plan")
+            self.set_down(routers)
             return
         cd = self._down_maps(dfs) if isinstance(dfs, DfsPlan) else dfs
         pre = np.asarray(cd["pre"], np.int64)
@@ -253,6 +258,11 @@ class RouterAccel(IntervalKernels, CoarseDown):
         far_end[dst[has_out]] = -1
         far = ~near & has_out
         self.has_far = bool(far.any())
+        if routers is not None and "src_in" in routers:  # the port's router_tables()
+            if routers["src_in"].size != n_pad or routers["far_end"].size != n_out:
+                raise ValueError("router tables do not fit the plan")
+            self._set_indices(dfs.device, **{k: routers[k] for k in self._INDICES})
+            return
         src_in = np.full(n_pad, n_pad, dtype=np.int32)
         src_out = np.zeros(n_out, dtype=np.int32)
         if routers is None:
@@ -293,6 +303,19 @@ class RouterAccel(IntervalKernels, CoarseDown):
         e2n[in_slot] = np.arange(in_slot.size)
         return {"pre": dfs.preorder_np, "pos": dfs.pos_np, "e2n": e2n, "wmap": out_slot}
 
+    def router_tables(self):
+        """The upward tables, for saving, as the JAX call returns its routers'
+        stage tables: here the composed indices ``src_in``, ``near_end``,
+        ``src_out`` and ``far_end``, which ``routers=`` takes back as they
+        are."""
+        return {name: getattr(self, name) for name in self._INDICES}
+
+    def down_router_tables(self):
+        """The downward tables, for saving (after :meth:`build_down`): the
+        composed indices of :attr:`down`, which ``build_down(dfs, routers=)``
+        takes back as they are."""
+        return dict(self.down)
+
     def accumulate(self, data, arrs=None):
         """Flow accumulation of ``data`` (a 1-D tensor on the plan's device)
         in three kernel launches. Default mode: ``data`` (n_cells,) of any
@@ -316,6 +339,8 @@ class BigAccelPlan(RouterAccel):
     ``router_tables()`` (keyed ``"G1"``; ``r_out`` absent in default mode,
     ``r_exp`` absent in old tables), whose chains are replayed instead of
     composing the indices here; ``build_down`` its ``down_router_tables()``.
+    Both also take the port's own :meth:`router_tables` /
+    :meth:`down_router_tables`, the composed indices.
 
     ``n_in`` is found as the JAX class finds it (``in_slot.max() + 1``, the
     tile plan's zero slots of its entry nodes included), so ``n_pad`` and

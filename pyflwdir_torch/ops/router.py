@@ -174,5 +174,6 @@ class LaneGather:
 
 
 def lane_gather(x2, idx):
-    """One-off lane gather ``out[r, j] = x2[r, idx[r, j]]`` (see :class:`LaneGather`)."""
-    return LaneGather(torch.as_tensor(idx, device=x2.device))(x2)
+    """One-off lane gather ``out[r, j] = x2[r, idx[r, j]]``, source rows at
+    least as wide as ``idx``'s (see :class:`LaneGather`)."""
+    return LaneGather(torch.as_tensor(idx, device=x2.device), x2.shape[1])(x2)

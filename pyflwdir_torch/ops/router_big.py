@@ -23,7 +23,7 @@ import torch
 
 from .. import kernels
 from .._backend import resolve_device
-from .router import LaneGather, _chain_np
+from .router import _chain_np, lane_gather
 
 __all__ = ["RouterPlanBig", "lane_gather_tiled", "router_sigma"]
 
@@ -32,12 +32,10 @@ _CHUNK = _S * _S * _S  # elements per g1 slice, the 5-stage router's capacity
 
 
 def lane_gather_tiled(x2, idx, block_rows=256):
-    """``out[r, j] = x2[r, idx[r, j]]``, source rows at least as wide as
-    ``idx``'s (row-pair gathers), the output in ``idx``'s shape and ``x2``'s
-    dtype: one H0 launch on the card (:class:`pyflwdir_torch.ops.router.LaneGather`),
-    where the JAX function runs a Pallas grid over row blocks of
-    ``block_rows``, unused here."""
-    return LaneGather(torch.as_tensor(idx, device=x2.device), x2.shape[1])(x2)
+    """``out[r, j] = x2[r, idx[r, j]]`` (:func:`pyflwdir_torch.ops.router.lane_gather`,
+    one H0 launch on the card), where the JAX function runs a Pallas grid over
+    row blocks of ``block_rows``, unused here."""
+    return lane_gather(x2, idx)
 
 
 def _chain7_np(v, G1, st):
@@ -120,6 +118,11 @@ class RouterPlanBig:
         inv = np.empty_like(self.sigma_np)
         inv[self.sigma_np] = np.arange(inv.size, dtype=np.int32)
         return RouterPlanBig(inv, device=self.device)
+
+    def tpu_stages(self):
+        """The device tables :meth:`apply` reads, as the JAX call returns its
+        fused chain's: here the one int32 gather index, ``(sigma,)``."""
+        return (self.sigma,)
 
     def apply(self, x2):
         """Permute ``x2`` ((G1*16384, 128); float32, int32, int64 or

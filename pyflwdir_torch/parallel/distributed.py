@@ -39,7 +39,6 @@ H100_NVLINK_GBPS = 450.0
 _UP_TABLES = ("rin", "ex_end", "ent_idx", "near_end", "far_end", "rout")
 
 #: how long a rank waits for the others at start-up and in a collective
-#: (read at each :func:`init_distributed`; a caller may set it first)
 DEFAULT_TIMEOUT = datetime.timedelta(seconds=300)
 
 

@@ -6,13 +6,13 @@ same parameters in the same order, of the same kinds and with the same
 defaults. The port may add one thing, a trailing ``device`` parameter
 (before a trailing ``**kwargs``), and differs on purpose only where
 ``ROADMAP.md`` (Queue 3) says so: the routers are built from one
-permutation (``RouterPlan(sigma)``, ``RouterPlanBig(sigma)``) and hold no
-TPU stage tables, ``scaling_model`` defaults to the H100's rates and
+permutation (``RouterPlan(sigma)``, ``RouterPlanBig(sigma)``),
+``scaling_model`` defaults to the H100's rates and
 ``make_mesh`` takes a torch device type.
 
 Then each form that once differed is called with the JAX argument list on
 a small grid and held against the JAX package's result: integers bitwise.
-The whole file takes about 25 s alone, in one process on a CPU.
+The whole file takes about 32 s alone, in one process on a CPU.
 """
 
 import importlib
@@ -42,20 +42,17 @@ from pyflwdir_tpu import dem as jdem
 from pyflwdir_tpu import regions as jreg
 from pyflwdir_tpu import rivers as jrv
 from pyflwdir_tpu.ops import accel as jaccel
+from pyflwdir_tpu.ops import accel_big as jbig
 from pyflwdir_tpu.ops import graph as jgraph
 from pyflwdir_tpu.ops import plan as jplan
 from pyflwdir_tpu.ops import router_big as jrb
 from pyflwdir_tpu.ops import tile_plan as jtpm
 
 # the on-purpose differences (ROADMAP.md, Queue 3): the routers' sigma
-# constructors (and the TPU stage tables they leave out), the H100 rates of
-# scaling_model, make_mesh's torch device type
+# constructors, the H100 rates of scaling_model, make_mesh's torch device type
 _ON_PURPOSE = {
     "ops.router.RouterPlan": "constructor",
     "ops.router_big.RouterPlanBig": "constructor",
-    "ops.router_big.RouterPlanBig.tpu_stages": "missing",
-    "ops.accel_big.BigAccelPlan.router_tables": "missing",
-    "ops.accel_big.BigAccelPlan.down_router_tables": "missing",
     "parallel.distributed.scaling_model": "defaults",
     "parallel.tiled.make_mesh": "device",
 }
@@ -133,7 +130,7 @@ def test_signatures(mod):
     for name, fj in _callables(jm).items():
         key = f"{mod}.{name}"
         why = _ON_PURPOSE.get(key)
-        if why in ("missing", "constructor"):
+        if why == "constructor":
             continue
         ft = _port_callable(tm, name)
         if ft is None:
@@ -240,6 +237,33 @@ def test_lane_gather_tiled_is_a_function(src_w):
         trb.lane_gather_tiled(torch.as_tensor(x2[:, :32]), idx)
 
 
+def test_stage_table_methods_round_trip(grid, tile_plans):
+    """The methods that hand out the JAX plans' stage tables, for saving,
+    hand out the port's composed indices, which the constructors take back:
+    the same indices and sums without composing them again."""
+    ids = grid["ids"]
+    dfs = tplan.build_plan(ids, False, device="cpu")
+    bp = tbig.BigAccelPlan(dfs, ids, device="cpu")
+    again = tbig.BigAccelPlan(dfs, ids, routers=bp.router_tables(), device="cpu")
+    for k in ("src_in", "near_end", "src_out", "far_end"):
+        assert np.array_equal(getattr(again, k), getattr(bp, k)), k
+    x = torch.as_tensor(np.random.RandomState(3).randint(0, 9, ids.size).astype(np.int32))
+    assert torch.equal(again.accumulate(x), bp.accumulate(x))
+    tile_plans["big"].down_arrays()  # builds the coarse level's down indices
+    c = tile_plans["big"].coarse
+    own = tbig.BigAccelPlan(c.dfs, None, routers=c.router_tables(),
+                            in_slot=tile_plans["big"]._coarse_meta["in_slot"],
+                            out_slot=tile_plans["big"]._coarse_meta["out_slot"])
+    own.build_down(c.dfs, routers=c.down_router_tables())
+    pk = torch.as_tensor(np.random.RandomState(7).randint(0, 5, c.n_out).astype(np.int32))
+    assert torch.equal(own.accumulate_down(pk), c.accumulate_down(pk))
+    xi = torch.as_tensor(np.random.RandomState(8).randint(0, 5, c.n_in).astype(np.int32))
+    assert torch.equal(own.accumulate(xi), c.accumulate(xi))
+    rp = trb.RouterPlanBig.build(np.arange(1 << 21)[::-1].copy(), device="cpu")
+    (sigma,) = rp.tpu_stages()
+    assert torch.equal(sigma, rp.sigma)
+
+
 def test_big_accel_plan_takes_its_tables(grid):
     """``BigAccelPlan(dfs, idxs_ds_np)`` and ``accumulate(data, arrs)``:
     bitwise the JAX DFS plan's sums (the JAX ``BigAccelPlan`` is held to
@@ -284,9 +308,10 @@ def test_tile_plan_takes_its_tables(tile_plans):
 def test_big_coarse_level_takes_its_tables(tile_plans):
     """A ``BigAccelPlan`` coarse level: the tile plan's sweeps on it equal
     the default plan's; its ``accumulate_down(pkf, arrs)`` its own; and
-    ``build_down`` of the coarse DFS plan (the JAX call form) gives, on the
-    exit slots, the sums of the indices built from the coarse-downward
-    arrays (it also delivers to its entry nodes' slots)."""
+    ``build_down`` of the coarse DFS plan (the JAX call form) equals the JAX
+    ``BigAccelPlan`` built in slot mode on the same coarse DFS plan and slot
+    maps, bitwise over all ``n_in`` slots of the exit layout, and gives 0
+    past them."""
     ids, tp, big = tile_plans["ids"], tile_plans["tp"], tile_plans["big"]
     x = torch.as_tensor(np.random.RandomState(4).randint(0, 5, ids.size).astype(np.int32))
     assert torch.equal(big.accumulate(x, big.arrays()), tp.accumulate(x))
@@ -297,5 +322,11 @@ def test_big_coarse_level_takes_its_tables(tile_plans):
     assert torch.equal(a, c.accumulate_down(pk))
     own = tbig.BigAccelPlan(c.dfs, None, in_slot=meta["in_slot"], out_slot=meta["out_slot"])
     own.build_down(c.dfs)
-    n = big.NT * big.R_pad
-    assert torch.equal(own.accumulate_down(pk, own.down_arrays())[:n], a[:n])
+    jd = jplan.DfsPlan(c.dfs.preorder_np, c.dfs.pos_np, c.dfs.size_np, fast=False)
+    jb = jbig.BigAccelPlan(jd, None, in_slot=meta["in_slot"], out_slot=meta["out_slot"])
+    jb.build_down(jd)
+    want = np.asarray(jax.jit(jb.accumulate_down)(jnp.asarray(pk.numpy()), jb.down_arrays()))
+    got = own.accumulate_down(pk, own.down_arrays()).numpy()
+    assert want.shape == (own.n_in,) and np.count_nonzero(want)
+    assert np.array_equal(got[: own.n_in], want)
+    assert not np.any(got[own.n_in:])

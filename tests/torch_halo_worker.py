@@ -59,11 +59,9 @@ def run(rank, world, rdv, out_dir):
     from pyflwdir_torch import parallel
     from pyflwdir_torch.parallel import tiled
 
-    timeout = datetime.timedelta(seconds=60)
-    parallel.distributed.DEFAULT_TIMEOUT = timeout
     if world == 1:  # init_distributed starts no group for one process
         dist.init_process_group("gloo", init_method=f"file://{rdv}", world_size=1, rank=0,
-                                timeout=timeout)
+                                timeout=datetime.timedelta(seconds=60))
     else:
         assert parallel.init_distributed(f"file://{rdv}", world, rank, device="cpu")
     mesh = parallel.make_mesh(device="cpu")

@@ -606,6 +606,9 @@ def tile_kernel_phase(tp, dtype, dev, tag="", coarse=True):
     tile_x = kernels._tiles(x.abs(), tp.shape, T).sum(1)
 
     exits, c = kernels.tile_pass_a(x, t["rin"], t["ex_end"], tp.shape)
+    if tp.G > 1:
+        _check(kernels.tile_last_cluster(tp.Y) == tp.G,
+               f"T1 at {tp.Y} rows launched as clusters of {tp.G} CTAs")
     rows = {"tile_pass_a" + sfx: _measure(
         "tile_pass_a" + sfx,
         lambda: kernels.tile_pass_a(x, t["rin"], t["ex_end"], tp.shape),
@@ -776,18 +779,38 @@ def tile_down_kernel_phase(tp, dtype, dev, tag="", modes=("raw", "routed"), coar
 
     n_off = int((kernels._untile(t["rout"], tp.shape) < 0).sum())
     n_roots = tp._coarse_meta["m"]
+    n_tree = int(d["n_tree"].sum())
     it, ir = _index_bytes(tp.R_pad, d["tree_of"]), _index_bytes(T, t["rout"])
     args = (x, z1, A, d["tree_of"], t["rout"], tp.shape)
+    # z1 and its tree index (of R_pad, or -1) per slot, A per real root, rout
+    # per cell and x per off-tree cell read; out written once. A tall plan's
+    # tree table is in raster layout (one index per cell, no gather), and z1
+    # is read at the tree cells only; the slot-layout bound beside it
+    old_bytes = (s + it) * NT * T + s * n_roots + ir * n + s * n_off + s * n
+    n_bytes = old_bytes if tp.G == 1 else (s * n_tree + it * n + s * n_roots + ir * n
+                                           + s * n_off + s * n)
     rows["tile_down_fin" + sfx] = _measure(
         "tile_down_fin" + sfx,
         lambda: kernels.tile_down_fin(*args),
         lambda: kernels.tile_down_fin_plain(*args),
-        None,
-        # z1 and its tree index (of R_pad, or -1) per slot, A per real
-        # root, rout per cell and x per off-tree cell read; out written once
-        (s + it) * NT * T + s * n_roots + ir * n + s * n_off + s * n,
-        int(d["n_tree"].sum()), dtype, **_reps(tp))
+        None, n_bytes, n_tree, dtype, **_reps(tp))
+    _tall_t4(rows["tile_down_fin" + sfx], tp, old_bytes, n_tree, dtype)
     return rows
+
+
+def _tall_t4(row, tp, old_bytes, n_ops, dtype):
+    """On a tall plan: check that T4's last launch was a plain grid (no
+    cluster), and keep the bound of the slot-layout tree table of the
+    earlier form beside the row's (``bound_old_ms``)."""
+    from pyflwdir_torch import kernels
+
+    if tp.G == 1:
+        return
+    _check(kernels.tile_last_cluster(tp.Y) == 1,
+           f"T4 at {tp.Y} rows launched as a plain grid (no cluster)")
+    row["bound_old_ms"] = _bound_ms(old_bytes, n_ops, dtype)[0]
+    print(f"    bound of the slot-layout tree table (the earlier form): "
+          f"{row['bound_old_ms']:.5f} ms")
 
 
 def banded_kernel_phase(tp, dtype, dev, tag=""):
@@ -1116,13 +1139,18 @@ def sharded_kernel_phase(tp, dtype, dev, tag="", ranges=SHARD_RANGES):
         (2 * T, float(tile_x.max())), **reps)
     n_tree = int(d["n_tree"].sum())
     l_args = (abar_t, A, d["tree_of"], t["rout"], shape)
+    # abar read and out written per cell, rout per cell and tree_of per tree
+    # slot (its tree, of R_pad), A per real root; one add per tree cell. A
+    # tall plan's raster-layout tree table: one index per cell (of R_pad, or
+    # -1) and no rout; the slot-layout bound beside it
+    old_bytes = 2 * s * NT * T + ir * NT * T + _index_bytes(tp.R_pad) * n_tree + s * n_roots
+    n_bytes = old_bytes if tp.G == 1 else (2 * s * NT * T + _index_bytes(tp.R_pad, d["tree_of"])
+                                           * NT * T + s * n_roots)
     rows["tile_down_lite" + sfx] = _measure(
         "tile_down_lite" + sfx, lambda: kernels.tile_down_lite(*l_args, tile0=0),
-        lambda: kernels.tile_down_lite_plain(*l_args, tile0=0), None,
-        # abar read and out written per cell, rout per cell and tree_of per
-        # tree slot (its tree, of R_pad), A per real root; one add per tree cell
-        2 * s * NT * T + ir * NT * T + _index_bytes(tp.R_pad) * n_tree + s * n_roots, n_tree,
+        lambda: kernels.tile_down_lite_plain(*l_args, tile0=0), None, n_bytes, n_tree,
         dtype, **reps)
+    _tall_t4(rows["tile_down_lite" + sfx], tp, old_bytes, n_tree, dtype)
     return rows
 
 
@@ -1414,6 +1442,12 @@ def tall_path(fl, tp, d8, upa, seq, refs, dev):
         for name, (fn, want) in calls.items():
             kernels.reset_launches()
             res[name] = fn()
+            # the last tile kernel of a downward sweep is T4 (a plain grid),
+            # of an upward one T2 (a cluster)
+            last = kernels.tile_last_cluster(Y)
+            _check(last == (1 if "down" in name or "sharded" in name else G),
+                   f"{name} ({Y} rows): its last tile kernel launched with a cluster "
+                   f"width of {last}")
             torch.cuda.synchronize()
             c = dict(kernels.launches)
             dtype = torch.int32 if "int32" in name else torch.float64

@@ -236,6 +236,13 @@ __device__ __forceinline__ T& tile_elem(T* buf, int i) {
   }
 }
 
+// a barrier of every thread of the tile's cluster as an explicit
+// release-arrive and acquire-wait at cluster scope (kG > 1)
+__device__ __forceinline__ void cluster_sync_ra() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 // the sum, in rank order, of *v of the tile's CTAs q0 .. q1 - 1
 template <typename T>
 __device__ __forceinline__ T ranks_sum(T* v, int q0, int q1) {
@@ -267,9 +274,11 @@ struct TilePos {
   int rank;
   int64_t t, y0, r0, c0, tb;
 };
+// kCluster false: the tile's kG CTAs are consecutive blocks of a plain grid
+template <bool kCluster = true>
 __device__ __forceinline__ TilePos tile_pos(int64_t ntx, int64_t tile0) {
   TilePos p;
-  p.rank = tile_rank();
+  p.rank = (kCluster || kG == 1) ? tile_rank() : static_cast<int>(blockIdx.x % kG);
   p.t = blockIdx.x / kG;
   p.y0 = ((tile0 + p.t) / ntx) * (kTileRows * kG);
   p.r0 = p.y0 + p.rank * kTileRows;
@@ -298,20 +307,24 @@ __device__ __forceinline__ T cell_x(const T* __restrict__ x, int64_t g, int64_t 
   return x[g];
 }
 
+// the cluster width of the last tile-kernel launch (1: no cluster)
+std::atomic<int> g_last_cluster{0};
+
 // set the kernel's dynamic shared memory, launch NT tiles of kG CTAs of
-// kTileThreads on the stream (a cluster of kG CTAs a tile where kG > 1),
-// return the launch error. A cluster must be resident on the card:
+// kTileThreads on the stream (a cluster of kG CTAs a tile where kCluster;
+// else the grid's kG CTAs of a tile are launched plainly), return the
+// launch error. A cluster must be resident on the card:
 // cudaOccupancyMaxActiveClusters at the kernel's first launch at more
 // shared memory than any before (only T2's grows, with E); the most that
 // fit is remembered per kernel.
-template <auto kernel, typename... A>
+template <auto kernel, bool kCluster = (kG > 1), typename... A>
 int launch_tiles(int64_t NT, int smem, void* stream, A... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (NT > 0) {
-    if constexpr (kG == 1) {
-      kernel<<<static_cast<unsigned>(NT), kTileThreads, smem,
+    if constexpr (!kCluster) {
+      kernel<<<static_cast<unsigned>(NT * kG), kTileThreads, smem,
                static_cast<cudaStream_t>(stream)>>>(args...);
     } else {
       static std::atomic<int> fits{0};
@@ -338,6 +351,7 @@ int launch_tiles(int64_t NT, int smem, void* stream, A... args) {
       err = cudaLaunchKernelEx(&cfg, kernel, args...);
       if (err != cudaSuccess) return static_cast<int>(err);
     }
+    g_last_cluster.store(kCluster ? kG : 1);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -528,6 +542,121 @@ __global__ void __launch_bounds__(kTileThreads)
     ex_t[j] = j > 0 ? hi - tile_elem(xs, ee[j - 1]) : hi;
   }
   if constexpr (kG > 1) tile_sync();  // peers may still read this CTA's sums
+}
+
+// T1 in a cluster (kG > 1), by form:
+//   kT1Own    the kernel above: each CTA stages its own 128 rows, gathers
+//             from the owners' rows (four cluster barriers);
+//   kT1All    each CTA stages the whole tile (the peers' rows from L2) and
+//             gathers there, one CTA barrier; its un-offset chunk sums go
+//             over its own rows of the staged tile;
+//   kT1Global no staging: x gathered from device memory through rin (the
+//             tile's row segments stay in L1/L2), the sums in one buffer;
+//   kT1TwoBuf each CTA stages its own rows (a cluster barrier), gathers from
+//             the owners' rows, its sums in a second buffer beside them.
+// In all but kT1Own each CTA writes its chunk's prefix sums without the lower
+// ranks' totals, and its chunk total (warp_tot[kWarps - 1]) with them; after
+// one cluster barrier every reader adds the owner's offset, the sum of the
+// lower ranks' totals in rank order (ranks_sum): c and the exits keep
+// kT1Own's bits. Two cluster barriers (three in kT1TwoBuf): that exchange and
+// the last before a CTA leaves.
+enum { kT1Own = 0, kT1All = 1, kT1Global = 2, kT1TwoBuf = 3 };
+// pins T1's form where it fits (timing tries; -1: the choice below)
+constexpr int kT1Pin = -1;
+// the cluster forms' barriers as cluster_sync_ra (timing tries)
+constexpr bool kT1RA = false;
+
+// whether form f fits T1's shared memory in values of s bytes
+constexpr bool t1_fits(int f, int s) {
+  return f == kT1All ? kG * kSlots * s <= 227 * 1024
+                     : (f == kT1TwoBuf ? 2 * kSlots * s <= 227 * 1024 : true);
+}
+template <typename T>
+constexpr int t1_form() {
+  constexpr int s = static_cast<int>(sizeof(T));
+  if constexpr (kG == 1) {
+    return kT1Own;
+  } else if constexpr (kT1Pin >= 0 && t1_fits(kT1Pin, s)) {
+    return kT1Pin;
+  } else {
+    return s == 4 ? (kG <= 3 ? kT1All : kT1TwoBuf) : kT1Global;
+  }
+}
+// T1's shared memory in values of s bytes, by form
+constexpr int t1_smem(int f, int s) {
+  return s * (f == kT1All ? kG * kSlots : (f == kT1TwoBuf ? 2 * kSlots : kSlots));
+}
+
+template <typename T, bool kEmitC, int kForm>
+__global__ void __launch_bounds__(kTileThreads)
+    tile_pass_a_tall_kernel(const T* __restrict__ x, int64_t H, int64_t W,
+                            int64_t ntx, int64_t tile0,
+                            const Idx* __restrict__ rin,
+                            const Idx* __restrict__ ex_end, int R,
+                            T* __restrict__ c, T* __restrict__ exits) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* xs = reinterpret_cast<T*>(smem_raw);
+  __shared__ T warp_tot[kWarps];
+  __shared__ T offs[kG];  // each rank's offset: the lower ranks' totals
+  const TilePos tp = tile_pos(ntx, tile0);
+  // this CTA's chunk of sums, at the same place in every CTA's layout
+  const int sum0 = kForm == kT1All ? tp.rank * kSlots : (kForm == kT1TwoBuf ? kSlots : 0);
+  if constexpr (kForm == kT1All) {
+    for (int l = threadIdx.x; l < kG * kSlots; l += kTileThreads) {
+      xs[l] = tile_cell(x, H, W, tp.y0, tp.c0, l);
+    }
+    __syncthreads();
+  } else if constexpr (kForm == kT1TwoBuf) {
+    stage_tile(x, H, W, tp.r0, tp.c0, xs);
+    tile_sync();  // the whole tile is staged
+  }
+  auto cluster_barrier = [] {
+    if constexpr (kT1RA) {
+      cluster_sync_ra();
+    } else {
+      tile_sync();
+    }
+  };
+
+  T v[kPerThread];
+  ScanCells cell(rin + tp.tb);
+  tile_prefix_scan(
+      [&](int k) -> T {
+        const int i = cell(k);
+        if constexpr (kForm == kT1All) {
+          return xs[i];
+        } else if constexpr (kForm == kT1Global) {
+          return tile_cell(x, H, W, tp.y0, tp.c0, i);
+        } else {
+          return tile_elem(xs, i);
+        }
+      },
+      v, warp_tot);
+  // every load of this CTA is done (kT1All: its own rows may go)
+#pragma unroll
+  for (int k = 0; k < kPerThread; ++k) xs[sum0 + tile_scan_slot(k)] = v[k];
+  cluster_barrier();  // every chunk's sums and total are written
+  if (threadIdx.x < kG) offs[threadIdx.x] = ranks_sum(&warp_tot[kWarps - 1], 0, threadIdx.x);
+  __syncthreads();
+  if constexpr (kEmitC) {
+    const T off = offs[tp.rank];
+    T* c_t = c + tp.tb;
+#pragma unroll
+    for (int k = 0; k < kPerThread; ++k) c_t[tile_scan_slot(k)] = v[k] + off;
+  }
+  // the sum at slot i of the tile: the owner's chunk sum plus its offset
+  auto sum_at = [&](int i) -> T {
+    const int q = i >> kChunkBits;
+    T* p = xs + (kForm == kT1All ? i : sum0 + (i & (kSlots - 1)));
+    return *cg::this_cluster().map_shared_rank(p, q) + offs[q];
+  };
+  const Idx* ee = ex_end + tp.t * R;
+  T* ex_t = exits + tp.t * R;
+  for (int j = tp.rank * kTileThreads + threadIdx.x; j < R; j += kG * kTileThreads) {
+    const T hi = sum_at(ee[j]);
+    ex_t[j] = j > 0 ? hi - sum_at(ee[j - 1]) : hi;
+  }
+  cluster_barrier();  // peers may still read this CTA's sums
 }
 
 // ---------------------------------------------------------------------------
@@ -1100,6 +1229,110 @@ __global__ void __launch_bounds__(kTileThreads)
   if constexpr (kG > 1) tile_sync();  // peers may still read this CTA's chunk
 }
 
+// T4 on a tall plan (kG > 1): the plan's tree table is in raster layout,
+//   tree_r[t, l] = rout[t, l] >= 0 ? tree_of[t, rout[t, l]] : -1
+// (ops/tile_plan.py::tree_table), TR int16 where every tree index fits, else
+// int32, so a cell finds its tree without a gather and T4 needs no cluster:
+// the grid's kG CTAs of a tile are plain blocks, CTA r the tile's raster rows
+// [128 r, 128 (r + 1)), each thread two adjacent cells at a time (one word
+// of each table). Lite mode streams abar, tree_r and A[tree] into out (no
+// shared memory); fin mode reads z1 at the cell's slot from the tile's row
+// of z1 (L1/L2; kT4Staged: staged whole in shared memory first), then adds
+// A[tree] where the cell has a tree: the same single addition as the
+// 128-row kernel, the same bits.
+enum { kT4Global = 0, kT4Staged = 1 };
+// pins T4's fin form where it fits (timing tries; -1: the choice below)
+constexpr int kT4Pin = -1;
+template <typename T>
+constexpr int t4_form() {
+  if constexpr (kT4Pin == kT4Staged && kG * kSlots * sizeof(T) <= 227 * 1024) {
+    return kT4Staged;
+  } else {
+    return kT4Global;
+  }
+}
+
+// the tree-table entries of cells 2j and 2j + 1, read as one word
+template <typename TR>
+using TrWord = std::conditional_t<sizeof(TR) == 2, uint32_t, Two<int32_t>>;
+
+template <typename T, bool kLite, bool kStack, typename TR, int kForm>
+__global__ void __launch_bounds__(kTileThreads)
+    tile_down_fin_tall_kernel(const T* __restrict__ x, int64_t H, int64_t W,
+                              int64_t ntx, int64_t tile0, const T* __restrict__ z1,
+                              const T* __restrict__ A, int R,
+                              const TR* __restrict__ tree_r,
+                              const Idx* __restrict__ rout,
+                              T* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* zs = reinterpret_cast<T*>(smem_raw);
+  const TilePos tp = tile_pos<false>(ntx, tile0);
+  const int64_t tb = tp.tb;
+  const T* A_t = A + tp.t * R;
+  const T* z1_t = z1 + tp.t * (kG * kSlots);  // fin: the tile's row of z1
+  if constexpr (!kLite && kForm == kT4Staged) {
+    constexpr int kVec = kG * kSlots * static_cast<int>(sizeof(T)) / 16;
+    const int4* from = reinterpret_cast<const int4*>(z1_t);
+    int4* to = reinterpret_cast<int4*>(zs);
+    for (int i = threadIdx.x; i < kVec; i += kTileThreads) to[i] = from[i];
+    __syncthreads();
+  }
+  const Word* ro2 = words(rout + tb);
+  const TrWord<TR>* tr2 = reinterpret_cast<const TrWord<TR>*>(tree_r + tb);
+  // the value of a cell with slot q (>= 0) and tree a
+  auto tree_val = [&](int q, int a) -> T {
+    T v = kForm == kT4Staged ? zs[q] : z1_t[q];
+    if (a >= 0) v += A_t[a];
+    return v;
+  };
+#pragma unroll
+  for (int k = 0; k < kPerThread / 2; ++k) {
+    const int j = threadIdx.x + k * kTileThreads;
+    const int l = 2 * j;  // cells l and l + 1: one row, adjacent columns
+    const TrWord<TR> wt = tr2[j];
+    const int a0 = lo16(wt), a1 = hi16(wt);
+    if constexpr (kLite) {
+      if constexpr (kStack) {
+        Two<T> v = reinterpret_cast<const Two<T>*>(z1 + tb)[j];
+        if (a0 >= 0) v.x += A_t[a0];
+        if (a1 >= 0) v.y += A_t[a1];
+        reinterpret_cast<Two<T>*>(out + tb)[j] = v;
+      } else {
+        const int64_t r = tp.r0 + (l >> 7);
+        const int64_t col = tp.c0 + (l & (kLanes - 1));
+        if (r < H && col < W) {
+          const int64_t g = r * W + col;
+          T v = z1[g];
+          if (a0 >= 0) v += A_t[a0];
+          out[g] = v;
+          if (col + 1 < W) {
+            v = z1[g + 1];
+            if (a1 >= 0) v += A_t[a1];
+            out[g + 1] = v;
+          }
+        }
+      }
+    } else {
+      const Word wr = ro2[j];
+      const int q0 = lo16(wr), q1 = hi16(wr);
+      if constexpr (kStack) {
+        Two<T> v;
+        v.x = q0 >= 0 ? tree_val(q0, a0) : tile_cell(x, H, W, tp.r0, tp.c0, l);
+        v.y = q1 >= 0 ? tree_val(q1, a1) : tile_cell(x, H, W, tp.r0, tp.c0, l + 1);
+        reinterpret_cast<Two<T>*>(out + tb)[j] = v;
+      } else {
+        const int64_t r = tp.r0 + (l >> 7);
+        const int64_t col = tp.c0 + (l & (kLanes - 1));
+        if (r < H && col < W) {
+          const int64_t g = r * W + col;
+          out[g] = q0 >= 0 ? tree_val(q0, a0) : x[g];
+          if (col + 1 < W) out[g + 1] = q1 >= 0 ? tree_val(q1, a1) : x[g + 1];
+        }
+      }
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -1126,14 +1359,20 @@ int pf_tile_pass_a(int dt, const void* x, int64_t H, int64_t W, int64_t NT,
                    void* stream) {
   return by_dtype(dt, [&](auto tag) {
     using T = typename decltype(tag)::type;
+    constexpr int kForm = t1_form<T>();
     auto launch = [&](auto k) {
       return launch_tiles<decltype(k)::value>(
-          NT, kSlots * static_cast<int>(sizeof(T)), stream,
+          NT, t1_smem(kForm, static_cast<int>(sizeof(T))), stream,
           static_cast<const T*>(x), H, W, ntx, tile0, rin, ex_end,
           static_cast<int>(R), static_cast<T*>(c), static_cast<T*>(exits));
     };
-    return c != nullptr ? launch(Kern<tile_pass_a_kernel<T, true>>{})
-                        : launch(Kern<tile_pass_a_kernel<T, false>>{});
+    if constexpr (kForm == kT1Own) {
+      return c != nullptr ? launch(Kern<tile_pass_a_kernel<T, true>>{})
+                          : launch(Kern<tile_pass_a_kernel<T, false>>{});
+    } else {
+      return c != nullptr ? launch(Kern<tile_pass_a_tall_kernel<T, true, kForm>>{})
+                          : launch(Kern<tile_pass_a_tall_kernel<T, false, kForm>>{});
+    }
   });
 }
 
@@ -1192,29 +1431,64 @@ int pf_tile_down_a(int dt, int routed, const void* x, int64_t H, int64_t W,
   });
 }
 
-// lite != 0: z1 is pass D1's routed result abar, laid out as out; x unused
+// lite != 0: z1 is pass D1's routed result abar, laid out as out; x unused.
+// tree: tree_of (Idx, preorder layout) at kG = 1; above, the raster-layout
+// tree table of tree_bytes (2 or 4) a value.
 int pf_tile_down_fin(int dt, int lite, const void* x, int64_t H, int64_t W,
                      int64_t NT, int64_t ntx, int64_t tile0, int stack,
-                     const void* z1, const void* A, int64_t R,
-                     const Idx* tree_of, const Idx* rout, void* out,
-                     void* stream) {
+                     const void* z1, const void* A, int64_t R, const void* tree,
+                     int tree_bytes, const Idx* rout, void* out, void* stream) {
   return by_dtype(dt, [&](auto tag) {
     using T = typename decltype(tag)::type;
-    const int smem =
-        kSlots * static_cast<int>(lite ? sizeof(Idx) : sizeof(T));
-    auto launch = [&](auto k) {
-      return launch_tiles<decltype(k)::value>(
-          NT, smem, stream, static_cast<const T*>(x), H, W, ntx, tile0,
-          static_cast<const T*>(z1), static_cast<const T*>(A),
-          static_cast<int>(R), tree_of, rout, static_cast<T*>(out));
-    };
-    if (lite) {
-      return stack ? launch(Kern<tile_down_fin_kernel<T, true, true>>{})
-                   : launch(Kern<tile_down_fin_kernel<T, true, false>>{});
+    if constexpr (kG == 1) {
+      if (tree_bytes != static_cast<int>(sizeof(Idx))) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+      const Idx* tree_of = static_cast<const Idx*>(tree);
+      const int smem =
+          kSlots * static_cast<int>(lite ? sizeof(Idx) : sizeof(T));
+      auto launch = [&](auto k) {
+        return launch_tiles<decltype(k)::value>(
+            NT, smem, stream, static_cast<const T*>(x), H, W, ntx, tile0,
+            static_cast<const T*>(z1), static_cast<const T*>(A),
+            static_cast<int>(R), tree_of, rout, static_cast<T*>(out));
+      };
+      if (lite) {
+        return stack ? launch(Kern<tile_down_fin_kernel<T, true, true>>{})
+                     : launch(Kern<tile_down_fin_kernel<T, true, false>>{});
+      }
+      return stack ? launch(Kern<tile_down_fin_kernel<T, false, true>>{})
+                   : launch(Kern<tile_down_fin_kernel<T, false, false>>{});
+    } else {
+      auto by_tree = [&](auto trtag) {
+        using TR = typename decltype(trtag)::type;
+        constexpr int kForm = t4_form<T>();
+        const TR* tr = static_cast<const TR*>(tree);
+        const int smem = !lite && kForm == kT4Staged
+                             ? kG * kSlots * static_cast<int>(sizeof(T))
+                             : 0;
+        auto launch = [&](auto k) {
+          return launch_tiles<decltype(k)::value, false>(
+              NT, smem, stream, static_cast<const T*>(x), H, W, ntx, tile0,
+              static_cast<const T*>(z1), static_cast<const T*>(A),
+              static_cast<int>(R), tr, rout, static_cast<T*>(out));
+        };
+        if (lite) {
+          return stack ? launch(Kern<tile_down_fin_tall_kernel<T, true, true, TR, kForm>>{})
+                       : launch(Kern<tile_down_fin_tall_kernel<T, true, false, TR, kForm>>{});
+        }
+        return stack ? launch(Kern<tile_down_fin_tall_kernel<T, false, true, TR, kForm>>{})
+                     : launch(Kern<tile_down_fin_tall_kernel<T, false, false, TR, kForm>>{});
+      };
+      if (tree_bytes == 2) return by_tree(Tag<int16_t>{});
+      if (tree_bytes == 4) return by_tree(Tag<int32_t>{});
+      return static_cast<int>(cudaErrorInvalidValue);
     }
-    return stack ? launch(Kern<tile_down_fin_kernel<T, false, true>>{})
-                 : launch(Kern<tile_down_fin_kernel<T, false, false>>{});
   });
 }
+
+// the cluster width of the last tile-kernel launch of this library (1: a
+// plain grid), 0 before any
+int pf_tile_last_cluster() { return g_last_cluster.load(); }
 
 }  // extern "C"

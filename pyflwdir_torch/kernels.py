@@ -112,6 +112,8 @@ __all__ = [
     "tile_down_lite",
     "tile_down_lite_plain",
     "tile_table_dtype",
+    "tile_tree_dtype",
+    "tile_last_cluster",
     "fill_sweep",
     "fill_sweep_plain",
 ]
@@ -183,7 +185,8 @@ def _bind(lib):
         "pf_tile_down_a": [i32, i32, vp, i64, i64, i64, i64, i64, i32, vp, vp, vp, vp,
                            vp, vp, i64, vp, vp, vp, vp],
         "pf_tile_down_fin": [i32, i32, vp, i64, i64, i64, i64, i64, i32, vp, vp, i64, vp,
-                             vp, vp, vp],
+                             i32, vp, vp, vp],
+        "pf_tile_last_cluster": [],
         "pf_fill_stage_cols": [],
         "pf_fill_sweep": [vp, vp, vp, vp, vp, i64, i64, i32, i32, vp],
     }
@@ -495,6 +498,25 @@ def tile_table_dtype(rows):
     return torch.int16 if int(rows) * _TILE <= 1 << 15 else torch.int32
 
 
+def tile_tree_dtype(rows, R):
+    """The dtype of the tree table T4 reads for tiles of ``rows`` rows whose
+    plan has ``R`` (``R_pad``) local roots a tile: at 128 rows ``tree_of``
+    in :func:`tile_table_dtype`; above, the raster-layout table
+    (``ops.tile_plan.tree_table``), int16 where every tree index fits (``R``
+    <= 32,767), else :func:`tile_table_dtype`."""
+    return torch.int16 if int(R) <= (1 << 15) - 1 else tile_table_dtype(rows)
+
+
+def tile_last_cluster(rows):
+    """The cluster width of the last launch of a tile kernel of the
+    ``rows``-row library (1: a plain grid; 0 before any launch, or where no
+    library is loaded), read on the host right after the launch, with no
+    synchronisation."""
+    if not _LIBS:
+        return 0
+    return _tile_lib(int(rows) // _TILE).pf_tile_last_cluster()
+
+
 def _tiles(x, shape, T=_CHUNK):
     H, W = shape
     S, Y = _TILE, T // _TILE
@@ -771,78 +793,96 @@ def tile_down_a(x, rin, es, g_last, g_prev, n_tree, ent_slot, rout, shape, route
 # ---------------------------------------------------------------------------
 # T4: downward pass D2: add the coarse continuation of each tree, raster order
 # ---------------------------------------------------------------------------
-def tile_down_fin_plain(x, z1, A, tree_of, rout, shape, tile0=None):
+def tile_down_fin_plain(x, z1, A, tree, rout, shape, tile0=None):
     """Plain version of :func:`tile_down_fin`."""
-    z = z1 + _gather0(A, tree_of)
     xt = _xtiles(x, shape, tile0, rout)
-    return _raster_out(torch.where(rout >= 0, _gather0(z, rout), xt), shape, tile0)
+    if rout.shape[1] == _CHUNK:  # tree_of, in preorder layout
+        z = z1 + _gather0(A, tree)
+        return _raster_out(torch.where(rout >= 0, _gather0(z, rout), xt), shape, tile0)
+    # the raster-layout tree table of a tall plan
+    z = _gather0(z1, rout) + _gather0(A, tree)
+    return _raster_out(torch.where(rout >= 0, z, xt), shape, tile0)
 
 
-def tile_down_fin(x, z1, A, tree_of, rout, shape, tile0=None):
+def tile_down_fin(x, z1, A, tree, rout, shape, tile0=None):
     """Pass D2 of the tile plan's downward sweep, finishing a raw pass D1.
 
     ``x`` (H*W,) raster values; ``z1`` (NT, T) pass D1's path sums in
     preorder layout; ``A`` (NT, R) the coarse level's path sum below each
-    local root; ``tree_of`` (NT, T), the local root index of each preorder
-    slot, -1 off the tree, and ``rout`` (NT, T) in tile raster layout, both
-    in :func:`tile_table_dtype`. Returns (H*W,) in ``x``'s dtype: tree
+    local root; ``rout`` (NT, T) in tile raster layout, in
+    :func:`tile_table_dtype`; ``tree`` (NT, T) the plan's tree table in
+    :func:`tile_tree_dtype`: at 128 rows ``tree_of``, the local root index
+    of each preorder slot (-1 off the tree); on taller tiles the same in
+    raster layout, ``tree_of[rout]`` (-1 off the tree; see
+    ``ops.tile_plan.tree_table``). Returns (H*W,) in ``x``'s dtype: tree
     cells get ``z1 + A[tree]``, cells off the tree pass ``x`` through; with
     ``tile0`` (the tables cover tiles ``tile0 .. tile0 + NT - 1``) the (NT,
-    T) stack of those tiles."""
+    T) stack of those tiles. Taller tiles launch a plain grid, no cluster."""
     if x.device.type == "cpu":
-        return tile_down_fin_plain(x, z1, A, tree_of, rout, shape, tile0)
-    return _tile_down_d2(x, z1, A, tree_of, rout, shape, tile0, lite=False)
+        return tile_down_fin_plain(x, z1, A, tree, rout, shape, tile0)
+    return _tile_down_d2(x, z1, A, tree, rout, shape, tile0, lite=False)
 
 
-def tile_down_lite_plain(abar, A, tree_of, rout, shape, tile0=None):
+def tile_down_lite_plain(abar, A, tree, rout, shape, tile0=None):
     """Plain version of :func:`tile_down_lite`."""
     at = _tiles(abar, shape, rout.shape[1]) if tile0 is None else abar
-    r = rout.long()
-    tr = torch.gather(tree_of, 1, r.clamp(min=0)).long()
-    on = (r >= 0) & (tr >= 0)
+    if rout.shape[1] == _CHUNK:  # tree_of, in preorder layout
+        r = rout.long()
+        tr = torch.gather(tree, 1, r.clamp(min=0)).long()
+        on = (r >= 0) & (tr >= 0)
+    else:  # the raster-layout tree table of a tall plan
+        tr = tree.long()
+        on = tr >= 0
     add = torch.gather(A, 1, tr.clamp(min=0))
     return _raster_out(torch.where(on, at + add, at), shape, tile0)
 
 
-def tile_down_lite(abar, A, tree_of, rout, shape, tile0=None):
+def tile_down_lite(abar, A, tree, rout, shape, tile0=None):
     """Pass D2 of the sharded downward sweep (T4's lite mode): add each
     tree's coarse continuation to the routed pass D1.
 
     ``abar`` pass D1's routed result (:func:`tile_down_a` with ``routed``):
     the (H*W,) raster or, with ``tile0``, the (NT, T) stack of the tiles
-    ``tile0 .. tile0 + NT - 1``; ``A``, ``tree_of`` and ``rout`` as
+    ``tile0 .. tile0 + NT - 1``; ``A``, ``tree`` and ``rout`` as
     :func:`tile_down_fin` takes them. Returns ``abar``'s layout and dtype:
-    ``abar + A[tree_of[rout]]`` on tree cells, ``abar`` elsewhere. Routing
-    is a permutation, so this is :func:`tile_down_fin` on the raw pass D1,
-    bit for bit."""
+    ``abar + A[tree]`` on tree cells, ``abar`` elsewhere. Routing is a
+    permutation, so this is :func:`tile_down_fin` on the raw pass D1, bit
+    for bit."""
     if abar.device.type == "cpu":
-        return tile_down_lite_plain(abar, A, tree_of, rout, shape, tile0)
-    return _tile_down_d2(None, abar, A, tree_of, rout, shape, tile0, lite=True)
+        return tile_down_lite_plain(abar, A, tree, rout, shape, tile0)
+    return _tile_down_d2(None, abar, A, tree, rout, shape, tile0, lite=True)
 
 
-def _tile_down_d2(x, z1, A, tree_of, rout, shape, tile0, lite):
+def _tile_down_d2(x, z1, A, tree, rout, shape, tile0, lite):
     """Launch T4 in fin mode (``z1`` the raw pass D1) or lite mode (``z1``
     the routed one, ``x`` unused)."""
     dev = z1.device
     dt = _code("z1", z1, _TILE_DTYPES)
     H, W, NT, ntx, t0, stack, G = _tile_args(shape, rout, x, tile0)
+    if A.dim() != 2 or A.shape[0] != NT or A.shape[1] < 1:
+        raise ValueError("A must be (NT, R) with R > 0")
     tab = tile_table_dtype(G * _TILE)
-    checks = [("z1", z1, z1.dtype), ("A", A, z1.dtype), ("tree_of", tree_of, tab),
+    tree_dt = tab if G == 1 else tile_tree_dtype(G * _TILE, A.shape[1])
+    checks = [("z1", z1, z1.dtype), ("A", A, z1.dtype), ("tree", tree, tree_dt),
               ("rout", rout, tab)]
     if not lite:
         checks.append(("x", x, z1.dtype))
     for name, t, dtype in checks:
         _check(name, t, dtype, dev)
     z1_shape = (H * W,) if lite and not stack else rout.shape
-    if z1.shape != z1_shape or tree_of.shape != rout.shape:
+    if z1.shape != z1_shape or tree.shape != rout.shape:
         raise ValueError(f"{'abar' if lite else 'z1'} must be {tuple(z1_shape)}, "
-                         f"tree_of {tuple(rout.shape)}")
-    if A.dim() != 2 or A.shape[0] != NT or A.shape[1] < 1:
-        raise ValueError("A must be (NT, R) with R > 0")
+                         f"tree {tuple(rout.shape)}")
+    if G > 1:  # read two cells at a time
+        _pairs_aligned("rout", rout)
+        _pairs_aligned("tree", tree)
+        if stack and lite:
+            _pairs_aligned("abar", z1)
     out = torch.empty(rout.shape if stack else (H * W,), dtype=z1.dtype, device=dev)
     _launch(_tile_lib(G).pf_tile_down_fin, dt, int(lite),
             None if lite else x.data_ptr(), H, W, NT, ntx, t0, stack, z1.data_ptr(),
-            A.data_ptr(), A.shape[1], tree_of.data_ptr(), rout.data_ptr(), out.data_ptr())
+            A.data_ptr(), A.shape[1], tree.data_ptr(), tree.element_size(), rout.data_ptr(),
+            out.data_ptr())
     _count("tile_down_lite" if lite else "tile_down_fin", G)
     return out
 

@@ -54,8 +54,10 @@ of the data over each cell's downstream path, as the JAX package's::
 (T3 alone, in its routed mode, on a graph without entry cells). Its indices
 are built at first use (``_ensure_down``): the per-tile (interval end, slot)
 order ``es`` and the run boundaries ``g_last``/``g_prev`` from the native
-down phase, ``n_tree``, ``ent_slot`` and ``tree_of``; the coarse level's
-down indices likewise (``build_down``), for kernels H1 and H0. Every sum has
+down phase, ``n_tree``, ``ent_slot`` and ``tree_of`` (on the device of a
+plan of taller tiles in raster layout, ``tree_of[rout]``: :func:`tree_table`);
+the coarse level's down indices likewise (``build_down``), for kernels H1
+and H0. Every sum has
 a fixed order, so a result is the same from run to run in every dtype.
 
 Both sweeps also run sharded over the ranks of a
@@ -91,7 +93,7 @@ from .accel import acc_dtype
 from .accel_big import BigAccelPlan, CoarseDown, RouterAccel
 from .plan import DfsPlan, accumulate_planned, build_plan
 
-__all__ = ["TilePlan", "build_tile_plan", "tile_table"]
+__all__ = ["TilePlan", "build_tile_plan", "tile_table", "tree_table"]
 
 _S = 128
 # below this many coarse slots plain gathers solve the coarse level
@@ -227,6 +229,31 @@ def tile_table(a, rows=_S, device=None):
             raise ValueError(f"tile table values {lo}..{hi} fall outside "
                              f"{str(dtype).replace('torch.', '')}")
     return t.to(dtype)
+
+
+def tree_table(tree_of, rout, R, rows=_S, device=None):
+    """T4's tree table of a plan of ``rows``-row tiles with ``R`` (``R_pad``)
+    local roots a tile, on ``device``, from the host ``tree_of`` (preorder
+    layout) and ``rout`` (int32, numpy or memory maps, or slices of them):
+    at 128 rows ``tree_of`` itself (:func:`tile_table`); on taller tiles,
+    composed on the device into raster layout,
+    ``tree_r[t, l] = rout[t, l] >= 0 ? tree_of[t, rout[t, l]] : -1``, so that
+    T4 finds a cell's tree without a gather, in
+    :func:`pyflwdir_torch.kernels.tile_tree_dtype` (int16 where ``R`` <=
+    32,767). Raises ValueError where a value falls outside that dtype."""
+    if rows == _S:
+        return tile_table(tree_of, rows, device)
+    ro = _upload(rout, device).long()
+    tr = torch.gather(_upload(tree_of, device), 1, ro.clamp(min=0))
+    tr = torch.where(ro >= 0, tr, torch.full((), -1, dtype=tr.dtype, device=tr.device))
+    dtype = kernels.tile_tree_dtype(rows, R)
+    if tr.numel():
+        lo, hi = (int(v) for v in torch.aminmax(tr))
+        info = torch.iinfo(dtype)
+        if lo < info.min or hi > info.max:
+            raise ValueError(f"tree table values {lo}..{hi} fall outside "
+                             f"{str(dtype).replace('torch.', '')}")
+    return tr.to(dtype)
 
 
 def _upload_table(key, a, rows, device):
@@ -584,9 +611,16 @@ class TilePlan:
         """The downward sweep's indices on the plan's device, typed as
         :attr:`idx_t` but ``n_tree`` (int32), after :meth:`_ensure_down`."""
         if self._down_idx_t is None:
-            self._down_idx_t = {k: _upload_table(k, v, self.Y, self.device)
-                                for k, v in self.down_idx.items()}
+            self._down_idx_t = {k: self._upload_down(k, v) for k, v in self.down_idx.items()}
         return self._down_idx_t
+
+    def _upload_down(self, key, a, rows=slice(None)):
+        """Down table ``key`` (its host array ``a``, rows ``rows`` of the
+        plan's tiles) on the plan's device; ``tree_of`` as T4 reads it
+        (:func:`tree_table`: raster layout on a tall plan)."""
+        if key == "tree_of":
+            return tree_table(a, self.idx["rout"][rows], self.R_pad, self.Y, self.device)
+        return _upload_table(key, a, self.Y, self.device)
 
     def _ensure_down(self):
         """Build, once, the downward sweep's indices (``down_idx``, uploaded
@@ -641,9 +675,12 @@ class TilePlan:
         and kept for later calls on the same slab."""
         cache = self._slabs.setdefault((lo, hi), {})
         for k in keys:
-            if k not in cache:
-                src = self.idx if k in self.idx else self.down_idx
-                cache[k] = _upload_table(k, src[k][lo:hi], self.Y, self.device)
+            if k in cache:
+                continue
+            if k in self.idx:
+                cache[k] = _upload_table(k, self.idx[k][lo:hi], self.Y, self.device)
+            else:
+                cache[k] = self._upload_down(k, self.down_idx[k][lo:hi], slice(lo, hi))
         return {k: cache[k] for k in keys}
 
     def _shard(self, data, mesh):

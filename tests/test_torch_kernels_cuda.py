@@ -1216,6 +1216,17 @@ def test_tall_wrappers_take_their_table_type_only(tall_plans):
     with pytest.raises(ValueError):  # a row of 3 * 16,384 + 1 slots is no tile height
         kernels.tile_pass_a(x, torch.zeros((gpu.NT, 3 * 16384 + 2), dtype=torch.int32,
                                            device="cuda"), t["ex_end"], gpu.shape)
+    # T4 takes the plan's tree table in tile_tree_dtype only (int16 here)
+    tree = gpu.down_idx_t["tree_of"]
+    assert tree.dtype == kernels.tile_tree_dtype(gpu.Y, gpu.R_pad) == torch.int16
+    z1 = torch.zeros(t["rout"].shape, dtype=torch.int32, device="cuda")
+    A = torch.zeros((gpu.NT, gpu.R_pad), dtype=torch.int32, device="cuda")
+    kernels.tile_down_fin(x, z1, A, tree, t["rout"], gpu.shape)
+    torch.cuda.synchronize()
+    with pytest.raises(TypeError):
+        kernels.tile_down_fin(x, z1, A, tree.to(torch.int32), t["rout"], gpu.shape)
+    with pytest.raises(TypeError):
+        kernels.tile_down_lite(x, A, tree, t["rout"].to(other), gpu.shape)
 
 
 def _tall_edge_tables(Y, E, seed, dev):
@@ -1325,3 +1336,105 @@ def test_tall_float64_down_same_bits(dev, Y):
         assert all(torch.equal(u, v) for u, v in zip(a, b))
         for g, w in zip(a, kernels.tile_down_a_plain(*args)):
             _assert_match(g, w, float(x.sum()), length=2 * Y * 128)
+
+
+def _tall_exit_ends(Y, NT, R, rng, dev):
+    """Random exit ends of R exits a tile, most in a peer CTA's chunk: tile
+    0 a padded row (every end the tile's last slot), tile 1 sorted."""
+    T = Y * 128
+    ex = rng.randint(0, T, (NT, R))
+    ex[0] = T - 1
+    ex[1] = np.sort(ex[1])
+    return torch.as_tensor(ex, device=dev).to(kernels.tile_table_dtype(Y))
+
+
+def _tall_tree(t, R, rng, dev, Y):
+    """A random raster-layout tree table of R trees: -1 off the tree (rout
+    -1) and on a tenth of the tree cells, in tile_tree_dtype."""
+    NT, T = t["rout"].shape
+    tr = np.where(rng.rand(NT, T) < 0.1, -1, rng.randint(0, R, (NT, T)))
+    tree = torch.where(t["rout"] >= 0, torch.as_tensor(tr, device=dev), -1)
+    return tree.to(kernels.tile_tree_dtype(Y, R))
+
+
+@pytest.mark.parametrize("R", [384, 40000])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.float64])
+@pytest.mark.parametrize("Y", [256, 384, 512])
+def test_tall_t1_t4_remote_tables(dev, Y, dtype, R):
+    """T1 (fused, exits only, tile range) and T4 (fin, lite, tile range) on
+    random tables whose gathers mostly lie in a peer CTA's chunk, R exits
+    and trees a tile (40,000: an int32 tree table, from 384 rows), a padded
+    exit row among them: bitwise their plain versions (integer-valued
+    data); T1 launched as a cluster of G CTAs, T4 as a plain grid."""
+    if Y == 256 and R > 1 << 15:
+        pytest.skip("a 256-row tile has at most 32,768 roots")
+    t = _tall_edge_tables(Y, 0, 45, dev)
+    H, W = shape = _EDGE_SHAPE
+    NT, T = t["rin"].shape
+    G = Y // 128
+    rng = np.random.RandomState(46)
+    x = _edge_data(rng, H * W, dtype, dev)
+    kernels.reset_launches()
+    if R <= T:
+        ex_end = _tall_exit_ends(Y, NT, R, rng, dev)
+        exits, c = kernels.tile_pass_a(x, t["rin"], ex_end, shape)
+        assert kernels.tile_last_cluster(Y) == G
+        ex_only = kernels.tile_pass_a(x, t["rin"], ex_end, shape, emit_c=False)
+        ex_p, c_p = kernels.tile_pass_a_plain(x, t["rin"], ex_end, shape)
+        torch.cuda.synchronize()
+        assert torch.equal(exits, ex_p) and torch.equal(c, c_p) and torch.equal(ex_only, ex_p)
+        s = slice(1, NT - 1)
+        ex_r, c_r = kernels.tile_pass_a(x, t["rin"][s], ex_end[s], shape, tile0=1)
+        assert torch.equal(ex_r, exits[s]) and torch.equal(c_r, c[s])
+        assert kernels.launches[f"tile_pass_a_g{G}"] == 2
+        assert kernels.launches[f"tile_pass_a_exits_g{G}"] == 1
+    tree = _tall_tree(t, R, rng, dev, Y)
+    assert tree.dtype == (torch.int16 if R < 1 << 15 else torch.int32)
+    A = _edge_data(rng, NT * R, dtype, dev).reshape(NT, R)
+    z1 = _edge_data(rng, NT * T, dtype, dev).reshape(NT, T)
+    abar = _edge_data(rng, H * W, dtype, dev)
+    fin_args = (x, z1, A, tree, t["rout"], shape)
+    fin = kernels.tile_down_fin(*fin_args)
+    assert kernels.tile_last_cluster(Y) == 1
+    lite = kernels.tile_down_lite(abar, A, tree, t["rout"], shape)
+    assert kernels.tile_last_cluster(Y) == 1
+    assert torch.equal(fin, kernels.tile_down_fin_plain(*fin_args))
+    assert torch.equal(lite, kernels.tile_down_lite_plain(abar, A, tree, t["rout"], shape))
+    s = slice(1, NT - 1)
+    abar_t = kernels._tiles(abar, shape, T)
+    l_args = (abar_t[s], A[s], tree[s], t["rout"][s], shape)
+    got = kernels.tile_down_lite(*l_args, tile0=1)
+    assert torch.equal(got, kernels._tiles(lite, shape, T)[s])
+    assert torch.equal(got, kernels.tile_down_lite_plain(*l_args, tile0=1))
+    got = kernels.tile_down_fin(x, z1[s], A[s], tree[s], t["rout"][s], shape, tile0=1)
+    assert torch.equal(got, kernels._tiles(fin, shape, T)[s])
+    assert kernels.launches[f"tile_down_fin_g{G}"] == kernels.launches[
+        f"tile_down_lite_g{G}"] == 2
+
+
+@pytest.mark.parametrize("Y", [256, 384, 512])
+def test_tall_float64_t1_t4_same_bits(dev, Y):
+    """T1 and T4 in float64 on random (non-integer) data and the random
+    tables: two calls give the same bits; T1 within the rule of its plain
+    version (a tile's T slots), T4 (one addition a cell) bitwise."""
+    t = _tall_edge_tables(Y, 0, 47, dev)
+    H, W = shape = _EDGE_SHAPE
+    NT, T = t["rin"].shape
+    rng = np.random.RandomState(48)
+    x = torch.as_tensor(rng.rand(H * W), device=dev)
+    ex_end = _tall_exit_ends(Y, NT, 384, rng, dev)
+    fused = [kernels.tile_pass_a(x, t["rin"], ex_end, shape) for _ in range(2)]
+    only = [kernels.tile_pass_a(x, t["rin"], ex_end, shape, emit_c=False) for _ in range(2)]
+    assert all(torch.equal(u, v) for u, v in zip(*fused))
+    assert torch.equal(*only) and torch.equal(only[0], fused[0][0])
+    for g, w in zip(fused[0], kernels.tile_pass_a_plain(x, t["rin"], ex_end, shape)):
+        _assert_match(g, w, float(x.sum()), length=T)
+    tree = _tall_tree(t, 384, rng, dev, Y)
+    A = torch.as_tensor(rng.rand(NT, 384), device=dev)
+    z1 = torch.as_tensor(rng.rand(NT, T), device=dev)
+    fin_args = (x, z1, A, tree, t["rout"], shape)
+    fin = kernels.tile_down_fin(*fin_args)
+    assert torch.equal(fin, kernels.tile_down_fin(*fin_args))
+    assert torch.equal(fin, kernels.tile_down_fin_plain(*fin_args))
+    lite = kernels.tile_down_lite(x, A, tree, t["rout"], shape)
+    assert torch.equal(lite, kernels.tile_down_lite_plain(x, A, tree, t["rout"], shape))

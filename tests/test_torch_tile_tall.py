@@ -27,7 +27,14 @@ router coarse level). Held:
   ``stream_order()`` equal to the JAX raster's after its own
   ``load_plans`` (512 rows) and to the 128-row plan's (256 and 384 rows);
 * heights other than 128, 256, 384 and 512 raise the JAX build's
-  ValueError.
+  ValueError;
+* T4's tree table on the device, ``tree_of`` composed into raster layout
+  (``ops.tile_plan.tree_table``), equals ``where(rout >= 0,
+  tree_of[rout], -1)`` tile by tile and in a slab, for the port's plan, the
+  replayed JAX plan and a loaded JAX plan, in ``kernels.tile_tree_dtype``;
+  the plain T4 (fin and lite) on it bitwise the JAX ``_pass_down_fin`` /
+  ``_pass_down_lite`` on the same inputs; the one-rank sharded downward
+  sweep bitwise ``accumulate_down`` (int32 and float64).
 
 The JAX sweeps run under ``jax.jit`` with the plan's arrays as arguments
 (called eagerly, each operation compiles apart), the banded one pass by
@@ -43,7 +50,7 @@ import jax.numpy as jnp
 
 import pyflwdir_torch
 import pyflwdir_tpu
-from pyflwdir_torch import kernels, runtime
+from pyflwdir_torch import kernels, parallel, runtime
 from pyflwdir_torch.codecs import d8 as td8
 from pyflwdir_torch.ops import plan as tplan
 from pyflwdir_torch.ops import plan_io
@@ -215,6 +222,84 @@ def test_accumulate_float64_close(plans):
                                    atol=2 * _length(tp, down) * _EPS * total)
 
 
+def _check_tree_table(tp):
+    """The plan's device tree table against ``where(rout >= 0,
+    tree_of[rout], -1)`` on the host, tile by tile, and a slab of it."""
+    tp._ensure_down()
+    got = tp.down_idx_t["tree_of"]
+    assert got.dtype == kernels.tile_tree_dtype(tp.Y, tp.R_pad)
+    assert got.shape == (tp.NT, tp.Y * 128)
+    tree_of, rout = tp.down_idx["tree_of"], tp.idx["rout"]
+    for t in range(tp.NT):
+        want = np.where(rout[t] >= 0, tree_of[t][np.maximum(rout[t], 0)], -1)
+        assert np.array_equal(got[t].numpy(), want), t
+    lo, hi = 1, tp.NT - 1
+    assert torch.equal(tp._slab(lo, hi, ("tree_of",))["tree_of"], got[lo:hi])
+
+
+def test_tree_table_composes_tree_of_through_rout(plans):
+    for tp in (plans["tp"], plans["rtp"]):
+        _check_tree_table(tp)
+
+
+def _jax_d2(jtp, z1, A, x, abar):
+    """The JAX ``_pass_down_fin`` and ``_pass_down_lite`` (jitted) on the
+    port's layouts: ``z1`` (NT, T) preorder, ``A`` (NT, R_pad), ``x`` and
+    ``abar`` (H*W,) rasters; both results as (H*W,) rasters."""
+    jtp._ensure_down()
+    darrs = jtp.down_arrays()
+    cfg = jtp._acc_cfg(jnp.int64)
+    (H, W), (Hp, Wp) = jtp.shape, jtp.pshape
+    zg = jtp._untile_cpu(jnp.asarray(z1).reshape(jtp.NT, jtp.Y, 128))
+
+    def grid(v):
+        return jnp.pad(jnp.asarray(v).reshape(H, W), ((0, Hp - H), (0, Wp - W)))
+
+    A3 = jnp.asarray(A)
+    xd = (A3 - jnp.concatenate([A3[:, 1:], jnp.zeros_like(A3[:, :1])], 1)).reshape(
+        jtp.NT, jtp.R_rows, 128)
+    fin = jax.jit(lambda z, xg, e, d: jtp._pass_down_fin(z, xg, e, d, cfg))(zg, grid(x), xd,
+                                                                         darrs)
+    lite = jax.jit(lambda a, e, d: jtp._pass_down_lite(a, e, d, cfg))(grid(abar), xd, darrs)
+    return [np.asarray(r)[:H, :W].reshape(-1) for r in (fin, lite)]
+
+
+def test_plain_t4_on_the_tree_table_equals_the_jax_passes(plans):
+    """The plain T4, fin and lite, on the port's device tables (the
+    raster-layout tree table) bitwise the JAX passes D2 on the same
+    inputs."""
+    jtp, tp = plans["jtp"], plans["tp"]
+    tp._ensure_down()
+    t, d = tp.idx_t, tp.down_idx_t
+    rng = np.random.RandomState(71)
+    n = plans["ids"].size
+    z1 = rng.randint(-1000, 1000, (tp.NT, tp.Y * 128)).astype(np.int64)
+    A = rng.randint(-1000, 1000, (tp.NT, tp.R_pad)).astype(np.int64)
+    # a tile's roots past its last tree are padding, 0 as the coarse level
+    # leaves them (the JAX pass spreads A by a suffix sum of differences)
+    n_roots = tp.down_idx["tree_of"].max(axis=1) + 1
+    A[np.arange(tp.R_pad)[None, :] >= n_roots[:, None]] = 0
+    x, abar = (rng.randint(-1000, 1000, n).astype(np.int64) for _ in range(2))
+    fin = kernels.tile_down_fin_plain(torch.as_tensor(x), torch.as_tensor(z1),
+                                      torch.as_tensor(A), d["tree_of"], t["rout"], tp.shape)
+    lite = kernels.tile_down_lite_plain(torch.as_tensor(abar), torch.as_tensor(A),
+                                        d["tree_of"], t["rout"], tp.shape)
+    want_fin, want_lite = _jax_d2(jtp, z1, A, x, abar)
+    assert np.array_equal(fin.numpy(), want_fin)
+    assert np.array_equal(lite.numpy(), want_lite)
+
+
+def test_sharded_down_one_rank_bitwise(plans):
+    """The one-rank sharded downward sweep (T4 lite on the tree table's
+    slab) bitwise ``accumulate_down``, int32 and float64."""
+    tp = plans["tp"]
+    n = plans["ids"].size
+    mesh = parallel.make_mesh(device="cpu")  # one process, no group
+    for x in (torch.as_tensor(_int_data("int32", n)),
+              torch.as_tensor(np.random.RandomState(8).rand(n))):
+        assert torch.equal(tp.accumulate_down_sharded(x, mesh), tp.accumulate_down(x))
+
+
 @pytest.mark.parametrize("band_tile_rows", [1, None])
 def test_banded_bitwise(plans, band_tile_rows):
     """Bitwise the port's ``accumulate`` and, on the demo grid, the JAX
@@ -261,6 +346,11 @@ def test_jax_tall_plan_loads(saved, Y, down):
     else:
         with pytest.raises(RuntimeError, match="downward"):
             tp.accumulate_down(ones)
+
+
+@pytest.mark.parametrize("Y", HEIGHTS)
+def test_tree_table_of_a_loaded_jax_plan(saved, Y):
+    _check_tree_table(ttp.TilePlan.load(saved[Y]["root"] / "down", device="cpu"))
 
 
 @pytest.mark.parametrize("Y", HEIGHTS)

@@ -10,6 +10,9 @@ from tests.test_torch_tile_tall import (  # noqa: F401  (collected here)
     test_banded_bitwise,
     test_build_decisions_equal,
     test_composed_indices_equal_the_replayed_jax_tables,
+    test_plain_t4_on_the_tree_table_equals_the_jax_passes,
+    test_sharded_down_one_rank_bitwise,
+    test_tree_table_composes_tree_of_through_rout,
 )
 
 plans = plans_fixture((512,))

@@ -1332,7 +1332,9 @@ def tall_path(fl, tp, d8, upa, seq, refs, dev):
     bitwise the 128-row plan ``tp``'s and the native sweeps'; float64 by the
     rule with the chain length at T = 128 Y, two calls the same bits; the
     launch counters zeroed before each call and read after: the cluster
-    kernels ran, no 128-row one. At each height a kernel phase (every mode
+    kernels ran, no 128-row one, and the last launch of each call (T2 up,
+    T4 down) had a cluster width of G up and 1 down (T4 on the raster-layout
+    tree table launches a plain grid). At each height a kernel phase (every mode
     and the tile-range forms against their plain versions), the banded and
     the one-rank sharded sweeps on the main path; at 512 rows a saved
     plan, its ``load_plans`` into a new raster and that raster's

@@ -51,7 +51,9 @@
 // opts in with cudaFuncSetAttribute. At G = 1 that is one CTA a tile,
 // launched plainly. Above, the G CTAs of a tile are one thread-block
 // cluster (cudaLaunchKernelEx with a cluster dimension of (G, 1, 1), grid
-// NT * G), and CTA r = cluster.block_rank() of tile b owns
+// NT * G) for T1-T3; T4 reads a raster-layout tree table and needs no
+// peer, so its G CTAs a tile are plain blocks of an NT * G grid (rank
+// blockIdx.x % G). CTA r of tile b owns
 //   - the preorder slots [16,384 r, 16,384 (r + 1)) of the tile, the
 //     columns [16,384 r, ...) of its rows of the preorder-layout tables;
 //   - the raster rows [128 r, 128 (r + 1)) of the tile, the same columns of
@@ -65,10 +67,12 @@
 // memory after a cluster barrier: every sum keeps one order, so two calls
 // give the same bits. A phase that peers read ends with cluster.sync()
 // before its buffer is reused, and a CTA leaves only after a last
-// cluster.sync(). The first launch of each kernel (and, for T2, of a larger
-// size) asks cudaOccupancyMaxActiveClusters whether a cluster fits (T3 in 8-byte
-// values needs G SMs of one GPC with 224 KB free each); a launch that
-// cannot run returns an error, and the wrapper raises.
+// cluster.sync() (T1 passes two: its chunk sums are exchanged without the
+// lower ranks' totals, which each reader adds). The first cluster launch of
+// each kernel (and, for T2, of a larger size) asks
+// cudaOccupancyMaxActiveClusters whether a cluster fits (T3 in 8-byte values
+// needs G SMs of one GPC with 224 KB free each); a launch that cannot run
+// returns an error, and the wrapper raises.
 //
 // All four kernels move a few bytes per cell and do one or two adds on
 // them: they are bound by device-memory bytes (3.35 TB/s on an H100 SXM),
@@ -234,13 +238,6 @@ __device__ __forceinline__ T& tile_elem(T* buf, int i) {
     return *cg::this_cluster().map_shared_rank(buf + (i & (kSlots - 1)),
                                                i >> kChunkBits);
   }
-}
-
-// a barrier of every thread of the tile's cluster as an explicit
-// release-arrive and acquire-wait at cluster scope (kG > 1)
-__device__ __forceinline__ void cluster_sync_ra() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // the sum, in rank order, of *v of the tile's CTAs q0 .. q1 - 1
@@ -496,10 +493,21 @@ using ScanCells = ScanCellsOf<Idx>;
 // 4-byte one in float64 exits-only mode (PERF.md §6). The
 // prefix sums are written to c and, over the dead raster tile, to shared
 // memory, from which the exit differences are read. Summation order differs
-// from the JAX package's (integers exact, float64 within rounding). In a
-// cluster (128 G-row tiles) each CTA stages its 128 rows, gathers its chunk
-// of slots from the owners' staged rows and adds the lower ranks' chunk
-// totals; an exit end reads the owner's sums.
+// from the JAX package's (integers exact, float64 within rounding).
+// Tiles of 128 G rows (G > 1, tile_pass_a_tall_kernel): a cluster of G
+// CTAs, CTA r the tile's slots [16,384 r, 16,384 (r + 1)). Nothing is
+// staged: each CTA gathers its chunk's x from device memory through rin
+// (the tile's row segments stay in L1/L2, as T2's 8-byte full mode does),
+// scans it and writes its chunk's prefix sums without the lower ranks'
+// totals to shared memory, its chunk total (warp_tot[kWarps - 1]) with
+// them; after one cluster barrier each CTA forms every rank's offset, the
+// lower ranks' totals summed in rank order, writes c with its own added,
+// and an exit end reads the owner's sum by distributed shared memory and
+// adds the owner's offset: the bits of a CTA that adds its offset before
+// it writes, with two cluster barriers (the exchange, and the last before a
+// CTA leaves) where staging the tile took four. Staging each CTA's rows,
+// the whole tile in each CTA (4-byte values at 256 and 384 rows) or a
+// second buffer for the sums all timed slower on an H100 (PERF.md §6).
 // ---------------------------------------------------------------------------
 template <typename T, bool kEmitC>
 __global__ void __launch_bounds__(kTileThreads)
@@ -513,19 +521,11 @@ __global__ void __launch_bounds__(kTileThreads)
   __shared__ T warp_tot[kWarps];
   const TilePos tp = tile_pos(ntx, tile0);
   stage_tile(x, H, W, tp.r0, tp.c0, xs);
-  tile_sync();  // the whole tile is staged
+  __syncthreads();
 
   T v[kPerThread];
   ScanCells cell(rin + tp.tb);
-  tile_prefix_scan([&](int k) { return tile_elem(xs, cell(k)); }, v, warp_tot);
-  if constexpr (kG > 1) {
-    // every gather from the staged tile is done; each CTA's chunk total is
-    // its warp_tot[kWarps - 1]: add those of the lower ranks
-    tile_sync();
-    const T off = ranks_sum(&warp_tot[kWarps - 1], 0, tp.rank);
-#pragma unroll
-    for (int k = 0; k < kPerThread; ++k) v[k] += off;
-  }
+  tile_prefix_scan([&](int k) { return xs[cell(k)]; }, v, warp_tot);
   T* c_t = c + tp.tb;
 #pragma unroll
   for (int k = 0; k < kPerThread; ++k) {
@@ -533,61 +533,17 @@ __global__ void __launch_bounds__(kTileThreads)
     if (kEmitC) c_t[q] = v[k];
     xs[q] = v[k];
   }
-  tile_sync();
+  __syncthreads();
 
   const Idx* ee = ex_end + tp.t * R;
   T* ex_t = exits + tp.t * R;
-  for (int j = tp.rank * kTileThreads + threadIdx.x; j < R; j += kG * kTileThreads) {
-    const T hi = tile_elem(xs, ee[j]);
-    ex_t[j] = j > 0 ? hi - tile_elem(xs, ee[j - 1]) : hi;
-  }
-  if constexpr (kG > 1) tile_sync();  // peers may still read this CTA's sums
-}
-
-// T1 in a cluster (kG > 1), by form:
-//   kT1Own    the kernel above: each CTA stages its own 128 rows, gathers
-//             from the owners' rows (four cluster barriers);
-//   kT1All    each CTA stages the whole tile (the peers' rows from L2) and
-//             gathers there, one CTA barrier; its un-offset chunk sums go
-//             over its own rows of the staged tile;
-//   kT1Global no staging: x gathered from device memory through rin (the
-//             tile's row segments stay in L1/L2), the sums in one buffer;
-//   kT1TwoBuf each CTA stages its own rows (a cluster barrier), gathers from
-//             the owners' rows, its sums in a second buffer beside them.
-// In all but kT1Own each CTA writes its chunk's prefix sums without the lower
-// ranks' totals, and its chunk total (warp_tot[kWarps - 1]) with them; after
-// one cluster barrier every reader adds the owner's offset, the sum of the
-// lower ranks' totals in rank order (ranks_sum): c and the exits keep
-// kT1Own's bits. Two cluster barriers (three in kT1TwoBuf): that exchange and
-// the last before a CTA leaves.
-enum { kT1Own = 0, kT1All = 1, kT1Global = 2, kT1TwoBuf = 3 };
-// pins T1's form where it fits (timing tries; -1: the choice below)
-constexpr int kT1Pin = -1;
-// the cluster forms' barriers as cluster_sync_ra (timing tries)
-constexpr bool kT1RA = false;
-
-// whether form f fits T1's shared memory in values of s bytes
-constexpr bool t1_fits(int f, int s) {
-  return f == kT1All ? kG * kSlots * s <= 227 * 1024
-                     : (f == kT1TwoBuf ? 2 * kSlots * s <= 227 * 1024 : true);
-}
-template <typename T>
-constexpr int t1_form() {
-  constexpr int s = static_cast<int>(sizeof(T));
-  if constexpr (kG == 1) {
-    return kT1Own;
-  } else if constexpr (kT1Pin >= 0 && t1_fits(kT1Pin, s)) {
-    return kT1Pin;
-  } else {
-    return s == 4 ? (kG <= 3 ? kT1All : kT1TwoBuf) : kT1Global;
+  for (int j = threadIdx.x; j < R; j += kTileThreads) {
+    const T hi = xs[ee[j]];
+    ex_t[j] = j > 0 ? hi - xs[ee[j - 1]] : hi;
   }
 }
-// T1's shared memory in values of s bytes, by form
-constexpr int t1_smem(int f, int s) {
-  return s * (f == kT1All ? kG * kSlots : (f == kT1TwoBuf ? 2 * kSlots : kSlots));
-}
 
-template <typename T, bool kEmitC, int kForm>
+template <typename T, bool kEmitC>
 __global__ void __launch_bounds__(kTileThreads)
     tile_pass_a_tall_kernel(const T* __restrict__ x, int64_t H, int64_t W,
                             int64_t ntx, int64_t tile0,
@@ -595,47 +551,18 @@ __global__ void __launch_bounds__(kTileThreads)
                             const Idx* __restrict__ ex_end, int R,
                             T* __restrict__ c, T* __restrict__ exits) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* xs = reinterpret_cast<T*>(smem_raw);
+  T* sums = reinterpret_cast<T*>(smem_raw);
   __shared__ T warp_tot[kWarps];
   __shared__ T offs[kG];  // each rank's offset: the lower ranks' totals
   const TilePos tp = tile_pos(ntx, tile0);
-  // this CTA's chunk of sums, at the same place in every CTA's layout
-  const int sum0 = kForm == kT1All ? tp.rank * kSlots : (kForm == kT1TwoBuf ? kSlots : 0);
-  if constexpr (kForm == kT1All) {
-    for (int l = threadIdx.x; l < kG * kSlots; l += kTileThreads) {
-      xs[l] = tile_cell(x, H, W, tp.y0, tp.c0, l);
-    }
-    __syncthreads();
-  } else if constexpr (kForm == kT1TwoBuf) {
-    stage_tile(x, H, W, tp.r0, tp.c0, xs);
-    tile_sync();  // the whole tile is staged
-  }
-  auto cluster_barrier = [] {
-    if constexpr (kT1RA) {
-      cluster_sync_ra();
-    } else {
-      tile_sync();
-    }
-  };
 
   T v[kPerThread];
   ScanCells cell(rin + tp.tb);
-  tile_prefix_scan(
-      [&](int k) -> T {
-        const int i = cell(k);
-        if constexpr (kForm == kT1All) {
-          return xs[i];
-        } else if constexpr (kForm == kT1Global) {
-          return tile_cell(x, H, W, tp.y0, tp.c0, i);
-        } else {
-          return tile_elem(xs, i);
-        }
-      },
-      v, warp_tot);
-  // every load of this CTA is done (kT1All: its own rows may go)
+  tile_prefix_scan([&](int k) { return tile_cell(x, H, W, tp.y0, tp.c0, cell(k)); }, v,
+                   warp_tot);
 #pragma unroll
-  for (int k = 0; k < kPerThread; ++k) xs[sum0 + tile_scan_slot(k)] = v[k];
-  cluster_barrier();  // every chunk's sums and total are written
+  for (int k = 0; k < kPerThread; ++k) sums[tile_scan_slot(k)] = v[k];
+  tile_sync();  // every chunk's sums and total are written
   if (threadIdx.x < kG) offs[threadIdx.x] = ranks_sum(&warp_tot[kWarps - 1], 0, threadIdx.x);
   __syncthreads();
   if constexpr (kEmitC) {
@@ -644,19 +571,15 @@ __global__ void __launch_bounds__(kTileThreads)
 #pragma unroll
     for (int k = 0; k < kPerThread; ++k) c_t[tile_scan_slot(k)] = v[k] + off;
   }
-  // the sum at slot i of the tile: the owner's chunk sum plus its offset
-  auto sum_at = [&](int i) -> T {
-    const int q = i >> kChunkBits;
-    T* p = xs + (kForm == kT1All ? i : sum0 + (i & (kSlots - 1)));
-    return *cg::this_cluster().map_shared_rank(p, q) + offs[q];
-  };
+  // the prefix sum at slot i of the tile
+  auto sum_at = [&](int i) -> T { return tile_elem(sums, i) + offs[i >> kChunkBits]; };
   const Idx* ee = ex_end + tp.t * R;
   T* ex_t = exits + tp.t * R;
   for (int j = tp.rank * kTileThreads + threadIdx.x; j < R; j += kG * kTileThreads) {
     const T hi = sum_at(ee[j]);
     ex_t[j] = j > 0 ? hi - sum_at(ee[j - 1]) : hi;
   }
-  cluster_barrier();  // peers may still read this CTA's sums
+  tile_sync();  // peers may still read this CTA's sums
 }
 
 // ---------------------------------------------------------------------------
@@ -1160,9 +1083,9 @@ __global__ void __launch_bounds__(kTileThreads, 1)
 // tree, A once per root: 2 * sizeof(T) + 4 bytes per slot.
 // Design: one block per tile; z1 + A[tree] is built in shared memory from
 // coalesced reads (A's row of the tile stays in L1), and the raster tile is
-// written row-coalesced through rout. In a cluster each CTA builds its
-// chunk and reads a routed cell's value from the slot's owner (lite mode:
-// its tree index).
+// written row-coalesced through rout. Tiles of 128 G rows (G > 1):
+// tile_down_fin_tall_kernel below, on a raster-layout tree table, with no
+// cluster.
 //
 // Lite mode (kLite): the input is pass D1's routed result abar (T3 routed:
 // z1 in raster order, x passed through off the tree), laid out as out, and
@@ -1196,14 +1119,14 @@ __global__ void __launch_bounds__(kTileThreads)
     for (int s = threadIdx.x; s < kSlots; s += kTileThreads) {
       trs[s] = tree_of[tb + s];
     }
-    tile_sync();
+    __syncthreads();
     for (int l = threadIdx.x; l < kSlots; l += kTileThreads) {
       const int64_t g = out_pos<kStack>(tb, H, W, tp.r0, tp.c0, l);
       if (g >= 0) {
         T v = z1[g];
         const int q = rout[tb + l];
         if (q >= 0) {
-          const int tr = tile_elem(trs, q);
+          const int tr = trs[q];
           if (tr >= 0) v += A_t[tr];
         }
         out[g] = v;
@@ -1217,16 +1140,15 @@ __global__ void __launch_bounds__(kTileThreads)
       if (tr >= 0) v += A_t[tr];
       zs[s] = v;
     }
-    tile_sync();
+    __syncthreads();
     for (int l = threadIdx.x; l < kSlots; l += kTileThreads) {
       const int64_t g = out_pos<kStack>(tb, H, W, tp.r0, tp.c0, l);
       if (g >= 0) {
         const int q = rout[tb + l];
-        out[g] = q >= 0 ? tile_elem(zs, q) : cell_x<kStack>(x, g, H, W, tp.r0, tp.c0, l);
+        out[g] = q >= 0 ? zs[q] : cell_x<kStack>(x, g, H, W, tp.r0, tp.c0, l);
       }
     }
   }
-  if constexpr (kG > 1) tile_sync();  // peers may still read this CTA's chunk
 }
 
 // T4 on a tall plan (kG > 1): the plan's tree table is in raster layout,
@@ -1235,28 +1157,20 @@ __global__ void __launch_bounds__(kTileThreads)
 // int32, so a cell finds its tree without a gather and T4 needs no cluster:
 // the grid's kG CTAs of a tile are plain blocks, CTA r the tile's raster rows
 // [128 r, 128 (r + 1)), each thread two adjacent cells at a time (one word
-// of each table). Lite mode streams abar, tree_r and A[tree] into out (no
-// shared memory); fin mode reads z1 at the cell's slot from the tile's row
-// of z1 (L1/L2; kT4Staged: staged whole in shared memory first), then adds
-// A[tree] where the cell has a tree: the same single addition as the
-// 128-row kernel, the same bits.
-enum { kT4Global = 0, kT4Staged = 1 };
-// pins T4's fin form where it fits (timing tries; -1: the choice below)
-constexpr int kT4Pin = -1;
-template <typename T>
-constexpr int t4_form() {
-  if constexpr (kT4Pin == kT4Staged && kG * kSlots * sizeof(T) <= 227 * 1024) {
-    return kT4Staged;
-  } else {
-    return kT4Global;
-  }
-}
+// of each table), no shared memory. Lite mode streams abar, tree_r and
+// A[tree] into out; fin mode reads z1 at the cell's slot from the tile's
+// row of z1 (L1/L2; staging that row in each CTA's shared memory timed
+// slower on an H100, PERF.md §6), then adds A[tree] where the cell has a
+// tree: the same single addition as the 128-row kernel, the same bits.
+// Bound: lite, abar read and out written once, tree_r read once, A once per
+// root: 2 * sizeof(T) + 2 bytes a cell; fin, z1 at each tree cell, tree_r
+// and rout per cell, x per off-tree cell, out written once.
 
 // the tree-table entries of cells 2j and 2j + 1, read as one word
 template <typename TR>
 using TrWord = std::conditional_t<sizeof(TR) == 2, uint32_t, Two<int32_t>>;
 
-template <typename T, bool kLite, bool kStack, typename TR, int kForm>
+template <typename T, bool kLite, bool kStack, typename TR>
 __global__ void __launch_bounds__(kTileThreads)
     tile_down_fin_tall_kernel(const T* __restrict__ x, int64_t H, int64_t W,
                               int64_t ntx, int64_t tile0, const T* __restrict__ z1,
@@ -1264,24 +1178,14 @@ __global__ void __launch_bounds__(kTileThreads)
                               const TR* __restrict__ tree_r,
                               const Idx* __restrict__ rout,
                               T* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* zs = reinterpret_cast<T*>(smem_raw);
   const TilePos tp = tile_pos<false>(ntx, tile0);
   const int64_t tb = tp.tb;
   const T* A_t = A + tp.t * R;
   const T* z1_t = z1 + tp.t * (kG * kSlots);  // fin: the tile's row of z1
-  if constexpr (!kLite && kForm == kT4Staged) {
-    constexpr int kVec = kG * kSlots * static_cast<int>(sizeof(T)) / 16;
-    const int4* from = reinterpret_cast<const int4*>(z1_t);
-    int4* to = reinterpret_cast<int4*>(zs);
-    for (int i = threadIdx.x; i < kVec; i += kTileThreads) to[i] = from[i];
-    __syncthreads();
-  }
-  const Word* ro2 = words(rout + tb);
   const TrWord<TR>* tr2 = reinterpret_cast<const TrWord<TR>*>(tree_r + tb);
   // the value of a cell with slot q (>= 0) and tree a
   auto tree_val = [&](int q, int a) -> T {
-    T v = kForm == kT4Staged ? zs[q] : z1_t[q];
+    T v = z1_t[q];
     if (a >= 0) v += A_t[a];
     return v;
   };
@@ -1313,7 +1217,7 @@ __global__ void __launch_bounds__(kTileThreads)
         }
       }
     } else {
-      const Word wr = ro2[j];
+      const Word wr = words(rout + tb)[j];
       const int q0 = lo16(wr), q1 = hi16(wr);
       if constexpr (kStack) {
         Two<T> v;
@@ -1359,19 +1263,18 @@ int pf_tile_pass_a(int dt, const void* x, int64_t H, int64_t W, int64_t NT,
                    void* stream) {
   return by_dtype(dt, [&](auto tag) {
     using T = typename decltype(tag)::type;
-    constexpr int kForm = t1_form<T>();
     auto launch = [&](auto k) {
       return launch_tiles<decltype(k)::value>(
-          NT, t1_smem(kForm, static_cast<int>(sizeof(T))), stream,
+          NT, kSlots * static_cast<int>(sizeof(T)), stream,
           static_cast<const T*>(x), H, W, ntx, tile0, rin, ex_end,
           static_cast<int>(R), static_cast<T*>(c), static_cast<T*>(exits));
     };
-    if constexpr (kForm == kT1Own) {
+    if constexpr (kG == 1) {
       return c != nullptr ? launch(Kern<tile_pass_a_kernel<T, true>>{})
                           : launch(Kern<tile_pass_a_kernel<T, false>>{});
     } else {
-      return c != nullptr ? launch(Kern<tile_pass_a_tall_kernel<T, true, kForm>>{})
-                          : launch(Kern<tile_pass_a_tall_kernel<T, false, kForm>>{});
+      return c != nullptr ? launch(Kern<tile_pass_a_tall_kernel<T, true>>{})
+                          : launch(Kern<tile_pass_a_tall_kernel<T, false>>{});
     }
   });
 }
@@ -1462,23 +1365,19 @@ int pf_tile_down_fin(int dt, int lite, const void* x, int64_t H, int64_t W,
     } else {
       auto by_tree = [&](auto trtag) {
         using TR = typename decltype(trtag)::type;
-        constexpr int kForm = t4_form<T>();
         const TR* tr = static_cast<const TR*>(tree);
-        const int smem = !lite && kForm == kT4Staged
-                             ? kG * kSlots * static_cast<int>(sizeof(T))
-                             : 0;
         auto launch = [&](auto k) {
           return launch_tiles<decltype(k)::value, false>(
-              NT, smem, stream, static_cast<const T*>(x), H, W, ntx, tile0,
+              NT, 0, stream, static_cast<const T*>(x), H, W, ntx, tile0,
               static_cast<const T*>(z1), static_cast<const T*>(A),
               static_cast<int>(R), tr, rout, static_cast<T*>(out));
         };
         if (lite) {
-          return stack ? launch(Kern<tile_down_fin_tall_kernel<T, true, true, TR, kForm>>{})
-                       : launch(Kern<tile_down_fin_tall_kernel<T, true, false, TR, kForm>>{});
+          return stack ? launch(Kern<tile_down_fin_tall_kernel<T, true, true, TR>>{})
+                       : launch(Kern<tile_down_fin_tall_kernel<T, true, false, TR>>{});
         }
-        return stack ? launch(Kern<tile_down_fin_tall_kernel<T, false, true, TR, kForm>>{})
-                     : launch(Kern<tile_down_fin_tall_kernel<T, false, false, TR, kForm>>{});
+        return stack ? launch(Kern<tile_down_fin_tall_kernel<T, false, true, TR>>{})
+                     : launch(Kern<tile_down_fin_tall_kernel<T, false, false, TR>>{});
       };
       if (tree_bytes == 2) return by_tree(Tag<int16_t>{});
       if (tree_bytes == 4) return by_tree(Tag<int32_t>{});

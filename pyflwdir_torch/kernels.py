@@ -39,7 +39,8 @@ of fewer than 2^31 elements (the plans go up to 2^28 slots):
 and in ``csrc/tile_kernels.cu`` for int32, int64 and float64, on tiles of
 ``Y = 128 G`` rows by 128 columns (``G`` 1 to 4, ``T = 16,384 G`` cells):
 one 1024-thread block a tile at ``G = 1``, one thread-block cluster of
-``G`` blocks a tile above that (the same source built once a height:
+``G`` blocks a tile above that (T4: ``G`` plain blocks a tile, on a
+raster-layout tree table; the same source built once a height:
 ``csrc/tile_kernels_g2.cu`` to ``_g4.cu`` include it, a library each, all
 built at once):
 
@@ -67,8 +68,10 @@ or, given ``tile0``, on the tiles ``tile0 .. tile0 + NT - 1`` (row-major
 over the grid; NT the tables' rows), a range that may start and end in the
 middle of a tile row: ``x`` is the raster either way, and the raster-side
 results come as a tile stack (NT, T), tile raster layout, zero past the
-raster's edge. A cluster launch counts under its kernel's name with
-``_g<G>`` appended (``tile_pass_a_g4``), so a run shows which ran.
+raster's edge. A launch on tiles of ``128 G`` rows (``G > 1``) counts under
+its kernel's name with ``_g<G>`` appended (``tile_pass_a_g4``), so a run
+shows which ran; :func:`tile_last_cluster` reads the cluster width of a
+height's last launch.
 
 and in ``csrc/fill_kernels.cu`` for float32 rasters with a uint8 mask:
 
@@ -131,7 +134,7 @@ _TILE_COUNTS = ("tile_pass_a", "tile_pass_a_exits", "tile_pass_c", "tile_pass_c_
 _GS = (1, 2, 3, 4)  # tile heights 128 G the tile kernels take
 
 #: kernel launches per wrapper, counted where the wrapper launches its kernel;
-#: a tile kernel's cluster launches (G > 1) under ``<name>_g<G>``
+#: a tile kernel's launches on tiles of 128 G rows (G > 1) under ``<name>_g<G>``
 launches = {
     "permute_gather": 0,
     "accel_in_scan": 0,

@@ -57,8 +57,8 @@ order ``es`` and the run boundaries ``g_last``/``g_prev`` from the native
 down phase, ``n_tree``, ``ent_slot`` and ``tree_of`` (on the device of a
 plan of taller tiles in raster layout, ``tree_of[rout]``: :func:`tree_table`);
 the coarse level's down indices likewise (``build_down``), for kernels H1
-and H0. Every sum has
-a fixed order, so a result is the same from run to run in every dtype.
+and H0. Every sum has a fixed order, so a result is the same from run to
+run in every dtype.
 
 Both sweeps also run sharded over the ranks of a
 :class:`pyflwdir_torch.parallel.Mesh` (:meth:`TilePlan.accumulate_sharded`,
@@ -220,13 +220,17 @@ def tile_table(a, rows=_S, device=None):
     rows``, or -1; the values are kept as they are. Raises ValueError where a
     value falls outside that dtype. The range check and the cast run on
     ``device``: on the card they cost the host nothing beyond the copy."""
-    dtype = kernels.tile_table_dtype(rows)
-    t = _upload(a, device)
+    return _cast_checked(_upload(a, device), kernels.tile_table_dtype(rows), "tile table")
+
+
+def _cast_checked(t, dtype, what):
+    """``t`` cast to ``dtype`` on its device; ValueError where a value
+    falls outside that dtype."""
     if t.numel():
         lo, hi = (int(v) for v in torch.aminmax(t))
         info = torch.iinfo(dtype)
         if lo < info.min or hi > info.max:
-            raise ValueError(f"tile table values {lo}..{hi} fall outside "
+            raise ValueError(f"{what} values {lo}..{hi} fall outside "
                              f"{str(dtype).replace('torch.', '')}")
     return t.to(dtype)
 
@@ -246,14 +250,7 @@ def tree_table(tree_of, rout, R, rows=_S, device=None):
     ro = _upload(rout, device).long()
     tr = torch.gather(_upload(tree_of, device), 1, ro.clamp(min=0))
     tr = torch.where(ro >= 0, tr, torch.full((), -1, dtype=tr.dtype, device=tr.device))
-    dtype = kernels.tile_tree_dtype(rows, R)
-    if tr.numel():
-        lo, hi = (int(v) for v in torch.aminmax(tr))
-        info = torch.iinfo(dtype)
-        if lo < info.min or hi > info.max:
-            raise ValueError(f"tree table values {lo}..{hi} fall outside "
-                             f"{str(dtype).replace('torch.', '')}")
-    return tr.to(dtype)
+    return _cast_checked(tr, kernels.tile_tree_dtype(rows, R), "tree table")
 
 
 def _upload_table(key, a, rows, device):
@@ -611,13 +608,14 @@ class TilePlan:
         """The downward sweep's indices on the plan's device, typed as
         :attr:`idx_t` but ``n_tree`` (int32), after :meth:`_ensure_down`."""
         if self._down_idx_t is None:
-            self._down_idx_t = {k: self._upload_down(k, v) for k, v in self.down_idx.items()}
+            self._down_idx_t = {k: self._upload_down(k) for k in self.down_idx}
         return self._down_idx_t
 
-    def _upload_down(self, key, a, rows=slice(None)):
-        """Down table ``key`` (its host array ``a``, rows ``rows`` of the
-        plan's tiles) on the plan's device; ``tree_of`` as T4 reads it
-        (:func:`tree_table`: raster layout on a tall plan)."""
+    def _upload_down(self, key, rows=slice(None)):
+        """Rows ``rows`` of down table ``key`` on the plan's device;
+        ``tree_of`` as T4 reads it (:func:`tree_table`: raster layout on a
+        tall plan)."""
+        a = self.down_idx[key][rows]
         if key == "tree_of":
             return tree_table(a, self.idx["rout"][rows], self.R_pad, self.Y, self.device)
         return _upload_table(key, a, self.Y, self.device)
@@ -680,7 +678,7 @@ class TilePlan:
             if k in self.idx:
                 cache[k] = _upload_table(k, self.idx[k][lo:hi], self.Y, self.device)
             else:
-                cache[k] = self._upload_down(k, self.down_idx[k][lo:hi], slice(lo, hi))
+                cache[k] = self._upload_down(k, slice(lo, hi))
         return {k: cache[k] for k in keys}
 
     def _shard(self, data, mesh):

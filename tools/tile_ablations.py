@@ -13,23 +13,12 @@ and barriers go, then prints the variant directories:
 * ``local``: ``tile_elem`` reads every element from the reading CTA's own
   chunk (``i mod 16,384``), so no gather leaves the CTA: the time of the same
   kernel without distributed-shared-memory gathers;
-* ``nobarrier``: the cluster barriers between the phases of T1, T2, T3 and
-  T4 are CTA barriers (``__syncthreads``); the last before a CTA leaves
-  stays (a peer may still read its shared memory), and so does T4 lite's
-  after it stages its tree indices (its peers index A by them: without it
-  they read out of bounds): the time without the cluster barriers between
-  the phases.
-
-and copies that pin a form of T1 or T4 on tall tiles (correct results; for
-timing the forms against each other, ``csrc/tile_kernels.cu``'s
-``kT1Pin`` / ``kT4Pin``; a form that does not fit a height or value size
-leaves that one at the source's choice):
-
-* ``t1-own``, ``t1-all``, ``t1-global``, ``t1-twobuf``: T1 in that form
-  (``kT1Own``, ``kT1All``, ``kT1Global``, ``kT1TwoBuf``);
-* ``t1-ra``: T1's cluster barriers (``kT1RA``) as an explicit
-  ``barrier.cluster.arrive.release`` and ``wait.acquire``;
-* ``t4-staged``: T4's fin mode stages the tile's z1 row in shared memory.
+* ``nobarrier``: the cluster barriers between the phases of T1, T2 and T3
+  (and of T4, in a checkout where T4 runs as a cluster) are CTA barriers
+  (``__syncthreads``); the last before a CTA leaves stays (a peer may still
+  read its shared memory), and so does a cluster T4 lite's after it stages
+  its tree indices (its peers index A by them: without it they read out of
+  bounds): the time without the cluster barriers between the phases.
 
 The 128-row kernels (G = 1) do not change. Run, for example, on the card:
 
@@ -50,12 +39,6 @@ _HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _BARRIER_FREE = ("tile_pass_a_kernel", "tile_pass_a_tall_kernel", "tile_pass_c_kernel",
                  "tile_down_a_kernel", "tile_down_fin_kernel")
 _RULE = "// " + "-" * 75
-# the form pins: variant -> (constant, form)
-_PINS = {"t1-own": ("kT1Pin", "kT1Own"), "t1-all": ("kT1Pin", "kT1All"),
-         "t1-global": ("kT1Pin", "kT1Global"), "t1-twobuf": ("kT1Pin", "kT1TwoBuf"),
-         "t4-staged": ("kT4Pin", "kT4Staged")}
-# switches of the tries: variant -> constant set true
-_FLAGS = {"t1-ra": "kT1RA"}
 _ELEM = re.compile(r"(T& tile_elem\(T\* buf, int i\) \{.*?\} else \{\n)(.*?)(\n  \}\n\})", re.S)
 
 
@@ -73,8 +56,9 @@ def patch(text, variant):
             if any(f"{name}(const T* __restrict__ x" in part for name in _BARRIER_FREE):
                 lines = part.split("\n")
                 for i, line in enumerate(lines):
-                    # T4 lite indexes A by the tree indices its peers stage
-                    # (trs): without that barrier it reads out of bounds
+                    # a cluster T4 lite indexes A by the tree indices its
+                    # peers stage (trs): without that barrier it reads out of
+                    # bounds
                     keep = "peers may still read" in line or any(
                         "trs[" in prev for prev in lines[max(i - 3, 0):i])
                     if "tile_sync();" in line and not keep:
@@ -84,17 +68,6 @@ def patch(text, variant):
         if n == 0:
             raise ValueError("no cluster barrier of T1-T4 found")
         text = _RULE.join(parts)
-    elif variant in _PINS:
-        line, form = _PINS[variant]
-        n = text.count(f"constexpr int {line} = -1;")
-        if n != 1:
-            raise ValueError(f"{line} not found")
-        text = text.replace(f"constexpr int {line} = -1;", f"constexpr int {line} = {form};")
-    elif variant in _FLAGS:
-        line = f"constexpr bool {_FLAGS[variant]} = false;"
-        if text.count(line) != 1:
-            raise ValueError(f"{_FLAGS[variant]} not found")
-        text = text.replace(line, line.replace("false", "true"))
     else:
         raise ValueError(f"unknown variant {variant}")
     return text

@@ -20,7 +20,7 @@ import pprint
 import numpy as np
 import torch
 
-from . import arithmetics, dem, rivers, runtime, streams
+from . import arithmetics, dem, rivers, runtime, streams, trace
 from ._backend import resolve_device
 from .ops import graph
 from .ops.walk import paths as _paths
@@ -43,8 +43,9 @@ def get_loc_idx(idxs, idxs_ds):
 def from_dataframe(df, ds_col="idx_ds", device=None):
     """A Flwdir of the rows of ``df``: its index the node ids, the column
     ``ds_col`` their downstream ids. ``device`` None means the card."""
-    return Flwdir(idxs_ds=get_loc_idx(idxs=df.index.values, idxs_ds=df[ds_col].values),
-                  device=device)
+    with trace.span("parse"):
+        return Flwdir(idxs_ds=get_loc_idx(idxs=df.index.values, idxs_ds=df[ds_col].values),
+                      device=device)
 
 
 class Flwdir:
@@ -150,8 +151,9 @@ class Flwdir:
         is_int = not data.dtype.is_floating_point
         # the single-chunk plan sums in float32: exact for integer totals below 2^24
         if is_int and data.numel() and data.dtype != torch.bool:
-            lo, hi = torch.aminmax(data)  # one read, no int64 copy
-            amax = max(-int(lo), int(hi))
+            # one read, no int64 copy
+            lo, hi = trace.host_ints("accumulate_dev", *torch.aminmax(data))
+            amax = max(-lo, hi)
             if amax * data.numel() >= 1 << 24:
                 return accumulate_planned(self._plan, data)
         if aplan is not None and is_int:

@@ -87,9 +87,10 @@ import os
 import re
 import shutil
 import subprocess
-import time
 
 import torch
+
+from . import trace
 
 __all__ = [
     "launches",
@@ -156,7 +157,9 @@ _TILE_LIB = {1: "tile_kernels", 2: "tile_kernels_g2", 3: "tile_kernels_g3",
 _LIBS = {}  # source stem -> loaded library, once
 _H0 = None  # pf_permute_gather, bound at its first launch
 _SCAN_GEOM = {}  # dtype -> H1's (threads, slots a thread, window W)
-build_seconds = None  # wall time of the nvcc builds in this process, if any
+#: wall time of :func:`load` (span ``kernels.load``) where it ran the nvcc builds in
+#: this process: the builds, then the libraries loaded; else None
+build_seconds = None
 
 
 def reset_launches():
@@ -225,37 +228,38 @@ def load():
     global build_seconds
     if _LIBS:
         return _LIBS
-    targets = _targets()
-    todo = {k: v for k, v in targets.items() if not os.path.exists(v[1])}
+    with trace.timed("kernels.load") as s:
+        targets = _targets()
+        todo = {k: v for k, v in targets.items() if not os.path.exists(v[1])}
+        if todo:
+            os.makedirs(_BUILD_DIR, exist_ok=True)
+            nvcc = _nvcc()
+            procs = {}
+            try:
+                for stem, (src, so) in todo.items():
+                    tmp = f"{so}.{os.getpid()}.tmp"
+                    procs[stem] = (subprocess.Popen(
+                        [nvcc, *_NVCC_FLAGS, "-o", tmp, src],
+                        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                    ), tmp, so, src)
+                for stem, (proc, tmp, so, src) in procs.items():
+                    _, err = proc.communicate(timeout=600)
+                    if proc.returncode != 0:
+                        raise RuntimeError(f"nvcc failed on {src}:\n{err}")
+                    with open(so + ".ptxas.txt", "w") as f:  # registers and spills
+                        f.write(err)
+                    os.replace(tmp, so)
+            finally:
+                for proc, *_ in procs.values():
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
+        for stem, (_, so) in targets.items():
+            lib = ctypes.CDLL(so)
+            _bind(lib)
+            _LIBS[stem] = lib
     if todo:
-        os.makedirs(_BUILD_DIR, exist_ok=True)
-        t0 = time.perf_counter()
-        nvcc = _nvcc()
-        procs = {}
-        try:
-            for stem, (src, so) in todo.items():
-                tmp = f"{so}.{os.getpid()}.tmp"
-                procs[stem] = (subprocess.Popen(
-                    [nvcc, *_NVCC_FLAGS, "-o", tmp, src],
-                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                ), tmp, so, src)
-            for stem, (proc, tmp, so, src) in procs.items():
-                _, err = proc.communicate(timeout=600)
-                if proc.returncode != 0:
-                    raise RuntimeError(f"nvcc failed on {src}:\n{err}")
-                with open(so + ".ptxas.txt", "w") as f:  # registers and spills
-                    f.write(err)
-                os.replace(tmp, so)
-        finally:
-            for proc, *_ in procs.values():
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
-        build_seconds = time.perf_counter() - t0
-    for stem, (_, so) in targets.items():
-        lib = ctypes.CDLL(so)
-        _bind(lib)
-        _LIBS[stem] = lib
+        build_seconds = s.seconds
     return _LIBS
 
 

@@ -27,7 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import kernels
+from .. import kernels, trace
 from .._backend import resolve_device
 from .plan import DfsPlan, build_plan
 
@@ -51,14 +51,17 @@ def _pad_bijection(dest_known, src_known, n_pad):
 
 def acc_dtype(data):
     """The dtype the port's exact engines sum ``data`` in: float64 for float
-    data; int32 for integer data unless ``|max| * n >= 2^31``, then int64."""
-    if data.dtype.is_floating_point:
-        return torch.float64
-    amax = 1
-    if data.numel() and data.dtype != torch.bool:
-        lo, hi = torch.aminmax(data)  # one read, no int64 copy
-        amax = max(-int(lo), int(hi))
-    return torch.int64 if amax * data.numel() >= 1 << 31 else torch.int32
+    data; int32 for integer data unless ``|max| * n >= 2^31``, then int64
+    (the range read to the host: two blocking reads on the card)."""
+    with trace.span("dtype"):
+        if data.dtype.is_floating_point:
+            return torch.float64
+        amax = 1
+        if data.numel() and data.dtype != torch.bool:
+            # one read, no int64 copy
+            lo, hi = trace.host_ints("acc_dtype", *torch.aminmax(data))
+            amax = max(-lo, hi)
+        return torch.int64 if amax * data.numel() >= 1 << 31 else torch.int32
 
 
 class IntervalKernels:
@@ -92,9 +95,10 @@ class IntervalKernels:
         end = self.near_end.copy()
         end[src_out[far]] = self.far_end[far]
         src_res = np.where(self.far_end != -2, src_out, -1).astype(np.int32)
-        self._t = {name: torch.as_tensor(arr, device=device)
-                   for name, arr in (("src_in", self.src_in), ("end", end),
-                                     ("src_res", src_res))}
+        with trace.span("plan.upload"):
+            self._t = {name: torch.as_tensor(arr, device=device)
+                       for name, arr in (("src_in", self.src_in), ("end", end),
+                                         ("src_res", src_res))}
 
     def arrays(self):
         """The kernels' device tables (``src_in``, ``end``, ``src_res``), for
@@ -108,9 +112,12 @@ class IntervalKernels:
         layouts are then one) or give 0. ``arrs``: the tables of
         :meth:`arrays` (None: the plan's own)."""
         t = self._t if arrs is None else arrs
-        c = kernels.accel_in_scan(x, t["src_in"])
-        outp = kernels.accel_near_out(c, t["end"])
-        return kernels.accel_far_merge(outp, x if passthrough else None, t["src_res"])
+        with trace.span("H1"):
+            c = kernels.accel_in_scan(x, t["src_in"])
+        with trace.span("H2"):
+            outp = kernels.accel_near_out(c, t["end"])
+        with trace.span("H3"):
+            return kernels.accel_far_merge(outp, x if passthrough else None, t["src_res"])
 
 
 class AccelPlan(IntervalKernels):
@@ -214,7 +221,8 @@ def build_accel_plan(idxs_ds_np, dfs: DfsPlan = None, routers=None, device=None)
     if dfs is None:
         dfs = build_plan(idxs_ds_np, device=device)
     device = device if device is not None else dfs.device
-    plan = AccelPlan(dfs, idxs_ds_np, device=device)
+    with trace.span("plan.accel"):
+        plan = AccelPlan(dfs, idxs_ds_np, device=device)
     if plan.ok:
         return plan
     from .accel_big import build_big_accel_plan

@@ -31,7 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import kernels
+from .. import kernels, trace
 from .._backend import resolve_device
 from .accel import IntervalKernels, _pad_bijection, acc_dtype
 from .plan import DfsPlan, build_plan
@@ -183,8 +183,9 @@ class CoarseDown:
         """Keep the composed down indices (as :meth:`build_down` makes them,
         or as a saved plan holds them) as int32 and upload them."""
         self.down = {name: np.asarray(v).astype(np.int32) for name, v in down.items()}
-        self._down_t = {name: torch.as_tensor(v, device=self.dfs.device)
-                        for name, v in self.down.items()}
+        with trace.span("plan.down.upload"):
+            self._down_t = {name: torch.as_tensor(v, device=self.dfs.device)
+                            for name, v in self.down.items()}
 
     def down_arrays(self):
         """The downward sweep's device tables, for the ``arrs`` argument of
@@ -329,8 +330,13 @@ class RouterAccel(IntervalKernels, CoarseDown):
             return self._sweep(data.contiguous(), passthrough=False, arrs=arrs)
         if data.numel() != self.n_cells:
             raise ValueError(f"data must hold {self.n_cells} values")
-        x = data.reshape(-1).to(acc_dtype(data)).contiguous()
-        return self._sweep(x, passthrough=True, arrs=arrs).to(data.dtype)
+        with trace.span("up"):
+            acc = acc_dtype(data)
+            with trace.span("cast"):
+                x = data.reshape(-1).to(acc).contiguous()
+            out = self._sweep(x, passthrough=True, arrs=arrs)
+            with trace.span("cast"):
+                return out.to(data.dtype)
 
 
 class BigAccelPlan(RouterAccel):
@@ -363,5 +369,6 @@ def build_big_accel_plan(idxs_ds_np, dfs: DfsPlan = None, routers=None, device=N
     idxs_ds_np = np.asarray(idxs_ds_np)
     if dfs is None:
         dfs = build_plan(idxs_ds_np, device=device)
-    plan = BigAccelPlan(dfs, idxs_ds_np, routers=routers, device=device)
+    with trace.span("plan.big"):
+        plan = BigAccelPlan(dfs, idxs_ds_np, routers=routers, device=device)
     return plan if plan.ok else None

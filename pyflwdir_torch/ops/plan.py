@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from .._backend import resolve_device
 
 __all__ = ["DfsPlan", "build_plan", "accumulate_planned", "accumulate_planned_fast"]
@@ -44,9 +45,10 @@ class DfsPlan:
         self.pos_np = np.asarray(pos, dtype=np.int64)
         self.size_np = np.asarray(size, dtype=np.int64)
         self.n_tree = int(self.preorder_np.shape[0])
-        self.preorder = torch.as_tensor(self.preorder_np, device=self.device)
-        self.pos = torch.as_tensor(self.pos_np, device=self.device)
-        self.size = torch.as_tensor(self.size_np, device=self.device)
+        with trace.span("plan.upload"):
+            self.preorder = torch.as_tensor(self.preorder_np, device=self.device)
+            self.pos = torch.as_tensor(self.pos_np, device=self.device)
+            self.size = torch.as_tensor(self.size_np, device=self.device)
         # preorder position of each slot's interval end, k + size[pre[k]] - 1
         self.end = torch.arange(self.n_tree, device=self.device) + self.size[self.preorder] - 1
 
@@ -61,7 +63,8 @@ def build_plan(idxs_ds_np, fast=True, device=None) -> DfsPlan:
     (``fast`` ignored, as in :class:`DfsPlan`)."""
     from ..runtime import dfs_preorder
 
-    return DfsPlan(*dfs_preorder(np.asarray(idxs_ds_np)), device=device)
+    with trace.span("plan.dfs"):
+        return DfsPlan(*dfs_preorder(np.asarray(idxs_ds_np)), device=device)
 
 
 def _acc_dtype(dtype):

@@ -82,12 +82,10 @@ float data in float64. The result comes back in the data's dtype.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
-from .. import kernels, runtime
+from .. import kernels, runtime, trace
 from .._backend import resolve_device
 from .accel import acc_dtype
 from .accel_big import BigAccelPlan, CoarseDown, RouterAccel
@@ -227,7 +225,7 @@ def _cast_checked(t, dtype, what):
     """``t`` cast to ``dtype`` on its device; ValueError where a value
     falls outside that dtype."""
     if t.numel():
-        lo, hi = (int(v) for v in torch.aminmax(t))
+        lo, hi = trace.host_ints("cast_checked", *torch.aminmax(t))
         info = torch.iinfo(dtype)
         if lo < info.min or hi > info.max:
             raise ValueError(f"{what} values {lo}..{hi} fall outside "
@@ -394,128 +392,128 @@ class TilePlan:
 
     def __init__(self, idxs_ds_np, shape, tile_rows=128, device=None):
         secs = {}
-        t0 = time.perf_counter()
-        self._geometry(shape, device, tile_rows)
-        H, W = self.shape
-        Hp, Wp = self.pshape
-        T, NT = self.Y * _S, self.NT
+        with trace.timed("plan.phase1") as s:
+            self._geometry(shape, device, tile_rows)
+            H, W = self.shape
+            Hp, Wp = self.pshape
+            T, NT = self.Y * _S, self.NT
 
-        ids0 = np.asarray(idxs_ds_np, dtype=np.int64).ravel()
-        n0 = ids0.size
-        if n0 != H * W:
-            raise ValueError("idxs_ds size does not match shape")
-        if (Hp, Wp) != (H, W):
-            v0 = ids0 >= 0
-            src = np.arange(n0, dtype=np.int64)
-            new_of = (src // W) * Wp + src % W
-            ids_p = np.full(Hp * Wp, -1, dtype=np.int64)
-            tgt = np.full(n0, -1, dtype=np.int64)
-            tgt[v0] = (ids0[v0] // W) * Wp + ids0[v0] % W
-            ids_p[new_of] = tgt
-        else:
-            ids_p = ids0
+            ids0 = np.asarray(idxs_ds_np, dtype=np.int64).ravel()
+            n0 = ids0.size
+            if n0 != H * W:
+                raise ValueError("idxs_ds size does not match shape")
+            if (Hp, Wp) != (H, W):
+                v0 = ids0 >= 0
+                src = np.arange(n0, dtype=np.int64)
+                new_of = (src // W) * Wp + src % W
+                ids_p = np.full(Hp * Wp, -1, dtype=np.int64)
+                tgt = np.full(n0, -1, dtype=np.int64)
+                tgt[v0] = (ids0[v0] // W) * Wp + ids0[v0] % W
+                ids_p[new_of] = tgt
+            else:
+                ids_p = ids0
 
-        # ---- phase 1: per-tile forest DFS + local tables (native) -------
-        ph = runtime.tile_plan_phase1(ids_p, Hp, Wp, self.Y)
-        slot = ph["slot"]
-        root_node = ph["root_node"]
-        cnt_r, cnt_far = ph["cnt_r"], ph["cnt_far"]
-        root_cell, root_end = ph["root_cell"], ph["root_end"]
-        far_slot, far_end = ph["far_slot"], ph["far_end"]
-        sig = ph["sig"]
-        idx = {"rin": sig}
-        rout = np.empty((NT, T), np.int32)
-        np.put_along_axis(rout, sig.astype(np.int64),
-                          np.broadcast_to(np.arange(T, dtype=np.int32), (NT, T)), 1)
-        idx["rout"] = np.where(ph["tree_mask"].reshape(NT, T) != 0, rout, -1)
-        del rout
-        idx["near_end"] = _near_end(ph["near_sel"].reshape(NT, T),
-                                    ph["idx_near"].reshape(NT, T),
-                                    ph["sel_next"].reshape(NT, T))
-        secs["phase 1"] = time.perf_counter() - t0
+            # ---- phase 1: per-tile forest DFS + local tables (native) ---
+            ph = runtime.tile_plan_phase1(ids_p, Hp, Wp, self.Y)
+            slot = ph["slot"]
+            root_node = ph["root_node"]
+            cnt_r, cnt_far = ph["cnt_r"], ph["cnt_far"]
+            root_cell, root_end = ph["root_cell"], ph["root_end"]
+            far_slot, far_end = ph["far_slot"], ph["far_end"]
+            sig = ph["sig"]
+            idx = {"rin": sig}
+            rout = np.empty((NT, T), np.int32)
+            np.put_along_axis(rout, sig.astype(np.int64),
+                              np.broadcast_to(np.arange(T, dtype=np.int32), (NT, T)), 1)
+            idx["rout"] = np.where(ph["tree_mask"].reshape(NT, T) != 0, rout, -1)
+            del rout
+            idx["near_end"] = _near_end(ph["near_sel"].reshape(NT, T),
+                                        ph["idx_near"].reshape(NT, T),
+                                        ph["sel_next"].reshape(NT, T))
+        secs["phase 1"] = s.seconds
 
         # ---- far cells (interval end >= 128 slots ahead) ----------------
         # each far slot reads its interval end from phase 1. The JAX plan
         # delivers the ends through routers ("router": distinct ends at
         # slots b*j, broadcast within b-blocks) or, past that, a packed
         # group expansion ("packed"): kept as its decisions, not replayed
-        t0 = time.perf_counter()
-        self.has_far = far_slot.size > 0
-        self.far_mode = None
-        self.b = 1
-        self.F_rows = _r128(cnt_far.max()) // _S if self.has_far else 0
-        idx["far_end"] = np.full((NT, T), -1, np.int32)
-        if self.has_far:
-            ft = np.repeat(np.arange(NT, dtype=np.int64), cnt_far)
-            idx["far_end"][ft, far_slot] = far_end
-            # nested intervals share ends: b holds the most far cells of one
-            uq, dup = np.unique(ft * T + far_end, return_counts=True)
-            b = 1 << int(int(dup.max() - 1).bit_length())
-            if int(np.bincount(uq // T, minlength=NT).max()) * b <= T and b <= _S:
-                self.far_mode, self.b = "router", b
-            else:
-                self.far_mode = "packed"
-        secs["far tables"] = time.perf_counter() - t0
+        with trace.timed("plan.far_tables") as s:
+            self.has_far = far_slot.size > 0
+            self.far_mode = None
+            self.b = 1
+            self.F_rows = _r128(cnt_far.max()) // _S if self.has_far else 0
+            idx["far_end"] = np.full((NT, T), -1, np.int32)
+            if self.has_far:
+                ft = np.repeat(np.arange(NT, dtype=np.int64), cnt_far)
+                idx["far_end"][ft, far_slot] = far_end
+                # nested intervals share ends: b holds the most far cells of one
+                uq, dup = np.unique(ft * T + far_end, return_counts=True)
+                b = 1 << int(int(dup.max() - 1).bit_length())
+                if int(np.bincount(uq // T, minlength=NT).max()) * b <= T and b <= _S:
+                    self.far_mode, self.b = "router", b
+                else:
+                    self.far_mode = "packed"
+        secs["far tables"] = s.seconds
 
         # ---- exits: local roots in (tile, slot) order --------------------
-        t0 = time.perf_counter()
-        m = root_cell.size
-        rt = np.repeat(np.arange(NT, dtype=np.int64), cnt_r)
-        self.R_pad = R_pad = _r128(cnt_r.max() if m else 0)
-        roff = np.concatenate([[0], np.cumsum(cnt_r)])
-        j = np.arange(m) - np.repeat(roff[:-1], cnt_r)
-        # exit slot j <- preorder end of root j (distinct ends: a bijection)
-        idx["ex_end"] = np.ascontiguousarray(
-            runtime.tile_pad_bijection(rt, j, root_end.astype(np.int64), NT, T)[:, :R_pad])
-        secs["exit tables"] = time.perf_counter() - t0
+        with trace.timed("plan.exit_tables") as s:
+            m = root_cell.size
+            rt = np.repeat(np.arange(NT, dtype=np.int64), cnt_r)
+            self.R_pad = R_pad = _r128(cnt_r.max() if m else 0)
+            roff = np.concatenate([[0], np.cumsum(cnt_r)])
+            j = np.arange(m) - np.repeat(roff[:-1], cnt_r)
+            # exit slot j <- preorder end of root j (distinct ends: a bijection)
+            idx["ex_end"] = np.ascontiguousarray(
+                runtime.tile_pad_bijection(rt, j, root_end.astype(np.int64), NT, T)[:, :R_pad])
+        secs["exit tables"] = s.seconds
 
         # ---- coarse graph over roots + entry nodes -----------------------
         # one extra coarse node per distinct entry cell: live roots drain
         # into their cell's entry node, whose subtree sum is the total flow
         # entering that cell; entry nodes read distinct zero slots past the
         # exits
-        t0 = time.perf_counter()
-        self.n_exit_flat = NT * R_pad
-        is_pit = ids_p[root_cell] == root_cell
-        ecell = np.where(is_pit, root_cell, ids_p[root_cell])
-        e_on = slot[ecell] >= 0
-        live = (~is_pit) & e_on
-        uq_cell = np.unique(ecell[live])
-        D = uq_cell.size
-        einv = np.searchsorted(uq_cell, ecell[live])
-        coarse_ds = np.full(m + D, -1, dtype=np.int64)
-        coarse_ds[np.nonzero(is_pit)[0]] = np.nonzero(is_pit)[0]
-        coarse_ds[np.nonzero(live)[0]] = m + einv
-        coarse_ds[m:] = root_node[uq_cell]
-        in_slot = np.concatenate(
-            [rt * R_pad + j, self.n_exit_flat + np.arange(D, dtype=np.int64)]
-        )
+        with trace.timed("plan.coarse_graph") as s:
+            self.n_exit_flat = NT * R_pad
+            is_pit = ids_p[root_cell] == root_cell
+            ecell = np.where(is_pit, root_cell, ids_p[root_cell])
+            e_on = slot[ecell] >= 0
+            live = (~is_pit) & e_on
+            uq_cell = np.unique(ecell[live])
+            D = uq_cell.size
+            einv = np.searchsorted(uq_cell, ecell[live])
+            coarse_ds = np.full(m + D, -1, dtype=np.int64)
+            coarse_ds[np.nonzero(is_pit)[0]] = np.nonzero(is_pit)[0]
+            coarse_ds[np.nonzero(live)[0]] = m + einv
+            coarse_ds[m:] = root_node[uq_cell]
+            in_slot = np.concatenate(
+                [rt * R_pad + j, self.n_exit_flat + np.arange(D, dtype=np.int64)]
+            )
 
-        # entry nodes grouped by destination tile, ordered by entry slot
-        t2 = self._tile_of(uq_cell)
-        es = slot[uq_cell].astype(np.int64)
-        od = np.lexsort((es, t2))
-        t2o, eso = t2[od], es[od]
-        cnt_e = np.bincount(t2o, minlength=NT).astype(np.int64)
-        self.has_entries = D > 0
-        self.E_pad = _r128(cnt_e.max()) if self.has_entries else 0
-        out_slot = np.full(m + D, -1, dtype=np.int64)
-        idx["ent_idx"] = np.full((NT, T), -1, np.int32)
-        if self.has_entries:
-            eoff = np.concatenate([[0], np.cumsum(cnt_e)])
-            j2 = np.arange(D) - np.repeat(eoff[:-1], cnt_e)
-            out_slot[m + od] = t2o * self.E_pad + j2
-            if self.E_pad // _S > 127:
-                raise ValueError("entry rows exceed the int8 row table")
-            # for each preorder slot, the packed rank of the last entry at a
-            # slot <= s (entries are packed in slot order)
-            ind = np.zeros((NT, T), dtype=np.int32)
-            ind[t2o, eso] = 1
-            cnt_le = np.cumsum(ind, axis=1, dtype=np.int32)
-            idx["ent_idx"] = np.where(cnt_le > 0, cnt_le - 1, -1).astype(np.int32)
-        self._coarse_meta = {"in_slot": in_slot, "out_slot": out_slot,
-                             "m": int(m), "D": int(D)}
-        secs["coarse graph"] = time.perf_counter() - t0
+            # entry nodes grouped by destination tile, ordered by entry slot
+            t2 = self._tile_of(uq_cell)
+            es = slot[uq_cell].astype(np.int64)
+            od = np.lexsort((es, t2))
+            t2o, eso = t2[od], es[od]
+            cnt_e = np.bincount(t2o, minlength=NT).astype(np.int64)
+            self.has_entries = D > 0
+            self.E_pad = _r128(cnt_e.max()) if self.has_entries else 0
+            out_slot = np.full(m + D, -1, dtype=np.int64)
+            idx["ent_idx"] = np.full((NT, T), -1, np.int32)
+            if self.has_entries:
+                eoff = np.concatenate([[0], np.cumsum(cnt_e)])
+                j2 = np.arange(D) - np.repeat(eoff[:-1], cnt_e)
+                out_slot[m + od] = t2o * self.E_pad + j2
+                if self.E_pad // _S > 127:
+                    raise ValueError("entry rows exceed the int8 row table")
+                # for each preorder slot, the packed rank of the last entry at a
+                # slot <= s (entries are packed in slot order)
+                ind = np.zeros((NT, T), dtype=np.int32)
+                ind[t2o, eso] = 1
+                cnt_le = np.cumsum(ind, axis=1, dtype=np.int32)
+                idx["ent_idx"] = np.where(cnt_le > 0, cnt_le - 1, -1).astype(np.int32)
+            self._coarse_meta = {"in_slot": in_slot, "out_slot": out_slot,
+                                 "m": int(m), "D": int(D)}
+        secs["coarse graph"] = s.seconds
 
         # what the lazy downward build needs of phase 1 (_ensure_down)
         ent_slot = np.full((NT, self.E_pad), -1, np.int32)
@@ -529,9 +527,9 @@ class TilePlan:
             "re_sel": re_sel, "n_tree": ph["cnt_on"], "ent_slot": ent_slot,
         }
 
-        t0 = time.perf_counter()
-        self.coarse = self._coarse_level(build_plan(coarse_ds, device=self.device))
-        secs["coarse plan"] = time.perf_counter() - t0
+        with trace.timed("plan.coarse_plan") as s:
+            self.coarse = self._coarse_level(build_plan(coarse_ds, device=self.device))
+        secs["coarse plan"] = s.seconds
         self._finish(idx, secs)
 
     # -- shared by both constructors -------------------------------------
@@ -597,10 +595,10 @@ class TilePlan:
         type (:func:`tile_table`), uploaded at the first call that needs
         them all (``upload_seconds``)."""
         if self._idx_t is None:
-            t0 = time.perf_counter()
-            self._idx_t = {k: _upload_table(k, v, self.Y, self.device)
-                           for k, v in self.idx.items()}
-            self.upload_seconds = time.perf_counter() - t0
+            with trace.timed("plan.upload") as s:
+                self._idx_t = {k: _upload_table(k, v, self.Y, self.device)
+                               for k, v in self.idx.items()}
+            self.upload_seconds = s.seconds
         return self._idx_t
 
     @property
@@ -608,7 +606,8 @@ class TilePlan:
         """The downward sweep's indices on the plan's device, typed as
         :attr:`idx_t` but ``n_tree`` (int32), after :meth:`_ensure_down`."""
         if self._down_idx_t is None:
-            self._down_idx_t = {k: self._upload_down(k) for k in self.down_idx}
+            with trace.span("plan.down.upload"):
+                self._down_idx_t = {k: self._upload_down(k) for k in self.down_idx}
         return self._down_idx_t
 
     def _upload_down(self, key, rows=slice(None)):
@@ -631,38 +630,38 @@ class TilePlan:
         secs = {}
         src = self._down_src
         NT, T = self.NT, self.Y * _S
-        t0 = time.perf_counter()
-        if "phase" in src:  # native build: sort each tile's slots by end
-            es, dea, deb, de_sel, de_b0 = runtime.tile_down_phase(*src["phase"], NT, T)
-            cd, routers = _coarse_down_arrays(self.coarse.dfs, self._coarse_meta,
-                                              self.n_exit_flat), None
-            n_tree, ent_slot, re_sel = src["n_tree"], src["ent_slot"], src["re_sel"]
-        else:  # a JAX plan's down tables: replay its chains
-            tabs = src["tabs"]
+        with trace.timed("plan.down.sort") as s:
+            if "phase" in src:  # native build: sort each tile's slots by end
+                es, dea, deb, de_sel, de_b0 = runtime.tile_down_phase(*src["phase"], NT, T)
+                cd, routers = _coarse_down_arrays(self.coarse.dfs, self._coarse_meta,
+                                                  self.n_exit_flat), None
+                n_tree, ent_slot, re_sel = src["n_tree"], src["ent_slot"], src["re_sel"]
+            else:  # a JAX plan's down tables: replay its chains
+                tabs = src["tabs"]
 
-            def flat(name):
-                return np.asarray(tabs[name]).reshape(NT, T)
+                def flat(name):
+                    return np.asarray(tabs[name]).reshape(NT, T)
 
-            es, dea, deb = (_stacked_chain(tabs, p, NT, self.Y) for p in ("es", "dea", "deb"))
-            de_sel, de_b0, re_sel = flat("de_sel"), flat("de_b0"), flat("re_sel")
-            cd, routers = src["cd"], src["routers"]
-            n_tree = src["n_tree"]
-            ent_slot = np.full((NT, self.E_pad), -1, np.int32)
-            if self.has_entries:
-                # the entry router is padded to a bijection: only the real
-                # entries (those with a coarse node) carry a slot
-                real = np.zeros(NT * self.E_pad, dtype=bool)
-                osl = np.asarray(self._coarse_meta["out_slot"])
-                real[osl[osl >= 0]] = True
-                enti = _stacked_chain(tabs, "enti", NT, self.Y)[:, : self.E_pad]
-                ent_slot = np.where(real.reshape(NT, self.E_pad), enti, -1)
-        secs["sort phase"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        down_idx = _compose_down(es, dea, deb, de_sel, de_b0, re_sel, n_tree, ent_slot)
-        secs["compose"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        self.coarse.build_down(cd, routers=routers)
-        secs["coarse down"] = time.perf_counter() - t0
+                es, dea, deb = (_stacked_chain(tabs, p, NT, self.Y) for p in ("es", "dea", "deb"))
+                de_sel, de_b0, re_sel = flat("de_sel"), flat("de_b0"), flat("re_sel")
+                cd, routers = src["cd"], src["routers"]
+                n_tree = src["n_tree"]
+                ent_slot = np.full((NT, self.E_pad), -1, np.int32)
+                if self.has_entries:
+                    # the entry router is padded to a bijection: only the real
+                    # entries (those with a coarse node) carry a slot
+                    real = np.zeros(NT * self.E_pad, dtype=bool)
+                    osl = np.asarray(self._coarse_meta["out_slot"])
+                    real[osl[osl >= 0]] = True
+                    enti = _stacked_chain(tabs, "enti", NT, self.Y)[:, : self.E_pad]
+                    ent_slot = np.where(real.reshape(NT, self.E_pad), enti, -1)
+        secs["sort phase"] = s.seconds
+        with trace.timed("plan.down.compose") as s:
+            down_idx = _compose_down(es, dea, deb, de_sel, de_b0, re_sel, n_tree, ent_slot)
+        secs["compose"] = s.seconds
+        with trace.timed("plan.down.coarse") as s:
+            self.coarse.build_down(cd, routers=routers)
+        secs["coarse down"] = s.seconds
         self.down_idx = down_idx
         self.down_build_seconds = secs
         self._down_src = None
@@ -728,51 +727,51 @@ class TilePlan:
         ValueError."""
         self = cls.__new__(cls)
         secs = {}
-        t0 = time.perf_counter()
-        self._config(cfg, device)
-        NT, T, Y = self.NT, self.Y * _S, self.Y
+        with trace.timed("plan.replay") as s:
+            self._config(cfg, device)
+            NT, T, Y = self.NT, self.Y * _S, self.Y
 
-        def flat(name):
-            return np.asarray(tabs[name]).reshape(NT, T)
+            def flat(name):
+                return np.asarray(tabs[name]).reshape(NT, T)
 
-        idx = {"rin": _stacked_chain(tabs, "rin", NT, Y)}
-        idx["rout"] = np.where(flat("tree_mask") != 0,
-                               _stacked_chain(tabs, "rout", NT, Y), -1).astype(np.int32)
-        idx["near_end"] = _near_end(flat("near_sel"), flat("idx_near"), flat("sel_next"))
-        idx["far_end"] = np.full((NT, T), -1, np.int32)
-        if self.far_mode is not None:
-            sig_exp = _stacked_chain(tabs, "fexp", NT, Y)
-            sig_far = _stacked_chain(tabs, "ffar", NT, Y)
-            if self.far_mode == "router":
-                idx["far_end"] = _far_end_router(sig_exp, sig_far, flat("far_sel"), self.b)
+            idx = {"rin": _stacked_chain(tabs, "rin", NT, Y)}
+            idx["rout"] = np.where(flat("tree_mask") != 0,
+                                   _stacked_chain(tabs, "rout", NT, Y), -1).astype(np.int32)
+            idx["near_end"] = _near_end(flat("near_sel"), flat("idx_near"), flat("sel_next"))
+            idx["far_end"] = np.full((NT, T), -1, np.int32)
+            if self.far_mode is not None:
+                sig_exp = _stacked_chain(tabs, "fexp", NT, Y)
+                sig_far = _stacked_chain(tabs, "ffar", NT, Y)
+                if self.far_mode == "router":
+                    idx["far_end"] = _far_end_router(sig_exp, sig_far, flat("far_sel"), self.b)
+                else:
+                    idx["far_end"] = _far_end_packed(
+                        sig_exp, sig_far, flat("far_sel"),
+                        np.asarray(tabs["far_rlo"])[:, :, 0], np.asarray(tabs["far_rhi"])[:, :, 0],
+                        tabs["far_bhi"], tabs["far_bidx"],
+                    )
+            idx["ex_end"] = np.ascontiguousarray(_stacked_chain(tabs, "ex", NT, Y)[:, : self.R_pad])
+            idx["ent_idx"] = np.full((NT, T), -1, np.int32)
+            if self.has_entries:
+                ent = flat("ent_row").astype(np.int32) * _S + flat("ent_lane").astype(np.int32)
+                idx["ent_idx"] = np.where(flat("ent_sel") != 0, ent, -1).astype(np.int32)
+        secs["replay"] = s.seconds
+
+        with trace.timed("plan.coarse_plan") as s:
+            self._coarse_meta = coarse_meta
+            dfs_c = DfsPlan(*coarse_dfs, device=self.device)
+            if routers is None:
+                self.coarse = _CoarseGather(dfs_c, coarse_meta["in_slot"], coarse_meta["out_slot"],
+                                            self.n_exit_flat, NT * max(self.E_pad, 1))
+            elif "G" in routers:
+                self.coarse = _CoarseRouterSmall(dfs_c, coarse_meta["in_slot"],
+                                                 coarse_meta["out_slot"],
+                                                 n_in=self.n_exit_flat, routers=routers)
             else:
-                idx["far_end"] = _far_end_packed(
-                    sig_exp, sig_far, flat("far_sel"),
-                    np.asarray(tabs["far_rlo"])[:, :, 0], np.asarray(tabs["far_rhi"])[:, :, 0],
-                    tabs["far_bhi"], tabs["far_bidx"],
-                )
-        idx["ex_end"] = np.ascontiguousarray(_stacked_chain(tabs, "ex", NT, Y)[:, : self.R_pad])
-        idx["ent_idx"] = np.full((NT, T), -1, np.int32)
-        if self.has_entries:
-            ent = flat("ent_row").astype(np.int32) * _S + flat("ent_lane").astype(np.int32)
-            idx["ent_idx"] = np.where(flat("ent_sel") != 0, ent, -1).astype(np.int32)
-        secs["replay"] = time.perf_counter() - t0
-
-        t0 = time.perf_counter()
-        self._coarse_meta = coarse_meta
-        dfs_c = DfsPlan(*coarse_dfs, device=self.device)
-        if routers is None:
-            self.coarse = _CoarseGather(dfs_c, coarse_meta["in_slot"], coarse_meta["out_slot"],
-                                        self.n_exit_flat, NT * max(self.E_pad, 1))
-        elif "G" in routers:
-            self.coarse = _CoarseRouterSmall(dfs_c, coarse_meta["in_slot"],
-                                             coarse_meta["out_slot"],
-                                             n_in=self.n_exit_flat, routers=routers)
-        else:
-            self.coarse = BigAccelPlan(dfs_c, None, routers=routers,
-                                       in_slot=coarse_meta["in_slot"],
-                                       out_slot=coarse_meta["out_slot"])
-        secs["coarse plan"] = time.perf_counter() - t0
+                self.coarse = BigAccelPlan(dfs_c, None, routers=routers,
+                                           in_slot=coarse_meta["in_slot"],
+                                           out_slot=coarse_meta["out_slot"])
+        secs["coarse plan"] = s.seconds
         self._down_src = None
         if down is not None:
             self._down_src = {"tabs": down["tabs"], "cd": down["cd"],
@@ -793,12 +792,13 @@ class TilePlan:
         composed down indices ``coarse_down``. Nothing is sorted or
         searched."""
         self = cls.__new__(cls)
-        t0 = time.perf_counter()
-        self._config(cfg, device)
-        self._coarse_meta = coarse_meta
-        self.coarse = self._coarse_level(DfsPlan(*coarse_dfs, device=self.device), coarse_kind)
+        with trace.timed("plan.coarse_plan") as s:
+            self._config(cfg, device)
+            self._coarse_meta = coarse_meta
+            self.coarse = self._coarse_level(DfsPlan(*coarse_dfs, device=self.device),
+                                             coarse_kind)
         self._down_src = None
-        self._finish(idx, {"coarse plan": time.perf_counter() - t0})
+        self._finish(idx, {"coarse plan": s.seconds})
         if down_idx is not None:
             self.down_idx = down_idx
             self.coarse.set_down(coarse_down)
@@ -845,13 +845,20 @@ class TilePlan:
         H, W = self.shape
         if data.numel() != H * W:
             raise ValueError(f"data must hold {H * W} values")
-        x = data.reshape(-1).to(self._acc_dtype(data)).contiguous()
-        t = self.idx_t if arrs is None else arrs
-        exits, c = kernels.tile_pass_a(x, t["rin"], t["ex_end"], self.shape)
-        entv = self.entry_grid(self.coarse.accumulate(exits.reshape(-1)))
-        out = kernels.tile_pass_c(x, c, entv, t["ent_idx"], t["near_end"],
-                                  t["far_end"], t["rout"], self.shape)
-        return out.to(data.dtype)
+        with trace.span("up"):
+            acc = self._acc_dtype(data)
+            with trace.span("cast"):
+                x = data.reshape(-1).to(acc).contiguous()
+            t = self.idx_t if arrs is None else arrs
+            with trace.span("T1"):
+                exits, c = kernels.tile_pass_a(x, t["rin"], t["ex_end"], self.shape)
+            with trace.span("coarse"):
+                entv = self.entry_grid(self.coarse.accumulate(exits.reshape(-1)))
+            with trace.span("T2"):
+                out = kernels.tile_pass_c(x, c, entv, t["ent_idx"], t["near_end"],
+                                          t["far_end"], t["rout"], self.shape)
+            with trace.span("cast"):
+                return out.to(data.dtype)
 
     def accumulate_down(self, data, darrs=None):
         """Inclusive downstream-path sum of ``data`` ((H*W,) tensor in raster
@@ -863,18 +870,26 @@ class TilePlan:
         H, W = self.shape
         if data.numel() != H * W:
             raise ValueError(f"data must hold {H * W} values")
-        d = self.down_arrays() if darrs is None else darrs
-        x = data.reshape(-1).to(self._acc_dtype(data)).contiguous()
-        d1 = (d["rin"], d["es"], d["g_last"], d["g_prev"], d["n_tree"], d["ent_slot"])
-        if self.has_entries and self.coarse.dfs.n_tree > 0:
-            # raw D1: routing and passthrough wait for D2
-            z, pk = kernels.tile_down_a(x, *d1, None, self.shape, False)
-            A = self.coarse.accumulate_down(pk.reshape(-1))
-            out = kernels.tile_down_fin(x, z, A.reshape(self.NT, self.R_pad),
-                                        d["tree_of"], d["rout"], self.shape)
-        else:
-            out, _ = kernels.tile_down_a(x, *d1, d["rout"], self.shape, True)
-        return out.to(data.dtype)
+        with trace.span("down"):
+            d = self.down_arrays() if darrs is None else darrs
+            acc = self._acc_dtype(data)
+            with trace.span("cast"):
+                x = data.reshape(-1).to(acc).contiguous()
+            d1 = (d["rin"], d["es"], d["g_last"], d["g_prev"], d["n_tree"], d["ent_slot"])
+            if self.has_entries and self.coarse.dfs.n_tree > 0:
+                # raw D1: routing and passthrough wait for D2
+                with trace.span("T3"):
+                    z, pk = kernels.tile_down_a(x, *d1, None, self.shape, False)
+                with trace.span("coarse"):
+                    A = self.coarse.accumulate_down(pk.reshape(-1))
+                with trace.span("T4"):
+                    out = kernels.tile_down_fin(x, z, A.reshape(self.NT, self.R_pad),
+                                                d["tree_of"], d["rout"], self.shape)
+            else:
+                with trace.span("T3"):
+                    out, _ = kernels.tile_down_a(x, *d1, d["rout"], self.shape, True)
+            with trace.span("cast"):
+                return out.to(data.dtype)
 
     def accumulate_sharded(self, data, mesh, overlap_chunks=2):
         """:meth:`accumulate` sharded over the ranks of ``mesh``

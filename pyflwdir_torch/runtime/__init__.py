@@ -19,10 +19,13 @@ build raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import subprocess
 
 import numpy as np
+
+from .. import trace
 
 __all__ = [
     "priority_flood",
@@ -64,6 +67,18 @@ _F64P = ctypes.POINTER(ctypes.c_double)
 _U32P = ctypes.POINTER(ctypes.c_uint32)
 
 _LIB = []  # the loaded library, once
+
+
+def _native(fn):
+    """``fn``, a call into the library, under the span ``native.<name>``."""
+    name = "native." + fn.__name__
+
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        with trace.span(name):
+            return fn(*args, **kwargs)
+
+    return call
 
 
 def _lib():
@@ -203,6 +218,7 @@ def _lib():
     return lib
 
 
+@_native
 def priority_flood(
     elevtn,
     outlets="edge",
@@ -257,6 +273,7 @@ def priority_flood(
     return work.astype(elevtn.dtype), d8
 
 
+@_native
 def dfs_preorder(idxs_ds):
     """DFS preorder of the flow forest (``csrc/host_kernels.cpp::dfs_preorder``).
 
@@ -279,6 +296,7 @@ def dfs_preorder(idxs_ds):
     return preorder[:k], pos, size
 
 
+@_native
 def flw_from_array_lut(flwdir, drlut, dclut, mv):
     """LUT-decode a uint8 flow-direction raster
     (``csrc/tile_plan_build.cpp::flw_from_array_lut``); returns
@@ -303,6 +321,7 @@ def flw_from_array_lut(flwdir, drlut, dclut, mv):
     return idxs_ds, pits, int(n_valid.value)
 
 
+@_native
 def accuflux_sweep(idxs_ds, seq, accu):
     """Sequential accumulation ``accu[ds[i]] += accu[i]`` over ``seq`` reversed
     (``csrc/host_kernels.cpp::accuflux_sweep``). Returns a float64 copy."""
@@ -316,6 +335,7 @@ def accuflux_sweep(idxs_ds, seq, accu):
     return accu
 
 
+@_native
 def tile_plan_phase1(ids_p, Hp, Wp, th):
     """Per-tile forest DFS and table fill of the tile plan build
     (``csrc/tile_plan_build.cpp::tp_phase1``, threaded over tiles) on the
@@ -365,6 +385,7 @@ def tile_plan_phase1(ids_p, Hp, Wp, th):
     }
 
 
+@_native
 def tile_pad_bijection(tk, dk, sk, NT, T):
     """Per-tile bijections ``sigma`` (NT, T) int32 with ``sigma[tk, dk] = sk``;
     free destinations take free sources in index order
@@ -384,6 +405,7 @@ def tile_pad_bijection(tk, dk, sk, NT, T):
     return sigma
 
 
+@_native
 def tile_fwd_tables(sig, Y, G):
     """The JAX package's stacked 5-stage router tables of the per-tile
     permutations ``sig`` (NT, Y * 128) int32, ``Y = 128 G`` rows of ``G``
@@ -406,6 +428,7 @@ def tile_fwd_tables(sig, Y, G):
     return i1, is1, is2, i3, ig
 
 
+@_native
 def tile_inv_rows(t):
     """Row-wise inverse of stacked int8 permutation tables (..., S)
     (``csrc/tile_plan_build.cpp::tp_inv_rows``)."""
@@ -416,6 +439,7 @@ def tile_inv_rows(t):
     return out
 
 
+@_native
 def bipartite_color(u, v, nL, nR, deg):
     """Colours (int32, in ``[0, deg)``) of the edges ``(u[e], v[e])`` of a
     ``deg``-regular bipartite multigraph, ``deg`` a power of two, by Euler
@@ -433,6 +457,7 @@ def bipartite_color(u, v, nL, nR, deg):
     return out
 
 
+@_native
 def tile_down_phase(near_sel, idx_near, sel_next, sig, cnt_far, far_slot, far_end, NT, T):
     """Per-tile sort phase of the tile plan's downward sweep
     (``csrc/tile_plan_build.cpp::tp_down_phase``, threaded over tiles): the
@@ -472,6 +497,7 @@ def tile_down_phase(near_sel, idx_near, sel_next, sig, cnt_far, far_slot, far_en
     return sig_es, sig_dea, sig_deb, de_sel, de_b0
 
 
+@_native
 def downward_sweep(idxs_ds, seq, w):
     """Sequential downstream-path sum ``out[i] = w[i] + out[ds(i)]`` (pits:
     ``w[i]``) over ``seq``, which lists downstream cells before upstream ones
@@ -501,6 +527,7 @@ def _mask_arg(mask):
     return m, m.ctypes.data_as(ctypes.c_void_p)
 
 
+@_native
 def strahler_order(idxs_ds, preorder, mask=None):
     """Strahler order (uint8) by one sweep over the DFS ``preorder``
     reversed (``csrc/host_kernels.cpp::strahler_order_host``); cells outside
@@ -516,6 +543,7 @@ def strahler_order(idxs_ds, preorder, mask=None):
     return out
 
 
+@_native
 def classic_order(idxs_ds, preorder, idxs_us_main, nup, mask=None):
     """Classic (Hack) order (uint8) by one sweep over the DFS ``preorder``
     (``csrc/host_kernels.cpp::classic_order_host``): main stems 1, each
@@ -535,6 +563,7 @@ def classic_order(idxs_ds, preorder, idxs_us_main, nup, mask=None):
     return out
 
 
+@_native
 def stream_segments(nxt, order, nup, mask=None, max_len=0):
     """Confluence-to-confluence stream reaches in CSR form, reaches longer
     than ``max_len`` cut into pieces and a stub appended at each pit
@@ -557,6 +586,7 @@ def stream_segments(nxt, order, nup, mask=None, max_len=0):
     return seg_off, data
 
 
+@_native
 def smooth_rivlen(nxt, us_main, rivlen, min_rivlen, max_window, nodata):
     """River lengths below ``min_rivlen`` smoothed over a growing window, in
     cell order (``csrc/network_kernels.cpp::smooth_rivlen_host``). Returns a
@@ -573,6 +603,7 @@ def smooth_rivlen(nxt, us_main, rivlen, min_rivlen, max_window, nodata):
     return out
 
 
+@_native
 def subbasin_area_outlets(nxt, us_main, order, uparea, area_min):
     """Outlets of sub-basins of at least ``area_min`` by one down- to
     upstream sweep over ``order``
@@ -595,6 +626,7 @@ def subbasin_area_outlets(nxt, us_main, order, uparea, area_min):
     return labels, outlets[:k]
 
 
+@_native
 def trace_walks(nxt, seeds, mask=None, stepx=None, stepy=None, ncol=0, max_length=-1.0):
     """Walks along ``nxt`` from each seed, in CSR form
     (``csrc/network_kernels.cpp::trace_walks_count/fill``): a walk stops at a
@@ -629,6 +661,7 @@ def trace_walks(nxt, seeds, mask=None, stepx=None, stepy=None, ncol=0, max_lengt
     return offsets, data, dists
 
 
+@_native
 def spread2d(obs, msk=None, nodata=0, frc=None, latlon=False, transform=None):
     """Each cell's nearest observation (``obs`` other than ``nodata``) by a
     Dijkstra spread through the ``msk`` cells, the step lengths times the
@@ -669,6 +702,7 @@ def spread2d(obs, msk=None, nodata=0, frc=None, latlon=False, transform=None):
     return out.astype(obs.dtype), src, dst
 
 
+@_native
 def channel_paths(nxt, seeds, mask=None, max_len=0, include_outlet=False):
     """Walks along ``nxt`` from each outlet pixel in ``seeds`` to the next
     outlet pixel, in CSR form (``csrc/network_kernels.cpp::ucat_paths_count
@@ -703,6 +737,7 @@ def channel_paths(nxt, seeds, mask=None, max_len=0, include_outlet=False):
     return offsets, data, ends, kinds
 
 
+@_native
 def fixed_windows(nxt, us_main, distnc, seeds, length, mask=None):
     """Main-stem windows of about ``length`` (in ``distnc`` units) centred
     on each of ``seeds``, in CSR form
@@ -735,6 +770,7 @@ def fixed_windows(nxt, us_main, distnc, seeds, length, mask=None):
     return offsets, data
 
 
+@_native
 def adjust_elevation(nxt, order, elevtn):
     """Streamline profile conditioning in the headwater-first ``order``
     (``csrc/network_kernels.cpp::adjust_elevation_host``; upstream pyflwdir
@@ -751,6 +787,7 @@ def adjust_elevation(nxt, order, elevtn):
     return z
 
 
+@_native
 def repair_profile(profile):
     """Minimum-modification repair of one up- to downstream profile
     (``csrc/network_kernels.cpp::repair_profile_host``). Returns a new
@@ -760,6 +797,7 @@ def repair_profile(profile):
     return z
 
 
+@_native
 def dig_d4(nxt, order, shape, elevtn, mask=None, nodata=-9999.0, dz_min=1e-3):
     """Dig a D4-connected channel along each diagonal D8 link, in the
     headwater-first ``order`` (``csrc/network_kernels.cpp::dig_d4_host``;
@@ -796,6 +834,7 @@ def _ihu_args(cell_ds, cell_out, pix_ds, pix_upa, shape, subncol, cellsize):
     )
 
 
+@_native
 def ihu_relocate(cell_ds, cell_out, pix_ds, pix_upa, broken, shape, subncol, cellsize):
     """IHU outlet relocation (``csrc/upscale_kernels.cpp::ihu_relocate``;
     upstream pyflwdir ``upscale.py:499-877``): mutates ``cell_ds`` /
@@ -818,6 +857,7 @@ def _strm_valid(strm, valid, nsub, nlow):
     return strm.ctypes.data_as(_I32P), valid
 
 
+@_native
 def ihu_opt_rivlen(cell_ds, cell_out, strm, valid, pix_ds, pix_upa, shorts, shape, subncol,
                    cellsize, minlen, minupa):
     """IHU short-reach optimisation (``csrc/upscale_kernels.cpp::
@@ -831,6 +871,7 @@ def ihu_opt_rivlen(cell_ds, cell_out, strm, valid, pix_ds, pix_upa, shorts, shap
                           float(minupa))
 
 
+@_native
 def ihu_min_error(cell_ds, cell_out, strm, valid, pix_ds, pix_upa, broken, shape, subncol,
                   cellsize, minlen, minupa, pit_out_of_cell):
     """IHU upstream-area error minimisation (``csrc/upscale_kernels.cpp::

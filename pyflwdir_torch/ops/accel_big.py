@@ -20,10 +20,12 @@ kernels H1, H2 and H3, and, downward, the six of :class:`CoarseDown`
 ``routers=`` takes a JAX plan's ``router_tables()`` and replays its chains on
 ``arange`` into the same indices.
 
-Dtypes follow the port's rule: integer data sums in int32, or int64 where
-``|max| * n >= 2^31``; float data in float64. (The JAX class sums int32 and a
-double-single float32 pair, for want of float64 on the TPU.) In slot mode the
-caller (the tile plan) has already chosen the dtype.
+Dtypes follow the port's rule (:func:`~pyflwdir_torch.ops.accel.acc_dtype`):
+integer data of up to 32 bits sums in int32, exact modulo 2^32; 64-bit
+integer data in int32, or int64 where ``|max| * n >= 2^31``; float data in
+float64. (The JAX class sums int32 and a double-single float32 pair, for
+want of float64 on the TPU.) In slot mode the caller (the tile plan) has
+already chosen the dtype.
 """
 
 from __future__ import annotations
@@ -320,11 +322,14 @@ class RouterAccel(IntervalKernels, CoarseDown):
     def accumulate(self, data, arrs=None):
         """Flow accumulation of ``data`` (a 1-D tensor on the plan's device)
         in three kernel launches. Default mode: ``data`` (n_cells,) of any
-        dtype, summed in int32, int64 or float64 (:func:`acc_dtype`) and
-        returned in its own; tree cells get their subtree sum, off-tree cells
-        pass through. Slot mode: ``data`` at ``in_slot`` layout in int32,
-        int64 or float64 (shorter than ``n_in``: the rest reads 0), the
-        result (n_out,) at ``out_slot`` layout, 0 at slots without a value.
+        dtype, summed in int32, int64 or float64 (:func:`acc_dtype`: integer
+        data of up to 32 bits in int32 without a read of its range, exact
+        because int32 adds and subtractions wrap modulo 2^32 and the cast
+        back keeps the exact sum's low bits) and returned in its own; tree
+        cells get their subtree sum, off-tree cells pass through. Slot mode:
+        ``data`` at ``in_slot`` layout in int32, int64 or float64 (shorter
+        than ``n_in``: the rest reads 0), the result (n_out,) at
+        ``out_slot`` layout, 0 at slots without a value.
         ``arrs``: the tables of :meth:`arrays` (None: the plan's own)."""
         if self.slot_mode:
             return self._sweep(data.contiguous(), passthrough=False, arrs=arrs)

@@ -76,8 +76,11 @@ passes and one of the result::
     A        = coarse.accumulate_down(all_gather(pk))
     out      = tile_down_lite(abar, A[slab])     # T4 lite: abar + A[tree]
 
-Integer data accumulates in int32, or int64 where ``|max| * n >= 2^31``;
-float data in float64. The result comes back in the data's dtype.
+Integer data of up to 32 bits accumulates in int32 (exact modulo 2^32, so
+exact in the data's width), 64-bit integer data in int32 or in int64 where
+``|max| * n >= 2^31``, bool in int32 below 2^31 cells; float data in
+float64 (:func:`pyflwdir_torch.ops.accel.acc_dtype`). The result comes back
+in the data's dtype.
 """
 
 from __future__ import annotations
@@ -840,8 +843,12 @@ class TilePlan:
     def accumulate(self, data, arrs=None):
         """Flow accumulation of ``data`` ((H*W,) tensor in raster order on
         the plan's device): tree cells get their subtree sum, missing cells
-        pass through. Returned in ``data``'s dtype. ``arrs``: the tables of
-        :meth:`arrays` (None: the plan's own)."""
+        pass through. Summed in :func:`~pyflwdir_torch.ops.accel.acc_dtype`
+        (integer data of up to 32 bits in int32 without a read of its range:
+        sums and differences wrap modulo 2^32, so the result, cast to the
+        data's width, is the exact sum's low bits) and returned in
+        ``data``'s dtype. ``arrs``: the tables of :meth:`arrays` (None: the
+        plan's own)."""
         H, W = self.shape
         if data.numel() != H * W:
             raise ValueError(f"data must hold {H * W} values")
@@ -864,8 +871,11 @@ class TilePlan:
         """Inclusive downstream-path sum of ``data`` ((H*W,) tensor in raster
         order on the plan's device): ``a[i]`` sums ``data`` over ``i``, its
         downstream cell, ..., its pit; the transpose of :meth:`accumulate`.
-        Missing cells pass through. Returned in ``data``'s dtype; integers
-        are exact, and every dtype gives the same bits from run to run.
+        Missing cells pass through. Summed in
+        :func:`~pyflwdir_torch.ops.accel.acc_dtype` and returned in
+        ``data``'s dtype; integers are exact (data of up to 32 bits sums in
+        int32, whose wrapping adds and subtractions keep the exact sum's low
+        32 bits), and every dtype gives the same bits from run to run.
         ``darrs``: the tables of :meth:`down_arrays` (None: the plan's own)."""
         H, W = self.shape
         if data.numel() != H * W:
@@ -954,8 +964,9 @@ class TilePlan:
 
     def _banded_dtypes(self, data2d, band_rows):
         """(result dtype, accumulation dtype) of a banded call: the port's
-        rule (``acc_dtype``), with ``|max|`` of integer data found band by
-        band on the host; unit weights are int32 below 2^31 cells."""
+        rule (``acc_dtype``), with ``|max|`` of 64-bit integer and bool
+        data found band by band on the host; unit weights are int32 below
+        2^31 cells."""
         n = self.shape[0] * self.shape[1]
         if data2d is None:
             acc = torch.int32 if n < 1 << 31 else torch.int64
@@ -963,6 +974,8 @@ class TilePlan:
         dtype = torch.from_numpy(np.asarray(data2d[:1, :1])).dtype
         if dtype.is_floating_point:
             return dtype, torch.float64
+        if dtype != torch.bool and dtype.itemsize <= 4:
+            return dtype, torch.int32
         amax = 1
         for r0 in range(0, self.shape[0], band_rows):
             blk = np.asarray(data2d[r0: r0 + band_rows])
@@ -980,13 +993,14 @@ class TilePlan:
         (all of them where None). The indices are never uploaded whole.
 
         ``data2d``: an (H, W) array or ``np.memmap``, read band by band (twice;
-        integer data once more beforehand, for the accumulation dtype), or
-        None for unit weights made on the device. Each band's result
-        reaches the host after the next band's pass C is enqueued; with
-        ``out_cb`` it goes to ``out_cb(band, first_row, array)`` in band
-        order (``array`` of shape (rows, W)) and the call returns None, else
-        the call returns the assembled (H, W) array. Results come in the
-        data's dtype (int32 for unit weights), equal to :meth:`accumulate`'s."""
+        64-bit integer and bool data once more beforehand, for the
+        accumulation dtype), or None for unit weights made on the device.
+        Each band's result reaches the host after the next band's pass C is
+        enqueued; with ``out_cb`` it goes to ``out_cb(band, first_row,
+        array)`` in band order (``array`` of shape (rows, W)) and the call
+        returns None, else the call returns the assembled (H, W) array.
+        Results come in the data's dtype (int32 for unit weights), equal to
+        :meth:`accumulate`'s."""
         H, W = self.shape
         nty, ntx = self.grid
         btr = nty if band_tile_rows is None else int(band_tile_rows)

@@ -21,11 +21,11 @@ Span names:
 
 * a sweep call: ``up`` (``TilePlan.accumulate``, ``BigAccelPlan.accumulate``)
   or ``down`` (``TilePlan.accumulate_down``), and inside them ``dtype``
-  (``ops.accel.acc_dtype`` with its range read), ``cast`` (the data's
-  ``.to()`` in and out), the stages by the kernels they launch: ``T1``,
-  ``coarse``, ``T2`` upward on tiles, ``T3``, ``coarse``, ``T4`` downward,
-  ``H1``, ``H2``, ``H3`` on a router plan (the tile plan's coarse level
-  too);
+  (``ops.accel.acc_dtype``, with its range read of 64-bit integer data),
+  ``cast`` (the data's ``.to()`` in and out), the stages by the kernels
+  they launch: ``T1``, ``coarse``, ``T2`` upward on tiles, ``T3``,
+  ``coarse``, ``T4`` downward, ``H1``, ``H2``, ``H3`` on a router plan (the
+  tile plan's coarse level too);
 * a plan build: ``plan.phase1``, ``plan.far_tables``, ``plan.exit_tables``,
   ``plan.coarse_graph``, ``plan.coarse_plan``, ``plan.replay`` (a JAX
   plan's chains), ``plan.upload``, ``plan.down.sort``,

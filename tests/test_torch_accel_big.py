@@ -21,7 +21,7 @@ import jax.numpy as jnp
 
 import pyflwdir_torch
 from pyflwdir_torch import dem as tdem
-from pyflwdir_torch import kernels
+from pyflwdir_torch import kernels, trace
 from pyflwdir_torch.codecs import d8 as td8
 from pyflwdir_torch.ops import accel as taccel
 from pyflwdir_torch.ops import accel_big as tbig
@@ -104,17 +104,27 @@ def test_composed_kernel_indices(plans, which):
     assert np.array_equal(p._t["src_res"].numpy()[on], dfs.pos_np[on])
 
 
-@pytest.mark.parametrize("kind", ["ones", "int32", "bool"])
+@pytest.mark.parametrize("kind", ["ones", "int32", "bool", "int32_wrap", "uint8"])
 def test_accumulate_int_bitwise(plans, kind):
     ids, jp, dfs, tp, rp = (plans[k] for k in ("ids", "jp", "dfs", "tp", "rp"))
     rng = np.random.RandomState(5)
     data = {"ones": np.ones(ids.size, np.int32),
             "int32": rng.randint(-50, 1000, ids.size).astype(np.int32),
-            "bool": rng.rand(ids.size) < 0.3}[kind]
+            "bool": rng.rand(ids.size) < 0.3,
+            # sums past 2^31: int32 wraps, the exact sum's low 32 bits
+            "int32_wrap": rng.randint(0, 1 << 28, ids.size).astype(np.int32),
+            "uint8": rng.randint(0, 256, ids.size).astype(np.uint8)}[kind]
+    reads = trace.host_reads["acc_dtype"]
+    assert taccel.acc_dtype(torch.as_tensor(data)) == torch.int32
     kernels.reset_launches()
     got = tp.accumulate(torch.as_tensor(data))
     assert sum(kernels.launches.values()) == 0  # CPU tensors: plain versions
+    assert trace.host_reads["acc_dtype"] == reads  # no range read
     assert got.dtype == torch.as_tensor(data).dtype
+    if kind == "int32_wrap":
+        wide = tplan.accumulate_planned(dfs, torch.as_tensor(data, dtype=torch.int64))
+        assert int(wide.max()) >= 1 << 31
+        assert torch.equal(got, wide.to(torch.int32))
     want = _jax_accumulate(jp, data)
     assert np.array_equal(got.numpy(), want)
     assert torch.equal(rp.accumulate(torch.as_tensor(data)), got)

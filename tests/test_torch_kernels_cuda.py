@@ -1438,3 +1438,78 @@ def test_tall_float64_t1_t4_same_bits(dev, Y):
     assert torch.equal(fin, kernels.tile_down_fin_plain(*fin_args))
     lite = kernels.tile_down_lite(x, A, tree, t["rout"], shape)
     assert torch.equal(lite, kernels.tile_down_lite_plain(x, A, tree, t["rout"], shape))
+
+
+# ---------------------------------------------------------------------------
+# int32 sums that wrap: integer data of up to 32 bits sums in int32 whatever
+# its range, so every int32 add and subtraction of the kernels must wrap
+# modulo 2^32 and give the low bits of the int64 sums
+# ---------------------------------------------------------------------------
+def _wrapping(n, seed):
+    """int32 data over the whole int32 range: sums of a few values pass
+    +-2^31 and wrap."""
+    rng = np.random.RandomState(seed)
+    return torch.as_tensor(rng.randint(-(1 << 31), 1 << 31, n, dtype=np.int64).astype(np.int32))
+
+
+def _assert_wraps_like_int64(call, x):
+    """``call`` on int32 ``x`` gives the bits of ``call`` on ``x`` as int64
+    cast back to int32, and the int64 sums pass +-2^31 (the int32 ones
+    wrapped). Returns the int32 result."""
+    got = call(x)
+    wide = call(x.to(torch.int64))
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and wide.dtype == torch.int64
+    assert int(wide.abs().max()) >= 1 << 31
+    assert torch.equal(got, wide.to(torch.int32))
+    return got
+
+
+def _assert_plan_wraps(gpu, cpu, ids, seed):
+    """Upward and downward sweeps of a tile plan, and its coarse level
+    upward and downward in slot mode, on wrapping int32 data: the int64
+    path's bits, and the CPU plan's."""
+    x = _wrapping(ids.size, seed)
+    xd = x.to("cuda")
+    up = _assert_wraps_like_int64(gpu.accumulate, xd)
+    assert torch.equal(up.cpu(), cpu.accumulate(x))
+    down = _assert_wraps_like_int64(gpu.accumulate_down, xd)
+    assert torch.equal(down.cpu(), cpu.accumulate_down(x))
+    c = gpu.coarse
+    _assert_wraps_like_int64(c.accumulate, _wrapping(c.n_in, seed + 1).to("cuda"))
+    _assert_wraps_like_int64(c.accumulate_down, _wrapping(c.n_out, seed + 2).to("cuda"))
+    return x, up
+
+
+@pytest.mark.parametrize("coarse", ["router", "gather"])
+def test_int32_sums_wrap_on_128_row_plans(tile_plans, odd_plans, coarse):
+    """T1, T2, T3 and T4 at 128 rows with the router coarse level (H1-H3
+    upward, H1 and H0 downward) or the gather one, and the banded sweep (T1
+    exits only, T2 full), on int32 data whose sums wrap."""
+    ids, gpu, cpu = tile_plans if coarse == "router" else odd_plans
+    x, up = _assert_plan_wraps(gpu, cpu, ids, 41)
+    fresh = ttp.build_tile_plan(ids, gpu.shape, device="cuda")
+    band = fresh.accumulate_banded(x.numpy().reshape(gpu.shape), band_tile_rows=1)
+    assert band.dtype == np.int32 and np.array_equal(band.ravel(), up.cpu().numpy())
+
+
+def test_int32_sums_wrap_on_tall_plans(tall_plans):
+    """The cluster kernels of 256-, 384- and 512-row plans and their coarse
+    level on int32 data whose sums wrap."""
+    ids, gpu, cpu = tall_plans
+    _assert_plan_wraps(gpu, cpu, ids, 43)
+
+
+def test_int32_sums_wrap_on_big_accel_plan_at_two_chunks(dev):
+    """H1, H2 and H3 of a BigAccelPlan at 2^22 slots on int32 data whose sums
+    wrap."""
+    from pyflwdir_torch.ops import accel_big as tbig
+    from pyflwdir_torch.ops import plan as tplan
+
+    ids = _demo_ids((1504, 1504), seed=17, missing=True)
+    gpu = taccel.build_accel_plan(ids, device=dev)
+    assert isinstance(gpu, tbig.BigAccelPlan) and gpu.n_pad == 1 << 22
+    x = _wrapping(ids.size, 47)
+    got = _assert_wraps_like_int64(gpu.accumulate, x.to(dev))
+    # the int64 DFS plan on the CPU, cast back
+    assert torch.equal(got.cpu(), tplan.accumulate_planned(tplan.build_plan(ids, device="cpu"), x))

@@ -24,7 +24,7 @@ import jax
 import jax.numpy as jnp
 
 from pyflwdir_torch import dem as tdem
-from pyflwdir_torch import kernels, runtime
+from pyflwdir_torch import kernels, runtime, trace
 from pyflwdir_torch.codecs import d8 as td8
 from pyflwdir_torch.ops import tile_plan as ttp
 from pyflwdir_tpu.ops import tile_plan as jtpm
@@ -116,22 +116,34 @@ def _int_data(kind, n):
     return {"ones": np.ones(n, np.int32),
             "int32": rng.randint(-50, 1000, n).astype(np.int32),
             # |max| * n >= 2^31: the port accumulates in int64
-            "int64_wide": rng.randint(0, 1 << 20, n).astype(np.int64)}[kind]
+            "int64_wide": rng.randint(0, 1 << 20, n).astype(np.int64),
+            # path sums past 2^31: int32 wraps, the exact sum's low 32 bits
+            "int32_wrap": rng.randint(0, 1 << 28, n).astype(np.int32),
+            "uint8": rng.randint(0, 256, n).astype(np.uint8)}[kind]
 
 
-@pytest.mark.parametrize("kind", ["ones", "int32", "int64_wide"])
+@pytest.mark.parametrize("kind", ["ones", "int32", "int64_wide", "int32_wrap", "uint8"])
 def test_accumulate_down_int_bitwise(plans, kind):
     ids, jtp, tp, rtp = plans["ids"], plans["jtp"], plans["tp"], plans["rtp"]
     data = _int_data(kind, ids.size)
+    reads = trace.host_reads["acc_dtype"]
     assert tp._acc_dtype(torch.as_tensor(data)) == (
         torch.int64 if kind == "int64_wide" else torch.int32)
     kernels.reset_launches()
     got = tp.accumulate_down(torch.as_tensor(data))
     assert sum(kernels.launches.values()) == 0  # CPU tensors: plain versions
+    # only 64-bit integer data reads its range to the host
+    assert trace.host_reads["acc_dtype"] - reads == (4 if kind == "int64_wide" else 0)
     assert got.dtype == torch.as_tensor(data).dtype
+    if kind in ("int32_wrap", "uint8"):
+        # the int64 path through the same plan, cast back to the data's dtype
+        wide = tp.accumulate_down(torch.as_tensor(data, dtype=torch.int64))
+        assert kind == "uint8" or int(wide.max()) >= 1 << 31
+        assert torch.equal(got, wide.to(got.dtype))
     got = got.numpy()
     assert np.array_equal(got, _jax_down(jtp, data))
-    assert np.array_equal(got, _sweep(plans, data).astype(data.dtype))
+    # float64 path sums, exact here, to the data's width through int64
+    assert np.array_equal(got, _sweep(plans, data).astype(np.int64).astype(data.dtype))
     assert np.array_equal(rtp.accumulate_down(torch.as_tensor(data)).numpy(), got)
     # missing cells pass their values through
     assert np.array_equal(got[ids < 0], data[ids < 0])

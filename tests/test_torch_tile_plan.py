@@ -27,7 +27,7 @@ import jax.numpy as jnp
 import pyflwdir_torch
 import pyflwdir_tpu
 from pyflwdir_torch import dem as tdem
-from pyflwdir_torch import kernels
+from pyflwdir_torch import kernels, trace
 from pyflwdir_torch.codecs import d8 as td8
 from pyflwdir_torch.ops import accel_big as tbig
 from pyflwdir_torch.ops import plan as tplan
@@ -268,7 +268,7 @@ def test_exits_at_real_roots_bitwise(plans):
     assert np.array_equal(ex_t.numpy()[real], ex_j[real])
 
 
-@pytest.mark.parametrize("kind", ["ones", "int32", "int64_wide"])
+@pytest.mark.parametrize("kind", ["ones", "int32", "int64_wide", "int32_wrap", "uint8"])
 def test_accumulate_int_bitwise(plans, kind):
     ids, jtp, tp, rtp = plans["ids"], plans["jtp"], plans["tp"], plans["rtp"]
     rng = np.random.RandomState(5)
@@ -276,18 +276,29 @@ def test_accumulate_int_bitwise(plans, kind):
     data = {"ones": np.ones(n, np.int32),
             "int32": rng.randint(-50, 1000, n).astype(np.int32),
             # |max| * n >= 2^31: the port accumulates in int64
-            "int64_wide": rng.randint(0, 1 << 20, n).astype(np.int64)}[kind]
+            "int64_wide": rng.randint(0, 1 << 20, n).astype(np.int64),
+            # sums past 2^31: int32 wraps, the exact sum's low 32 bits
+            "int32_wrap": rng.randint(0, 1 << 28, n).astype(np.int32),
+            "uint8": rng.randint(0, 256, n).astype(np.uint8)}[kind]
+    reads = trace.host_reads["acc_dtype"]
     assert tp._acc_dtype(torch.as_tensor(data)) == (
         torch.int64 if kind == "int64_wide" else torch.int32)
     kernels.reset_launches()
     got = tp.accumulate(torch.as_tensor(data))
     assert sum(kernels.launches.values()) == 0  # CPU tensors: plain versions
+    # only 64-bit integer data reads its range to the host
+    assert trace.host_reads["acc_dtype"] - reads == (4 if kind == "int64_wide" else 0)
     assert got.dtype == torch.as_tensor(data).dtype
     got = got.numpy()
     want_fused = _jax_up(jtp, data)
-    want_plan = tplan.accumulate_planned(tplan.build_plan(ids, device="cpu"),
-                                         torch.as_tensor(data)).numpy()
+    dfs = tplan.build_plan(ids, device="cpu")
+    # the int64 DFS plan, cast back to the data's dtype
+    want_plan = tplan.accumulate_planned(dfs, torch.as_tensor(data)).numpy()
     assert np.array_equal(got, want_plan)
+    if kind == "int32_wrap":
+        wide = tplan.accumulate_planned(dfs, torch.as_tensor(data, dtype=torch.int64))
+        assert int(wide.max()) >= 1 << 31
+        assert np.array_equal(got, wide.to(torch.int32).numpy())
     assert np.array_equal(rtp.accumulate(torch.as_tensor(data)).numpy(), got)
     if kind == "int64_wide" and not isinstance(jtp.coarse, jtpm._CoarseGather):
         # the JAX router coarse levels sum in int32 whatever the input

@@ -4,9 +4,9 @@ Off by default: a span is then the one shared null context and nothing is
 recorded. On: spans nest with their parents, the plan build keeps its
 ``build_seconds`` and ``down_build_seconds`` keys, and under
 ``torch.profiler`` a tile-plan and a 1-D router sweep show ``pf:up`` with its
-stage spans inside the caller's range. ``host_reads`` counts the int32
-call's two range reads and none of a float64 call. Results are the same bits
-with tracing on and off."""
+stage spans inside the caller's range. ``host_reads`` counts the int64
+call's two range reads and none of an int32 or a float64 call. Results are
+the same bits with tracing on and off."""
 
 import numpy as np
 import pytest
@@ -176,18 +176,22 @@ def test_down_stage_spans(graph, monkeypatch, tracing):
 
 
 @pytest.mark.parametrize("engine", ["tile", "router"])
-def test_host_reads_per_call(graph, monkeypatch, engine):
+@pytest.mark.parametrize("dtype", ["int32", "int16", "uint8", "int64"])
+def test_host_reads_per_call(graph, monkeypatch, engine, dtype):
+    """An int32, int16 or uint8 call reads nothing to the host (its dtype
+    alone sets int32 sums), an int64 call its range (two reads), a float64
+    call nothing."""
     if engine == "tile":
         call = _tile_plan(graph, monkeypatch).accumulate
     else:
         call = build_big_accel_plan(graph[0], device="cpu").accumulate
     ones, _, floats, _ = _fields(graph[0].size)
     before = trace.counters()["host_reads"].get("acc_dtype", 0)
-    call(ones)
+    call(ones.to(getattr(torch, dtype)))
     mid = trace.counters()["host_reads"].get("acc_dtype", 0)
     call(floats)
     after = trace.counters()["host_reads"].get("acc_dtype", 0)
-    assert (mid - before, after - mid) == (2, 0)
+    assert (mid - before, after - mid) == ((2, 0) if dtype == "int64" else (0, 0))
     assert "launches" in trace.counters()
 
 
@@ -222,9 +226,10 @@ def test_results_bitwise_with_tracing_on_and_off(graph, monkeypatch):
 @pytest.mark.parametrize("cell", ["merit3s-tile.up", "hydrorivers.up", "merit3s-tile.down"])
 def test_a_traced_cell_reads_the_program_spans(monkeypatch, cell):
     """``tools/trace_cell.py`` on a benchmark cell at a small size on the
-    CPU: the program's numbers come out, the int32 calls' reads count one a
-    call, and the idle time (all of the window: no device) splits into
-    dispatch, launch and outside with nothing left over."""
+    CPU: the program's numbers come out, the calls read nothing to the host
+    (the cells' integer data is int32), and the idle time (all of the
+    window: no device) splits into dispatch, launch and outside with nothing
+    left over."""
     import time
 
     from pyflwdir_torch.raster import FlwdirRaster
@@ -241,7 +246,7 @@ def test_a_traced_cell_reads_the_program_spans(monkeypatch, cell):
     res = trace_cell.trace_cell(cell, 2**31 + 11, 0.2, True, torch.device("cpu"),
                                 time.perf_counter(), overrides=small)
     p = res["program"]
-    assert res["correct"] and p["host_reads_per_call"] == 1.0
+    assert res["correct"] and p["host_reads_per_call"] == 0.0
     assert p["plan_native_s"] > 0 and p["plan_upload_s"] > 0
     outside = 100 * p["idle_outside_s"] / res["device"]["window_s"]
     assert p["idle_pct.dispatch"] + p["idle_pct.launch"] + outside == pytest.approx(100)

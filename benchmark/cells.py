@@ -10,7 +10,11 @@ step runs (``op``):
   ``Flwdir._accumulate_dev`` on a network configuration;
 * ``down``: downward path sums, ``TilePlan.accumulate_down`` of
   ``FlwdirRaster._tp_down()`` (what ``stream_distance()`` calls);
-* ``from_dem``: ``pyflwdir_torch.from_dem`` on one of the set-up's DEMs.
+* ``from_dem``: ``pyflwdir_torch.from_dem`` on the set-up's DEM.
+
+Every op reports the same end-to-end metrics: the rate, cells times
+operations (a sweep, or one ``from_dem`` of the whole raster) completed over
+the window, and the 95th percentile of the step walls.
 
 The program under test is imported here and nowhere else in the benchmark.
 """
@@ -179,26 +183,21 @@ class Sweeps(Run):
 # from_dem
 # ---------------------------------------------------------------------------
 class FromDem(Run):
-    """A step of one ``from_dem`` on the set-up's DEMs in turn."""
+    """A step of one ``from_dem`` on the set-up's DEM."""
 
     def setup(self):
         import pyflwdir_torch
 
-        cfg, dev = self.cfg, self.device
-        self.dems = self.timed("generate_dems", lambda: [
-            generate.relief_dem(cfg["shape"], cfg["dem"], self.seed, dev, stream=k)
-            .cpu().numpy() for k in range(int(self.traffic["dems"]))])
+        cfg = self.cfg
+        self.dem = self.timed("generate_dem", lambda: generate.relief_dem(
+            cfg["shape"], cfg["dem"], self.seed, self.device).cpu().numpy())
+        self.n = self.dem.size
         self.from_dem = pyflwdir_torch.from_dem
-        self.k = 0
         self.timed("warm_up", self.step)
-        self.k = 0
 
     def step(self):
-        k = self.k % len(self.dems)
-        self.k += 1
         with self.tracer.call("from_dem"):
-            fl = self.wrap(lambda z: self.from_dem(z, device=self.device), self.dems[k], k, [])
-        return [(k, fl)]
+            return [self.wrap(lambda z: self.from_dem(z, device=self.device), self.dem, 0, [])]
 
     def units(self):
         return 1
@@ -207,8 +206,8 @@ class FromDem(Run):
         del self.from_dem
 
     def judge(self, kept):
-        k, fl = kept[0]
-        z = torch.as_tensor(self.dems[k], device=self.device)
+        fl = kept[0]
+        z = torch.as_tensor(self.dem, device=self.device)
         ds = torch.as_tensor(np.asarray(fl.idxs_ds, np.int64), device=self.device)
         del kept[:]
         counts = reference.judge_d8(z, ds)
@@ -216,14 +215,14 @@ class FromDem(Run):
         return {"bad_cells": sum(counts.values())}
 
     def control(self):
-        """The program's D8 of the first DEM rounded to bfloat16, one
-        precision below the DEM's float32: the program judged on the
-        elevations it would see in that precision."""
-        z = torch.as_tensor(self.dems[0]).to(torch.bfloat16).to(torch.float32).numpy()
-        return [(0, self.from_dem(z, device=self.device))]
+        """The program's D8 of the DEM rounded to bfloat16, one precision
+        below the DEM's float32: the program judged on the elevations it
+        would see in that precision."""
+        z = torch.as_tensor(self.dem).to(torch.bfloat16).to(torch.float32).numpy()
+        return [self.from_dem(z, device=self.device)]
 
     def layer_context(self, ctx):
-        ctx.n = int(np.prod(self.cfg["shape"]))
+        ctx.n = self.n
         ctx.bytes = {}
 
 
@@ -290,12 +289,9 @@ def run_cell(bench, cell, seed, seconds, trace, device, t0, wrap=None, overrides
     values = {
         "setup_s": setup_s,
         "peak_mem_gib": peak / 2**30,
+        "sweep_cells_per_s": run.n * units / window / 1e9,
+        "step_p95_ms": float(np.percentile(np.asarray(times) * 1e3, 95)),
     }
-    if traffic["op"] == "from_dem":
-        values["dem_s"] = window / steps
-    else:
-        values["sweep_cells_per_s"] = run.n * units / window / 1e9
-        values["step_p95_ms"] = float(np.percentile(np.asarray(times) * 1e3, 95))
     q = np.percentile(np.asarray(times) * 1e3, [50, 90, 95, 99, 100])
     _log(f"window {window:.4f} s, {steps} steps; step ms p50 / p90 / p95 / p99 / max "
          + " / ".join(f"{v:.4f}" for v in q))

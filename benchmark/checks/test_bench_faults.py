@@ -3,6 +3,7 @@ for a card, with the timed path broken underneath: ``correct`` has to come
 out false for each fault a cell can have, and true without one. (The cells
 take one chip, so no exchange between chips can be left out.)"""
 
+import math
 import time
 
 import pytest
@@ -66,12 +67,26 @@ def test_sweeps_left_out_of_a_step_count_as_wrong(small_tile_path, monkeypatch):
 
 # from_dem: the cell waits for the program's flat routing to be mended (see
 # PERF.md); its driver and certificate run here on a plain tilt, whose D8 has
-# no flat to route
+# no flat to route. The cell is added by entries alone: its workload, its name
+# in the lists of the end-to-end metrics a sweep cell reports, and the entries
+# of its per-layer readers
+DEM = "merit3s-tile.dem"
+DEM_E2E = ("sweep_cells_per_s", "step_p95_ms")
+
+
+def _listing_dem(m):
+    return {**m, "workloads": m["workloads"] + [DEM]} if m["name"] in DEM_E2E else m
+
+
 DEM_BENCH = {**BENCH, "workloads": BENCH["workloads"] + [
-    {"name": "merit3s-tile.dem", "config": "merit3s-tile", "traffic": "dem", "chips": 1,
-     "why": "from_dem"}], "end_to_end": BENCH["end_to_end"] + [
-    {"name": "dem_s", "unit": "s", "better": "lower", "bound": 0.25, "source": "host_clock",
-     "workloads": ["merit3s-tile.dem"]}]}
+    {"name": DEM, "config": "merit3s-tile", "traffic": "dem", "chips": 1,
+     "why": "from_dem"}],
+    "end_to_end": [_listing_dem(m) for m in BENCH["end_to_end"]],
+    "per_layer": BENCH["per_layer"] + [
+        {"name": "fill_f1_ms", "unit": "ms", "better": "lower", "source": "device_trace",
+         "layer": "Device fill", "moves": "sweep_cells_per_s", "workloads": [DEM]},
+        {"name": "idle_pct.dem", "unit": "%", "better": "lower", "source": "device_trace",
+         "layer": "Device", "moves": "sweep_cells_per_s", "workloads": [DEM]}]}
 TILT = {"shape": [96, 128],
         "dem": {**manifest.config(BENCH, "merit3s-tile")["dem"], "amp_m_at": [2048, 0.0]}}
 
@@ -90,9 +105,24 @@ def _moved(call, x, j, prev):
     return fl
 
 
+def test_dem_cell_is_added_by_entries_alone():
+    assert manifest.problems(DEM_BENCH) == []
+    assert [m["name"] for m in DEM_BENCH["end_to_end"]] == [
+        m["name"] for m in BENCH["end_to_end"]]
+    e2e = [m["name"] for m in manifest.metrics_for(DEM_BENCH, "end_to_end", DEM)]
+    assert sorted(e2e) == sorted(DEM_E2E + ("peak_mem_gib", "setup_s"))
+    layers = manifest.metrics_for(DEM_BENCH, "per_layer", DEM)
+    assert [m["name"] for m in layers] == ["fill_f1_ms", "idle_pct.dem"]
+    assert all(m["moves"] in e2e for m in layers)
+
+
 def test_from_dem_run(device_fill):
-    res = _run("merit3s-tile.dem", TILT, bench=DEM_BENCH)
+    res = _run(DEM, TILT, bench=DEM_BENCH)
     assert res["correct"] is True, res["checks"]
-    assert "dem_s" in res["metrics"]
-    res = _run("merit3s-tile.dem", TILT, wrap=_moved, bench=DEM_BENCH)
+    # these four and no other (no seconds-a-call metric of its own)
+    assert set(res["metrics"]) == set(DEM_E2E + ("peak_mem_gib", "setup_s"))
+    for name in DEM_E2E:
+        v = res["metrics"][name]["value"]
+        assert math.isfinite(v) and v > 0, (name, v)
+    res = _run(DEM, TILT, wrap=_moved, bench=DEM_BENCH)
     assert res["correct"] is False

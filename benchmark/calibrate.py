@@ -33,7 +33,7 @@ def readings(bench, cell, seed, device, control=False, overrides=None):
     wl = manifest.workload(bench, cell)
     cfg = {**manifest.config(bench, wl["config"]), **(overrides or {})}
     traffic = manifest.traffic(wl["traffic"])
-    run = cells.DRIVERS[traffic["op"]](cfg, traffic, seed, device, Tracer(False))
+    run = cells.driver(traffic["op"])(cfg, traffic, seed, device, Tracer(False))
     run.setup()
     kept = run.step()
     cells._sync(device)

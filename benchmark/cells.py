@@ -10,20 +10,23 @@ step runs (``op``):
   ``Flwdir._accumulate_dev`` on a network configuration;
 * ``down``: downward path sums, ``TilePlan.accumulate_down`` of
   ``FlwdirRaster._tp_down()`` (what ``stream_distance()`` calls);
-* ``from_dem``: ``pyflwdir_torch.from_dem`` on the set-up's DEM.
+* ``from_dem``: ``pyflwdir_torch.from_dem`` on the set-up's DEM;
+* any other op: the ``Driver`` class of ``benchmark/ops/<op>.py``
+  (:func:`driver`), a :class:`Run` like those here; ``manifest.BUILT_IN_OPS``
+  names the three above.
 
 Every op reports the same end-to-end metrics: the rate, cells times
 operations (a sweep, or one ``from_dem`` of the whole raster) completed over
 the window, and the 95th percentile of the step walls.
 
-The program under test is imported here and nowhere else in the benchmark.
+The program under test is imported here, and in the drivers of
+``benchmark/ops/``, and nowhere else in the benchmark.
 """
 
 from __future__ import annotations
 
 import gc
 import json
-import os
 import random
 import sys
 import time
@@ -34,9 +37,6 @@ import torch
 
 from . import generate, manifest, reference, roofline
 from .devtrace import Tracer
-
-LIMITS_DIR = os.path.join(manifest.HERE, "limits")
-
 
 def _sync(device):
     if device.type == "cuda":
@@ -60,7 +60,19 @@ def _log(msg):
 
 
 class Run:
-    """The state of one run; ``spans`` holds the set-up's host spans (s)."""
+    """The state of one run; ``spans`` holds the set-up's host spans (s).
+
+    A driver of an op is a subclass with these methods: ``setup()`` (inputs
+    made from the seed, the program's state built, every shape warmed up;
+    host spans by :meth:`timed`); ``step()``, one step of the window
+    dispatched, each call wrapped by ``self.wrap(call, x, j, prev)``, its
+    outputs returned in a list; ``units()``, the operations of a step over
+    ``self.n`` cells each; ``release()``, the program's state freed;
+    ``judge(kept)``, the numbers compared (a dict keyed as the cell's
+    limits) for a step's outputs; ``control()``, the control's outputs of a
+    step (read by ``calibrate.py`` alone); ``layer_context(ctx)``, ``ctx.n``
+    and ``ctx.bytes`` (least bytes a call kind) set for the per-layer
+    readers."""
 
     def __init__(self, cfg, traffic, seed, device, tracer, wrap=None):
         self.cfg, self.traffic, self.seed, self.device = cfg, traffic, int(seed), device
@@ -190,7 +202,7 @@ class FromDem(Run):
 
         cfg = self.cfg
         self.dem = self.timed("generate_dem", lambda: generate.relief_dem(
-            cfg["shape"], cfg["dem"], self.seed, self.device).cpu().numpy())
+            cfg["shape"], cfg["dem"], self.device).cpu().numpy())
         self.n = self.dem.size
         self.from_dem = pyflwdir_torch.from_dem
         self.timed("warm_up", self.step)
@@ -226,12 +238,19 @@ class FromDem(Run):
         ctx.bytes = {}
 
 
+#: the drivers of ``manifest.BUILT_IN_OPS``
 DRIVERS = {"up": Sweeps, "down": Sweeps, "from_dem": FromDem}
 
 
-def limits(cell):
-    with open(os.path.join(LIMITS_DIR, f"{cell}.json")) as f:
-        return json.load(f)
+def driver(op):
+    """The driver of ``op``: :data:`DRIVERS`' entry for a built-in op, else
+    the ``Driver`` of ``benchmark/ops/<op>.py`` (:func:`manifest.driver`)."""
+    if op in manifest.BUILT_IN_OPS:
+        return DRIVERS[op]
+    cls = manifest.driver(op)
+    if not (isinstance(cls, type) and issubclass(cls, Run)):
+        raise TypeError(f"the Driver of the op {op!r} is not a cells.Run")
+    return cls
 
 
 def run_cell(bench, cell, seed, seconds, trace, device, t0, wrap=None, overrides=None,
@@ -245,9 +264,9 @@ def run_cell(bench, cell, seed, seconds, trace, device, t0, wrap=None, overrides
     wl = manifest.workload(bench, cell)
     cfg = {**manifest.config(bench, wl["config"], root), **(overrides or {})}
     traffic = manifest.traffic(wl["traffic"])
-    lim = limits(cell)
+    lim = manifest.limits(cell)
     tracer = Tracer(trace)
-    run = DRIVERS[traffic["op"]](cfg, traffic, seed, device, tracer, wrap)
+    run = driver(traffic["op"])(cfg, traffic, seed, device, tracer, wrap)
     run.setup()
     setup_s = time.perf_counter() - t0
     _log("set-up (s): " + json.dumps({k: round(v, 4) for k, v in run.spans.items()}))

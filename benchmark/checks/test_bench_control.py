@@ -5,7 +5,7 @@ on the CPU and, on the card, at each cell's own size."""
 import pytest
 import torch
 
-from benchmark import calibrate, cells, manifest
+from benchmark import calibrate, manifest
 
 BENCH = manifest.load()
 CELLS = [w["name"] for w in BENCH["workloads"]]
@@ -25,7 +25,7 @@ def test_control_fails_and_program_passes_small(cell, small_tile_path):
     cfg = manifest.workload(BENCH, cell)["config"]
     row = calibrate.readings(BENCH, cell, 2**31 + 3, torch.device("cpu"), control=True,
                              overrides=MID[cfg])
-    lim = cells.limits(cell)
+    lim = manifest.limits(cell)
     assert _beyond(row["program"], lim) == []
     assert _beyond(row["control"], lim)
 
@@ -34,6 +34,6 @@ def test_control_fails_and_program_passes_small(cell, small_tile_path):
 @pytest.mark.parametrize("cell", CELLS)
 def test_control_fails_and_program_passes_on_the_card(cell, card):
     row = calibrate.readings(BENCH, cell, 2**31 + 5, card, control=True)
-    lim = cells.limits(cell)
+    lim = manifest.limits(cell)
     assert _beyond(row["program"], lim) == []
     assert _beyond(row["control"], lim)

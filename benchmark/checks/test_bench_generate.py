@@ -76,15 +76,41 @@ def test_hydrorivers_size_gives_8_5_million_reaches():
     assert H * W * 5 / 9 == pytest.approx(RIVERS["reaches"], rel=0.01)
 
 
+DEM = CFG["dem"]
+SHAPE = (64, 96)
+
+
 def test_dem_deterministic_in_metres_on_a_tilt():
-    a = generate.relief_dem((64, 96), CFG["dem"], 5, CPU)
-    b = generate.relief_dem((64, 96), CFG["dem"], 5, CPU)
+    a = generate.relief_dem(SHAPE, DEM, CPU)
+    b = generate.relief_dem(SHAPE, DEM, CPU)
     assert a.dtype == torch.float32 and torch.equal(a, b)
-    assert not torch.equal(a, generate.relief_dem((64, 96), CFG["dem"], 6, CPU))
-    flat = generate.relief_dem((64, 96), {**CFG["dem"], "amp_m_at": [2048, 0.0]}, 5, CPU)
-    base, (tr, tc) = CFG["dem"]["base_m"], CFG["dem"]["tilt_m_per_cell"]
+    flat = generate.relief_dem(SHAPE, {**DEM, "amp_m_at": [2048, 0.0]}, CPU)
+    base, (tr, tc) = DEM["base_m"], DEM["tilt_m_per_cell"]
     assert float(flat[0, 0]) == base  # the tilt alone: down to the lower right
     assert float(flat[63, 95]) == pytest.approx(base - 63 * tr - 95 * tc)
+
+
+def _octave(lam):
+    """The share of the relief (metres) of the octave of wavelength ``lam``
+    alone: the DEM of that octave less the tilt alone."""
+    one = {**DEM, "octaves_cells": [lam]}
+    return (generate.relief_dem(SHAPE, one, CPU)
+            - generate.relief_dem(SHAPE, {**one, "octaves_cells": []}, CPU))
+
+
+@pytest.mark.parametrize("lam", DEM["octaves_cells"])
+def test_dem_octave_added_or_removed_changes_no_other(lam):
+    """The relief less the same relief without one octave is that octave's
+    share alone (to float32 rounding of metres near 1,800): each octave has
+    a generator of its own. The share is noise within the octave's
+    amplitude."""
+    full = generate.relief_dem(SHAPE, DEM, CPU)
+    without = generate.relief_dem(
+        SHAPE, {**DEM, "octaves_cells": [v for v in DEM["octaves_cells"] if v != lam]}, CPU)
+    share = _octave(lam)
+    torch.testing.assert_close(full - without, share, rtol=0, atol=1e-3)
+    amp = DEM["amp_m_at"][1] * (lam / DEM["amp_m_at"][0]) ** DEM["hurst"]
+    assert 0 < float(share.abs().max()) <= amp + 1e-3
 
 
 @pytest.mark.parametrize("spec,check", [

@@ -3,8 +3,10 @@ found by name."""
 
 import json
 import os
+import time
 
 import pytest
+import torch
 
 from benchmark import cells, manifest
 from benchmark.run import FORBIDDEN, forbidden_modules
@@ -82,8 +84,8 @@ def test_cell_reports(cell):
 def test_files_found_by_name(cell):
     wl = manifest.workload(BENCH, cell)
     assert manifest.config(BENCH, wl["config"])["name"] == wl["config"]
-    assert manifest.traffic(wl["traffic"])["op"] in cells.DRIVERS
-    assert cells.limits(cell)
+    assert issubclass(cells.driver(manifest.traffic(wl["traffic"])["op"]), cells.Run)
+    assert manifest.limits(cell)
 
 
 @pytest.mark.parametrize("metric", [m["name"] for m in BENCH["per_layer"]])
@@ -135,3 +137,58 @@ def test_spread_is_the_quartile_distance_over_the_median(tmp_path):
         (tmp_path / f"{i}.out").write_text("noise\n" + json.dumps(line) + "\n")
     med, sp, n = table(sorted(str(p) for p in tmp_path.iterdir()))["m"]
     assert (med, n) == (11.5, 4) and sp == pytest.approx((12.75 - 10.25) / 11.5)
+
+
+# an op whose driver is found by file: ``checks/by_file`` holds its driver
+# (``ops/upstream_cells.py``), its traffic and the cell's limits, and the
+# lookup is pointed there; the cell is entries in the manifest alone
+BY_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "by_file")
+OP_CELL = "merit3s-tile.upstream_cells"
+OP_BENCH = {
+    **BENCH,
+    "workloads": [{"name": OP_CELL, "config": "merit3s-tile", "traffic": "upstream_cells",
+                   "chips": 1, "why": "one upstream_area() a step"}],
+    "end_to_end": [{**m, "workloads": [OP_CELL]} if "workloads" in m else m
+                   for m in BENCH["end_to_end"]],
+    "per_layer": [{**m, "workloads": [OP_CELL]} for m in BENCH["per_layer"]
+                  if m["name"] == "plan_build_s"]}
+
+
+@pytest.fixture
+def by_file(monkeypatch):
+    for kind in ("workloads", "limits", "ops"):
+        monkeypatch.setitem(manifest.DIRS, kind, os.path.join(BY_FILE, kind))
+
+
+def _altered(call, x, j, prev):
+    out = call(x).copy()
+    out.reshape(-1)[7] += 1
+    return out
+
+
+def test_op_driver_found_by_file_runs_a_cell(by_file, small_tile_path):
+    assert set(cells.DRIVERS) == set(manifest.BUILT_IN_OPS)
+    assert "upstream_cells" not in manifest.BUILT_IN_OPS
+    assert manifest.problems(OP_BENCH) == []
+    assert issubclass(cells.driver("upstream_cells"), cells.Run)
+    for wrap, correct in ((None, True), (_altered, False)):
+        res, _ = cells.run_cell(OP_BENCH, OP_CELL, 2**31 + 19, 0.2, False, torch.device("cpu"),
+                                time.perf_counter(), wrap=wrap,
+                                overrides=small_tile_path["merit3s-tile"])
+        assert res["correct"] is correct, res["checks"]
+        assert set(res["metrics"]) == {m["name"] for m in BENCH["end_to_end"]}
+        assert res["metrics"]["sweep_cells_per_s"]["value"] > 0
+
+
+def test_op_without_a_driver_is_reported(by_file, tmp_path, monkeypatch):
+    (tmp_path / "no_op.json").write_text('{"op": "no_such_op"}')
+    (tmp_path / "not_a_run.json").write_text('{"op": "not_a_run"}')
+    (tmp_path / "not_a_run.py").write_text("Driver = dict\n")
+    monkeypatch.setitem(manifest.DIRS, "workloads", str(tmp_path))
+    monkeypatch.setitem(manifest.DIRS, "ops", str(tmp_path))
+    bench = {**OP_BENCH, "workloads": [{**OP_BENCH["workloads"][0], "traffic": "no_op"}]}
+    assert manifest.problems(bench) == [f"{OP_CELL}: no driver for the op 'no_such_op'"]
+    with pytest.raises(FileNotFoundError):
+        cells.driver("no_such_op")
+    with pytest.raises(TypeError):
+        cells.driver("not_a_run")

@@ -14,7 +14,8 @@ test. The same seed on the same kind of device gives the same inputs.
 * :func:`contract_reaches`: the confluence-to-confluence reaches of such a
   network, as HydroRIVERS breaks its rivers, by pointer doubling; reach ids
   keep the raster order of each reach's first cell.
-* :func:`relief_dem`: multi-octave value noise on a tilt, in metres (float32).
+* :func:`relief_dem`: multi-octave value noise on a tilt, in metres (float32):
+  one fixed landscape, which no seed draws.
 * :func:`make_field`: the per-cell inputs of a traffic mix.
 """
 
@@ -100,22 +101,25 @@ def contract_reaches(ds):
     return reach_ds, heads
 
 
-def relief_dem(shape, dem_cfg, seed, device, stream=0):
+def relief_dem(shape, dem_cfg, device):
     """Multi-octave value noise on a tilt, in metres (float32, ``shape``).
 
     ``dem_cfg``: ``base_m`` (elevation of the upper left corner),
     ``tilt_m_per_cell`` (fall per row, per column), ``octaves_cells`` (the
     wavelengths in cells), ``amp_m_at`` ([wavelength, amplitude in metres]) and
     ``hurst`` (amplitude grows as wavelength ** hurst). Each octave is a grid
-    of uniform values in [-1, 1] at its wavelength, upsampled bilinearly."""
+    of uniform values in [-1, 1] at its wavelength, upsampled bilinearly, from
+    a generator of its own keyed by its wavelength alone: so adding or removing
+    an octave changes no other, and a tile is one landscape, whatever the
+    run's seed."""
     H, W = (int(v) for v in shape)
-    g = device_generator(device, seed, stream)
     ref_len, ref_amp = dem_cfg["amp_m_at"]
     r = torch.arange(H, device=device, dtype=torch.float32).view(H, 1)
     c = torch.arange(W, device=device, dtype=torch.float32).view(1, W)
     tr, tc = dem_cfg["tilt_m_per_cell"]
     z = float(dem_cfg["base_m"]) - tr * r - tc * c
     for lam in dem_cfg["octaves_cells"]:
+        g = device_generator(device, 0, 3000 + lam)
         amp = ref_amp * (lam / ref_len) ** dem_cfg["hurst"]
         h, w = math.ceil(H / lam) + 1, math.ceil(W / lam) + 1
         coarse = torch.rand((1, 1, h, w), generator=g, device=device) * 2 - 1

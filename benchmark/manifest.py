@@ -2,12 +2,17 @@
 
 * a configuration ``<c>``: ``benchmark/configs/<c>.json``, the file its
   entry's ``file`` names;
-* a traffic mix ``<t>``: ``benchmark/workloads/<t>.json``;
+* a traffic mix ``<t>``: ``benchmark/workloads/<t>.json``, whose ``op``
+  names the operation a step runs;
+* a cell's limits: ``benchmark/limits/<cell>.json``;
 * a per-layer metric ``<m>``: ``benchmark/metrics/<m>.py``, a module with a
-  function ``read(ctx)`` that returns the metric's value or None.
+  function ``read(ctx)`` that returns the metric's value or None;
+* the driver of an op ``<op>`` outside :data:`BUILT_IN_OPS`:
+  ``benchmark/ops/<op>.py``, a module with a class ``Driver``, a
+  ``cells.Run``.
 
-A new cell, configuration, traffic mix or metric is a new file and an entry
-in ``BENCHMARK.json``; nothing here changes.
+A new cell, configuration, traffic mix, op or metric is a new file and an
+entry in ``BENCHMARK.json``; nothing here changes.
 """
 
 from __future__ import annotations
@@ -19,6 +24,14 @@ import re
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
+
+#: where a file of each kind is found: ``<DIRS[kind]>/<name><suffix>``
+DIRS = {kind: os.path.join(HERE, kind) for kind in ("workloads", "limits", "metrics", "ops")}
+_SUFFIX = {"workloads": ".json", "limits": ".json", "metrics": ".py", "ops": ".py"}
+
+#: the ops whose drivers ``cells.DRIVERS`` holds; any other op's driver is a
+#: file of ``ops/``
+BUILT_IN_OPS = ("up", "down", "from_dem")
 
 NAME_RE = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT_RE = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -46,8 +59,19 @@ def config(manifest, name, root=ROOT):
         return json.load(f)
 
 
+def path(kind, name):
+    """The file of ``kind`` (a key of :data:`DIRS`) named ``name``."""
+    return os.path.join(DIRS[kind], name + _SUFFIX[kind])
+
+
 def traffic(name):
-    with open(os.path.join(HERE, "workloads", f"{name}.json")) as f:
+    with open(path("workloads", name)) as f:
+        return json.load(f)
+
+
+def limits(cell):
+    """Each number compared in the cell ``cell``, with its limit."""
+    with open(path("limits", cell)) as f:
         return json.load(f)
 
 
@@ -57,13 +81,22 @@ def metrics_for(manifest, section, cell):
     return [m for m in manifest[section] if cell in m.get("workloads", [cell])]
 
 
-def reader(name):
-    """The ``read`` function of the per-layer metric ``name``."""
-    path = os.path.join(HERE, "metrics", f"{name}.py")
-    spec = importlib.util.spec_from_file_location(f"bench_metric_{name}", path)
+def _module(kind, name):
+    spec = importlib.util.spec_from_file_location(f"bench_{kind}_{name}", path(kind, name))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(name):
+    """The ``read`` function of the per-layer metric ``name``."""
+    return _module("metrics", name).read
+
+
+def driver(op):
+    """The ``Driver`` class of the op ``op`` (outside :data:`BUILT_IN_OPS`),
+    from ``ops/<op>.py``."""
+    return _module("ops", op).Driver
 
 
 def problems(manifest, root=ROOT):
@@ -92,9 +125,15 @@ def problems(manifest, root=ROOT):
         for key in ("config", "traffic"):
             if not NAME_RE.match(w[key]):
                 out.append(f"{w['name']}: bad {key} {w[key]!r}")
-        if not os.path.exists(os.path.join(HERE, "workloads", f"{w['traffic']}.json")):
+        if not os.path.exists(path("limits", w["name"])):
+            out.append(f"{w['name']}: no limits")
+        if not os.path.exists(path("workloads", w["traffic"])):
             out.append(f"{w['name']}: no traffic file for {w['traffic']!r}")
+            continue
+        op = traffic(w["traffic"])["op"]
+        if op not in BUILT_IN_OPS and not os.path.exists(path("ops", op)):
+            out.append(f"{w['name']}: no driver for the op {op!r}")
     for m in manifest["per_layer"]:
-        if not os.path.exists(os.path.join(HERE, "metrics", f"{m['name']}.py")):
+        if not os.path.exists(path("metrics", m["name"])):
             out.append(f"{m['name']}: no reader")
     return out

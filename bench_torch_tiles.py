@@ -12,7 +12,9 @@ port of the checkout it lives in) and hands the D8 raster to every run; each
 run is a process of its own that imports the port from its DIR, builds the
 grid's tile plan and its down indices, and times each kernel wrapper on the
 plan's own tables (each checkout's own device layout of them), int32 and
-float64 data: ``reps`` calls back to back between two CUDA events, the mean
+float64 data (and float32 through T3 and T4, where the checkout's kernels
+take it, as ``.float32``): ``reps`` calls back to back between two CUDA
+events, the mean
 per call, after warm-up. The wrappers, on the whole grid: ``tile_pass_a``
 (T1) and its exits-only mode (``.exits``), ``tile_pass_c`` (T2, resuming
 from T1's prefix sums) and its full mode (``.full``, the prefix sums rebuilt
@@ -40,7 +42,8 @@ a peer's shared memory.
 Prints the card, the registers and spills ``ptxas`` gave each tile kernel of
 each DIR, one JSON line per run, then each DIR's median over its runs and
 whether every DIR's kernels gave the same bits (a SHA-256 of each wrapper's
-outputs on both data types, ``digest``). Needs one CUDA device.
+outputs on each data type that every run timed, ``digest``). Needs one CUDA
+device.
 """
 
 import argparse
@@ -177,8 +180,9 @@ def _own_shares(tp):
 
 
 def _time_kernels(tp, shape, n, reps, out, prefix):
-    """Time each wrapper on the plan ``tp``'s tables, int32 and float64, into
-    ``out`` under ``prefix``."""
+    """Time each wrapper on the plan ``tp``'s tables, int32 and float64, and
+    T3 and T4 on float32 data where the checkout's take it, into ``out``
+    under ``prefix``."""
     import numpy as np
     import torch
 
@@ -217,6 +221,22 @@ def _time_kernels(tp, shape, n, reps, out, prefix):
         for k, fn in calls.items():
             out["digest"][f"{prefix}{k}.{name}"] = _digest(fn())
             out[f"{prefix}{k}.{name}_ms"] = _mean_ms(fn, reps)
+    if torch.float32 not in getattr(kernels, "_DOWN_DTYPES", ()):
+        return  # a checkout whose T3 and T4 take no float32 data
+    # float32 data, summed in float64 inside T3 and T4
+    x = torch.as_tensor(rng.rand(n).astype(np.float32)).cuda()
+    d1 = (x, t["rin"], d["es"], d["g_last"], d["g_prev"], d["n_tree"], d["ent_slot"])
+    z1, pk = kernels.tile_down_a(*d1, None, shape, False)
+    A = tp.coarse.accumulate_down(pk.reshape(-1)).reshape(tp.NT, tp.R_pad)
+    calls = {
+        "tile_down_a.raw": lambda: kernels.tile_down_a(*d1, None, shape, False),
+        "tile_down_a.routed": lambda: kernels.tile_down_a(*d1, t["rout"], shape, True),
+        "tile_down_fin": lambda: kernels.tile_down_fin(x, z1, A, d["tree_of"], t["rout"], shape),
+        "tile_down_a.range": lambda: kernels.tile_down_a(*d1, t["rout"], shape, True, tile0=0),
+    }
+    for k, fn in calls.items():
+        out["digest"][f"{prefix}{k}.float32"] = _digest(fn())
+        out[f"{prefix}{k}.float32_ms"] = _mean_ms(fn, reps)
 
 
 def run_one(root, d8_path, reps, rows=(128,), sharded=True):
@@ -323,7 +343,10 @@ def main():
         mine = [r for r in runs if r["root"] == d]
         summary[d] = {k: statistics.median(r[k] for r in mine) for k in mine[0] if k != "root"}
         summary[d]["runs"] = len(mine)
-    same = None if None in digests else all(g == digests[0] for g in digests)
+    same = None
+    if None not in digests:  # on the outputs every run has (float32 only where taken)
+        shared = set.intersection(*(set(g) for g in digests))
+        same = all(g[k] == digests[0][k] for g in digests for k in shared)
     print(f"the same bits from every run and DIR: {same}")
     print(json.dumps({"card": smi, "median": summary, "same_bits": same}))
     if args.json:

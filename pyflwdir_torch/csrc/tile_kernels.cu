@@ -7,9 +7,10 @@
 // height 128 G (G = 1 to 4): this file for G = 1, and tile_kernels_g2.cu,
 // _g3.cu and _g4.cu, which define PF_TILE_G and include it, a library each
 // with the same entry points. Every entry takes an element-type code (1
-// int32, 2 int64, 3 float64), device pointers and a cudaStream_t
-// (PyTorch's current stream), launches, and returns cudaGetLastError();
-// nothing here allocates or synchronises.
+// int32, 2 int64, 3 float64; T3 and T4 also 0, float32 data summed in
+// float64), device pointers and a cudaStream_t (PyTorch's current stream),
+// launches, and returns cudaGetLastError(); nothing here allocates or
+// synchronises.
 //
 // The raster is cut into tiles of 128 G rows by 128 columns (T = 16,384 G
 // cells). Each tile's flow forest has a DFS preorder of its own; every
@@ -174,6 +175,19 @@ __device__ __forceinline__ void stage_tile(const T* __restrict__ x, int64_t H,
                                            T* xs) {
   for (int l = threadIdx.x; l < kSlots; l += kTileThreads) {
     xs[l] = tile_cell(x, H, W, r0, c0, l);
+  }
+}
+
+// a sum of type T as the data's type TX: a float64 sum of float32 data
+// rounded once, to nearest even (as Tensor.to(torch.float32) rounds); else
+// the sum itself
+template <typename TX, typename T>
+__device__ __forceinline__ TX as_data(T v) {
+  if constexpr (std::is_same_v<TX, T>) {
+    return v;
+  } else {
+    static_assert(std::is_same_v<TX, float> && std::is_same_v<T, double>);
+    return __double2float_rn(v);
   }
 }
 
@@ -370,6 +384,23 @@ int by_dtype(int dt, F&& f) {
     case 3: return f(Tag<double>{});
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// the data's type (data) and the sums' (type) of a downward kernel: float32
+// data (code 0) summed in float64, else by_dtype's type for both
+template <typename TX, typename T>
+struct DataTag {
+  using data = TX;
+  using type = T;
+};
+
+template <class F>
+int by_data_dtype(int dt, F&& f) {
+  if (dt == 0) return f(DataTag<float, double>{});
+  return by_dtype(dt, [&](auto tag) {
+    using T = typename decltype(tag)::type;
+    return f(DataTag<T, T>{});
+  });
 }
 
 // Inclusive prefix sum of a[0, n) in shared memory, n <= kSlots, by the
@@ -797,10 +828,17 @@ __global__ void __launch_bounds__(kTileThreads, sizeof(T) == 4 ? 2 : 1)
 // the peer's z chunk in, as cs, was slower: PERF.md §6). Three cluster
 // barriers instead of six; integer sums are exact in any order, so the
 // bits are the same.
+// float32 data (TX float, T double): the kernel stages x as it is (64 KB a
+// chunk) and widens each value as it reads it; the staged tile stays beside
+// cs (float64, 128 KB) as in 4-byte values, so no u value is stashed. z and
+// pk are float64; the routed result is float32, each path sum rounded once.
+// The values and the order of every addition are those of float64 data
+// widened from the float32 data: the same bits as that call, cast. Bound:
+// 4 + 8 + 8 bytes per slot raw, 4 + 4 + 10 routed.
 // ---------------------------------------------------------------------------
-template <typename T, bool kRouted, bool kStack>
+template <typename T, bool kRouted, bool kStack, typename TX = T>
 __global__ void __launch_bounds__(kTileThreads, 1)
-    tile_down_a_kernel(const T* __restrict__ x, int64_t H, int64_t W,
+    tile_down_a_kernel(const TX* __restrict__ x, int64_t H, int64_t W,
                        int64_t ntx, int64_t tile0,
                        const Idx* __restrict__ rin,
                        const Idx* __restrict__ es,
@@ -808,19 +846,23 @@ __global__ void __launch_bounds__(kTileThreads, 1)
                        const Idx* __restrict__ g_prev,
                        const int32_t* __restrict__ n_tree,
                        const Idx* __restrict__ ent_slot, int E,
-                       const Idx* __restrict__ rout, T* __restrict__ z,
+                       const Idx* __restrict__ rout,
+                       std::conditional_t<kRouted, TX, T>* __restrict__ z,
                        T* __restrict__ pk) {
   // two CTAs in 4-byte values: the whole tile in each CTA (xs: x, then cs;
   // zb: this chunk's z)
   constexpr bool kBulk = kG == 2 && sizeof(T) == 4;
-  constexpr bool kKeep = sizeof(T) == 4 && !kBulk;  // the staged tile stays beside cs
+  // the staged tile (of 4-byte data) stays beside cs
+  constexpr bool kKeep = sizeof(TX) == 4 && !kBulk;
   constexpr int kPairs = kPerThread / 2;
-  // 8-byte values: the u values of chunks k < kStash wait in shared memory
+  // 8-byte data: the u values of chunks k < kStash wait in shared memory
   // beside cs, the others in registers (all of them in kBulk)
-  constexpr int kStash = sizeof(T) == 4 ? 0 : kDownStash;
+  constexpr int kStash = kKeep || kBulk ? 0 : kDownStash;
+  static_assert(std::is_same_v<TX, T> || (std::is_same_v<TX, float> && std::is_same_v<T, double>),
+                "float32 data sums in float64, other data in its own type");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* xs = reinterpret_cast<T*>(smem_raw);
-  T* zb = xs + kG * kSlots;  // kBulk only
+  TX* xs = reinterpret_cast<TX*>(smem_raw);
+  T* zb = reinterpret_cast<T*>(xs + kG * kSlots);  // kBulk only
   Two<T>* us2 = reinterpret_cast<Two<T>*>(xs + kSlots);  // the stashed u values
   __shared__ T warp_tot[kWarps];
   __shared__ T warp_suf[kWarps];
@@ -836,14 +878,14 @@ __global__ void __launch_bounds__(kTileThreads, 1)
   const Word* gl2 = words(g_last + tb);
   const Word* gp2 = words(g_prev + tb);
   const Word* rin2 = words(rin + tb);
-  T* cs = kKeep ? xs + kSlots : (kBulk ? xs + s0 : xs);
+  T* cs = reinterpret_cast<T*>(kKeep ? xs + kSlots : (kBulk ? xs + s0 : xs));
   Two<T>* cs2 = reinterpret_cast<Two<T>*>(cs);
-  // x at cell i of the tile
+  // x at cell i of the tile, as a value of the sums' type
   auto x_at = [&](int i) -> T {
     if constexpr (kBulk) {
       return xs[i];
     } else {
-      return tile_elem(xs, i);
+      return static_cast<T>(tile_elem(xs, i));
     }
   };
 
@@ -1005,7 +1047,7 @@ __global__ void __launch_bounds__(kTileThreads, 1)
       for (int k = 0; k < kPairs; ++k) {
         const Two<T> zz{v0[k] + off, v1[k] + off};
         cs2[p0 + 32 * k] = zz;
-        if (!kRouted) z2[p0 + 32 * k] = zz;
+        if constexpr (!kRouted) z2[p0 + 32 * k] = zz;
       }
     }
   }
@@ -1039,23 +1081,23 @@ __global__ void __launch_bounds__(kTileThreads, 1)
       const int qa = lo16(w), qb = hi16(w);
       const int l = 2 * j;
       if constexpr (kStack) {
-        Two<T> v;
+        Two<TX> v;
         if constexpr (kKeep) {
-          v.x = qa >= 0 ? z_at(qa) : xs[l];
-          v.y = qb >= 0 ? z_at(qb) : xs[l + 1];
+          v.x = qa >= 0 ? as_data<TX>(z_at(qa)) : xs[l];
+          v.y = qb >= 0 ? as_data<TX>(z_at(qb)) : xs[l + 1];
         } else {
           v.x = qa >= 0 ? z_at(qa) : tile_cell(x, H, W, tp.r0, tp.c0, l);
           v.y = qb >= 0 ? z_at(qb) : tile_cell(x, H, W, tp.r0, tp.c0, l + 1);
         }
-        reinterpret_cast<Two<T>*>(z + tb)[j] = v;
+        reinterpret_cast<Two<TX>*>(z + tb)[j] = v;
       } else {
         const int64_t r = tp.r0 + (l >> 7);
         const int64_t col = tp.c0 + (l & (kLanes - 1));
         if (r < H && col < W) {
           const int64_t g = r * W + col;
           if constexpr (kKeep) {
-            z[g] = qa >= 0 ? z_at(qa) : xs[l];
-            if (col + 1 < W) z[g + 1] = qb >= 0 ? z_at(qb) : xs[l + 1];
+            z[g] = qa >= 0 ? as_data<TX>(z_at(qa)) : xs[l];
+            if (col + 1 < W) z[g + 1] = qb >= 0 ? as_data<TX>(z_at(qb)) : xs[l + 1];
           } else {
             z[g] = qa >= 0 ? z_at(qa) : x[g];
             if (col + 1 < W) z[g + 1] = qb >= 0 ? z_at(qb) : x[g + 1];
@@ -1101,15 +1143,21 @@ __global__ void __launch_bounds__(kTileThreads, 1)
 // memory (32 KB) from coalesced reads, each raster cell reads its tree
 // index there through rout and A from its tile's row (L1); abar and out
 // move row-coalesced.
+//
+// float32 data (fin mode, TX float, T double): x is read and out written
+// as float32; z1 + A[tree] is the float64 sum, rounded once as it is
+// written: the bits of float64 data widened from x, cast (bound: 8 + 4 + 4
+// bytes per slot). Lite mode reads a routed pass D1 in the sums' type only.
 // ---------------------------------------------------------------------------
-template <typename T, bool kLite, bool kStack>
+template <typename T, bool kLite, bool kStack, typename TX = T>
 __global__ void __launch_bounds__(kTileThreads)
-    tile_down_fin_kernel(const T* __restrict__ x, int64_t H, int64_t W,
+    tile_down_fin_kernel(const TX* __restrict__ x, int64_t H, int64_t W,
                          int64_t ntx, int64_t tile0, const T* __restrict__ z1,
                          const T* __restrict__ A, int R,
                          const Idx* __restrict__ tree_of,
                          const Idx* __restrict__ rout,
-                         T* __restrict__ out) {
+                         TX* __restrict__ out) {
+  static_assert(std::is_same_v<TX, T> || !kLite, "lite mode reads and writes the sums' type");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const TilePos tp = tile_pos(ntx, tile0);
   const int64_t tb = tp.tb;
@@ -1145,7 +1193,7 @@ __global__ void __launch_bounds__(kTileThreads)
       const int64_t g = out_pos<kStack>(tb, H, W, tp.r0, tp.c0, l);
       if (g >= 0) {
         const int q = rout[tb + l];
-        out[g] = q >= 0 ? zs[q] : cell_x<kStack>(x, g, H, W, tp.r0, tp.c0, l);
+        out[g] = q >= 0 ? as_data<TX>(zs[q]) : cell_x<kStack>(x, g, H, W, tp.r0, tp.c0, l);
       }
     }
   }
@@ -1170,24 +1218,25 @@ __global__ void __launch_bounds__(kTileThreads)
 template <typename TR>
 using TrWord = std::conditional_t<sizeof(TR) == 2, uint32_t, Two<int32_t>>;
 
-template <typename T, bool kLite, bool kStack, typename TR>
+template <typename T, bool kLite, bool kStack, typename TR, typename TX = T>
 __global__ void __launch_bounds__(kTileThreads)
-    tile_down_fin_tall_kernel(const T* __restrict__ x, int64_t H, int64_t W,
+    tile_down_fin_tall_kernel(const TX* __restrict__ x, int64_t H, int64_t W,
                               int64_t ntx, int64_t tile0, const T* __restrict__ z1,
                               const T* __restrict__ A, int R,
                               const TR* __restrict__ tree_r,
                               const Idx* __restrict__ rout,
-                              T* __restrict__ out) {
+                              TX* __restrict__ out) {
+  static_assert(std::is_same_v<TX, T> || !kLite, "lite mode reads and writes the sums' type");
   const TilePos tp = tile_pos<false>(ntx, tile0);
   const int64_t tb = tp.tb;
   const T* A_t = A + tp.t * R;
   const T* z1_t = z1 + tp.t * (kG * kSlots);  // fin: the tile's row of z1
   const TrWord<TR>* tr2 = reinterpret_cast<const TrWord<TR>*>(tree_r + tb);
-  // the value of a cell with slot q (>= 0) and tree a
-  auto tree_val = [&](int q, int a) -> T {
+  // the value of a cell with slot q (>= 0) and tree a, as the data's type
+  auto tree_val = [&](int q, int a) -> TX {
     T v = z1_t[q];
     if (a >= 0) v += A_t[a];
-    return v;
+    return as_data<TX>(v);
   };
 #pragma unroll
   for (int k = 0; k < kPerThread / 2; ++k) {
@@ -1220,10 +1269,10 @@ __global__ void __launch_bounds__(kTileThreads)
       const Word wr = words(rout + tb)[j];
       const int q0 = lo16(wr), q1 = hi16(wr);
       if constexpr (kStack) {
-        Two<T> v;
+        Two<TX> v;
         v.x = q0 >= 0 ? tree_val(q0, a0) : tile_cell(x, H, W, tp.r0, tp.c0, l);
         v.y = q1 >= 0 ? tree_val(q1, a1) : tile_cell(x, H, W, tp.r0, tp.c0, l + 1);
-        reinterpret_cast<Two<T>*>(out + tb)[j] = v;
+        reinterpret_cast<Two<TX>*>(out + tb)[j] = v;
       } else {
         const int64_t r = tp.r0 + (l >> 7);
         const int64_t col = tp.c0 + (l & (kLanes - 1));
@@ -1305,44 +1354,50 @@ int pf_tile_pass_c(int dt, const void* x, int64_t H, int64_t W, int64_t NT,
   });
 }
 
-// routed != 0: z is the raster-side result (the raster or a tile stack);
-// else the (NT, T) preorder z
+// routed != 0: z is the raster-side result (the raster or a tile stack),
+// in the data's type; else the (NT, T) preorder z, in the sums' type, as pk
 int pf_tile_down_a(int dt, int routed, const void* x, int64_t H, int64_t W,
                    int64_t NT, int64_t ntx, int64_t tile0, int stack,
                    const Idx* rin, const Idx* es,
                    const Idx* g_last, const Idx* g_prev,
                    const int32_t* n_tree, const Idx* ent_slot, int64_t E,
                    const Idx* rout, void* z, void* pk, void* stream) {
-  return by_dtype(dt, [&](auto tag) {
+  return by_data_dtype(dt, [&](auto tag) {
+    using TX = typename decltype(tag)::data;
     using T = typename decltype(tag)::type;
-    // the staged tile and cs, or in 8-byte values one buffer for both and
-    // the stashed u values; two CTAs in 4-byte values: the whole tile and z
-    const int smem =
-        static_cast<int>(sizeof(T)) *
-        (kG == 2 && sizeof(T) == 4
-             ? 3 * kSlots
-             : kSlots + (sizeof(T) == 4 ? kSlots : 2 * kDownStash * kTileThreads));
-    auto launch = [&](auto k) {
+    constexpr int kX = sizeof(TX), kT = sizeof(T);
+    // two CTAs in 4-byte values: the whole tile and z; 4-byte data: the
+    // staged tile and cs; 8-byte: one buffer for both and the stashed u values
+    const int smem = kG == 2 && kT == 4 ? 3 * kSlots * kT
+                     : kX == 4          ? kSlots * (kX + kT)
+                                        : kT * (kSlots + 2 * kDownStash * kTileThreads);
+    // ztag: the type of z
+    auto launch = [&](auto k, auto ztag) {
+      using Z = typename decltype(ztag)::type;
       return launch_tiles<decltype(k)::value>(
-          NT, smem, stream, static_cast<const T*>(x), H, W, ntx, tile0, rin,
+          NT, smem, stream, static_cast<const TX*>(x), H, W, ntx, tile0, rin,
           es, g_last, g_prev, n_tree, ent_slot, static_cast<int>(E), rout,
-          static_cast<T*>(z), static_cast<T*>(pk));
+          static_cast<Z*>(z), static_cast<T*>(pk));
     };
-    if (!routed) return launch(Kern<tile_down_a_kernel<T, false, false>>{});
-    return stack ? launch(Kern<tile_down_a_kernel<T, true, true>>{})
-                 : launch(Kern<tile_down_a_kernel<T, true, false>>{});
+    if (!routed) return launch(Kern<tile_down_a_kernel<T, false, false, TX>>{}, Tag<T>{});
+    return stack ? launch(Kern<tile_down_a_kernel<T, true, true, TX>>{}, Tag<TX>{})
+                 : launch(Kern<tile_down_a_kernel<T, true, false, TX>>{}, Tag<TX>{});
   });
 }
 
-// lite != 0: z1 is pass D1's routed result abar, laid out as out; x unused.
-// tree: tree_of (Idx, preorder layout) at kG = 1; above, the raster-layout
-// tree table of tree_bytes (2 or 4) a value.
+// lite != 0: z1 is pass D1's routed result abar, laid out as out; x unused
+// (no float32 data code: abar is in the sums' type). tree: tree_of (Idx,
+// preorder layout) at kG = 1; above, the raster-layout tree table of
+// tree_bytes (2 or 4) a value. x and out in the data's type, z1 and A in
+// the sums'.
 int pf_tile_down_fin(int dt, int lite, const void* x, int64_t H, int64_t W,
                      int64_t NT, int64_t ntx, int64_t tile0, int stack,
                      const void* z1, const void* A, int64_t R, const void* tree,
                      int tree_bytes, const Idx* rout, void* out, void* stream) {
-  return by_dtype(dt, [&](auto tag) {
+  return by_data_dtype(dt, [&](auto tag) {
+    using TX = typename decltype(tag)::data;
     using T = typename decltype(tag)::type;
+    constexpr bool kSame = std::is_same_v<TX, T>;  // lite mode: abar in the sums' type
     if constexpr (kG == 1) {
       if (tree_bytes != static_cast<int>(sizeof(Idx))) {
         return static_cast<int>(cudaErrorInvalidValue);
@@ -1352,32 +1407,40 @@ int pf_tile_down_fin(int dt, int lite, const void* x, int64_t H, int64_t W,
           kSlots * static_cast<int>(lite ? sizeof(Idx) : sizeof(T));
       auto launch = [&](auto k) {
         return launch_tiles<decltype(k)::value>(
-            NT, smem, stream, static_cast<const T*>(x), H, W, ntx, tile0,
+            NT, smem, stream, static_cast<const TX*>(x), H, W, ntx, tile0,
             static_cast<const T*>(z1), static_cast<const T*>(A),
-            static_cast<int>(R), tree_of, rout, static_cast<T*>(out));
+            static_cast<int>(R), tree_of, rout, static_cast<TX*>(out));
       };
       if (lite) {
-        return stack ? launch(Kern<tile_down_fin_kernel<T, true, true>>{})
-                     : launch(Kern<tile_down_fin_kernel<T, true, false>>{});
+        if constexpr (kSame) {
+          return stack ? launch(Kern<tile_down_fin_kernel<T, true, true>>{})
+                       : launch(Kern<tile_down_fin_kernel<T, true, false>>{});
+        } else {
+          return static_cast<int>(cudaErrorInvalidValue);
+        }
       }
-      return stack ? launch(Kern<tile_down_fin_kernel<T, false, true>>{})
-                   : launch(Kern<tile_down_fin_kernel<T, false, false>>{});
+      return stack ? launch(Kern<tile_down_fin_kernel<T, false, true, TX>>{})
+                   : launch(Kern<tile_down_fin_kernel<T, false, false, TX>>{});
     } else {
       auto by_tree = [&](auto trtag) {
         using TR = typename decltype(trtag)::type;
         const TR* tr = static_cast<const TR*>(tree);
         auto launch = [&](auto k) {
           return launch_tiles<decltype(k)::value, false>(
-              NT, 0, stream, static_cast<const T*>(x), H, W, ntx, tile0,
+              NT, 0, stream, static_cast<const TX*>(x), H, W, ntx, tile0,
               static_cast<const T*>(z1), static_cast<const T*>(A),
-              static_cast<int>(R), tr, rout, static_cast<T*>(out));
+              static_cast<int>(R), tr, rout, static_cast<TX*>(out));
         };
         if (lite) {
-          return stack ? launch(Kern<tile_down_fin_tall_kernel<T, true, true, TR>>{})
-                       : launch(Kern<tile_down_fin_tall_kernel<T, true, false, TR>>{});
+          if constexpr (kSame) {
+            return stack ? launch(Kern<tile_down_fin_tall_kernel<T, true, true, TR>>{})
+                         : launch(Kern<tile_down_fin_tall_kernel<T, true, false, TR>>{});
+          } else {
+            return static_cast<int>(cudaErrorInvalidValue);
+          }
         }
-        return stack ? launch(Kern<tile_down_fin_tall_kernel<T, false, true, TR>>{})
-                     : launch(Kern<tile_down_fin_tall_kernel<T, false, false, TR>>{});
+        return stack ? launch(Kern<tile_down_fin_tall_kernel<T, false, true, TR, TX>>{})
+                     : launch(Kern<tile_down_fin_tall_kernel<T, false, false, TR, TX>>{});
       };
       if (tree_bytes == 2) return by_tree(Tag<int16_t>{});
       if (tree_bytes == 4) return by_tree(Tag<int32_t>{});

@@ -36,7 +36,8 @@ of fewer than 2^31 elements (the plans go up to 2^28 slots):
   ``tree_mask`` select of ``_CoarseRouterSmall`` and ``BigAccelPlan``:
   preorder back to the outputs, off-tree outputs passing ``x`` through or 0
 
-and in ``csrc/tile_kernels.cu`` for int32, int64 and float64, on tiles of
+and in ``csrc/tile_kernels.cu`` for int32, int64 and float64 (T3 and T4 also
+float32 data, summed in float64 inside), on tiles of
 ``Y = 128 G`` rows by 128 columns (``G`` 1 to 4, ``T = 16,384 G`` cells):
 one 1024-thread block a tile at ``G = 1``, one thread-block cluster of
 ``G`` blocks a tile above that (T4: ``G`` plain blocks a tile, on a
@@ -148,6 +149,8 @@ launches = {
 #: element-type codes of the kernels' entry points
 _DTYPE_CODE = {torch.float32: 0, torch.int32: 1, torch.int64: 2, torch.float64: 3}
 _TILE_DTYPES = (torch.int32, torch.int64, torch.float64)
+#: the data T3 and T4 take: the tile dtypes, and float32 summed in float64
+_DOWN_DTYPES = (torch.float32, *_TILE_DTYPES)
 _TILE = 128  # lanes (columns) of a tile, and rows of one block's chunk of it
 _CHUNK = _TILE * _TILE  # slots (and cells) one block of a tile kernel holds
 #: the library of each tile height's kernels
@@ -730,21 +733,29 @@ def _gather0(a, idx):
     return torch.where(i >= 0, torch.gather(a, 1, i.clamp(min=0)), zero)
 
 
+def _sum_dtype(dtype):
+    """The dtype T3 and T4 sum data of ``dtype`` in: float64 for float32,
+    else ``dtype`` itself."""
+    return torch.float64 if dtype == torch.float32 else dtype
+
+
 def tile_down_a_plain(x, rin, es, g_last, g_prev, n_tree, ent_slot, rout, shape,
                       routed, tile0=None):
     """Plain version of :func:`tile_down_a`."""
-    xt = _xtiles(x, shape, tile0, rin)
-    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    acc = _sum_dtype(x.dtype)
+    xt = _xtiles(x.to(acc), shape, tile0, rin)
+    zero = torch.zeros((), dtype=acc, device=x.device)
     on = torch.arange(rin.shape[1], device=x.device)[None, :] < n_tree[:, None]
     u = torch.where(on, torch.gather(xt, 1, rin.long()), zero)
     ues = torch.where(on, torch.gather(xt, 1, es.long()), zero)
-    cs = torch.cumsum(ues, 1, dtype=x.dtype)
+    cs = torch.cumsum(ues, 1, dtype=acc)
     g = torch.where(g_last >= 0, _gather0(cs, g_last) - _gather0(cs, g_prev), zero)
     inner = g - torch.cat([u[:, 1:], torch.zeros_like(u[:, :1])], 1)
-    z = torch.flip(torch.cumsum(torch.flip(inner, [1]), 1, dtype=x.dtype), [1])
+    z = torch.flip(torch.cumsum(torch.flip(inner, [1]), 1, dtype=acc), [1])
     pk = _gather0(z, ent_slot)
     if routed:
         z = _raster_out(torch.where(rout >= 0, _gather0(z, rout), xt), shape, tile0)
+        z = z.to(x.dtype)
     return z, pk
 
 
@@ -753,7 +764,8 @@ def tile_down_a(x, rin, es, g_last, g_prev, n_tree, ent_slot, rout, shape, route
     """Pass D1 of the tile plan's downward sweep: the sum of ``x`` over the
     path from each tree cell to the root of its tree within the tile.
 
-    ``x`` (H*W,) raster values, int32, int64 or float64; ``rin``, ``es``,
+    ``x`` (H*W,) raster values, int32, int64, float64, or float32 summed in
+    float64 (the kernel widens each value as it reads it); ``rin``, ``es``,
     ``g_last``, ``g_prev`` (NT, T) in :func:`tile_table_dtype` and
     ``n_tree`` (NT,) int32 (see ``csrc/tile_kernels.cu``); ``ent_slot``
     (NT, E), the preorder slot of each packed entry cell, -1 for padding (E
@@ -761,14 +773,17 @@ def tile_down_a(x, rin, es, g_last, g_prev, n_tree, ent_slot, rout, shape, route
     the path sums at the entry cells; ``z`` the path sums, in preorder
     layout (NT, T) or, where ``routed``, in raster order (H*W,) through
     ``rout`` ((NT, T) in tile raster layout) with cells off the tree passing
-    ``x`` through. ``rout`` may be None unless ``routed``. With ``tile0``
-    the tables cover the tiles ``tile0 .. tile0 + NT - 1``, and routed ``z``
-    is their (NT, T) stack."""
+    ``x`` through. ``pk`` and preorder ``z`` are in the sums' dtype
+    (float64 for float32 data), routed ``z`` in ``x``'s, each sum rounded
+    once: float32 data gives the bits of its float64 cast through the
+    float64 kernel, cast back. ``rout`` may be None unless ``routed``. With
+    ``tile0`` the tables cover the tiles ``tile0 .. tile0 + NT - 1``, and
+    routed ``z`` is their (NT, T) stack."""
     if x.device.type == "cpu":
         return tile_down_a_plain(x, rin, es, g_last, g_prev, n_tree, ent_slot, rout,
                                  shape, routed, tile0)
     dev = x.device
-    dt = _code("x", x, _TILE_DTYPES)
+    dt = _code("x", x, _DOWN_DTYPES)
     _check("x", x, x.dtype, dev)
     H, W, NT, ntx, t0, stack, G = _tile_args(shape, rin, x, tile0)
     tab = tile_table_dtype(G * _TILE)
@@ -787,8 +802,10 @@ def tile_down_a(x, rin, es, g_last, g_prev, n_tree, ent_slot, rout, shape, route
     if ent_slot.dim() != 2 or ent_slot.shape[0] != NT:
         raise ValueError("ent_slot must be (NT, E)")
     E = ent_slot.shape[1]
-    z = torch.empty(x.shape if routed and not stack else rin.shape, dtype=x.dtype, device=dev)
-    pk = torch.empty((NT, E), dtype=x.dtype, device=dev)
+    acc = _sum_dtype(x.dtype)
+    z = torch.empty(x.shape if routed and not stack else rin.shape,
+                    dtype=x.dtype if routed else acc, device=dev)
+    pk = torch.empty((NT, E), dtype=acc, device=dev)
     _launch(_tile_lib(G).pf_tile_down_a, dt, int(bool(routed)), x.data_ptr(),
             H, W, NT, ntx, t0, stack, rin.data_ptr(), es.data_ptr(), g_last.data_ptr(),
             g_prev.data_ptr(), n_tree.data_ptr(), ent_slot.data_ptr(), E,
@@ -802,27 +819,31 @@ def tile_down_a(x, rin, es, g_last, g_prev, n_tree, ent_slot, rout, shape, route
 # ---------------------------------------------------------------------------
 def tile_down_fin_plain(x, z1, A, tree, rout, shape, tile0=None):
     """Plain version of :func:`tile_down_fin`."""
-    xt = _xtiles(x, shape, tile0, rout)
+    xt = _xtiles(x.to(z1.dtype), shape, tile0, rout)
     if rout.shape[1] == _CHUNK:  # tree_of, in preorder layout
         z = z1 + _gather0(A, tree)
-        return _raster_out(torch.where(rout >= 0, _gather0(z, rout), xt), shape, tile0)
-    # the raster-layout tree table of a tall plan
-    z = _gather0(z1, rout) + _gather0(A, tree)
-    return _raster_out(torch.where(rout >= 0, z, xt), shape, tile0)
+        out = torch.where(rout >= 0, _gather0(z, rout), xt)
+    else:  # the raster-layout tree table of a tall plan
+        z = _gather0(z1, rout) + _gather0(A, tree)
+        out = torch.where(rout >= 0, z, xt)
+    return _raster_out(out, shape, tile0).to(x.dtype)
 
 
 def tile_down_fin(x, z1, A, tree, rout, shape, tile0=None):
     """Pass D2 of the tile plan's downward sweep, finishing a raw pass D1.
 
-    ``x`` (H*W,) raster values; ``z1`` (NT, T) pass D1's path sums in
-    preorder layout; ``A`` (NT, R) the coarse level's path sum below each
-    local root; ``rout`` (NT, T) in tile raster layout, in
-    :func:`tile_table_dtype`; ``tree`` (NT, T) the plan's tree table in
+    ``x`` (H*W,) raster values, int32, int64, float64, or float32 summed in
+    float64; ``z1`` (NT, T) pass D1's path sums in preorder layout and ``A``
+    (NT, R) the coarse level's path sum below each local root, both in the
+    sums' dtype (float64 for float32 ``x``); ``rout`` (NT, T) in tile
+    raster layout, in :func:`tile_table_dtype`; ``tree`` (NT, T) the plan's tree table in
     :func:`tile_tree_dtype`: at 128 rows ``tree_of``, the local root index
     of each preorder slot (-1 off the tree); on taller tiles the same in
     raster layout, ``tree_of[rout]`` (-1 off the tree; see
     ``ops.tile_plan.tree_table``). Returns (H*W,) in ``x``'s dtype: tree
-    cells get ``z1 + A[tree]``, cells off the tree pass ``x`` through; with
+    cells get ``z1 + A[tree]``, rounded once to float32 for float32 ``x``
+    (the bits of the float64 call cast back), cells off the tree pass ``x``
+    through; with
     ``tile0`` (the tables cover tiles ``tile0 .. tile0 + NT - 1``) the (NT,
     T) stack of those tiles. Taller tiles launch a plain grid, no cluster."""
     if x.device.type == "cpu":
@@ -865,6 +886,11 @@ def _tile_down_d2(x, z1, A, tree, rout, shape, tile0, lite):
     the routed one, ``x`` unused)."""
     dev = z1.device
     dt = _code("z1", z1, _TILE_DTYPES)
+    if not lite:  # the data's dtype: float32 sums in float64
+        dt = _code("x", x, _DOWN_DTYPES)
+        if _sum_dtype(x.dtype) != z1.dtype:
+            raise TypeError(f"z1: expected {_sum_dtype(x.dtype)} for x of {x.dtype}, "
+                            f"got {z1.dtype}")
     H, W, NT, ntx, t0, stack, G = _tile_args(shape, rout, x, tile0)
     if A.dim() != 2 or A.shape[0] != NT or A.shape[1] < 1:
         raise ValueError("A must be (NT, R) with R > 0")
@@ -873,7 +899,7 @@ def _tile_down_d2(x, z1, A, tree, rout, shape, tile0, lite):
     checks = [("z1", z1, z1.dtype), ("A", A, z1.dtype), ("tree", tree, tree_dt),
               ("rout", rout, tab)]
     if not lite:
-        checks.append(("x", x, z1.dtype))
+        checks.append(("x", x, x.dtype))
     for name, t, dtype in checks:
         _check(name, t, dtype, dev)
     z1_shape = (H * W,) if lite and not stack else rout.shape
@@ -885,7 +911,8 @@ def _tile_down_d2(x, z1, A, tree, rout, shape, tile0, lite):
         _pairs_aligned("tree", tree)
         if stack and lite:
             _pairs_aligned("abar", z1)
-    out = torch.empty(rout.shape if stack else (H * W,), dtype=z1.dtype, device=dev)
+    out = torch.empty(rout.shape if stack else (H * W,), dtype=z1.dtype if lite else x.dtype,
+                      device=dev)
     _launch(_tile_lib(G).pf_tile_down_fin, dt, int(lite),
             None if lite else x.data_ptr(), H, W, NT, ntx, t0, stack, z1.data_ptr(),
             A.data_ptr(), A.shape[1], tree.data_ptr(), tree.element_size(), rout.data_ptr(),

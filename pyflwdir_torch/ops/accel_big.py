@@ -337,11 +337,9 @@ class RouterAccel(IntervalKernels, CoarseDown):
             raise ValueError(f"data must hold {self.n_cells} values")
         with trace.span("up"):
             acc = acc_dtype(data)
-            with trace.span("cast"):
-                x = data.reshape(-1).to(acc).contiguous()
+            x = trace.cast(data.reshape(-1), acc, "up").contiguous()
             out = self._sweep(x, passthrough=True, arrs=arrs)
-            with trace.span("cast"):
-                return out.to(data.dtype)
+            return trace.cast(out, data.dtype, "up")
 
 
 class BigAccelPlan(RouterAccel):

@@ -80,7 +80,8 @@ Integer data of up to 32 bits accumulates in int32 (exact modulo 2^32, so
 exact in the data's width), 64-bit integer data in int32 or in int64 where
 ``|max| * n >= 2^31``, bool in int32 below 2^31 cells; float data in
 float64 (:func:`pyflwdir_torch.ops.accel.acc_dtype`). The result comes back
-in the data's dtype.
+in the data's dtype. Downward, float32 data needs no cast either way: T3 and
+T4 read it as it is, sum in float64 and round each result once.
 """
 
 from __future__ import annotations
@@ -854,8 +855,7 @@ class TilePlan:
             raise ValueError(f"data must hold {H * W} values")
         with trace.span("up"):
             acc = self._acc_dtype(data)
-            with trace.span("cast"):
-                x = data.reshape(-1).to(acc).contiguous()
+            x = trace.cast(data.reshape(-1), acc, "up").contiguous()
             t = self.idx_t if arrs is None else arrs
             with trace.span("T1"):
                 exits, c = kernels.tile_pass_a(x, t["rin"], t["ex_end"], self.shape)
@@ -864,8 +864,7 @@ class TilePlan:
             with trace.span("T2"):
                 out = kernels.tile_pass_c(x, c, entv, t["ent_idx"], t["near_end"],
                                           t["far_end"], t["rout"], self.shape)
-            with trace.span("cast"):
-                return out.to(data.dtype)
+            return trace.cast(out, data.dtype, "up")
 
     def accumulate_down(self, data, darrs=None):
         """Inclusive downstream-path sum of ``data`` ((H*W,) tensor in raster
@@ -876,15 +875,22 @@ class TilePlan:
         ``data``'s dtype; integers are exact (data of up to 32 bits sums in
         int32, whose wrapping adds and subtractions keep the exact sum's low
         32 bits), and every dtype gives the same bits from run to run.
+        float32 data goes to T3 and T4 as it is: they sum it in float64 and
+        round each result once, the bits of the float64 cast of the data
+        through the float64 kernels, cast back, with no copy either way
+        (counted as ``down.fused`` in ``trace.casts``).
         ``darrs``: the tables of :meth:`down_arrays` (None: the plan's own)."""
         H, W = self.shape
         if data.numel() != H * W:
             raise ValueError(f"data must hold {H * W} values")
         with trace.span("down"):
             d = self.down_arrays() if darrs is None else darrs
-            acc = self._acc_dtype(data)
-            with trace.span("cast"):
-                x = data.reshape(-1).to(acc).contiguous()
+            fused = data.dtype == torch.float32
+            if fused:
+                trace.casts["down.fused"] += 1
+                x = data.reshape(-1).contiguous()
+            else:
+                x = trace.cast(data.reshape(-1), self._acc_dtype(data), "down").contiguous()
             d1 = (d["rin"], d["es"], d["g_last"], d["g_prev"], d["n_tree"], d["ent_slot"])
             if self.has_entries and self.coarse.dfs.n_tree > 0:
                 # raw D1: routing and passthrough wait for D2
@@ -898,8 +904,7 @@ class TilePlan:
             else:
                 with trace.span("T3"):
                     out, _ = kernels.tile_down_a(x, *d1, d["rout"], self.shape, True)
-            with trace.span("cast"):
-                return out.to(data.dtype)
+            return out if fused else trace.cast(out, data.dtype, "down")
 
     def accumulate_sharded(self, data, mesh, overlap_chunks=2):
         """:meth:`accumulate` sharded over the ranks of ``mesh``

@@ -22,7 +22,8 @@ Span names:
 * a sweep call: ``up`` (``TilePlan.accumulate``, ``BigAccelPlan.accumulate``)
   or ``down`` (``TilePlan.accumulate_down``), and inside them ``dtype``
   (``ops.accel.acc_dtype``, with its range read of 64-bit integer data),
-  ``cast`` (the data's ``.to()`` in and out), the stages by the kernels
+  ``cast`` (the data's ``.to()`` in and out, :func:`cast`; a float32
+  downward call on tiles has none), the stages by the kernels
   they launch: ``T1``, ``coarse``, ``T2`` upward on tiles, ``T3``,
   ``coarse``, ``T4`` downward, ``H1``, ``H2``, ``H3`` on a router plan (the
   tile plan's coarse level too);
@@ -35,9 +36,9 @@ Span names:
   library (``pyflwdir_torch.runtime``); ``kernels.load``.
 
 Counters, always on: :data:`host_reads`, the blocking device-to-host reads
-of the sweep and plan code by site (:func:`host_ints`), and
-``kernels.launches``, the kernel launches, which :func:`counters` reads
-beside it.
+of the sweep and plan code by site (:func:`host_ints`); :data:`casts`, the
+dtype conversions of the sweep calls by site; and ``kernels.launches``, the
+kernel launches, which :func:`counters` reads beside them.
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ from collections import Counter
 import torch
 
 __all__ = ["enable", "disable", "span", "timed", "records", "reset", "host_reads", "host_ints",
-           "counters"]
+           "casts", "cast", "counters"]
 
 _PREFIX = "pf:"
 
@@ -62,6 +63,11 @@ _profiling = torch._C._autograd._profiler_enabled
 #: blocking device-to-host reads by site (``acc_dtype``, ``accumulate_dev``,
 #: ``cast_checked``)
 host_reads = Counter()
+#: dtype conversions of the sweep calls by site: ``<op>.copy`` (``up`` or
+#: ``down``) each ``.to()`` of :func:`cast` that changed the dtype, so
+#: launched a copy on the card; ``down.fused`` each float32 downward call on
+#: tiles whose conversions T3 and T4 made as they read and wrote
+casts = Counter()
 
 _on = False
 _NULL = contextlib.nullcontext()
@@ -145,9 +151,20 @@ def host_ints(site, *tensors):
     return [int(t) for t in tensors]
 
 
+def cast(t, dtype, op):
+    """``t.to(dtype)`` in the span ``cast`` of the sweep call ``op``, a
+    conversion counted under ``<op>.copy`` in :data:`casts`."""
+    with span("cast"):
+        if t.dtype != dtype:
+            casts[op + ".copy"] += 1
+        return t.to(dtype)
+
+
 def counters():
-    """A snapshot of the counters: ``{"host_reads": {site: n}, "launches":
-    {kernel: n}}`` (``kernels.launches`` read where it is kept)."""
+    """A snapshot of the counters: ``{"host_reads": {site: n}, "casts":
+    {site: n}, "launches": {kernel: n}}`` (``kernels.launches`` read where
+    it is kept)."""
     from . import kernels
 
-    return {"host_reads": dict(host_reads), "launches": dict(kernels.launches)}
+    return {"host_reads": dict(host_reads), "casts": dict(casts),
+            "launches": dict(kernels.launches)}

@@ -1513,3 +1513,100 @@ def test_int32_sums_wrap_on_big_accel_plan_at_two_chunks(dev):
     got = _assert_wraps_like_int64(gpu.accumulate, x.to(dev))
     # the int64 DFS plan on the CPU, cast back
     assert torch.equal(got.cpu(), tplan.accumulate_planned(tplan.build_plan(ids, device="cpu"), x))
+
+
+# ---------------------------------------------------------------------------
+# float32 data through T3 and T4: read as float32, summed in float64, each
+# result rounded once as it is written: the bits of the float64 cast of the
+# data through the float64 kernels, cast back
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module", params=[128, 256, 384, 512])
+def f32_plans(request):
+    """A 700 x 400 plan (with missing cells) of ``tile_rows`` 128 to 512
+    on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    ids = _demo_ids(_TALL_SHAPE, seed=17, missing=True)
+    gpu = ttp.build_tile_plan(ids, _TALL_SHAPE, tile_rows=request.param, device="cuda")
+    gpu._ensure_down()
+    assert gpu.has_entries and gpu.coarse.dfs.n_tree > 0
+    return ids, gpu
+
+
+def _f32_data(n, seed):
+    """float32 values across the type's range on the card: random signs,
+    magnitudes from 1e-30 to 1e30, zeros, subnormals, and values near the
+    largest float32, whose sums round to infinity."""
+    rng = np.random.RandomState(seed)
+    x = rng.standard_normal(n) * 10.0 ** rng.uniform(-30, 30, n)
+    x[rng.rand(n) < 0.05] = 0.0
+    x[rng.rand(n) < 0.02] = 1e-42
+    big = rng.rand(n) < 0.002
+    x[big] = np.sign(x[big]) * 3e38
+    return torch.as_tensor(x.astype(np.float32), device="cuda")
+
+
+def _f32_bits(t):
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int64).cpu()
+
+
+@pytest.mark.parametrize("tiles", ["grid", "range"])
+def test_float32_tile_down_same_bits_as_the_cast_route(f32_plans, tiles):
+    """T3 (raw and routed) and T4 on float32 data, on the whole grid or a
+    tile range (``tile0``): raw z and pk bitwise those of the float64 data,
+    routed z and T4's result bitwise the float64 results cast to float32;
+    missing cells pass x through; T4 bitwise its plain version; lite mode
+    takes no float32."""
+    ids, gpu = f32_plans
+    t, d = gpu.idx_t, gpu.down_idx_t
+    x = _f32_data(ids.size, 51)
+    x64 = x.double()
+    rng = np.random.RandomState(52)
+    A = torch.as_tensor(rng.standard_normal((gpu.NT, gpu.R_pad)) * 1e20, device="cuda")
+    s, kw = (slice(None), {}) if tiles == "grid" else (slice(1, gpu.NT - 1), {"tile0": 1})
+    d1 = [v[s] for v in (t["rin"], d["es"], d["g_last"], d["g_prev"], d["n_tree"],
+                         d["ent_slot"])]
+    fin_tabs = (A[s], d["tree_of"][s], t["rout"][s], gpu.shape)
+    kernels.reset_launches()
+    z, pk = kernels.tile_down_a(x, *d1, None, gpu.shape, False, **kw)
+    ab, pka = kernels.tile_down_a(x, *d1, t["rout"][s], gpu.shape, True, **kw)
+    fin = kernels.tile_down_fin(x, z, *fin_tabs, **kw)
+    g = "" if gpu.G == 1 else f"_g{gpu.G}"
+    _only(**{"tile_down_a" + g: 2, "tile_down_fin" + g: 1})
+    z64, pk64 = kernels.tile_down_a(x64, *d1, None, gpu.shape, False, **kw)
+    ab64, pka64 = kernels.tile_down_a(x64, *d1, t["rout"][s], gpu.shape, True, **kw)
+    fin64 = kernels.tile_down_fin(x64, z64, *fin_tabs, **kw)
+    assert z.dtype == pk.dtype == pka.dtype == torch.float64
+    assert ab.dtype == fin.dtype == torch.float32
+    for got, want in ((z, z64), (pk, pk64), (pka, pka64), (ab, ab64.float()),
+                      (fin, fin64.float())):
+        assert torch.equal(_f32_bits(got), _f32_bits(want))
+    assert torch.equal(_f32_bits(fin), _f32_bits(kernels.tile_down_fin_plain(x, z, *fin_tabs,
+                                                                             **kw)))
+    assert bool(torch.isinf(fin).any()) and not bool(torch.isnan(fin).any())
+    if tiles == "grid":
+        off = torch.as_tensor(ids < 0, device="cuda")
+        assert bool(off.any())
+        for got in (ab, fin):
+            assert torch.equal(_f32_bits(got[off]), _f32_bits(x[off]))
+    with pytest.raises(TypeError):
+        kernels.tile_down_lite(ab, *fin_tabs, **kw)
+
+
+def test_float32_accumulate_down_same_bits_as_the_cast_route(f32_plans):
+    """``TilePlan.accumulate_down`` on float32 data: no cast (``down.fused``),
+    the same bits from run to run, and bitwise the float64 call on the
+    widened data cast back to float32."""
+    from pyflwdir_torch import trace
+
+    ids, gpu = f32_plans
+    x = _f32_data(ids.size, 53)
+    before = trace.counters()["casts"]
+    got = gpu.accumulate_down(x)
+    after = trace.counters()["casts"]
+    assert {k: v - before.get(k, 0) for k, v in after.items()
+            if v != before.get(k, 0)} == {"down.fused": 1}
+    assert got.dtype == torch.float32
+    assert torch.equal(_f32_bits(got), _f32_bits(gpu.accumulate_down(x)))
+    want = gpu.accumulate_down(x.double()).to(torch.float32)
+    assert torch.equal(_f32_bits(got), _f32_bits(want))

@@ -169,6 +169,58 @@ def test_accumulate_down_float64_close(plans):
     np.testing.assert_allclose(got32.numpy(), _sweep(plans, w.astype(np.float32)), rtol=1.2e-7)
 
 
+def _float32_data(n, seed):
+    """float32 values across the type's range: random signs, magnitudes from
+    1e-30 to 1e30, zeros and subnormals among them."""
+    rng = np.random.RandomState(seed)
+    x = rng.standard_normal(n) * 10.0 ** rng.uniform(-30, 30, n)
+    x[rng.rand(n) < 0.05] = 0.0
+    x[rng.rand(n) < 0.02] = 1e-42
+    return torch.as_tensor(x.astype(np.float32))
+
+
+def _bits(t):
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int64)
+
+
+def test_accumulate_down_float32_is_the_float64_sum_rounded_once(plans):
+    """float32 data: bit for bit the float64 sweep of the widened data,
+    rounded once to float32, with no cast copy either way."""
+    ids, tp = plans["ids"], plans["tp"]
+    x = _float32_data(ids.size, 9)
+    before = dict(trace.casts)
+    got = tp.accumulate_down(x)
+    assert {k: v - before.get(k, 0) for k, v in trace.casts.items()
+            if v != before.get(k, 0)} == {"down.fused": 1}
+    assert got.dtype == torch.float32
+    assert torch.equal(_bits(got), _bits(tp.accumulate_down(x.double()).to(torch.float32)))
+    assert torch.equal(_bits(got[ids < 0]), _bits(x[ids < 0]))
+
+
+def test_plain_down_passes_sum_float32_in_float64(plans):
+    """The plain T3 and T4 widen float32 data and sum it in float64: the
+    float64 z and pk of the widened data, bit for bit, and results rounded
+    once from the float64 ones."""
+    tp = plans["tp"]
+    d = tp.down_arrays()
+    x32 = _float32_data(tp.shape[0] * tp.shape[1], 10)
+    x64 = x32.double()
+    d1 = (d["rin"], d["es"], d["g_last"], d["g_prev"], d["n_tree"], d["ent_slot"])
+    z, pk = kernels.tile_down_a_plain(x32, *d1, None, tp.shape, False)
+    z64, pk64 = kernels.tile_down_a_plain(x64, *d1, None, tp.shape, False)
+    assert z.dtype == pk.dtype == torch.float64
+    assert torch.equal(_bits(z), _bits(z64)) and torch.equal(_bits(pk), _bits(pk64))
+    routed, _ = kernels.tile_down_a_plain(x32, *d1, d["rout"], tp.shape, True)
+    routed64, _ = kernels.tile_down_a_plain(x64, *d1, d["rout"], tp.shape, True)
+    assert routed.dtype == torch.float32
+    assert torch.equal(_bits(routed), _bits(routed64.to(torch.float32)))
+    A = torch.as_tensor(np.random.RandomState(11).standard_normal((tp.NT, tp.R_pad)) * 1e20)
+    fin = kernels.tile_down_fin_plain(x32, z, A, d["tree_of"], d["rout"], tp.shape)
+    fin64 = kernels.tile_down_fin_plain(x64, z64, A, d["tree_of"], d["rout"], tp.shape)
+    assert fin.dtype == torch.float32
+    assert torch.equal(_bits(fin), _bits(fin64.to(torch.float32)))
+
+
 def test_accumulate_down_is_the_transpose_of_accumulate(plans):
     ids, tp = plans["ids"], plans["tp"]
     rng = np.random.RandomState(5)

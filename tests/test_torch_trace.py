@@ -5,8 +5,10 @@ recorded. On: spans nest with their parents, the plan build keeps its
 ``build_seconds`` and ``down_build_seconds`` keys, and under
 ``torch.profiler`` a tile-plan and a 1-D router sweep show ``pf:up`` with its
 stage spans inside the caller's range. ``host_reads`` counts the int64
-call's two range reads and none of an int32 or a float64 call. Results are
-the same bits with tracing on and off."""
+call's two range reads and none of an int32 or a float64 call; ``casts``
+the copies of a call's dtype conversions and the float32 downward calls
+whose conversions T3 and T4 make. Results are the same bits with tracing
+on and off."""
 
 import numpy as np
 import pytest
@@ -165,14 +167,45 @@ def test_stage_spans_inside_the_call_under_the_profiler(graph, monkeypatch, trac
 
 
 def test_down_stage_spans(graph, monkeypatch, tracing):
+    """A float32 call has no dtype or cast span (T3 and T4 read and write
+    float32); an int32 call has both."""
     plan = _tile_plan(graph, monkeypatch)
     x = torch.ones(graph[0].size, dtype=torch.float32)
     plan.accumulate_down(x)
     trace.reset()
     plan.accumulate_down(x)
     got = [(n, p) for n, p, _, _ in trace.records()]
+    assert got == [("T3", "down"), ("coarse", "down"), ("T4", "down"), ("down", None)]
+    trace.reset()
+    plan.accumulate_down(x.to(torch.int32))
+    got = [(n, p) for n, p, _, _ in trace.records()]
     assert got == [("dtype", "down"), ("cast", "down"), ("T3", "down"), ("coarse", "down"),
                    ("T4", "down"), ("cast", "down"), ("down", None)]
+
+
+@pytest.mark.parametrize("engine", ["tile", "router"])
+def test_casts_by_site(graph, monkeypatch, engine):
+    """``casts``: a float32 downward call on tiles counts one ``down.fused``
+    and no copy; int32 and float64 calls count nothing; a float32 upward
+    call (on tiles or a router plan) and an int16 downward one still copy
+    in and out."""
+    plan = _tile_plan(graph, monkeypatch)
+    ones, _, floats, floats32 = _fields(graph[0].size)
+    up = plan.accumulate if engine == "tile" else build_big_accel_plan(
+        graph[0], device="cpu").accumulate
+
+    def delta(call, x):
+        before = trace.counters()["casts"]
+        call(x)
+        after = trace.counters()["casts"]
+        return {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
+
+    assert delta(plan.accumulate_down, floats32) == {"down.fused": 1}
+    for x in (ones, floats):
+        assert delta(plan.accumulate_down, x) == {}
+        assert delta(up, x) == {}
+    assert delta(up, floats32) == {"up.copy": 2}
+    assert delta(plan.accumulate_down, ones.to(torch.int16)) == {"down.copy": 2}
 
 
 @pytest.mark.parametrize("engine", ["tile", "router"])
@@ -247,6 +280,9 @@ def test_a_traced_cell_reads_the_program_spans(monkeypatch, cell):
                                 time.perf_counter(), overrides=small)
     p = res["program"]
     assert res["correct"] and p["host_reads_per_call"] == 0.0
+    # int32 and float64 fields convert nothing; float32 ones (every other
+    # downward call) in T3 and T4
+    assert p["casts_per_call"] == ({"down.fused": 0.5} if cell.endswith("down") else {})
     assert p["plan_native_s"] > 0 and p["plan_upload_s"] > 0
     outside = 100 * p["idle_outside_s"] / res["device"]["window_s"]
     assert p["idle_pct.dispatch"] + p["idle_pct.launch"] + outside == pytest.approx(100)

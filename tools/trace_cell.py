@@ -15,7 +15,9 @@ Standard error gets the device's idle time by the host's innermost program
 span (``program gaps:``); the last line of standard output is the benchmark's result line
 with ``program`` added: the per-layer numbers of ``benchmark.program``
 (``layer_metrics``), the traced window's rate ``sweep_cells_per_s``
-(Gcells/s, host clock) and, where ``--program 1``, the spans' summary.
+(Gcells/s, host clock), the dtype conversions a call made by site
+(``casts_per_call``, from ``trace.casts``) and, where ``--program 1``, the
+spans' summary.
 ``--json`` appends that line to a file.
 
 Until ``devtrace.Tracer.window`` and ``cells.run_cell`` read the program's
@@ -104,6 +106,9 @@ def trace_cell(cell, seed, seconds, program_on, device, t0, overrides=None):
     prog = tr.program
     out = program.layer_metrics(prog, tr.summary, tr.counters, tr.setup)
     out["sweep_cells_per_s"] = tr.n * result["attempted"] / tr.window_wall_s / 1e9
+    c0, c1 = (c["casts"] for c in tr.counters)
+    out["casts_per_call"] = {k: (v - c0.get(k, 0)) / result["attempted"]
+                             for k, v in c1.items() if v != c0.get(k, 0)}
     out["program_spans"] = program_on
     out["device_copies"] = tr.device_copies  # program ranges mirrored on the device
     if tr.setup:

@@ -1,4 +1,5 @@
-"""Hand-written Hopper kernels of the port: build, load, wrappers, counters.
+"""Hand-written Hopper kernels of the port: build, load, wrappers, counters,
+and the sweeps' dtype rule (:func:`sum_dtype`, :func:`cast_in`, :func:`cast_back`).
 
 Every ``csrc/*.cu`` source is compiled at first use with ``nvcc`` for
 ``sm_90a`` into ``_build/`` (git-ignored; one ``nvcc`` per source, all
@@ -121,6 +122,7 @@ __all__ = [
     "tile_last_cluster",
     "fill_sweep",
     "fill_sweep_plain",
+    "sum_dtype", "acc_dtype", "cast_in", "cast_back",
 ]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -148,7 +150,9 @@ launches = {
 
 #: element-type codes of the kernels' entry points
 _DTYPE_CODE = {torch.float32: 0, torch.int32: 1, torch.int64: 2, torch.float64: 3}
-_TILE_DTYPES = (torch.int32, torch.int64, torch.float64)
+#: the dtypes a sweep sums in (:func:`sum_dtype`), all a sweep hands H1-H3
+_SUM_DTYPES = (torch.int32, torch.int64, torch.float64)
+_TILE_DTYPES = _SUM_DTYPES  # the data T1, T2 and T4's lite mode take
 #: the data T3 and T4 take: the tile dtypes, and float32 summed in float64
 _DOWN_DTYPES = (torch.float32, *_TILE_DTYPES)
 _TILE = 128  # lanes (columns) of a tile, and rows of one block's chunk of it
@@ -279,6 +283,64 @@ def _code(name, t, allowed=tuple(_DTYPE_CODE)):
     if t.dtype not in allowed:
         raise TypeError(f"{name}: dtype {t.dtype} not in {allowed}")
     return _DTYPE_CODE[t.dtype]
+
+
+# ---------------------------------------------------------------------------
+# the sweeps' dtype rule, and the one conversion in and out of a sweep call
+# ---------------------------------------------------------------------------
+def sum_dtype(dtype, n, amax):
+    """The dtype a sweep sums data of ``dtype`` over ``n`` cells in, the
+    result cast back to ``dtype``: float64 for float data; int32 for integer
+    data of 32 bits or fewer, from the dtype alone (int32 sums and
+    differences wrap modulo 2^32 in any order, so the cast back keeps the
+    exact sum's low bits); for bool data (unit weights), whose cast back is
+    "nonzero", int32 below 2^31 cells, else int64; for 64-bit integer data
+    int32 unless ``amax() * n >= 2^31``, else int64, ``amax()`` returning
+    the data's largest magnitude (called for 64-bit integer data only)."""
+    if dtype.is_floating_point:
+        return torch.float64
+    if dtype != torch.bool and dtype.itemsize <= 4:
+        return torch.int32
+    a = 1 if dtype == torch.bool or not n else amax()
+    return torch.int64 if a * n >= 1 << 31 else torch.int32
+
+
+def acc_dtype(data):
+    """:func:`sum_dtype` of the tensor ``data``, in the span ``dtype``: two
+    blocking reads of its range for 64-bit integers (``host_reads["acc_dtype"]``)."""
+    with trace.span("dtype"):
+        return sum_dtype(data.dtype, data.numel(), lambda: max(
+            map(abs, trace.host_ints("acc_dtype", *torch.aminmax(data)))))
+
+
+def cast_in(data, op, reads, acc=None):
+    """``data`` flat and contiguous for the kernels of the sweep call ``op``
+    (``up``, ``down``), which read ``reads`` (``_SUM_DTYPES``, ``_TILE_DTYPES``,
+    ``_DOWN_DTYPES``): as it is where they widen its dtype themselves (counted
+    as ``<op>.fused`` in ``trace.casts``), else converted to ``acc`` (None:
+    :func:`acc_dtype`) in the span ``cast``, a copy counted as ``<op>.copy``."""
+    x = data.reshape(-1)
+    dtype = x.dtype
+    if dtype in reads and dtype not in _SUM_DTYPES:
+        trace.casts[op + ".fused"] += 1
+        return x.contiguous()
+    if acc is None:
+        acc = acc_dtype(x)
+    with trace.span("cast"):
+        if dtype != acc:
+            trace.casts[op + ".copy"] += 1
+        return x.to(acc).contiguous()
+
+
+def cast_back(out, dtype, op):
+    """The result ``out`` of the sweep call ``op`` in the data's ``dtype``,
+    converted as :func:`cast_in` converts, unless the kernels wrote it so."""
+    if out.dtype == dtype and dtype not in _SUM_DTYPES:
+        return out
+    with trace.span("cast"):
+        if out.dtype != dtype:
+            trace.casts[op + ".copy"] += 1
+        return out.to(dtype)
 
 
 def ptxas_report(stem):
@@ -733,10 +795,13 @@ def _gather0(a, idx):
     return torch.where(i >= 0, torch.gather(a, 1, i.clamp(min=0)), zero)
 
 
+_FLOAT_SUM = sum_dtype(torch.float32, 0, None)  # the rule's for float data
+
+
 def _sum_dtype(dtype):
-    """The dtype T3 and T4 sum data of ``dtype`` in: float64 for float32,
-    else ``dtype`` itself."""
-    return torch.float64 if dtype == torch.float32 else dtype
+    """The dtype T3 and T4 sum data of ``dtype`` in: the rule's for float
+    data; integer data comes in its sum dtype."""
+    return _FLOAT_SUM if dtype.is_floating_point else dtype
 
 
 def tile_down_a_plain(x, rin, es, g_last, g_prev, n_tree, ent_slot, rout, shape,

@@ -31,7 +31,7 @@ from .. import kernels, trace
 from .._backend import resolve_device
 from .plan import DfsPlan, build_plan
 
-__all__ = ["AccelPlan", "IntervalKernels", "acc_dtype", "build_accel_plan"]
+__all__ = ["AccelPlan", "IntervalKernels", "build_accel_plan"]
 
 _S = 128
 _TILE = _S * _S  # elements per G-slice
@@ -47,36 +47,6 @@ def _pad_bijection(dest_known, src_known, n_pad):
     free_dst = np.nonzero(sigma < 0)[0]
     sigma[free_dst] = free_src
     return sigma
-
-
-def acc_dtype(data):
-    """The dtype the port's exact engines sum ``data`` in, the callers
-    casting the result back to ``data.dtype``:
-
-    * float data: float64;
-    * integer data of 32 bits or fewer: int32, from the dtype alone. Sums
-      and differences of two's-complement int32 values form the ring of
-      integers modulo 2^32, so int32 arithmetic that wraps gives the bits
-      of the exact sum modulo 2^32 in any order of summation, and the cast
-      to the data's width keeps its low bits: the same result as an int64
-      sum cast back;
-    * bool data: int32 below 2^31 cells, else int64 (the cast to bool is
-      "nonzero", not the low bits, so the sum must not wrap);
-    * 64-bit integer data: int32 unless ``|max| * n >= 2^31``, then int64
-      (the range read to the host: two blocking reads on the card, counted
-      in ``trace.host_reads["acc_dtype"]``).
-    """
-    with trace.span("dtype"):
-        if data.dtype.is_floating_point:
-            return torch.float64
-        if data.dtype != torch.bool and data.dtype.itemsize <= 4:
-            return torch.int32
-        amax = 1
-        if data.numel() and data.dtype != torch.bool:
-            # one read, no int64 copy
-            lo, hi = trace.host_ints("acc_dtype", *torch.aminmax(data))
-            amax = max(-lo, hi)
-        return torch.int64 if amax * data.numel() >= 1 << 31 else torch.int32
 
 
 class IntervalKernels:

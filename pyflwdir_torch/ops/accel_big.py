@@ -20,12 +20,10 @@ kernels H1, H2 and H3, and, downward, the six of :class:`CoarseDown`
 ``routers=`` takes a JAX plan's ``router_tables()`` and replays its chains on
 ``arange`` into the same indices.
 
-Dtypes follow the port's rule (:func:`~pyflwdir_torch.ops.accel.acc_dtype`):
-integer data of up to 32 bits sums in int32, exact modulo 2^32; 64-bit
-integer data in int32, or int64 where ``|max| * n >= 2^31``; float data in
-float64. (The JAX class sums int32 and a double-single float32 pair, for
-want of float64 on the TPU.) In slot mode the caller (the tile plan) has
-already chosen the dtype.
+Data sums in the dtype of the port's rule
+(:func:`pyflwdir_torch.kernels.sum_dtype`; the JAX class sums int32 and a
+double-single float32 pair, for want of float64 on the TPU), chosen in slot
+mode by the caller (the tile plan).
 """
 
 from __future__ import annotations
@@ -35,7 +33,7 @@ import torch
 
 from .. import kernels, trace
 from .._backend import resolve_device
-from .accel import IntervalKernels, _pad_bijection, acc_dtype
+from .accel import IntervalKernels, _pad_bijection
 from .plan import DfsPlan, build_plan
 from .router_big import router_sigma
 
@@ -322,10 +320,8 @@ class RouterAccel(IntervalKernels, CoarseDown):
     def accumulate(self, data, arrs=None):
         """Flow accumulation of ``data`` (a 1-D tensor on the plan's device)
         in three kernel launches. Default mode: ``data`` (n_cells,) of any
-        dtype, summed in int32, int64 or float64 (:func:`acc_dtype`: integer
-        data of up to 32 bits in int32 without a read of its range, exact
-        because int32 adds and subtractions wrap modulo 2^32 and the cast
-        back keeps the exact sum's low bits) and returned in its own; tree
+        dtype, summed in :func:`~pyflwdir_torch.kernels.sum_dtype`'s dtype
+        and returned in its own; tree
         cells get their subtree sum, off-tree cells pass through. Slot mode:
         ``data`` at ``in_slot`` layout in int32, int64 or float64 (shorter
         than ``n_in``: the rest reads 0), the result (n_out,) at
@@ -336,10 +332,9 @@ class RouterAccel(IntervalKernels, CoarseDown):
         if data.numel() != self.n_cells:
             raise ValueError(f"data must hold {self.n_cells} values")
         with trace.span("up"):
-            acc = acc_dtype(data)
-            x = trace.cast(data.reshape(-1), acc, "up").contiguous()
+            x = kernels.cast_in(data, "up", kernels._SUM_DTYPES)
             out = self._sweep(x, passthrough=True, arrs=arrs)
-            return trace.cast(out, data.dtype, "up")
+            return kernels.cast_back(out, data.dtype, "up")
 
 
 class BigAccelPlan(RouterAccel):

@@ -68,7 +68,7 @@ def build_plan(idxs_ds_np, fast=True, device=None) -> DfsPlan:
 
 
 def _acc_dtype(dtype):
-    """int64 for integer and bool data, float64 for float data."""
+    """The DFS plan's own rule: it always sums wide, in int64 or float64."""
     if dtype.is_floating_point:
         return torch.float64
     return torch.int64

@@ -76,12 +76,8 @@ passes and one of the result::
     A        = coarse.accumulate_down(all_gather(pk))
     out      = tile_down_lite(abar, A[slab])     # T4 lite: abar + A[tree]
 
-Integer data of up to 32 bits accumulates in int32 (exact modulo 2^32, so
-exact in the data's width), 64-bit integer data in int32 or in int64 where
-``|max| * n >= 2^31``, bool in int32 below 2^31 cells; float data in
-float64 (:func:`pyflwdir_torch.ops.accel.acc_dtype`). The result comes back
-in the data's dtype. Downward, float32 data needs no cast either way: T3 and
-T4 read it as it is, sum in float64 and round each result once.
+Data sums in the dtype of :func:`pyflwdir_torch.kernels.sum_dtype` and comes
+back in its own, through ``kernels.cast_in`` and ``kernels.cast_back``.
 """
 
 from __future__ import annotations
@@ -91,7 +87,6 @@ import torch
 
 from .. import kernels, runtime, trace
 from .._backend import resolve_device
-from .accel import acc_dtype
 from .accel_big import BigAccelPlan, CoarseDown, RouterAccel
 from .plan import DfsPlan, accumulate_planned, build_plan
 
@@ -684,9 +679,9 @@ class TilePlan:
                 cache[k] = self._upload_down(k, slice(lo, hi))
         return {k: cache[k] for k in keys}
 
-    def _shard(self, data, mesh):
+    def _shard(self, data, mesh, op):
         """This rank's slab ``(lo, hi)`` of the tile axis, and ``data`` as the
-        kernels take it."""
+        kernels of the sharded sweep ``op`` take it."""
         H, W = self.shape
         if data.numel() != H * W:
             raise ValueError(f"data must hold {H * W} values")
@@ -695,7 +690,7 @@ class TilePlan:
                              "the grid (parallel.build_sharded_plan) so the tile grid splits "
                              "evenly")
         n = self.NT // mesh.size
-        x = data.reshape(-1).to(self._acc_dtype(data)).contiguous()
+        x = kernels.cast_in(data, op, kernels._TILE_DTYPES)
         return mesh.rank * n, (mesh.rank + 1) * n, x
 
     def gather_tiles(self, out, mesh):
@@ -824,8 +819,6 @@ class TilePlan:
         return load_tile_plan(path, mmap=mmap, device=device)
 
     # -- execution -----------------------------------------------------------
-    _acc_dtype = staticmethod(acc_dtype)
-
     def arrays(self):
         """The upward sweep's per-tile device tables (``rin``, ``ex_end``,
         ``ent_idx``, ``near_end``, ``far_end``, ``rout``), for the ``arrs``
@@ -844,18 +837,14 @@ class TilePlan:
     def accumulate(self, data, arrs=None):
         """Flow accumulation of ``data`` ((H*W,) tensor in raster order on
         the plan's device): tree cells get their subtree sum, missing cells
-        pass through. Summed in :func:`~pyflwdir_torch.ops.accel.acc_dtype`
-        (integer data of up to 32 bits in int32 without a read of its range:
-        sums and differences wrap modulo 2^32, so the result, cast to the
-        data's width, is the exact sum's low bits) and returned in
-        ``data``'s dtype. ``arrs``: the tables of :meth:`arrays` (None: the
-        plan's own)."""
+        pass through. Summed in :func:`~pyflwdir_torch.kernels.sum_dtype`'s
+        dtype and returned in ``data``'s. ``arrs``: the tables of
+        :meth:`arrays` (None: the plan's own)."""
         H, W = self.shape
         if data.numel() != H * W:
             raise ValueError(f"data must hold {H * W} values")
         with trace.span("up"):
-            acc = self._acc_dtype(data)
-            x = trace.cast(data.reshape(-1), acc, "up").contiguous()
+            x = kernels.cast_in(data, "up", kernels._TILE_DTYPES)
             t = self.idx_t if arrs is None else arrs
             with trace.span("T1"):
                 exits, c = kernels.tile_pass_a(x, t["rin"], t["ex_end"], self.shape)
@@ -864,33 +853,25 @@ class TilePlan:
             with trace.span("T2"):
                 out = kernels.tile_pass_c(x, c, entv, t["ent_idx"], t["near_end"],
                                           t["far_end"], t["rout"], self.shape)
-            return trace.cast(out, data.dtype, "up")
+            return kernels.cast_back(out, data.dtype, "up")
 
     def accumulate_down(self, data, darrs=None):
         """Inclusive downstream-path sum of ``data`` ((H*W,) tensor in raster
         order on the plan's device): ``a[i]`` sums ``data`` over ``i``, its
         downstream cell, ..., its pit; the transpose of :meth:`accumulate`.
         Missing cells pass through. Summed in
-        :func:`~pyflwdir_torch.ops.accel.acc_dtype` and returned in
-        ``data``'s dtype; integers are exact (data of up to 32 bits sums in
-        int32, whose wrapping adds and subtractions keep the exact sum's low
-        32 bits), and every dtype gives the same bits from run to run.
-        float32 data goes to T3 and T4 as it is: they sum it in float64 and
-        round each result once, the bits of the float64 cast of the data
-        through the float64 kernels, cast back, with no copy either way
-        (counted as ``down.fused`` in ``trace.casts``).
+        :func:`~pyflwdir_torch.kernels.sum_dtype`'s dtype and returned in
+        ``data``'s; integers are exact, and every dtype gives the same bits
+        from run to run. float32 data goes to T3 and T4 as it is, with no
+        copy either way (``down.fused``): they sum it in float64 and round
+        each result once, the bits of the float64 sweep of its cast.
         ``darrs``: the tables of :meth:`down_arrays` (None: the plan's own)."""
         H, W = self.shape
         if data.numel() != H * W:
             raise ValueError(f"data must hold {H * W} values")
         with trace.span("down"):
             d = self.down_arrays() if darrs is None else darrs
-            fused = data.dtype == torch.float32
-            if fused:
-                trace.casts["down.fused"] += 1
-                x = data.reshape(-1).contiguous()
-            else:
-                x = trace.cast(data.reshape(-1), self._acc_dtype(data), "down").contiguous()
+            x = kernels.cast_in(data, "down", kernels._DOWN_DTYPES)
             d1 = (d["rin"], d["es"], d["g_last"], d["g_prev"], d["n_tree"], d["ent_slot"])
             if self.has_entries and self.coarse.dfs.n_tree > 0:
                 # raw D1: routing and passthrough wait for D2
@@ -904,7 +885,7 @@ class TilePlan:
             else:
                 with trace.span("T3"):
                     out, _ = kernels.tile_down_a(x, *d1, d["rout"], self.shape, True)
-            return out if fused else trace.cast(out, data.dtype, "down")
+            return kernels.cast_back(out, data.dtype, "down")
 
     def accumulate_sharded(self, data, mesh, overlap_chunks=2):
         """:meth:`accumulate` sharded over the ranks of ``mesh``
@@ -921,7 +902,7 @@ class TilePlan:
         dtype, bitwise equal to :meth:`accumulate`'s. Each rank keeps its
         slab's rows of the indices on the device, never the whole tables.
         Raises ValueError where the tiles do not divide over the ranks."""
-        lo, hi, x = self._shard(data, mesh)
+        lo, hi, x = self._shard(data, mesh, "up")
         C = max(int(overlap_chunks), 1)
         while (hi - lo) % C:
             C -= 1
@@ -942,7 +923,7 @@ class TilePlan:
         entv = self.entry_grid(self.coarse.accumulate(exits.reshape(-1)))[lo:hi]
         out = kernels.tile_pass_c(x, cs[0] if C == 1 else torch.cat(cs), entv, t["ent_idx"],
                                   t["near_end"], t["far_end"], t["rout"], self.shape, tile0=lo)
-        return self.gather_tiles(out, mesh).to(data.dtype)
+        return kernels.cast_back(self.gather_tiles(out, mesh), data.dtype, "up")
 
     def accumulate_down_sharded(self, data, mesh):
         """:meth:`accumulate_down` sharded over the ranks of ``mesh``, as
@@ -954,7 +935,7 @@ class TilePlan:
         (H*W,) result on every rank in ``data``'s dtype, bitwise equal to
         :meth:`accumulate_down`'s."""
         self._ensure_down()
-        lo, hi, x = self._shard(data, mesh)
+        lo, hi, x = self._shard(data, mesh, "down")
         t = self._slab(lo, hi, ("rin", "es", "g_last", "g_prev", "n_tree", "ent_slot", "rout"))
         abar, pk = kernels.tile_down_a(x, t["rin"], t["es"], t["g_last"], t["g_prev"],
                                        t["n_tree"], t["ent_slot"], t["rout"], self.shape,
@@ -965,28 +946,22 @@ class TilePlan:
             tree_of = self._slab(lo, hi, ("tree_of",))["tree_of"]
             abar = kernels.tile_down_lite(abar, A[lo:hi], tree_of, t["rout"], self.shape,
                                           tile0=lo)
-        return self.gather_tiles(abar, mesh).to(data.dtype)
+        return kernels.cast_back(self.gather_tiles(abar, mesh), data.dtype, "down")
 
     def _banded_dtypes(self, data2d, band_rows):
-        """(result dtype, accumulation dtype) of a banded call: the port's
-        rule (``acc_dtype``), with ``|max|`` of 64-bit integer and bool
-        data found band by band on the host; unit weights are int32 below
-        2^31 cells."""
+        """(result dtype, sum dtype) of a banded call: the port's rule
+        (:func:`~pyflwdir_torch.kernels.sum_dtype`), with ``|max|`` of
+        64-bit integer data found band by band on the host; unit weights
+        take the rule's bool case."""
         n = self.shape[0] * self.shape[1]
         if data2d is None:
-            acc = torch.int32 if n < 1 << 31 else torch.int64
+            acc = kernels.sum_dtype(torch.bool, n, None)
             return acc, acc
-        dtype = torch.from_numpy(np.asarray(data2d[:1, :1])).dtype
-        if dtype.is_floating_point:
-            return dtype, torch.float64
-        if dtype != torch.bool and dtype.itemsize <= 4:
-            return dtype, torch.int32
-        amax = 1
-        for r0 in range(0, self.shape[0], band_rows):
-            blk = np.asarray(data2d[r0: r0 + band_rows])
-            if blk.size:
-                amax = max(amax, -int(blk.min()), int(blk.max()))
-        return dtype, torch.int64 if amax * n >= 1 << 31 else torch.int32
+        dtype = torch.from_numpy(np.empty(0, data2d.dtype)).dtype
+        bands = (np.asarray(data2d[r0: r0 + band_rows])
+                 for r0 in range(0, self.shape[0], band_rows))
+        return dtype, kernels.sum_dtype(
+            dtype, n, lambda: max(max(-int(b.min()), int(b.max())) for b in bands if b.size))
 
     def accumulate_banded(self, data2d, band_tile_rows=None, out_cb=None):
         """Flow accumulation band by band, for plans whose indices do not fit
@@ -998,8 +973,8 @@ class TilePlan:
         (all of them where None). The indices are never uploaded whole.
 
         ``data2d``: an (H, W) array or ``np.memmap``, read band by band (twice;
-        64-bit integer and bool data once more beforehand, for the
-        accumulation dtype), or None for unit weights made on the device.
+        64-bit integer data once more beforehand, for the sum dtype), or
+        None for unit weights made on the device.
         Each band's result reaches the host after the next band's pass C is
         enqueued; with ``out_cb`` it goes to ``out_cb(band, first_row,
         array)`` in band order (``array`` of shape (rows, W)) and the call
@@ -1022,7 +997,7 @@ class TilePlan:
             if data2d is None:
                 x = torch.ones((r1 - r0) * W, dtype=acc, device=dev)
             else:
-                x = _upload(data2d[r0:r1], dev).reshape(-1).to(acc)
+                x = kernels.cast_in(_upload(data2d[r0:r1], dev), "up", kernels._TILE_DTYPES, acc)
             t = {k: tile_table(self.idx[k][ty0 * ntx: ty1 * ntx], self.Y, dev) for k in keys}
             return r0, (r1 - r0, W), x, t
 
@@ -1042,7 +1017,7 @@ class TilePlan:
                                       t["near_end"], t["far_end"], t["rout"], shape,
                                       rin=t["rin"])
             del x, t
-            sink.put(b, r0, out.to(dtype).reshape(shape))
+            sink.put(b, r0, kernels.cast_back(out, dtype, "up").reshape(shape))
             del out
         return sink.finish()
 

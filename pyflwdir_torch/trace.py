@@ -21,9 +21,10 @@ Span names:
 
 * a sweep call: ``up`` (``TilePlan.accumulate``, ``BigAccelPlan.accumulate``)
   or ``down`` (``TilePlan.accumulate_down``), and inside them ``dtype``
-  (``ops.accel.acc_dtype``, with its range read of 64-bit integer data),
-  ``cast`` (the data's ``.to()`` in and out, :func:`cast`; a float32
-  downward call on tiles has none), the stages by the kernels
+  (``kernels.acc_dtype``, with its range read of 64-bit integer data),
+  ``cast`` (the data's ``.to()`` in and out, ``kernels.cast_in`` and
+  ``kernels.cast_back``; a float32 downward call on tiles has none), the
+  stages by the kernels
   they launch: ``T1``, ``coarse``, ``T2`` upward on tiles, ``T3``,
   ``coarse``, ``T4`` downward, ``H1``, ``H2``, ``H3`` on a router plan (the
   tile plan's coarse level too);
@@ -50,7 +51,7 @@ from collections import Counter
 import torch
 
 __all__ = ["enable", "disable", "span", "timed", "records", "reset", "host_reads", "host_ints",
-           "casts", "cast", "counters"]
+           "casts", "counters"]
 
 _PREFIX = "pf:"
 
@@ -63,10 +64,10 @@ _profiling = torch._C._autograd._profiler_enabled
 #: blocking device-to-host reads by site (``acc_dtype``, ``accumulate_dev``,
 #: ``cast_checked``)
 host_reads = Counter()
-#: dtype conversions of the sweep calls by site: ``<op>.copy`` (``up`` or
-#: ``down``) each ``.to()`` of :func:`cast` that changed the dtype, so
-#: launched a copy on the card; ``down.fused`` each float32 downward call on
-#: tiles whose conversions T3 and T4 made as they read and wrote
+#: dtype conversions of the sweep calls by site (``kernels.cast_in`` and
+#: ``cast_back``): ``<op>.copy`` (``up``, ``down``) each ``.to()`` that made a
+#: copy; ``down.fused`` each float32 downward call on tiles whose conversions
+#: T3 and T4 made as they read and wrote
 casts = Counter()
 
 _on = False
@@ -149,15 +150,6 @@ def host_ints(site, *tensors):
     the card, counted under ``site`` in :data:`host_reads`."""
     host_reads[site] += len(tensors)
     return [int(t) for t in tensors]
-
-
-def cast(t, dtype, op):
-    """``t.to(dtype)`` in the span ``cast`` of the sweep call ``op``, a
-    conversion counted under ``<op>.copy`` in :data:`casts`."""
-    with span("cast"):
-        if t.dtype != dtype:
-            casts[op + ".copy"] += 1
-        return t.to(dtype)
 
 
 def counters():

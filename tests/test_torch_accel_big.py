@@ -115,7 +115,7 @@ def test_accumulate_int_bitwise(plans, kind):
             "int32_wrap": rng.randint(0, 1 << 28, ids.size).astype(np.int32),
             "uint8": rng.randint(0, 256, ids.size).astype(np.uint8)}[kind]
     reads = trace.host_reads["acc_dtype"]
-    assert taccel.acc_dtype(torch.as_tensor(data)) == torch.int32
+    assert kernels.acc_dtype(torch.as_tensor(data)) == torch.int32
     kernels.reset_launches()
     got = tp.accumulate(torch.as_tensor(data))
     assert sum(kernels.launches.values()) == 0  # CPU tensors: plain versions
@@ -138,8 +138,8 @@ def test_accumulate_int64_where_int32_would_overflow(plans):
     ids, dfs, tp = plans["ids"], plans["dfs"], plans["tp"]
     data = np.random.RandomState(6).randint(0, 1 << 20, ids.size).astype(np.int64)
     x = torch.as_tensor(data)
-    assert taccel.acc_dtype(x) == torch.int64  # |max| * n >= 2^31
-    assert taccel.acc_dtype(torch.ones(ids.size, dtype=torch.int64)) == torch.int32
+    assert kernels.acc_dtype(x) == torch.int64  # |max| * n >= 2^31
+    assert kernels.acc_dtype(torch.ones(ids.size, dtype=torch.int64)) == torch.int32
     got = tp.accumulate(x)
     assert got.dtype == torch.int64 and int(got.max()) >= 1 << 31
     assert torch.equal(got, tplan.accumulate_planned(dfs, x))

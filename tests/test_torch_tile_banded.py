@@ -170,6 +170,28 @@ def test_unfused_passes_match_jax_tiles(plans, dtype):
     assert torch.equal(got, kernels.tile_pass_c(xb, c, *args))
 
 
+@pytest.mark.parametrize("kind", ["int64_wide", "bool"])
+def test_banded_memmap_sums_as_accumulate(plans, kind, tmp_path):
+    """An ``np.memmap`` of 64-bit integers whose ``|max| * n`` reaches 2^31
+    (int64 sums, ``|max|`` found band by band on the host) and one of bool
+    data (int32 sums): a banded call sums in the dtype :meth:`accumulate`
+    sums the same data in, and gives its result."""
+    tp, shape = plans["tp"], plans["shape"]
+    rng = np.random.RandomState(63)
+    data = {"int64_wide": rng.randint(0, 1 << 20, shape).astype(np.int64),
+            "bool": rng.rand(*shape) < 0.3}[kind]
+    path = tmp_path / "data.bin"
+    np.memmap(path, dtype=data.dtype, mode="w+", shape=shape)[:] = data
+    mm = np.memmap(path, dtype=data.dtype, mode="r", shape=shape)
+    flat = torch.as_tensor(data.ravel())
+    acc = kernels.acc_dtype(flat)
+    assert acc == (torch.int64 if kind == "int64_wide" else torch.int32)
+    assert tp._banded_dtypes(mm, 128) == (flat.dtype, acc)
+    got = tp.accumulate_banded(mm, band_tile_rows=1)
+    assert got.dtype == data.dtype and got.shape == shape
+    assert np.array_equal(got.ravel(), tp.accumulate(flat).numpy())
+
+
 def test_banded_leaves_the_tables_on_the_host(plans):
     """A banded call on a fresh plan uploads no whole table; the first
     monolithic call does."""

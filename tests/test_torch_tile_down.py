@@ -127,7 +127,7 @@ def test_accumulate_down_int_bitwise(plans, kind):
     ids, jtp, tp, rtp = plans["ids"], plans["jtp"], plans["tp"], plans["rtp"]
     data = _int_data(kind, ids.size)
     reads = trace.host_reads["acc_dtype"]
-    assert tp._acc_dtype(torch.as_tensor(data)) == (
+    assert kernels.acc_dtype(torch.as_tensor(data)) == (
         torch.int64 if kind == "int64_wide" else torch.int32)
     kernels.reset_launches()
     got = tp.accumulate_down(torch.as_tensor(data))

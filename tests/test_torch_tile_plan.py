@@ -281,7 +281,7 @@ def test_accumulate_int_bitwise(plans, kind):
             "int32_wrap": rng.randint(0, 1 << 28, n).astype(np.int32),
             "uint8": rng.randint(0, 256, n).astype(np.uint8)}[kind]
     reads = trace.host_reads["acc_dtype"]
-    assert tp._acc_dtype(torch.as_tensor(data)) == (
+    assert kernels.acc_dtype(torch.as_tensor(data)) == (
         torch.int64 if kind == "int64_wide" else torch.int32)
     kernels.reset_launches()
     got = tp.accumulate(torch.as_tensor(data))

@@ -10,6 +10,8 @@ the copies of a call's dtype conversions and the float32 downward calls
 whose conversions T3 and T4 make. Results are the same bits with tracing
 on and off."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +20,7 @@ from pyflwdir_torch import trace
 from pyflwdir_torch.codecs import d8 as td8
 from pyflwdir_torch.ops import tile_plan as ttp
 from pyflwdir_torch.ops.accel_big import build_big_accel_plan
+from pyflwdir_torch.parallel import Mesh
 
 
 def _scheidegger(shape, seed):
@@ -183,16 +186,32 @@ def test_down_stage_spans(graph, monkeypatch, tracing):
                    ("T4", "down"), ("cast", "down"), ("down", None)]
 
 
-@pytest.mark.parametrize("engine", ["tile", "router"])
+@pytest.mark.parametrize("engine", ["tile", "router", "sharded", "banded"])
 def test_casts_by_site(graph, monkeypatch, engine):
     """``casts``: a float32 downward call on tiles counts one ``down.fused``
     and no copy; int32 and float64 calls count nothing; a float32 upward
     call (on tiles or a router plan) and an int16 downward one still copy
-    in and out."""
+    in and out. The sharded sweeps (one rank) copy float32 data downward
+    too, as T4's lite mode reads no float32; a banded call (one tile row a
+    band) copies each band in, in each of its two passes, and each band's
+    result back."""
     plan = _tile_plan(graph, monkeypatch)
     ones, _, floats, floats32 = _fields(graph[0].size)
-    up = plan.accumulate if engine == "tile" else build_big_accel_plan(
-        graph[0], device="cpu").accumulate
+    down, down32, up32 = plan.accumulate_down, {"down.fused": 1}, {"up.copy": 2}
+    if engine == "tile":
+        up = plan.accumulate
+    elif engine == "router":
+        up = build_big_accel_plan(graph[0], device="cpu").accumulate
+    elif engine == "sharded":
+        mesh = Mesh(None, 0, 1, (1, 1), "cpu")
+        up = functools.partial(plan.accumulate_sharded, mesh=mesh)
+        down = functools.partial(plan.accumulate_down_sharded, mesh=mesh)
+        down32 = {"down.copy": 2}
+    else:
+        def up(x):
+            return plan.accumulate_banded(x.reshape(graph[1]).numpy(), band_tile_rows=1)
+
+        up32 = {"up.copy": 3 * plan.grid[0]}
 
     def delta(call, x):
         before = trace.counters()["casts"]
@@ -200,12 +219,12 @@ def test_casts_by_site(graph, monkeypatch, engine):
         after = trace.counters()["casts"]
         return {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
 
-    assert delta(plan.accumulate_down, floats32) == {"down.fused": 1}
+    assert delta(down, floats32) == down32
     for x in (ones, floats):
-        assert delta(plan.accumulate_down, x) == {}
+        assert delta(down, x) == {}
         assert delta(up, x) == {}
-    assert delta(up, floats32) == {"up.copy": 2}
-    assert delta(plan.accumulate_down, ones.to(torch.int16)) == {"down.copy": 2}
+    assert delta(up, floats32) == up32
+    assert delta(down, ones.to(torch.int16)) == {"down.copy": 2}
 
 
 @pytest.mark.parametrize("engine", ["tile", "router"])
